@@ -27,3 +27,9 @@ def random_state(n: int, rng: np.random.Generator) -> np.ndarray:
     """Normalized random complex state on n qubits."""
     psi = rng.standard_normal(2**n) + 1j * rng.standard_normal(2**n)
     return (psi / np.linalg.norm(psi)).astype(np.complex128)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (the port's kernels); skips without them"
+    )
