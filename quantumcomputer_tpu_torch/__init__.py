@@ -15,5 +15,9 @@ from quantumcomputer_tpu_torch.algorithms.shor import (  # noqa: F401
     shors_algorithm,
 )
 from quantumcomputer_tpu_torch.models import circuit  # noqa: F401
-from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_reference  # noqa: F401
+from quantumcomputer_tpu_torch.models.shor_circuit import (  # noqa: F401
+    shor_circuit,
+    shor_circuit_mhigh,
+    shor_circuit_reference,
+)
 from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine  # noqa: F401

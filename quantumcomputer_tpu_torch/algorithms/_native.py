@@ -2,9 +2,11 @@
 
 The same C++ shared library the JAX package loads: compiled on first use
 with the in-repo Makefile and loaded via ctypes.  It is host code only
-(gcd, modpow, continued fractions); nothing here touches the device.  Everything degrades gracefully to the
-pure-Python implementations in number_theory.py when no compiler or
-library is available (load() returns None).
+(gcd, modpow, continued fractions, the oracle's cycle schedule and composed
+multipliers); nothing here touches the device.  Everything degrades
+gracefully to the pure-Python implementations (number_theory.py,
+ops/oracle.cycle_schedule, ops/gates.modexp_combo_multipliers) when no
+compiler or library is available (load() returns None).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import os
 import subprocess
 import threading
 from typing import List, Optional
+
+import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
@@ -98,6 +102,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qc_mult_order.argtypes = [ctypes.c_uint64, ctypes.c_uint64]
     lib.qc_modinv.restype = ctypes.c_uint64
     lib.qc_modinv.argtypes = [ctypes.c_uint64, ctypes.c_uint64]
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    lib.qc_cycle_schedule.restype = None
+    lib.qc_cycle_schedule.argtypes = [p32, ctypes.c_int64, p32, p32, p32]
+    p64 = ctypes.POINTER(ctypes.c_uint64)
+    lib.qc_combo_multipliers.restype = ctypes.c_int
+    lib.qc_combo_multipliers.argtypes = [ctypes.c_uint64, p64, ctypes.c_int, p64]
 
 
 def available() -> bool:
@@ -137,3 +147,28 @@ def find_period_from_omega(omega: float, a: int, C: int, num_fractions: int, tri
 def multiplicative_order(a: int, C: int) -> Optional[int]:
     p = int(_lib_or_raise().qc_mult_order(a, C))
     return p if p > 0 else None
+
+
+def cycle_schedule(ginv) -> tuple:
+    """The oracle's cycle-order schedule (ops/oracle.cycle_schedule): three
+    int32 numpy arrays (out_row, src_row, prev_kind)."""
+    g = np.ascontiguousarray(ginv, np.int32)
+    rows = len(g)
+    out_row, src_row, prev_kind = (np.empty(rows, np.int32) for _ in range(3))
+    p = ctypes.POINTER(ctypes.c_int32)
+    _lib_or_raise().qc_cycle_schedule(
+        g.ctypes.data_as(p), rows,
+        out_row.ctypes.data_as(p), src_row.ctypes.data_as(p), prev_kind.ctypes.data_as(p),
+    )
+    return out_row, src_row, prev_kind
+
+
+def combo_multipliers(C: int, A_list) -> Optional[np.ndarray]:
+    """Composed inverse multipliers of a run of modular multiplies
+    (ops/gates.modexp_combo_multipliers): a uint64 array of 2^len(A_list)
+    entries, or None when some A is not invertible mod C."""
+    a = np.ascontiguousarray(A_list, np.uint64)
+    out = np.empty(1 << len(a), np.uint64)
+    p64 = ctypes.POINTER(ctypes.c_uint64)
+    rc = _lib_or_raise().qc_combo_multipliers(C, a.ctypes.data_as(p64), len(a), out.ctypes.data_as(p64))
+    return out if rc == 0 else None

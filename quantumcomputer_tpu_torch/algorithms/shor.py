@@ -1,8 +1,8 @@
 """Shor's algorithm: classical orchestration around the quantum core.
 
 The counterpart of the JAX package's ``algorithms/shor.py`` for the
-full-register circuit in the standard layout: the same attempt loop, the
-same validity ladder and the same ``-v`` / ``-V`` print lines.
+full-register circuit in the standard and m_high layouts: the same attempt
+loop, the same validity ladder and the same ``-v`` / ``-V`` print lines.
 
 Randomness is injected.  Each attempt's measurement draw is one uniform in
 [0, 1): ``shors_algorithm(seed=...)`` takes it from a ``torch.Generator``
@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
-from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit
+from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
 from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
 from quantumcomputer_tpu_torch.utils.logging import get_logger, ui_active, verbosity
 
@@ -110,9 +110,12 @@ def find_period(
     With -V the three circuit phases run one after another on the same
     state (updated in place, so one state buffer serves the whole attempt),
     each followed by a norm read that waits for the device, so the progress
-    lines reflect real execution."""
+    lines reflect real execution.  Both layouts' circuits are
+    [H layer | L oracles | iQFT], L gates each; an m_high engine's measured
+    index is mapped back to the logical index before it is read."""
     reg = engine.register
-    circuit = shor_circuit(C, a, reg.L, reg.M)
+    build = shor_circuit_mhigh if engine.layout == "m_high" else shor_circuit
+    circuit = build(C, a, reg.L, reg.M)
     _, very_verbose = verbosity()
     if very_verbose:
         print("      - Performing quantum computation...")
@@ -131,6 +134,7 @@ def find_period(
         idx, _ = engine.measure(state, r)
     else:
         idx = engine.run_and_measure_index(circuit, r)
+    idx = engine.logical_index(idx)
     omega = read_omega(idx, reg.L, reg.M)
     if very_verbose:
         print("      - Using continued fractions to guess period...")
@@ -166,6 +170,7 @@ def shors_algorithm(
     engine: Optional[StateVectorEngine] = None,
     num_fractions: int = nt.NUM_CONTINUED_FRACTIONS,
     trials_per_denominator: int = nt.TRIALS_PER_DENOMINATOR,
+    layout: str = "standard",
 ) -> ShorResult:
     """Full Shor algorithm (qc_shor.c:1003-1134).
 
@@ -176,7 +181,7 @@ def shors_algorithm(
     if C < 4 or L < 1 or M < 1:
         return ShorResult(outcome=Outcome.BAD_ARGUMENTS, C=C)
     if engine is None:
-        engine = StateVectorEngine(Register(L=L, M=M), dtype=dtype, backend=backend)
+        engine = StateVectorEngine(Register(L=L, M=M), dtype=dtype, backend=backend, layout=layout)
     if seed is None:
         seed = int(time.time_ns() % (1 << 31))
     gen = torch.Generator().manual_seed(seed)

@@ -93,13 +93,13 @@ def validate(args: argparse.Namespace) -> Optional[str]:
             "L + M > 31 qubits exceeds the 2^31 index budget of the hierarchical "
             "sampler (use --dtype complex128, which samples with the flat scan)."
         )
+    if args.layout == "m_high" and args.devices > (1 << args.M):
+        return "m_high sharding needs devices <= 2^M (global bits must fit in the work register)."
     return None
 
 
 def not_ported(args: argparse.Namespace) -> Optional[str]:
     """The first flag whose path this package does not carry yet, or None."""
-    if args.layout == "m_high":
-        return "--layout m_high"
     if args.semiclassical:
         return "--semiclassical"
     if args.devices > 1:
@@ -144,6 +144,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         backend=args.backend,
         num_fractions=args.fractions,
         trials_per_denominator=args.trials,
+        layout=args.layout,
     )
 
     if args.verbose:

@@ -9,9 +9,9 @@ L register.  Two builds are provided:
   * :func:`shor_circuit_reference` — gate-for-gate as the reference emits
     them (every controlled phase its own gate), for parity tests.
 
-Exponents a^(2^j) are computed with exact modular exponentiation.  This is
-the standard-layout subset of the JAX package's ``models/shor_circuit.py``;
-the m_high and slot-template builders are not ported yet.
+A third, :func:`shor_circuit_mhigh`, is the production form in the m_high
+physical layout.  Exponents a^(2^j) are computed with exact modular
+exponentiation.  The JAX package's slot-template circuits are not ported.
 """
 
 from __future__ import annotations
@@ -59,6 +59,22 @@ def inverse_qft_reference(L: int, M: int) -> List[Gate]:
 def shor_circuit(C: int, a: int, L: int, M: int) -> Circuit:
     """Full period-finding circuit, fused-iQFT form (the fast path)."""
     return tuple(hadamard_layer(L, M) + modexp_ladder(C, a, L, M) + inverse_qft_fused(L, M))
+
+
+def shor_circuit_mhigh(C: int, a: int, L: int, M: int) -> Circuit:
+    """Period-finding circuit in the m_high physical layout.
+
+    Physical qubit map: logical L qubits [M, N) -> physical [0, L); logical
+    M qubits [0, M) -> physical [N-M, N).  The modular multiply becomes a
+    permutation of whole contiguous rows of the (2^M, 2^L) view, and all
+    Hadamard and iQFT work lands on low physical qubits.  Run it on an
+    engine with layout="m_high" (iQFT ladder boundary at physical bit 0,
+    reset at physical index 2^L, measured indices mapped back by
+    engine.logical_index)."""
+    gates = [H(j) for j in range(L)]
+    gates += [Gate("camodc_high", (j,), meta=(C, pow(a, 1 << j, C), M)) for j in range(L)]
+    gates += [IQFT_STAGE(l) for l in range(L - 1, -1, -1)]
+    return tuple(gates)
 
 
 def shor_circuit_reference(C: int, a: int, L: int, M: int) -> Circuit:

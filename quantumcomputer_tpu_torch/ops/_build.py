@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels.
 
 Every ``ops/csrc/*.cu`` source compiles with ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-ctypes.  The build runs at first use, keyed by a hash of the sources and
+(``sm_90a``), one ``nvcc`` per source, all started together, and the objects
+link into ONE shared library with a plain C interface, loaded with ctypes.  The build runs at first use, keyed by a hash of the sources and
 flags, into ``build/quantumcomputer_tpu_torch/`` beside the package (a
 git-ignored directory), so a fresh checkout builds its own kernels and a
 changed source never loads a stale library.  A failed build raises.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the
-wrappers in ``ops/fused.py`` and ``ops/measure.py`` raise when it is not 0.
+wrappers in ``ops/fused.py``, ``ops/measure.py`` and ``ops/oracle.py`` raise
+when it is not 0.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -31,7 +33,7 @@ _BUILD_DIR = os.path.join(
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -66,18 +68,30 @@ def build_log_path() -> str:
     return library_path()[:-3] + ".log"
 
 
-def _build(out: str) -> None:
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{out[:-3]}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
+def _run(cmd: list) -> str:
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
         )
+    return res.stdout + res.stderr
+
+
+def _build(out: str) -> None:
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{out[:-3]}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+    # One nvcc per source, all at once: the build costs the slowest source.
+    with ThreadPoolExecutor(max_workers=len(cus)) as pool:
+        logs = list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)]))
+    logs.append(_run([nvcc, "-shared", "-o", f"{tmp}.so", *objs]))
+    for o in objs:
+        os.remove(o)
     with open(build_log_path(), "w") as f:
-        f.write(res.stdout + res.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
+        f.write("".join(logs))
+    os.replace(f"{tmp}.so", out)  # atomic: a concurrent build never loads a partial file
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -91,6 +105,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         # re, im, out, nblocks, block, stream
         fn.argtypes = [p, p, p, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_oracle_ladder_f32", "qc_oracle_ladder_f64"):
+        fn = getattr(lib, name)
+        # in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows, log_rest, stream
+        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_oracle_cycle_f32", "qc_oracle_cycle_f64"):
+        fn = getattr(lib, name)
+        # re, im, sched, log_rows, log_rest, c_phys, stream
+        fn.argtypes = [p, p, p, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_oracle_cycle_masked_f32", "qc_oracle_cycle_masked_f64"):
+        fn = getattr(lib, name)
+        # re, im, sched, nmasks, log_rows, log_rest, pos_a, pos_b, stream
+        fn.argtypes = [p, p, p, i64, i64, i64, i64, i64, p]
         fn.restype = ctypes.c_int
     lib.qc_error_string.argtypes = [ctypes.c_int]
     lib.qc_error_string.restype = ctypes.c_char_p

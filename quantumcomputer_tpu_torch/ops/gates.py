@@ -5,11 +5,14 @@ reshape + contraction, an elementwise multiply or a gather on the amplitude
 tensor, O(2^n) and never a 2^n x 2^n matrix.  These ops are the ``torch``
 backend of the engine (the CPU path and the spec the kernels are tested
 against) and the glue the ``cuda`` backend keeps where the JAX package also
-left the work to XLA: the controlled modular multiply is a gather over the
-M-register axis in both packages.
+left the work to XLA: the standard layout's controlled modular multiply is a
+gather over the M-register axis in both packages.  The m_high layout's
+oracle ops (``apply_camodc_high``, ``apply_camodc_ladder_high``) are the
+plain versions of the kernels in ``ops/oracle.py``.
 
 Conventions: qubit b == bit b of the flat index, LSB-first; M register =
-bits [0, M).  Functions return new tensors unless their name ends in ``_``.
+bits [0, M) in the standard layout, the top M bits in the m_high layout.
+Functions return new tensors unless their name ends in ``_``.
 """
 
 from __future__ import annotations
@@ -140,6 +143,95 @@ def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: 
     for p in range(2):
         x = _camodc_view(planar[p], c_q, M)
         x[:, 1] = torch.index_select(x[:, 1], -1, ginv)
+    return planar
+
+
+def _row_view(state: torch.Tensor, M: int) -> torch.Tensor:
+    """The (2^M, 2^(n-M)) view of a flat state: row = work-register value
+    in the m_high layout."""
+    return state.view(1 << M, -1)
+
+
+def _column_bits(rest: int, bits, device) -> torch.Tensor:
+    """mask[col] = sum_k bit(col, bits[k]) << k over the 2^(n-M) columns."""
+    col = torch.arange(rest, device=device)
+    mask = torch.zeros_like(col)
+    for k, c in enumerate(bits):
+        mask |= ((col >> int(c)) & 1) << k
+    return mask
+
+
+def apply_camodc_high(state: torch.Tensor, C: int, atox: int, c_phys: int, M: int) -> torch.Tensor:
+    """Controlled a^x mod C gate in the m_high layout (work register in the
+    top M bits): a gather over the rows of the (2^M, 2^(n-M)) view, kept
+    where column bit c_phys is 1.  Works on complex states and on single
+    real planes alike."""
+    x = _row_view(state, M)
+    if (1 << c_phys) >= x.shape[1]:
+        raise ValueError("control must be a low (non-M) bit")
+    ginv = torch.from_numpy(modmul_inverse_permutation(C, atox, M)).to(state.device)
+    ctrl = _column_bits(x.shape[1], (c_phys,), state.device).bool()
+    return torch.where(ctrl, torch.index_select(x, 0, ginv), x).reshape(-1)
+
+
+def modexp_combo_multipliers(C: int, A_list) -> np.ndarray:
+    """combo[mask] = prod_k (A_k^{-1})^{bit_k(mask)} mod C.
+
+    The controlled modular multiplies all multiply the work register by
+    constants mod C, so they commute: a run of K of them composes into one
+    permutation whose multiplier depends only on the K control bits.  From
+    the native layer when it is available, else in Python."""
+    from quantumcomputer_tpu_torch.algorithms import _native
+
+    if _native.available():
+        out = _native.combo_multipliers(int(C), [int(A) % C for A in A_list])
+        if out is None:
+            raise ValueError(f"some multiplier not coprime to C={C}: not a permutation")
+        return out.astype(np.int64)
+    K = len(A_list)
+    ainvs = [pow(int(A) % C, -1, C) for A in A_list]
+    combos = np.ones(1 << K, np.int64)
+    for mask in range(1, 1 << K):
+        low = mask & -mask
+        combos[mask] = (combos[mask ^ low] * ainvs[low.bit_length() - 1]) % C
+    return combos
+
+
+def ladder_source_rows(C: int, A_list, controls, M: int, rest: int, device) -> torch.Tensor:
+    """(2^M, rest) int64 source rows of a composed run: (combo * f) mod C
+    for f < C, identity otherwise, combo selected by each column's control
+    bits (controls[k] = column bit of gate k)."""
+    if C * C >= (1 << 31):
+        raise ValueError(f"C={C} too large for int32 ladder composition")
+    if (1 << M) < C:
+        raise ValueError(f"2^M={1 << M} < C={C}: the modular-multiply gate is not unitary (increase M)")
+    combos = torch.from_numpy(modexp_combo_multipliers(C, A_list)).to(device)
+    mult = combos[_column_bits(rest, controls, device)]
+    f = torch.arange(1 << M, dtype=torch.int64, device=device)[:, None]
+    return torch.where(f < C, (mult[None, :] * f) % C, f.expand(-1, rest))
+
+
+def apply_camodc_ladder_high(state: torch.Tensor, C: int, A_list, controls, M: int) -> torch.Tensor:
+    """A run of controlled modular multiplies as ONE gather, m_high layout:
+    out[f, col] = in[(combo(col) * f) mod C, col].  Works on complex states
+    and on single real planes alike."""
+    x = _row_view(state, M)
+    return torch.gather(x, 0, ladder_source_rows(C, A_list, controls, M, x.shape[1], state.device)).reshape(-1)
+
+
+def apply_camodc_high_planes_(planar: torch.Tensor, C: int, atox: int, c_phys: int, M: int) -> torch.Tensor:
+    """apply_camodc_high on a (2, 2^n) planar state, written back in place
+    (one plane-sized temporary at a time)."""
+    for p in range(2):
+        planar[p].copy_(apply_camodc_high(planar[p], C, atox, c_phys, M))
+    return planar
+
+
+def apply_camodc_ladder_high_planes_(planar: torch.Tensor, C: int, A_list, controls, M: int) -> torch.Tensor:
+    """apply_camodc_ladder_high on a (2, 2^n) planar state, written back in
+    place (one plane-sized temporary at a time)."""
+    for p in range(2):
+        planar[p].copy_(apply_camodc_ladder_high(planar[p], C, A_list, controls, M))
     return planar
 
 

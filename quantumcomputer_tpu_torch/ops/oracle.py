@@ -1,0 +1,295 @@
+"""Row-permutation oracle kernels of the m_high layout: wrappers, plain
+versions, schedules and eligibility.
+
+The counterpart of the JAX package's ``ops/pallas_oracle.py``.  In the
+m_high layout the work register is the top M physical bits, so over the
+(2^M, 2^(n-M)) view of each plane a controlled modular multiply moves whole
+rows of the columns whose control bit is set:
+x[j, col] <- x[ginv[j], col].  Three CUDA kernels carry it:
+
+  * ``ladder`` (``csrc/oracle_ladder.cu``): a fused run of K <= 8 gates in
+    one out-of-place gather, ``in`` -> ``out``;
+  * ``cycle`` (``csrc/oracle_cycle.cu``): one gate in place, its control at
+    any column bit, walking the permutation's cycles;
+  * ``cycle_masked`` (the same source, its own entry point): the in-place
+    walk with one schedule per nonzero control mask; a lone gate
+    (``apply_camodc_high_perm_planar``) or a fused pair of gates
+    (``apply_camodc_pair_inplace_planar``).
+
+Each wrapper takes the plain version (``ops/gates.py``) for a CPU tensor,
+launches its kernel for a CUDA tensor at every size, and raises for any
+other device.  ``LAUNCHES`` counts kernel launches per kernel.
+
+The eligibility predicates keep the JAX package's thresholds unchanged
+(they come from the TPU's DMA slab sizes), so the engine plans the same
+circuit rewrite and dispatch as the JAX package; retuning them for the
+H100 is later work.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from quantumcomputer_tpu_torch.ops import _build
+from quantumcomputer_tpu_torch.ops import gates as tops
+from quantumcomputer_tpu_torch.sim import statevec as sv
+
+#: Kernel launches per kernel (CUDA tensors only).
+LAUNCHES = {"ladder": 0, "cycle": 0, "cycle_masked": 0}
+
+# The JAX package's thresholds (pallas_oracle.py), in its units.
+LANE = 128
+ROWS_PER_BLOCK = 8
+MIN_REST = 1024
+MIN_PERM_SLAB_BYTES = 32768
+MAX_LADDER_K = 8  # 2^K combo-table entries
+
+_PLANE_DTYPES = (torch.float32, torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# Schedules and eligibility (pure host code).
+
+
+def cycle_schedule(ginv: np.ndarray):
+    """Order the rows of a permutation along its cycles (the JAX package's
+    ``pallas_oracle.cycle_schedule``, array for array).
+
+    Output row j takes source row ginv[j].  Walking each cycle
+    j -> ginv[j] -> ... makes step t's source the next step's output row, so
+    an in-place walk reads every row once, before it writes it.  Returns
+    int32 arrays (out_row, src_row, prev_kind): 0 = chain step, 1 = cycle
+    head, 2 = fixed point, 3 = the cycle's closing step, whose source is the
+    head row's original value.  From the native layer when it is available,
+    else this Python walk."""
+    from quantumcomputer_tpu_torch.algorithms import _native
+
+    if _native.available():
+        return _native.cycle_schedule(np.asarray(ginv, np.int32))
+    rows = len(ginv)
+    out_row = np.empty(rows, np.int32)
+    src_row = np.empty(rows, np.int32)
+    prev_kind = np.empty(rows, np.int32)
+    visited = np.zeros(rows, bool)
+    t = 0
+    for j0 in range(rows):
+        if visited[j0]:
+            continue
+        if ginv[j0] == j0:
+            out_row[t], src_row[t], prev_kind[t] = j0, j0, 2
+            visited[j0] = True
+            t += 1
+            continue
+        j, first = j0, True
+        while not visited[j]:
+            visited[j] = True
+            out_row[t] = j
+            src_row[t] = ginv[j]
+            prev_kind[t] = 1 if first else 0
+            first = False
+            t += 1
+            j = int(ginv[j])
+        prev_kind[t - 1] = 3
+    assert t == rows
+    return out_row, src_row, prev_kind
+
+
+def _min_perm_cb2(itemsize: int) -> int:
+    return MIN_PERM_SLAB_BYTES // (LANE * itemsize)
+
+
+def ladder_high_supported(controls, M: int, n: int, itemsize: int = 4) -> bool:
+    """The JAX package's eligibility of a ladder run: every control stride
+    covers an 8 KB slab, the rows are long enough, at most 8 gates, and
+    combo * j fits int32."""
+    rest = 1 << (n - M)
+    if rest < MIN_REST or (1 << M) < ROWS_PER_BLOCK:
+        return False
+    if len(controls) > MAX_LADDER_K:
+        return False
+    if (1 << M) * (1 << M) >= (1 << 31):
+        return False
+    c_min = min(controls)
+    return c_min >= 7 and (1 << (c_min - 7)) * LANE * itemsize >= 8192
+
+
+def perm_supported(c_phys: int, M: int, n: int, itemsize: int = 4) -> bool:
+    """The JAX package's eligibility of the single-gate masked path: the
+    control stride covers a 32 KB slab and at least two of them."""
+    min_cb2 = _min_perm_cb2(itemsize)
+    rest = 1 << (n - M)
+    if rest < max(MIN_REST, 2 * min_cb2 * LANE) or (1 << M) < ROWS_PER_BLOCK:
+        return False
+    return (1 << (c_phys - 7)) >= min_cb2 if c_phys >= 7 else False
+
+
+def pair_member_supported(c_phys: int, M: int, n: int, itemsize: int = 4) -> bool:
+    """Per-gate test: two gates with distinct controls that both pass form
+    a pair_inplace_supported pair."""
+    min_cb2 = _min_perm_cb2(itemsize)
+    rest = 1 << (n - M)
+    if rest < max(MIN_REST, 4 * min_cb2 * LANE) or (1 << M) < ROWS_PER_BLOCK:
+        return False
+    return c_phys >= 7 and (1 << (c_phys - 7)) >= min_cb2
+
+
+def pair_inplace_supported(controls, M: int, n: int, itemsize: int = 4) -> bool:
+    """True when two fused gates run as one in-place masked pass."""
+    if len(controls) != 2 or controls[0] == controls[1]:
+        return False
+    return all(pair_member_supported(c, M, n, itemsize) for c in controls)
+
+
+def mask_multipliers(C: int, A_list, M: int) -> np.ndarray:
+    """(2^K - 1, 2^M) int32 inverse permutations of a run of K gates, one
+    per nonzero control mask m (bit k = gate k): ginv_m[j] = combo[m] * j
+    mod C for j < C, identity above."""
+    combos = tops.modexp_combo_multipliers(C, list(A_list))
+    f = np.arange(1 << M, dtype=np.int64)
+    return np.stack(
+        [np.where(f < C, (int(combos[m]) * f) % C, f).astype(np.int32) for m in range(1, len(combos))]
+    )
+
+
+# ---------------------------------------------------------------------------
+# Device tables, cached per (C, A..., M, device) so attempts do not upload
+# them again.
+
+
+@lru_cache(maxsize=256)
+def _schedules(C: int, A_list: tuple, M: int, device: torch.device) -> torch.Tensor:
+    """int32 (2^K - 1, 3, 2^M): the cycle schedule of each nonzero mask."""
+    scheds = np.stack([np.stack(cycle_schedule(g)) for g in mask_multipliers(C, A_list, M)])
+    return torch.from_numpy(scheds).to(device)
+
+
+@lru_cache(maxsize=256)
+def _combo(C: int, A_list: tuple, device: torch.device) -> torch.Tensor:
+    """int32 (2^K,) composed inverse multipliers."""
+    return torch.from_numpy(tops.modexp_combo_multipliers(C, list(A_list)).astype(np.int32)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers.
+
+
+def _geometry(planar: torch.Tensor, C: int, M: int, bits) -> tuple:
+    """(log_rows, log_rest) of a valid oracle call, or raise."""
+    n = sv.num_qubits(planar)
+    if planar.dtype not in _PLANE_DTYPES:
+        raise TypeError(f"planar state must be float32 or float64, got {planar.dtype}")
+    if not planar.is_contiguous():
+        raise ValueError("planar state must be contiguous")
+    if not 0 <= M <= n:
+        raise ValueError(f"work register M={M} does not fit a {n}-qubit state")
+    if (1 << M) < C:
+        raise ValueError(f"2^M={1 << M} < C={C}: the modular-multiply gate is not unitary (increase M)")
+    if any(not 0 <= c < n - M for c in bits):
+        raise ValueError(f"controls {tuple(bits)} must be column bits below n - M = {n - M}")
+    return M, n - M
+
+
+def _device_kind(planar: torch.Tensor, what: str) -> str:
+    kind = planar.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} path for device {planar.device}")
+    return kind
+
+
+def _stream(planar: torch.Tensor) -> int:
+    return torch.cuda.current_stream(planar.device).cuda_stream
+
+
+def apply_camodc_ladder_high_planar(
+    planar: torch.Tensor, out: torch.Tensor, C: int, A_list, controls, M: int
+) -> torch.Tensor:
+    """A fused run of K <= 8 controlled modular multiplies (m_high layout),
+    OUT OF PLACE: reads `planar`, writes `out` (a distinct buffer of the same
+    shape and dtype) and returns it.  The gates commute, so the run is one
+    gather whose multiplier each column's control bits select."""
+    log_rows, log_rest = _geometry(planar, C, M, controls)
+    if len(controls) > MAX_LADDER_K or len(A_list) != len(controls):
+        raise ValueError(f"a ladder takes 1..{MAX_LADDER_K} gates with one control each")
+    if out.shape != planar.shape or out.dtype != planar.dtype or out.device != planar.device:
+        raise ValueError("out must match the state's shape, dtype and device")
+    if not out.is_contiguous() or out.data_ptr() == planar.data_ptr():
+        raise ValueError("out must be a distinct contiguous buffer")
+    if _device_kind(planar, "ladder") == "cpu":
+        return tops.apply_camodc_ladder_high_planes_(out.copy_(planar), C, A_list, controls, M)
+    combo = _combo(C, tuple(int(A) for A in A_list), planar.device)
+    packed = sum(int(c) << (8 * k) for k, c in enumerate(controls))
+    lib = _build.load()
+    fn = lib.qc_oracle_ladder_f32 if planar.dtype == torch.float32 else lib.qc_oracle_ladder_f64
+    with torch.cuda.device(planar.device):
+        err = fn(
+            planar[0].data_ptr(), planar[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            combo.data_ptr(), len(controls), packed, C, log_rows, log_rest, _stream(planar),
+        )
+    _build.check(err, "oracle ladder")
+    LAUNCHES["ladder"] += 1
+    return out
+
+
+def apply_camodc_high_cycle_planar(planar: torch.Tensor, C: int, atox: int, c_phys: int, M: int) -> torch.Tensor:
+    """One controlled modular multiply (m_high layout), IN PLACE, its
+    control at any column bit: the cycle-ordered walk over the control-1
+    columns.  Returns `planar`."""
+    log_rows, log_rest = _geometry(planar, C, M, (c_phys,))
+    if _device_kind(planar, "cycle") == "cpu":
+        return tops.apply_camodc_high_planes_(planar, C, atox, c_phys, M)
+    sched = _schedules(C, (int(atox),), M, planar.device)
+    lib = _build.load()
+    fn = lib.qc_oracle_cycle_f32 if planar.dtype == torch.float32 else lib.qc_oracle_cycle_f64
+    with torch.cuda.device(planar.device):
+        err = fn(
+            planar[0].data_ptr(), planar[1].data_ptr(), sched.data_ptr(),
+            log_rows, log_rest, c_phys, _stream(planar),
+        )
+    _build.check(err, "oracle cycle")
+    LAUNCHES["cycle"] += 1
+    return planar
+
+
+def _cycle_masked(planar: torch.Tensor, C: int, A_list: tuple, controls: tuple, M: int) -> torch.Tensor:
+    """The masked in-place walk over the columns of nonzero control mask
+    (one gate: one mask; a pair: three), on a CUDA tensor."""
+    log_rows, log_rest = M, sv.num_qubits(planar) - M
+    sched = _schedules(C, A_list, M, planar.device)
+    nmasks = sched.shape[0]
+    pos_b = controls[1] if len(controls) == 2 else -1
+    lib = _build.load()
+    fn = lib.qc_oracle_cycle_masked_f32 if planar.dtype == torch.float32 else lib.qc_oracle_cycle_masked_f64
+    with torch.cuda.device(planar.device):
+        err = fn(
+            planar[0].data_ptr(), planar[1].data_ptr(), sched.data_ptr(), nmasks,
+            log_rows, log_rest, controls[0], pos_b, _stream(planar),
+        )
+    _build.check(err, "oracle cycle_masked")
+    LAUNCHES["cycle_masked"] += 1
+    return planar
+
+
+def apply_camodc_high_perm_planar(planar: torch.Tensor, C: int, atox: int, c_phys: int, M: int) -> torch.Tensor:
+    """One controlled modular multiply (m_high layout), IN PLACE, through the
+    masked walk with a single mask: only the control-1 columns are read and
+    written.  Returns `planar`."""
+    _geometry(planar, C, M, (c_phys,))
+    if _device_kind(planar, "perm") == "cpu":
+        return tops.apply_camodc_high_planes_(planar, C, atox, c_phys, M)
+    return _cycle_masked(planar, C, (int(atox),), (int(c_phys),), M)
+
+
+def apply_camodc_pair_inplace_planar(planar: torch.Tensor, C: int, A_pair, controls, M: int) -> torch.Tensor:
+    """Two fused controlled modular multiplies (m_high layout) in one
+    in-place masked walk: a column of mask m = bit_a + 2 * bit_b moves by the
+    composed multiplier of the gates set in m, and mask-0 columns never
+    move.  Returns `planar`."""
+    if len(controls) != 2 or len(A_pair) != 2 or controls[0] == controls[1]:
+        raise ValueError("a pair takes two gates with distinct controls")
+    _geometry(planar, C, M, controls)
+    if _device_kind(planar, "pair") == "cpu":
+        return tops.apply_camodc_ladder_high_planes_(planar, C, A_pair, controls, M)
+    return _cycle_masked(planar, C, tuple(int(A) for A in A_pair), tuple(int(c) for c in controls), M)

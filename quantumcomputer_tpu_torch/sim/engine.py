@@ -1,18 +1,37 @@
 """Single-device state-vector engine on planar torch tensors.
 
-The counterpart of the JAX package's ``sim/engine.py`` for the standard
-layout.  PyTorch runs eagerly, so there is no compiled program per circuit;
-the engine caches the fused-segment plan per circuit instead.  Backends:
+The counterpart of the JAX package's ``sim/engine.py``.  PyTorch runs
+eagerly, so there is no compiled program per circuit; the engine caches
+the plan per circuit instead.  Backends:
 
   * ``torch``: every gate through the plain torch ops (``ops/gates.py``),
     per gate.  The CPU path and the spec the kernels are tested against.
-  * ``cuda``: the circuit is planned into fused segments
-    (``ops/fused.plan_circuit``), each applied by the fused-segment kernel
-    in one in-place pass; the gates with no op form (the controlled modular
-    multiply) run as torch gathers, as they run as XLA gathers in the JAX
-    package.  Measurement of f32 states of >= 2^16 amplitudes goes through
-    the block-sum kernel (``ops/measure.py``).
+  * ``cuda``: the circuit is planned (``plan_circuit``): the m_high
+    layout's oracle runs are fused into ladders or pairs as the JAX
+    package's pallas path fuses them, then the rest is cut into fused
+    segments (``ops/fused.plan_circuit``), each applied by the
+    fused-segment kernel in one in-place pass.  The m_high oracles go
+    through the row-permutation kernels (``ops/oracle.py``); the standard
+    layout's oracle stays a torch gather, as it stays an XLA gather in the
+    JAX package.  Measurement of f32 states of >= 2^16 amplitudes goes
+    through the block-sum kernel (``ops/measure.py``).
   * ``auto``: ``cuda`` when a CUDA device is present, else ``torch``.
+
+Layouts: ``standard`` (the reference's bit convention) and ``m_high`` (the
+work register in the top physical bits; ``models/shor_circuit.
+shor_circuit_mhigh`` builds its circuit, ``logical_index`` maps measured
+indices back).
+
+Buffers.  Every kernel updates the state in place except the out-of-place
+ladder, which needs a second state-sized buffer.  A cuda run allocates that
+scratch buffer at its first ladder and then ping-pongs between the two, so
+a ladder costs no copy.  The run returns whichever buffer holds the result
+when the engine made the state (``run_and_measure_index``, the main path);
+when the caller passed the state in, the result is copied back into it
+once, at the end, and only if it ended in the scratch buffer.  The planner
+fuses ladders only when two states fit the device
+(``utils/memory.two_state_programs_fit``); otherwise it fuses in-place
+pairs, as the JAX package does at its memory ceiling.
 
 Randomness is injected: every measuring entry point takes its uniform draw
 ``r`` in [0, 1) as an argument, so one draw can drive both packages.
@@ -37,8 +56,9 @@ from quantumcomputer_tpu_torch.models.circuit import (
 from quantumcomputer_tpu_torch.ops import fused
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.ops import measure
+from quantumcomputer_tpu_torch.ops import oracle
 from quantumcomputer_tpu_torch.sim import statevec as sv
-from quantumcomputer_tpu_torch.utils.memory import device_memory_budget, state_fits
+from quantumcomputer_tpu_torch.utils.memory import device_memory_budget, state_fits, two_state_programs_fit
 
 
 @dataclass(frozen=True)
@@ -77,6 +97,12 @@ def apply_gate(state: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     if name == "camodc":
         C, atox = g.meta
         return tops.apply_c_amodc(state, C, atox, g.qubits[0], M)
+    if name == "camodc_high":
+        C, atox, m_reg = g.meta
+        return tops.apply_camodc_high(state, C, atox, g.qubits[0], m_reg)
+    if name == "camodc_ladder_high":
+        C, m_reg = g.meta[0], g.meta[1]
+        return tops.apply_camodc_ladder_high(state, C, g.meta[2:], g.qubits, m_reg)
     if name == "iqft_stage":
         return tops.apply_iqft_stage(state, g.qubits[0], M)
     raise ValueError(f"gate not supported by quantumcomputer_tpu_torch: {g}")
@@ -89,12 +115,33 @@ def _store_(planar: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
-    """One gate on a planar state, in place: the oracle as an in-place
-    per-plane gather, anything else through the complex plain ops."""
+    """One gate on a planar state, in place: the oracles through their
+    in-place paths, anything else through the complex plain ops.  The
+    m_high oracles dispatch as the JAX package's pallas_gates does: a lone
+    gate to the masked walk when perm_supported, else to the cycle walk; a
+    K = 2 run to the in-place pair when pair_inplace_supported, any other run
+    to the out-of-place ladder through a temporary and a copy back
+    (apply_circuit_fused_ avoids that copy)."""
     if g.name == "camodc":
         C, atox = g.meta
         return tops.apply_c_amodc_planes_(planar, C, atox, g.qubits[0], M)
+    if g.name == "camodc_high":
+        C, atox, m_reg = g.meta
+        n, itemsize = sv.num_qubits(planar), planar.element_size()
+        if oracle.perm_supported(g.qubits[0], m_reg, n, itemsize):
+            return oracle.apply_camodc_high_perm_planar(planar, C, atox, g.qubits[0], m_reg)
+        return oracle.apply_camodc_high_cycle_planar(planar, C, atox, g.qubits[0], m_reg)
+    if g.name == "camodc_ladder_high":
+        C, m_reg = g.meta[0], g.meta[1]
+        if _pair_in_place(planar, g):
+            return oracle.apply_camodc_pair_inplace_planar(planar, C, g.meta[2:], g.qubits, m_reg)
+        out = oracle.apply_camodc_ladder_high_planar(planar, torch.empty_like(planar), C, g.meta[2:], g.qubits, m_reg)
+        return planar.copy_(out)
     return _store_(planar, apply_gate(sv.to_complex(planar), g, M))
+
+
+def _pair_in_place(planar: torch.Tensor, g: Gate) -> bool:
+    return oracle.pair_inplace_supported(g.qubits, g.meta[1], sv.num_qubits(planar), planar.element_size())
 
 
 def apply_circuit_plain_(planar: torch.Tensor, circuit: Circuit, M: int) -> torch.Tensor:
@@ -106,18 +153,124 @@ def apply_circuit_plain_(planar: torch.Tensor, circuit: Circuit, M: int) -> torc
     return _store_(planar, z)
 
 
+MAX_LADDER_RUN = oracle.MAX_LADDER_K
+
+
+def fuse_oracle_ladders(
+    circuit: Circuit, M: int, eligible=None, max_run: int = MAX_LADDER_RUN, min_run: int = 2
+) -> Circuit:
+    """Rewrite maximal runs of >= min_run modular-multiply gates (same C,
+    same work register, distinct controls) into single composed-ladder
+    gates: the gates commute, so a run of K composes into one permutation
+    whose multiplier the K control bits select
+    (ops/gates.modexp_combo_multipliers).  The JAX package's
+    fuse_oracle_ladders, ported as it is.
+
+    `eligible(gate)` (optional) limits which gates may join a run."""
+    out: list = []
+    gates = list(circuit)
+    i = 0
+    while i < len(gates):
+        g = gates[i]
+        if g.name in ("camodc", "camodc_high") and (eligible is None or eligible(g)):
+            C = g.meta[0]
+            m_reg = g.meta[2] if g.name == "camodc_high" else M
+            j = i + 1
+            while j < len(gates):
+                if j - i >= max_run:
+                    break  # caps the 2^K table; longer runs split
+                h = gates[j]
+                if h.name != g.name or h.meta[0] != C:
+                    break
+                if eligible is not None and not eligible(h):
+                    break
+                if g.name == "camodc_high" and h.meta[2] != m_reg:
+                    break
+                if h.qubits[0] in {gates[k].qubits[0] for k in range(i, j)}:
+                    break  # composition holds only for distinct control bits
+                j += 1
+            # C must fit the work register, or the composed gather would
+            # read rows >= 2^M; such gates stay unfused and their per-gate
+            # path raises its clean error.
+            if j - i >= max(2, min_run) and C * C < (1 << 31) and C <= (1 << m_reg):
+                run = gates[i:j]
+                name = "camodc_ladder_high" if g.name == "camodc_high" else "camodc_ladder"
+                out.append(
+                    Gate(
+                        name,
+                        qubits=tuple(h.qubits[0] for h in run),
+                        meta=(C, m_reg) + tuple(int(h.meta[1]) % C for h in run),
+                    )
+                )
+                i = j
+                continue
+        out.append(g)
+        i += 1
+    return tuple(out)
+
+
+def fuse_oracles(circuit: Circuit, M: int, n: int, itemsize: int, ladder_fits: bool) -> Circuit:
+    """The cuda backend's oracle rewrite, as the JAX package's pallas path
+    plans it (its engine.apply_circuit_planes): when two states fit, runs of
+    m_high oracles the ladder kernel accepts become ladders; otherwise K = 2
+    in-place pairs, and any pair the in-place kernel would refuse is split
+    back into single gates, so nothing out of place runs at the memory
+    ceiling."""
+    if ladder_fits:
+        return fuse_oracle_ladders(
+            circuit, M,
+            eligible=lambda g: g.name == "camodc_high"
+            and oracle.ladder_high_supported((g.qubits[0],), g.meta[2], n, itemsize),
+        )
+    circuit = fuse_oracle_ladders(
+        circuit, M,
+        eligible=lambda g: g.name == "camodc_high"
+        and oracle.pair_member_supported(g.qubits[0], g.meta[2], n, itemsize),
+        max_run=2,
+    )
+    split: list = []
+    for g in circuit:
+        if g.name == "camodc_ladder_high" and not oracle.pair_inplace_supported(g.qubits, g.meta[1], n, itemsize):
+            C, m_reg = g.meta[0], g.meta[1]
+            split.extend(Gate("camodc_high", (c,), meta=(C, A, m_reg)) for c, A in zip(g.qubits, g.meta[2:]))
+        else:
+            split.append(g)
+    return tuple(split)
+
+
+def plan_circuit(circuit: Circuit, M: int, n: int, real_dtype: torch.dtype, device):
+    """The cuda backend's plan of a circuit on an n-qubit state of plane
+    dtype `real_dtype` on `device`: fuse_oracles, then fused segments and
+    single gates."""
+    itemsize = torch.empty((), dtype=real_dtype).element_size()
+    circuit = fuse_oracles(circuit, M, n, itemsize, two_state_programs_fit(n, real_dtype, device))
+    return fused.plan_circuit(circuit, n, M, fused.TILE_BITS[real_dtype])
+
+
 def apply_circuit_fused_(planar: torch.Tensor, circuit: Circuit, M: int, plan=None) -> torch.Tensor:
-    """The cuda backend's path, in place: fused segments through
-    fused.apply_fused (the kernel for CUDA tensors, its plain version for
-    CPU tensors), single gates through apply_gate_planes_."""
+    """The cuda backend's path: fused segments through fused.apply_fused
+    (the kernel for CUDA tensors, its plain version for CPU tensors), an
+    out-of-place ladder between `planar` and one scratch buffer, every other
+    single gate in place through apply_gate_planes_.  Returns the buffer
+    that holds the result: `planar`, or the scratch buffer after an odd
+    number of ladders."""
     if plan is None:
-        plan = fused.plan_circuit(circuit, sv.num_qubits(planar), M, fused.TILE_BITS[planar.dtype])
+        plan = plan_circuit(circuit, M, sv.num_qubits(planar), planar.dtype, planar.device)
+    cur, spare = planar, None
     for seg in plan:
         if seg[0] == "fused":
-            fused.apply_fused(planar, seg[1], seg[2], M)
+            fused.apply_fused(cur, seg[1], seg[2], M)
+            continue
+        g = seg[1]
+        if g.name == "camodc_ladder_high" and not _pair_in_place(cur, g):
+            if spare is None:
+                spare = torch.empty_like(cur)
+            C, m_reg = g.meta[0], g.meta[1]
+            oracle.apply_camodc_ladder_high_planar(cur, spare, C, g.meta[2:], g.qubits, m_reg)
+            cur, spare = spare, cur
         else:
-            apply_gate_planes_(planar, seg[1], M)
-    return planar
+            apply_gate_planes_(cur, g, M)
+    return cur
 
 
 def resolve_backend(backend: str) -> str:
@@ -140,7 +293,10 @@ class StateVectorEngine:
         dtype=torch.complex64,
         backend: str = "auto",
         device=None,
+        layout: str = "standard",
     ):
+        if layout not in ("standard", "m_high"):
+            raise ValueError(f"unknown layout {layout!r}")
         self.backend = resolve_backend(backend)
         if device is None:
             device = "cuda" if self.backend == "cuda" else "cpu"
@@ -152,8 +308,12 @@ class StateVectorEngine:
         self.register = register
         self.real_dtype = sv.real_dtype_of(dtype)
         self.dtype = torch.complex64 if self.real_dtype == torch.float32 else torch.complex128
-        self.layout = "standard"
-        self.m_eff = register.M
+        self.layout = layout
+        # In the m_high layout the counting register is the low physical
+        # bits, so the iQFT ladder boundary is physical bit 0 and the reset
+        # |0..01> (work register = 1) is physical index 2^L.
+        self.m_eff = 0 if layout == "m_high" else register.M
+        self.reset_index = (1 << register.L) if layout == "m_high" else 1
         if not state_fits(register.n, self.real_dtype, self.device):
             raise ValueError(
                 f"a 2^{register.n} state of {self.dtype} does not fit the "
@@ -164,21 +324,23 @@ class StateVectorEngine:
     # -- state lifecycle ----------------------------------------------------
 
     def initial_state(self) -> torch.Tensor:
-        """|00...01> (qc_shor.c:318-324), planar."""
-        return sv.initial_planar(self.register.n, self.real_dtype, 1, self.device)
+        """|00...01> (qc_shor.c:318-324), planar (layout-aware)."""
+        return sv.initial_planar(self.register.n, self.real_dtype, self.reset_index, self.device)
 
     def logical_index(self, phys: int) -> int:
-        """Physical to logical basis index (the identity: standard layout)."""
-        return phys
+        """Map a measured physical basis index back to the logical
+        (reference bit-convention) index."""
+        if self.layout == "standard":
+            return phys
+        L, M = self.register.L, self.register.M
+        return (phys >> L) | ((phys & ((1 << L) - 1)) << M)
 
     # -- execution ----------------------------------------------------------
 
     def _plan(self, circuit: Circuit):
         plan = self._plans.get(circuit)
         if plan is None:
-            plan = fused.plan_circuit(
-                circuit, self.register.n, self.m_eff, fused.TILE_BITS[self.real_dtype]
-            )
+            plan = plan_circuit(circuit, self.m_eff, self.register.n, self.real_dtype, self.device)
             self._plans[circuit] = plan
         return plan
 
@@ -187,11 +349,14 @@ class StateVectorEngine:
         the run starts from the |0..01> reset.  A caller-supplied `state` is
         CONSUMED: it is updated in place (the counterpart of the JAX
         engine's buffer donation) and returned."""
+        if self.backend == "torch":
+            return apply_circuit_plain_(self.initial_state() if state is None else state, circuit, self.m_eff)
         if state is None:
-            state = self.initial_state()
-        if self.backend == "cuda":
-            return apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit))
-        return apply_circuit_plain_(state, circuit, self.m_eff)
+            return apply_circuit_fused_(self.initial_state(), circuit, self.m_eff, self._plan(circuit))
+        out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit))
+        if out is not state:
+            state.copy_(out)
+        return state
 
     def run_norm(self, circuit: Circuit) -> float:
         """Reset -> circuit -> norm (probability conservation check)."""

@@ -1,12 +1,15 @@
 """Device memory model: how much memory the engine may plan to hold.
 
 The counterpart of the JAX package's ``utils/memory.py``.  The budget comes
-from the engine's own device (``torch.cuda.mem_get_info``); a CPU device
-reports none, and then nothing is checked.
+from the ``QC_TPU_HBM_BYTES`` override when it is set (any device, as in the
+JAX package: tests and unusual deployments), else from the engine's own
+device (``torch.cuda.mem_get_info``); a CPU device reports none, and then
+nothing is checked.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -18,7 +21,21 @@ _USABLE_FRACTION = 0.92
 
 
 def device_memory_budget(device) -> Optional[int]:
-    """Usable bytes on `device` for state planning, or None off CUDA."""
+    """Usable bytes on `device` for state planning, or None off CUDA when
+    no override is set."""
+    env = os.environ.get("QC_TPU_HBM_BYTES")
+    if env:
+        try:
+            val = int(env)
+        except ValueError:
+            val = -1
+        if val > 0:
+            return val
+        from quantumcomputer_tpu_torch.utils.logging import get_logger
+
+        get_logger("memory").warning(
+            "ignoring invalid QC_TPU_HBM_BYTES=%r (want a positive byte count)", env
+        )
     device = torch.device(device)
     if device.type != "cuda":
         return None
@@ -35,3 +52,14 @@ def state_fits(n: int, real_dtype: torch.dtype, device) -> bool:
     itemsize = torch.empty((), dtype=real_dtype).element_size()
     state = 2 * (1 << n) * itemsize
     return state + state // 4 <= budget
+
+
+def two_state_programs_fit(n: int, real_dtype: torch.dtype, device) -> bool:
+    """True when TWO (2, 2^n) planar states of `real_dtype` fit the budget
+    (always on a CPU device with no override): the one predicate for "the
+    out-of-place ladder kernel fits", as in the JAX package's engine."""
+    budget = device_memory_budget(device)
+    if budget is None:
+        return True
+    itemsize = torch.empty((), dtype=real_dtype).element_size()
+    return 2 * (2 * (1 << n) * itemsize) <= budget

@@ -1,0 +1,250 @@
+"""The port's m_high oracle module (quantumcomputer_tpu_torch/ops/oracle.py
+and the plain ops in ops/gates.py) against the JAX package's
+ops/pallas_oracle.py and ops/gates.py, on the same seeded inputs.
+
+Schedules, multipliers and eligibility must be equal, value for value, so
+the port plans what the JAX package plans.  The plain versions are held to
+the JAX XLA ops at 1e-12 in complex128; each JAX Pallas oracle kernel runs
+once in interpret mode, as the JAX suite runs it, and the port's wrapper
+(its plain version, on a CPU tensor) must equal it within that suite's
+1e-6 at f32.  The CUDA kernels are tested only where a card is present."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantumcomputer_tpu.ops import gates as xops
+from quantumcomputer_tpu.ops import pallas_oracle as po
+from quantumcomputer_tpu_torch import interop
+from quantumcomputer_tpu_torch.algorithms import _native
+from quantumcomputer_tpu_torch.ops import gates as tops
+from quantumcomputer_tpu_torch.ops import oracle
+
+ATOL_PALLAS = 1e-6  # tests/test_mhigh_layout.py
+
+
+def _psi(rng, n):
+    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    return psi / np.linalg.norm(psi)
+
+
+def _planes32(psi):
+    return np.stack([psi.real, psi.imag]).astype(np.float32)
+
+
+# (C, A, M): fixed points (0 and j >= C), short cycles (C = 15) and long
+# ones (3 has order 910 mod 8191, 3^512 order 455).
+SCHEDULE_CASES = [(15, 7, 4), (21, 2, 5), (33, 29, 6), (35, 12, 6), (8191, 3, 13), (8191, 3 ** 512 % 8191, 13)]
+
+
+@pytest.mark.parametrize("C,A,M", SCHEDULE_CASES)
+def test_cycle_schedule_matches_jax(C, A, M, monkeypatch):
+    ginv = np.asarray(xops.modmul_inverse_permutation(C, A, M), np.int32)
+    want = po.cycle_schedule(ginv)
+    for arr, ref in zip(oracle.cycle_schedule(ginv), want):
+        np.testing.assert_array_equal(arr, ref)
+    monkeypatch.setattr(_native, "available", lambda: False)  # the Python walk
+    for arr, ref in zip(oracle.cycle_schedule(ginv), want):
+        np.testing.assert_array_equal(arr, ref)
+
+
+@pytest.mark.parametrize("C,A_list", [(21, (2, 4, 16)), (15, (7, 4, 1, 1)), (8191, tuple(pow(3, 1 << j, 8191) for j in range(8)))])
+def test_combo_multipliers_match_jax(C, A_list, monkeypatch):
+    want = xops.modexp_combo_multipliers(C, A_list)
+    np.testing.assert_array_equal(tops.modexp_combo_multipliers(C, A_list), want)
+    monkeypatch.setattr(_native, "available", lambda: False)
+    np.testing.assert_array_equal(tops.modexp_combo_multipliers(C, A_list), want)
+
+
+def test_mask_multipliers_are_the_pair_schedules_of_jax():
+    C, A_pair, M = 33, (29, 7), 6
+    combos = xops.modexp_combo_multipliers(C, list(A_pair))
+    f = np.arange(1 << M, dtype=np.int32)
+    want = [np.where(f < C, (int(combos[m]) * f) % C, f) for m in (1, 2, 3)]
+    np.testing.assert_array_equal(oracle.mask_multipliers(C, A_pair, M), np.stack(want))
+    np.testing.assert_array_equal(
+        oracle.mask_multipliers(C, (29,), M)[0], xops.modmul_inverse_permutation(C, 29, M)
+    )
+
+
+def test_predicates_match_jax():
+    for itemsize in (2, 4, 8):
+        for M in (2, 3, 4, 6, 13, 16):
+            for n in range(M + 1, M + 19):
+                for c in range(0, n - M):
+                    assert oracle.perm_supported(c, M, n, itemsize) == po.perm_supported(c, M, n, itemsize)
+                    assert oracle.pair_member_supported(c, M, n, itemsize) == po.pair_member_supported(c, M, n, itemsize)
+                    for controls in ((c,), (c, c + 1), (c, c + 3, c + 1), tuple(range(c, c + 9))):
+                        assert oracle.ladder_high_supported(controls, M, n, itemsize) == po.ladder_high_supported(
+                            controls, M, n, itemsize
+                        )
+                    for pair in ((c, c + 1), (c + 2, c), (c, c)):
+                        assert oracle.pair_inplace_supported(pair, M, n, itemsize) == po.pair_inplace_supported(
+                            pair, M, n, itemsize
+                        )
+
+
+@pytest.mark.parametrize("c_phys", [0, 1, 3, 6, 9, 10])
+def test_plain_camodc_high_matches_xla(c_phys):
+    C, A, M, n = 33, 29, 6, 17
+    psi = _psi(np.random.default_rng(c_phys), n)
+    want = np.asarray(xops.apply_camodc_high(jnp.asarray(psi), C, A, c_phys, M))
+    got = tops.apply_camodc_high(torch.from_numpy(psi), C, A, c_phys, M)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-12)
+    planar = interop.state_from_numpy(np.stack([psi.real, psi.imag]))
+    out = tops.apply_camodc_high_planes_(planar, C, A, c_phys, M)
+    assert out is planar
+    np.testing.assert_allclose(out[0].numpy() + 1j * out[1].numpy(), want, atol=1e-12)
+
+
+@pytest.mark.parametrize("controls", [(0, 1, 2), (3, 5), (9, 10, 11, 12, 13, 14, 15, 16), (16, 2)])
+def test_plain_ladder_matches_xla(controls):
+    C, a, M, n = 33, 7, 6, 17
+    A_list = tuple(pow(a, 1 << k, C) for k in range(len(controls)))
+    psi = _psi(np.random.default_rng(len(controls)), n)
+    want = np.asarray(xops.apply_camodc_ladder_high(jnp.asarray(psi), C, A_list, controls, M))
+    got = tops.apply_camodc_ladder_high(torch.from_numpy(psi), C, A_list, controls, M)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-12)
+    planar = interop.state_from_numpy(np.stack([psi.real, psi.imag]))
+    out = tops.apply_camodc_ladder_high_planes_(planar, C, A_list, controls, M)
+    np.testing.assert_allclose(out[0].numpy() + 1j * out[1].numpy(), want, atol=1e-12)
+
+
+def test_cycle_matches_pallas_interpret():
+    C, A, c_phys, M, n = 33, 29, 3, 6, 16
+    psi = _psi(np.random.default_rng(31), n)
+    planes = _planes32(psi)
+    jre, jim = po.apply_camodc_high_cycle_planar(jnp.asarray(planes[0]), jnp.asarray(planes[1]), C, A, c_phys, M)
+    got = oracle.apply_camodc_high_cycle_planar(interop.state_from_numpy(planes), C, A, c_phys, M)
+    np.testing.assert_allclose(interop.state_to_numpy(got), np.stack([jre, jim]), atol=ATOL_PALLAS)
+
+
+def test_perm_matches_pallas_interpret():
+    C, A, c_phys, M, n = 33, 29, 13, 6, 20
+    assert oracle.perm_supported(c_phys, M, n)
+    psi = _psi(np.random.default_rng(32), n)
+    planes = _planes32(psi)
+    jre, jim = po.apply_camodc_high_perm_planar(jnp.asarray(planes[0]), jnp.asarray(planes[1]), C, A, c_phys, M)
+    got = oracle.apply_camodc_high_perm_planar(interop.state_from_numpy(planes), C, A, c_phys, M)
+    np.testing.assert_allclose(interop.state_to_numpy(got), np.stack([jre, jim]), atol=ATOL_PALLAS)
+
+
+def test_pair_matches_pallas_interpret():
+    C, A_pair, controls, M, n = 33, (29, 7), (13, 14), 6, 21
+    assert oracle.pair_inplace_supported(controls, M, n)
+    psi = _psi(np.random.default_rng(33), n)
+    planes = _planes32(psi)
+    jre, jim = po.apply_camodc_pair_inplace_planar(
+        jnp.asarray(planes[0]), jnp.asarray(planes[1]), C, A_pair, controls, M
+    )
+    got = oracle.apply_camodc_pair_inplace_planar(interop.state_from_numpy(planes), C, A_pair, controls, M)
+    np.testing.assert_allclose(interop.state_to_numpy(got), np.stack([jre, jim]), atol=ATOL_PALLAS)
+
+
+def test_ladder_matches_pallas_interpret():
+    C, A_list, controls, M, n = 15, (7, 4), (11, 12), 4, 17
+    assert oracle.ladder_high_supported(controls, M, n)
+    psi = _psi(np.random.default_rng(34), n)
+    planes = _planes32(psi)
+    jre, jim = po.apply_camodc_ladder_high_planar(
+        jnp.asarray(planes[0]), jnp.asarray(planes[1]), C, A_list, controls, M
+    )
+    state = interop.state_from_numpy(planes)
+    before = state.clone()
+    out = torch.empty_like(state)
+    got = oracle.apply_camodc_ladder_high_planar(state, out, C, A_list, controls, M)
+    assert got is out
+    assert torch.equal(state, before)  # out of place: the input is untouched
+    np.testing.assert_allclose(interop.state_to_numpy(got), np.stack([jre, jim]), atol=ATOL_PALLAS)
+
+
+def test_wrappers_take_plain_versions_only_on_cpu():
+    C, M, n = 15, 4, 12
+    planes = _planes32(_psi(np.random.default_rng(35), n))
+    before = dict(oracle.LAUNCHES)
+    calls = [
+        lambda s: oracle.apply_camodc_high_cycle_planar(s, C, 7, 2, M),
+        lambda s: oracle.apply_camodc_high_perm_planar(s, C, 7, 5, M),
+        lambda s: oracle.apply_camodc_pair_inplace_planar(s, C, (7, 4), (5, 1), M),
+    ]
+    for call in calls:
+        state = interop.state_from_numpy(planes)
+        assert call(state) is state  # in place
+    out = torch.empty((2, 1 << n))
+    oracle.apply_camodc_ladder_high_planar(interop.state_from_numpy(planes), out.float(), C, (7, 4), (5, 1), M)
+    assert oracle.LAUNCHES == before  # no kernel launched for CPU tensors
+    meta = torch.empty((2, 1 << n), device="meta")
+    for call in calls:
+        with pytest.raises(ValueError, match="no .* path for device meta"):
+            call(meta)
+
+
+def test_wrappers_validate_their_arguments():
+    state = interop.state_from_numpy(_planes32(_psi(np.random.default_rng(36), 10)))
+    with pytest.raises(ValueError, match="1..8 gates"):
+        oracle.apply_camodc_ladder_high_planar(state, torch.empty_like(state), 2, (1,) * 9, tuple(range(9)), 1)
+    with pytest.raises(ValueError, match="not unitary"):
+        oracle.apply_camodc_high_cycle_planar(state, 33, 7, 0, 4)  # 2^4 < 33
+    with pytest.raises(ValueError, match="column bits"):
+        oracle.apply_camodc_high_cycle_planar(state, 15, 7, 6, 4)  # bit 6 is a work-register bit
+    with pytest.raises(ValueError, match="distinct controls"):
+        oracle.apply_camodc_pair_inplace_planar(state, 15, (7, 4), (2, 2), 4)
+    with pytest.raises(ValueError, match="distinct contiguous buffer"):
+        oracle.apply_camodc_ladder_high_planar(state, state, 15, (7, 4), (1, 2), 4)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version, exactly (pure data
+# movement).
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the oracle kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _card_state(rng, n, dtype, device):
+    return interop.state_from_numpy(np.stack([_psi(rng, n).real, _psi(rng, n).imag]), device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("c_phys", [0, 3, 9, 13])
+def test_cycle_kernel_matches_plain_on_card(cuda_device, dtype, c_phys):
+    C, A, M, n = 33, 29, 6, 20
+    state = _card_state(np.random.default_rng(c_phys), n, dtype, cuda_device)
+    want = tops.apply_camodc_high_planes_(state.clone(), C, A, c_phys, M)
+    before = oracle.LAUNCHES["cycle"]
+    oracle.apply_camodc_high_cycle_planar(state, C, A, c_phys, M)
+    torch.cuda.synchronize()
+    assert oracle.LAUNCHES["cycle"] == before + 1
+    assert torch.equal(state, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kernel_matches_plain_on_card(cuda_device, dtype):
+    C, M, n = 33, 6, 21
+    state = _card_state(np.random.default_rng(40), n, dtype, cuda_device)
+    want = tops.apply_camodc_high_planes_(state.clone(), C, 29, 13, M)
+    oracle.apply_camodc_high_perm_planar(state, C, 29, 13, M)
+    want = tops.apply_camodc_ladder_high_planes_(want, C, (29, 7), (13, 14), M)
+    oracle.apply_camodc_pair_inplace_planar(state, C, (29, 7), (13, 14), M)
+    torch.cuda.synchronize()
+    assert torch.equal(state, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("controls", [(11, 12), (11, 12, 13, 14), (0, 5, 3)])
+def test_ladder_kernel_matches_plain_on_card(cuda_device, dtype, controls):
+    C, a, M, n = 33, 7, 6, 21
+    A_list = tuple(pow(a, 1 << k, C) for k in range(len(controls)))
+    state = _card_state(np.random.default_rng(41), n, dtype, cuda_device)
+    want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A_list, controls, M)
+    got = oracle.apply_camodc_ladder_high_planar(state, torch.empty_like(state), C, A_list, controls, M)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -60,6 +60,7 @@ def test_cli_trial_loop_and_complex128(capsys):
         ["-C", "15", "-L", "0", "-M", "4"],
         ["-C", "15", "-L", "30", "-M", "4"],
         ["-C", "15", "-L", "3", "-M", "4", "--dtype", "dd64", "--layout", "m_high"],
+        ["-C", "15", "-L", "3", "-M", "4", "--layout", "m_high", "--devices", "32"],
     ],
 )
 def test_bad_arguments_exit_2_with_the_jax_message(argv, capsys):
@@ -79,7 +80,6 @@ def test_missing_M_is_an_argparse_error():
 @pytest.mark.parametrize(
     "extra,flag",
     [
-        (["--layout", "m_high"], "--layout m_high"),
         (["--semiclassical"], "--semiclassical"),
         (["--devices", "2"], "--devices > 1"),
         (["--oracle", "benes"], "--oracle benes"),
@@ -93,6 +93,11 @@ def test_unported_flags_exit_2(extra, flag, capsys):
     assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7"] + extra) == 2
     err = capsys.readouterr().err
     assert err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
+
+
+def test_cli_factors_15_in_the_mhigh_layout(capsys):
+    assert cli.main(FACTOR_15 + ["--layout", "m_high"]) == 0
+    assert " --- Factors of 15 found: (5, 3)." in capsys.readouterr().out
 
 
 def test_backend_cuda_without_a_card_exits_2(monkeypatch, capsys):
