@@ -30,7 +30,21 @@ Phases, each of which must pass:
   5. the main paths: factor 8187 = 2729 x 3 end to end at n = 30 with
      shors_algorithm(backend="cuda"), in the standard layout and then in the
      m_high layout; every kernel's launch counter is reset just before each
-     and read just after, and each kernel of that path must have launched.
+     and read just after, and each kernel of that path must have launched;
+  6. the semiclassical engine's kernels, transpose and chunk_gather (its four
+     forms), held against their plain versions in float32 and float64,
+     exactly, on aligned, ragged and extra-row transposes and on in-range,
+     out-of-range and past-the-rows offsets; apply_stride_permute held
+     against the element map for planned multipliers at M = 20 and M = 28;
+     at M = 28 (C = 2^28 - 3, a = 7) each kernel call of one plan timed
+     beside its plain version, one permutation of a 1 GiB plane, and one
+     semiclassical step on the structured and on the gather path; then the
+     CLI at M = 28 (-C 268435453 -L 8 -M 28 -a 7 --semiclassical --seed 3);
+  7. the semiclassical main path: factor 1,060,314,373 = 32749 x 32377 at
+     M = 30 (complex64, an 8 GiB work state) with
+     shors_algorithm(semiclassical=True, backend="cuda"), its bits equal to
+     scripts/predict_semiclassical.py's exact prediction on the same draws,
+     the launch counters reset just before and read just after.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero without that line.  Imports nothing of JAX.
@@ -68,6 +82,15 @@ ORACLE_CASES = [
 ]
 BLOCK_SUMS_TOL = 1e-6
 FLAGSHIP_TOL = 1e-4
+SC_M28 = ((1 << 28) - 3, 7, 8, 28)  # C, a, L, M: the JAX bench's semiclassical configuration
+SC_CLI = ["-C", "268435453", "-L", "8", "-M", "28", "-a", "7", "--semiclassical", "--seed", "3", "-v"]
+SC_FACTOR = (1060314373, 2, 45, 30)  # C, a, L, M; the order of 2 mod C is 622212
+SC_FACTORS = (32749, 32377)
+PERMUTE_MS = (20, 28)  # apply_stride_permute against the element map at C = 2^M - 3
+# Seed of the M = 30 run: of seeds 0..199 whose first attempt factors (by
+# scripts/predict_semiclassical.py over this package's draws), the one with
+# the widest min draw margin, 0.0994.
+SC_SEED = 189
 
 
 class SmokeFailure(RuntimeError):
@@ -285,18 +308,23 @@ def phase_cli() -> None:
 
 
 def reset_launches() -> None:
-    from quantumcomputer_tpu_torch.ops import fused, measure, oracle
+    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, transpose
 
     fused.LAUNCHES = 0
     measure.LAUNCHES = 0
-    for k in oracle.LAUNCHES:
-        oracle.LAUNCHES[k] = 0
+    transpose.LAUNCHES = 0
+    for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def launches() -> dict:
-    from quantumcomputer_tpu_torch.ops import fused, measure, oracle
+    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, transpose
 
-    return {"fused_segment": fused.LAUNCHES, "block_sums": measure.LAUNCHES, **oracle.LAUNCHES}
+    return {
+        "fused_segment": fused.LAUNCHES, "block_sums": measure.LAUNCHES, **oracle.LAUNCHES,
+        "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
+    }
 
 
 def phase_flagship(report: dict) -> None:
@@ -500,6 +528,272 @@ def phase_factor(report: dict) -> None:
         check(counts[k] > 0, f"the m_high main path launched no {k} kernel")
 
 
+def exact_err(got, want) -> float:
+    """Max abs difference of two tensors that must be equal (inf on a
+    shape mismatch)."""
+    if got.shape != want.shape:
+        return float("inf")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def planned_multipliers(C: int, M: int, count: int, seed: int) -> list:
+    """The first `count` random multipliers of C that plan."""
+    import numpy as np
+
+    from quantumcomputer_tpu_torch.ops import modperm
+
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < count:
+        a = int(rng.integers(2, C - 1))
+        if modperm.plan_stride_permute(C, a, M) is not None:
+            out.append(a)
+    return out
+
+
+def element_map_err(x, C: int, a_inv: int, M: int) -> float:
+    """apply_stride_permute against the element map x[:, (a_inv*j) mod C]."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import modperm
+
+    j = torch.arange(1 << M, device=x.device)
+    want = x[:, torch.where(j < C, (j * a_inv) % C, j)]
+    del j
+    err = exact_err(modperm.modmul_stride_permute(x, C, a_inv, M), want)
+    torch.cuda.synchronize()
+    return err
+
+
+def phase_modperm_kernels(report: dict) -> None:
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import chunkgather as cg
+    from quantumcomputer_tpu_torch.ops import transpose as tr
+
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).replace("torch.", "")
+        g = torch.Generator().manual_seed(30)
+
+        def rand(*shape):
+            return torch.randn(shape, generator=g, dtype=dtype).to(DEVICE)
+
+        for shape, extra in (((2, 512, 384), 0), ((1, 300, 523), 0), ((2, 256, 1000), 1), ((1, 4133, 2176), 1)):
+            x = rand(*shape)
+            got, want = tr.tiled_transpose_padded(x, extra), tr.transpose_plain(x, extra)
+            rows = want.shape[1] - extra  # the extra rows are unwritten in both
+            err = exact_err(got[:, :rows], want[:, :rows])
+            torch.cuda.synchronize()
+            log(f"kernel transpose {dname} {shape} extra_rows={extra} -> {tuple(got.shape)}: max abs {err:.3e} (tol 0)")
+            check(err == 0.0, f"transpose {dname} {shape}: {err} != 0")
+
+        P, W, NC = 1 << 20, 4096, 600
+        x, x2 = rand(2, P), rand(2, 2 * W)
+        ri = torch.randint
+        s_in = ri(0, P - W + 1, (NC,), generator=g).to(DEVICE)
+        s_out = torch.cat([ri(-2 * W, 0, (NC // 2,), generator=g), ri(P - W + 1, P + 2 * W, (NC - NC // 2,), generator=g)]).to(DEVICE)
+        s1 = ri(0, P - W + 1, (NC,), generator=g).to(DEVICE)
+        istar = ri(0, W + 1, (NC,), generator=g).to(DEVICE)
+        flags = ri(0, 2, (NC,), generator=g).to(DEVICE)
+        s_src2 = torch.where(flags != 0, ri(0, W + 1, (NC,), generator=g).to(DEVICE), s_in)
+        v, vpad, rows = 1543, 1664, 300
+        xr = rand(2, (rows + 1) * vpad)
+        cases = [
+            ("gather, in range", cg.chunk_gather(x, s_in, W), cg.chunk_gather_plain(x, s_in, W)),
+            ("gather, out of range (deal-leg rows)", cg.chunk_gather(x, s_out, W), cg.chunk_gather_plain(x, s_out, W)),
+            ("src2", cg.chunk_gather_src2(x, x2, s_src2, flags, W), cg.chunk_gather_src2_plain(x, x2, s_src2, flags, W)),
+            ("blend", cg.chunk_gather_blend(x, s_in, s1, istar, W), cg.chunk_gather_blend_plain(x, s_in, s1, istar, W)),
+            ("blend, out of range", cg.chunk_gather_blend(x, s_out, s1, istar, W), cg.chunk_gather_blend_plain(x, s_out, s1, istar, W)),
+            # 1536-wide chunks over 300 live rows of v = 1543, and 40 chunks past them.
+            ("rowlaw past the rows", cg.chunk_gather_blend_rowlaw(xr, 341, v, vpad, 1536),
+             cg.chunk_gather_blend_rowlaw_plain(xr, 341, v, vpad, 1536)),
+        ]
+        for name, got, want in cases:
+            err = exact_err(got, want)
+            torch.cuda.synchronize()
+            log(f"kernel chunk_gather {name} {dname}: max abs {err:.3e} (tol 0)")
+            check(err == 0.0, f"chunk_gather {name} {dname}: {err} != 0")
+        del x, x2, xr, cases
+
+    # Random planned multipliers, and at the M of the timing phase the steps
+    # of its ladder whose collect rows split (v = 1543 at M = 28).
+    from quantumcomputer_tpu_torch.ops import modperm
+
+    C_sc, a, L, M_sc = SC_M28
+    ladder = [pow(pow(a, 1 << (L - 1 - s), C_sc), -1, C_sc) for s in range(L)]
+    plans = [modperm.plan_stride_permute(C_sc, ai, M_sc) for ai in ladder]
+    split = [ai for ai, p in zip(ladder, plans) if p and p.v > 1 and modperm.collect_chunking(C_sc, p.v)[2] > 1]
+    for M in PERMUTE_MS:
+        C = (1 << M) - 3
+        mults = planned_multipliers(C, M, 3, M) + (split if M == M_sc else [])
+        x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(M)).to(DEVICE)
+        for a_inv in mults:
+            err = element_map_err(x, C, a_inv, M)
+            log(f"apply_stride_permute M={M} C={C} a_inv={a_inv}: max abs vs element map {err:.3e} (tol 0)")
+            check(err == 0.0, f"apply_stride_permute M={M} a_inv={a_inv}: {err} != 0")
+        del x
+    torch.cuda.empty_cache()
+
+
+def phase_semiclassical_timing(report: dict) -> None:
+    """At M = 28 (C = 2^28 - 3, a = 7): each kernel call of the first planned
+    step's permutation timed beside its plain version, one permutation of a
+    1 GiB plane against the element gather, and one step per oracle path."""
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
+    from quantumcomputer_tpu_torch.ops import chunkgather as cg
+    from quantumcomputer_tpu_torch.ops import modperm
+    from quantumcomputer_tpu_torch.ops import transpose as tr
+
+    C, a, L, M = SC_M28
+    a_invs = [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)]
+    plans = sc._structured_plans(C, a_invs, M)
+    step = next(s for s, p in enumerate(plans) if p is not None)
+    plan = plans[step]
+    x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(31)).to(DEVICE)
+
+    # Record each kernel call of one permutation (its inputs stay alive).
+    sites = {
+        "tiled_transpose_padded": ("transpose", tr.transpose_plain),
+        "chunk_gather": ("chunk_gather", cg.chunk_gather_plain),
+        "chunk_gather_src2": ("chunk_gather", cg.chunk_gather_src2_plain),
+        "chunk_gather_blend": ("chunk_gather", cg.chunk_gather_blend_plain),
+        "chunk_gather_blend_rowlaw": ("chunk_gather", cg.chunk_gather_blend_rowlaw_plain),
+    }
+    orig = {name: getattr(modperm, name) for name in sites}
+    calls = []
+
+    def recorder(name):
+        def wrapped(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return orig[name](*args, **kwargs)
+
+        return wrapped
+
+    try:
+        for name in sites:
+            setattr(modperm, name, recorder(name))
+        modperm.apply_stride_permute(x, plan)
+    finally:
+        for name, fn in orig.items():
+            setattr(modperm, name, fn)
+    for key in ("transpose", "chunk_gather"):
+        report[key]["ms"] = report[key]["plain_ms"] = 0.0
+    for name, args, kwargs in calls:
+        key, plain = sites[name]
+        if name == "chunk_gather_blend_rowlaw":
+            args[0][:, -args[3]:].zero_()  # the slack row: defined input for the comparison
+        got, want = orig[name](*args, **kwargs), plain(*args, **kwargs)
+        if name == "tiled_transpose_padded" and kwargs.get("extra_rows"):
+            got, want = got[:, : -kwargs["extra_rows"]], want[:, : -kwargs["extra_rows"]]
+        err = exact_err(got, want)
+        del got, want
+        check(err == 0.0, f"{name} at M={M}: {err} != 0")
+        k_ms = time_ms(lambda: orig[name](*args, **kwargs), reps=10)
+        p_ms = time_ms(lambda: plain(*args, **kwargs), reps=3)
+        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+        report[key]["ms"] += k_ms
+        report[key]["plain_ms"] += p_ms
+        shape = tuple(args[0].shape)
+        log(f"kernel {name} M={M} step {step} ({shape}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    del calls
+    torch.cuda.empty_cache()
+
+    perm_ms = time_ms(lambda: modperm.apply_stride_permute(x, plan), reps=5)
+    j = torch.arange(1 << M, device=DEVICE)
+    src = torch.where(j < C, (j * a_invs[step]) % C, j)
+    del j
+    gather_ms = time_ms(lambda: x[:, src], reps=5)
+    log(f"apply_stride_permute M={M} plan {plan}: {perm_ms:.4f} ms per 1 GiB plane; element gather x[:, src] {gather_ms:.4f} ms")
+    del src, x
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(32)
+    w = torch.randn((2, 1 << M), generator=gen).to(DEVICE)
+    w /= torch.linalg.vector_norm(w)
+    phi, r = torch.tensor(0.375, device=DEVICE), torch.tensor(0.4, device=DEVICE)
+    outs = {}
+    for path, p in (("structured", plan), ("gather", None)):
+        ms = time_ms(lambda: sc._step(w, phi, M, torch.float32, C, a_invs[step], p, r, -1), reps=3)
+        bit, p_cond, out, _ = sc._step(w, phi, M, torch.float32, C, a_invs[step], p, r, -1)
+        outs[path] = (int(bit), float(p_cond), out)
+        log(f"semiclassical step M={M} ({path}): {ms:.4f} ms, bit {int(bit)}, p_cond {float(p_cond):.9f}")
+    dist = float(torch.linalg.vector_norm(outs["structured"][2] - outs["gather"][2]))
+    log(f"semiclassical step M={M}: structured vs gather ||d||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
+    check(outs["structured"][0] == outs["gather"][0], "structured and gather steps measured different bits")
+    check(dist <= FLAGSHIP_TOL, f"structured vs gather step distance {dist}")
+    del w, outs
+    torch.cuda.empty_cache()
+
+
+def phase_semiclassical_cli() -> None:
+    from quantumcomputer_tpu_torch import cli
+
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(SC_CLI)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    out = buf.getvalue()
+    check(rc in (0, 3), f"semiclassical CLI returned {rc}")
+    check(" --- Factors of 268435453 found: " in out or "could not be factorised" in out,
+          "the semiclassical CLI printed neither a factor line nor the could-not line")
+    check(counts["transpose"] > 0 and counts["chunk_gather"] > 0, f"the M=28 CLI run launched {counts}")
+    log(f"cli --semiclassical M=28: exit {rc}, {wall:.3f} s, launches {counts}")
+
+
+def phase_semiclassical_factor(report: dict) -> None:
+    import importlib.util
+
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
+    from quantumcomputer_tpu_torch.ops import chunkgather
+
+    C, a, L, M = SC_FACTOR
+    spec = importlib.util.spec_from_file_location(
+        "predict_semiclassical", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "predict_semiclassical.py")
+    )
+    predictor = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(predictor)
+    # The draws shors_algorithm hands the first attempt: L uniforms in float32
+    # from a CPU generator seeded with the seed.
+    rs = torch.rand((L,), generator=torch.Generator().manual_seed(SC_SEED), dtype=torch.float32)
+    want_bits, margin = predictor.predict_bits(C, a, L, rs.double().numpy())
+    log(f"semiclassical M={M}: predicted bits for seed {SC_SEED}, min draw margin {margin:.6f}")
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = shors_algorithm(
+        C, L, M, forced_trial_int=a, seed=SC_SEED, dtype=torch.complex64, backend=KERNEL_BACKEND, semiclassical=True
+    )
+    wall = time.perf_counter() - t0
+    counts = launches()
+    report["transpose"]["launches"] = counts["transpose"]
+    report["chunk_gather"]["launches"] = counts["chunk_gather"]
+    attempt = result.attempts[0]
+    rec = attempt.semiclassical
+    n_struct, n_gather = rec.oracles.count("structured"), rec.oracles.count("gather")
+    log(
+        f"semiclassical factor M={M} C={C} a={a} L={L}: {result.outcome.value}, factors {result.factors}, "
+        f"period {result.period}; attempt {attempt.elapsed_s:.3f} s ({attempt.elapsed_s / L * 1e3:.3f} ms per step), "
+        f"total {wall:.3f} s; steps structured {n_struct}, gather {n_gather}; launches {counts}, "
+        f"chunk_gather forms {dict(chunkgather.LAUNCHES)}"
+    )
+    check(rec.bits == want_bits, f"bits {rec.bits} != predicted {want_bits}")
+    check(result.factors == SC_FACTORS, f"factors {result.factors} != {SC_FACTORS}")
+    check(n_struct > 0, "no step took the structured oracle")
+    check(counts["transpose"] > 0, "the semiclassical main path launched no transpose kernel")
+    for form, n in chunkgather.LAUNCHES.items():
+        check(n > 0, f"the semiclassical main path launched no chunk_gather {form}")
+
+
 def main() -> int:
     try:
         import torch
@@ -546,6 +840,18 @@ def main() -> int:
             "replaces": "quantumcomputer_tpu/ops/pallas_oracle.py:531",
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
         },
+        "transpose": {
+            "name": "transpose", "route": "cuda",
+            "source": "quantumcomputer_tpu_torch/ops/csrc/transpose.cu",
+            "replaces": "quantumcomputer_tpu/ops/pallas_transpose.py:36",
+            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+        },
+        "chunk_gather": {
+            "name": "chunk_gather", "route": "cuda",
+            "source": "quantumcomputer_tpu_torch/ops/csrc/chunk_gather.cu",
+            "replaces": "quantumcomputer_tpu/ops/pallas_chunkgather.py:79",
+            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+        },
     }
     card = card_line()
     log(card)
@@ -555,6 +861,10 @@ def main() -> int:
     phase_cli()
     phase_flagship(report)
     phase_factor(report)
+    phase_modperm_kernels(report)
+    phase_semiclassical_timing(report)
+    phase_semiclassical_cli()
+    phase_semiclassical_factor(report)
 
     log(json.dumps({"kernels": list(report.values())}))
     log(card)

@@ -7,7 +7,9 @@ loop, the same validity ladder and the same ``-v`` / ``-V`` print lines.
 Randomness is injected.  Each attempt's measurement draw is one uniform in
 [0, 1): ``shors_algorithm(seed=...)`` takes it from a ``torch.Generator``
 seeded with ``seed``, and ``find_period(..., r=...)`` accepts it directly, so
-a test can feed one numpy draw to both packages.
+a test can feed one numpy draw to both packages.  A semiclassical attempt
+(``semiclassical=True``, ``algorithms/semiclassical.py``) takes L uniforms,
+in the compute dtype, from the same generator.
 
 Eager PyTorch compiles nothing per circuit, so ``find_period`` always runs
 the static circuit; the JAX package's slot-template form exists only to
@@ -24,8 +26,9 @@ from typing import List, Optional, Tuple
 import torch
 
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
+from quantumcomputer_tpu_torch.algorithms.semiclassical import find_period_semiclassical
 from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
-from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, resolve_backend
 from quantumcomputer_tpu_torch.utils.logging import get_logger, ui_active, verbosity
 
 log = get_logger("shor")
@@ -49,6 +52,7 @@ class AttemptRecord:
     valid: bool
     reason: str = ""
     elapsed_s: float = 0.0
+    semiclassical: Optional[object] = None  # the SemiclassicalRecord of a semiclassical attempt
 
 
 @dataclass
@@ -171,16 +175,28 @@ def shors_algorithm(
     num_fractions: int = nt.NUM_CONTINUED_FRACTIONS,
     trials_per_denominator: int = nt.TRIALS_PER_DENOMINATOR,
     layout: str = "standard",
+    semiclassical: bool = False,
 ) -> ShorResult:
     """Full Shor algorithm (qc_shor.c:1003-1134).
 
     forced_trial_int != 0 -> that a only; otherwise loop a = 2 .. C-2 until
     non-trivial factors emerge.  Each attempt's draw comes from a CPU
     ``torch.Generator`` seeded with `seed` (wall clock when None), so the
-    draws do not depend on the engine's device."""
+    draws do not depend on the engine's device.
+
+    semiclassical=True runs each attempt on the one-control-qubit engine
+    (``algorithms/semiclassical.py``): a 2^M state instead of 2^(L+M), the
+    same outcome distribution, on the CUDA device when the backend is
+    ``cuda`` and on the CPU otherwise."""
     if C < 4 or L < 1 or M < 1:
         return ShorResult(outcome=Outcome.BAD_ARGUMENTS, C=C)
-    if engine is None:
+    if semiclassical:
+        if engine is not None or layout != "standard":
+            raise ValueError("semiclassical mode is its own engine: no layout/engine arguments")
+        device = "cuda" if resolve_backend(backend) == "cuda" else "cpu"
+        # The draws in the engine's compute dtype.
+        draw_dtype = torch.float64 if dtype in (torch.complex128, "complex128") else torch.float32
+    elif engine is None:
         engine = StateVectorEngine(Register(L=L, M=M), dtype=dtype, backend=backend, layout=layout)
     if seed is None:
         seed = int(time.time_ns() % (1 << 31))
@@ -210,9 +226,23 @@ def shors_algorithm(
             break
         found = False
         for _ in range(max_attempts_per_a):
-            r = float(torch.rand((), generator=gen, dtype=torch.float64))
-            t_attempt = time.perf_counter()
-            attempt = find_period(engine, C, a, r, num_fractions, trials_per_denominator)
+            if semiclassical:
+                rs = torch.rand((L,), generator=gen, dtype=draw_dtype)
+                t_attempt = time.perf_counter()
+                period, screc = find_period_semiclassical(
+                    C, a, L, M, rs, dtype=dtype, num_fractions=num_fractions,
+                    trials_per_denominator=trials_per_denominator, device=device,
+                )
+                # measured_index records x~, the sequential bit readout: this
+                # mode has no full-register basis index.
+                attempt = AttemptRecord(
+                    a=a, measured_index=screc.x_tilde, omega=screc.omega, period=period,
+                    valid=period is not None, semiclassical=screc,
+                )
+            else:
+                r = float(torch.rand((), generator=gen, dtype=torch.float64))
+                t_attempt = time.perf_counter()
+                attempt = find_period(engine, C, a, r, num_fractions, trials_per_denominator)
             attempt.elapsed_s = time.perf_counter() - t_attempt
             log.info("attempt a=%d took %.6fs", a, attempt.elapsed_s)
             result.attempts.append(attempt)

@@ -3,9 +3,10 @@
 The same flags, choices, validation messages and exit codes as
 ``quantumcomputer_tpu/cli.py`` (exit 2 for bad arguments, 3 when no period
 is found), with ``--backend auto|torch|cuda`` in place of
-``auto|xla|pallas``.  Flags whose path is not ported yet exit 2 with a
-message that says so; ``--backend cuda`` on a host with no CUDA device
-exits 2 as well, and never runs on the CPU.
+``auto|xla|pallas``.  ``--semiclassical`` runs on the CUDA device with the
+cuda backend and on the CPU otherwise.  Flags whose path is not ported yet
+exit 2 with a message that says so; ``--backend cuda`` on a host with no
+CUDA device exits 2 as well, and never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -73,11 +74,22 @@ def validate(args: argparse.Namespace) -> Optional[str]:
             "strict-reference (complex32 and dd64 ARE supported; "
             "--devices N shards the work register)."
         )
+    if args.semiclassical and args.dtype == "dd64" and args.devices > 1:
+        return "dd64 semiclassical is single-chip (parity mode)."
+    if args.semiclassical and args.dtype == "dd64" and args.checkpoint_dir:
+        return "dd64 semiclassical has no checkpointing (parity mode)."
+    if args.semiclassical and args.checkpoint_dir and args.devices > 1:
+        return (
+            "semiclassical checkpointing is single-chip only (the sharded "
+            "attempt is one fused dispatch with no step boundary)."
+        )
     if args.strict_reference and (
         args.devices > 1 or args.layout != "standard" or args.backend == "cuda"
         or args.dtype in ("complex32", "dd64")
     ):
         return "strict-reference mode is single-chip, standard layout, torch backend, complex64/128."
+    if args.dtype == "complex32" and args.backend == "torch" and not args.semiclassical:
+        return "complex32 requires the cuda backend (no 32-bit complex dtype exists)."
     if args.L <= 0:
         return "L is invalid (must be positive)."
     if args.M <= 0:
@@ -85,7 +97,22 @@ def validate(args: argparse.Namespace) -> Optional[str]:
     if args.a and not (1 < args.a < args.C - 1):
         return "Forced trial integer must satisfy 1 < a < C-1."
     if args.semiclassical:
-        return None  # its state is 2^M amplitudes: the L + M bounds do not apply
+        # The state is 2^M amplitudes whatever L is (the control qubit is
+        # implicit): the L + M bounds do not apply; M, C and L have their own.
+        if args.M > 30:
+            return "semiclassical work register M > 30 exceeds the int32 index budget."
+        if (1 << args.M) < args.C:
+            return (
+                f"semiclassical work register 2^M={1 << args.M} < C={args.C}: "
+                "the modular-multiply gate is not unitary (M must satisfy 2^M >= C)."
+            )
+        if args.L > 52:
+            return "semiclassical L > 52 exceeds the float64 omega mantissa (x_tilde / 2^L)."
+        if args.C >= (1 << 30):
+            return "semiclassical mode needs C < 2^30 (int32 shift-add modular arithmetic)."
+        if args.devices > 1 and args.M - (args.devices.bit_length() - 1) < 1:
+            return "semiclassical sharding needs M - log2(devices) >= 1 (no local work rows)."
+        return None
     if args.L + args.M > 32:
         return "L + M > 32 qubits exceeds the index budget (the reference's own bound, qc_shor.c:68-73)."
     if args.L + args.M > 31 and args.dtype != "complex128":
@@ -100,8 +127,6 @@ def validate(args: argparse.Namespace) -> Optional[str]:
 
 def not_ported(args: argparse.Namespace) -> Optional[str]:
     """The first flag whose path this package does not carry yet, or None."""
-    if args.semiclassical:
-        return "--semiclassical"
     if args.devices > 1:
         return "--devices > 1"
     if args.oracle == "benes":
@@ -145,6 +170,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         num_fractions=args.fractions,
         trials_per_denominator=args.trials,
         layout=args.layout,
+        semiclassical=args.semiclassical,
     )
 
     if args.verbose:

@@ -2,7 +2,8 @@
 
 The JAX package is the reference this package is tested against.  Its
 states are (2, 2^n) planar arrays and its circuits tuples of ``Gate``
-records; both cross here as plain numpy arrays and Python values, so this
+records, its stride-permutation plans frozen dataclasses; all of them
+cross here as plain numpy arrays and Python values, so this
 package never imports jax and a test can run one input through both.
 """
 
@@ -28,6 +29,15 @@ def state_from_numpy(planar: np.ndarray, device="cpu") -> torch.Tensor:
 def state_to_numpy(planar: torch.Tensor) -> np.ndarray:
     """A state tensor as a host (2, 2^n) numpy array of its own dtype."""
     return planar.detach().cpu().numpy()
+
+
+def plan_from_reference(plan):
+    """This package's ``StridePlan`` with the fields of any object that has
+    ``.C/.M/.eps/.u/.v/.vinv/.W`` (e.g. the JAX package's), so a leg can run
+    under the reference's exact plan."""
+    from quantumcomputer_tpu_torch.ops.modperm import StridePlan
+
+    return StridePlan(**{f: int(getattr(plan, f)) for f in ("C", "M", "eps", "u", "v", "vinv", "W")})
 
 
 def circuit_from_reference(circuit) -> Circuit:

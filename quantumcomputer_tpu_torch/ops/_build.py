@@ -9,8 +9,8 @@ changed source never loads a stale library.  A failed build raises.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the
-wrappers in ``ops/fused.py``, ``ops/measure.py`` and ``ops/oracle.py`` raise
-when it is not 0.
+wrappers in ``ops/fused.py``, ``ops/measure.py``, ``ops/oracle.py``,
+``ops/transpose.py`` and ``ops/chunkgather.py`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -120,6 +120,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         # re, im, sched, nmasks, log_rows, log_rest, pos_a, pos_b, stream
         fn.argtypes = [p, p, p, i64, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_transpose_f32", "qc_transpose_f64"):
+        fn = getattr(lib, name)
+        # x, out, B, R, Cc, extra_rows, stream
+        fn.argtypes = [p, p, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_chunk_gather_f32", "qc_chunk_gather_f64"):
+        fn = getattr(lib, name)
+        # x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream
+        fn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, p]
         fn.restype = ctypes.c_int
     lib.qc_error_string.argtypes = [ctypes.c_int]
     lib.qc_error_string.restype = ctypes.c_char_p

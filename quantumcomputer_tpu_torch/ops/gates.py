@@ -116,6 +116,22 @@ def modmul_inverse_permutation(C: int, A: int, M: int) -> np.ndarray:
     return np.where(f < C, (np.int64(a_inv) * f) % C, f)
 
 
+def modmul_onchip(a: int, j: torch.Tensor, C: int) -> torch.Tensor:
+    """Elementwise (a * j) mod C on j's device, in int64: exact for a, j
+    < 2^30, where the product stays below 2^60.  The JAX package's
+    ``modmul_onchip`` reaches the same values by an int32 shift-add, since
+    the TPU has no int64."""
+    return (j.to(torch.int64) * int(a)) % int(C)
+
+
+def modmul_permute_onchip(a: int, j: torch.Tensor, C: int) -> torch.Tensor:
+    """The oracle's index map on the device: (a * j) mod C for j < C,
+    identity for j >= C (``modmul_inverse_permutation``'s table, element by
+    element, for a = A^-1)."""
+    j = j.to(torch.int64)
+    return torch.where(j < C, modmul_onchip(a, j, C), j)
+
+
 def _camodc_view(x: torch.Tensor, c_q: int, M: int) -> torch.Tensor:
     if c_q < M:
         raise ValueError("control qubit must be outside the M register")

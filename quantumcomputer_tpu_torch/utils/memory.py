@@ -54,12 +54,31 @@ def state_fits(n: int, real_dtype: torch.dtype, device) -> bool:
     return state + state // 4 <= budget
 
 
-def two_state_programs_fit(n: int, real_dtype: torch.dtype, device) -> bool:
-    """True when TWO (2, 2^n) planar states of `real_dtype` fit the budget
-    (always on a CPU device with no override): the one predicate for "the
-    out-of-place ladder kernel fits", as in the JAX package's engine."""
+def _states_fit(k: int, M: int, real_dtype: torch.dtype, device) -> bool:
     budget = device_memory_budget(device)
     if budget is None:
         return True
     itemsize = torch.empty((), dtype=real_dtype).element_size()
-    return 2 * (2 * (1 << n) * itemsize) <= budget
+    return k * (2 * (1 << M) * itemsize) <= budget
+
+
+def fused_attempt_fits(M: int, real_dtype: torch.dtype, device) -> bool:
+    """True when FOUR (2, 2^M) work-register states fit the budget: the
+    semiclassical structured step's envelope (the state, the rotated
+    branch and the permutation legs' plane-sized transients), the JAX
+    package's 4-state ``fused_attempt_fits``."""
+    return _states_fit(4, M, real_dtype, device)
+
+
+def step_program_fits(M: int, real_dtype: torch.dtype, device) -> bool:
+    """True when THREE (2, 2^M) work-register states fit the budget: the
+    semiclassical gather step's envelope (state, rotated branch and their
+    temporaries), the JAX package's 3-state ``step_program_fits``."""
+    return _states_fit(3, M, real_dtype, device)
+
+
+def two_state_programs_fit(n: int, real_dtype: torch.dtype, device) -> bool:
+    """True when TWO (2, 2^n) planar states of `real_dtype` fit the budget
+    (always on a CPU device with no override): the one predicate for "the
+    out-of-place ladder kernel fits", as in the JAX package's engine."""
+    return _states_fit(2, n, real_dtype, device)

@@ -1,5 +1,6 @@
 """The port never imports jax: a fresh interpreter imports the package, runs
-a 7-qubit circuit and checks that no jax module was loaded.  chip_smoke.py is
+a 7-qubit circuit and a tiny semiclassical attempt, and checks that no jax
+module was loaded.  chip_smoke.py is
 imported too (without running it), since it must run where jax is absent."""
 
 import os
@@ -13,12 +14,16 @@ import sys
 import quantumcomputer_tpu_torch as q
 import quantumcomputer_tpu_torch.cli
 import quantumcomputer_tpu_torch.interop
+import quantumcomputer_tpu_torch.ops.modperm
+from quantumcomputer_tpu_torch.algorithms import semiclassical
 import chip_smoke
 
 eng = q.StateVectorEngine(q.Register(L=3, M=4), backend="torch")
 state = eng.run(q.shor_circuit(15, 7, 3, 4))
 assert state.shape == (2, 128), state.shape
 assert abs(eng.norm(state) - 1.0) < 1e-6
+rec = semiclassical.run_semiclassical(15, 7, 3, 4, [0.1, 0.6, 0.3], structured=True)
+assert rec.x_tilde in range(8) and len(rec.branch_probs) == 3
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules

@@ -52,6 +52,24 @@ def test_cli_trial_loop_and_complex128(capsys):
     assert " --- Trial integer a = 2, finding period ..." in out
 
 
+# Semiclassical argument sets the JAX package refuses: each of its
+# semiclassical checks (quantumcomputer_tpu/cli.py:115-168), in its order.
+SEMICLASSICAL_BAD = [
+    ["-C", "15", "-L", "3", "-M", "3", "--semiclassical"],
+    ["-C", "15", "-L", "3", "-M", "31", "--semiclassical"],
+    ["-C", "15", "-L", "53", "-M", "4", "--semiclassical"],
+    ["-C", "1073741824", "-L", "3", "-M", "30", "--semiclassical"],
+    ["-C", "15", "-L", "3", "-M", "4", "--semiclassical", "--devices", "32"],
+    ["-C", "15", "-L", "3", "-M", "4", "--semiclassical", "--layout", "m_high"],
+    ["-C", "15", "-L", "3", "-M", "4", "--semiclassical", "--strict-reference"],
+    ["-C", "15", "-L", "3", "-M", "4", "--semiclassical", "--dtype", "dd64", "--devices", "2"],
+    ["-C", "15", "-L", "3", "-M", "4", "--semiclassical", "--dtype", "dd64", "--checkpoint-dir", "ck"],
+    ["-C", "15", "-L", "3", "-M", "4", "--semiclassical", "--checkpoint-dir", "ck", "--devices", "2"],
+    ["-C", "15", "-L", "0", "-M", "4", "--semiclassical"],
+    ["-C", "15", "-L", "3", "-M", "4", "-a", "14", "--semiclassical"],
+]
+
+
 @pytest.mark.parametrize(
     "argv",
     [
@@ -61,7 +79,8 @@ def test_cli_trial_loop_and_complex128(capsys):
         ["-C", "15", "-L", "30", "-M", "4"],
         ["-C", "15", "-L", "3", "-M", "4", "--dtype", "dd64", "--layout", "m_high"],
         ["-C", "15", "-L", "3", "-M", "4", "--layout", "m_high", "--devices", "32"],
-    ],
+    ]
+    + SEMICLASSICAL_BAD,
 )
 def test_bad_arguments_exit_2_with_the_jax_message(argv, capsys):
     want = jcli.validate(jcli.build_parser().parse_args(argv))
@@ -80,7 +99,7 @@ def test_missing_M_is_an_argparse_error():
 @pytest.mark.parametrize(
     "extra,flag",
     [
-        (["--semiclassical"], "--semiclassical"),
+        (["--semiclassical", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
         (["--devices", "2"], "--devices > 1"),
         (["--oracle", "benes"], "--oracle benes"),
         (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
@@ -93,6 +112,19 @@ def test_unported_flags_exit_2(extra, flag, capsys):
     assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7"] + extra) == 2
     err = capsys.readouterr().err
     assert err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
+
+
+@pytest.mark.parametrize(
+    "extra,flag",
+    [
+        (["--devices", "2"], "--devices > 1"),
+        (["--dtype", "complex32"], "--dtype complex32"),
+        (["--dtype", "dd64"], "--dtype dd64"),
+    ],
+)
+def test_unported_semiclassical_flags_exit_2(extra, flag, capsys):
+    assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--semiclassical"] + extra) == 2
+    assert capsys.readouterr().err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
 
 
 def test_cli_factors_15_in_the_mhigh_layout(capsys):
