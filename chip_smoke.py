@@ -44,7 +44,25 @@ Phases, each of which must pass:
      M = 30 (complex64, an 8 GiB work state) with
      shors_algorithm(semiclassical=True, backend="cuda"), its bits equal to
      scripts/predict_semiclassical.py's exact prediction on the same draws,
-     the launch counters reset just before and read just after.
+     the launch counters reset just before and read just after;
+  8. the m_high row-gather oracle (apply_camodc_high_planar) at n = 28 in the
+     flagship geometry (C = 8191, A = 3, M = 13): controls 14 (the JAX
+     kernel's pure blocks), 3 (mixed) and 0 (below the vector width), in
+     float32 and float64, each exactly equal to its plain version and timed
+     beside it and beside the in-place cycle walk on the same gate;
+  9. the probe scripts at M = 28 (a 1 GiB plane, W = 16384):
+     scripts.prof_chunkgather (copy at identity and 1024-aligned starts,
+     roll2 and mxuroll at arbitrary starts, the transpose at the JAX
+     script's shapes) and scripts.prof_rowperm (its plain torch rows, then
+     dynroll and rowroll on (2, 2^28)); every row exactly equal to its
+     reference, with ms and GB/s;
+ 10. the validation layer on the card: TABLE I (table1_experiment, 400
+     shots) and the experiments CLI with --fig3; the FIG. 2 norm trace of
+     factoring 39 at complex128 with fuse=False (max deviation < 1e-13, one
+     fused launch per gate with an op form); run_with_norms on the n = 28
+     flagship in both layouts (every norm within 1e-4 of 1, one per entry of
+     the plan); phase_profile of the m_high flagship; and a fuse=False run at
+     n = 20 whose fused-kernel launches equal its gates with an op form.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Any
 failure exits non-zero without that line.  Imports nothing of JAX.
@@ -79,6 +97,10 @@ ORACLE_CASES = [
     ("ladder", "ladder", (11, 12), 21, 6),
     ("ladder", "ladder", tuple(range(11, 15)), 21, 6),
     ("ladder", "ladder", tuple(range(11, 19)), 25, 6),
+    ("oracle_gather", "gather", (0,), 17, 6),
+    ("oracle_gather", "gather", (1,), 17, 6),
+    ("oracle_gather", "gather", (3,), 21, 6),
+    ("oracle_gather", "gather", (14,), 21, 6),
 ]
 BLOCK_SUMS_TOL = 1e-6
 FLAGSHIP_TOL = 1e-4
@@ -91,6 +113,9 @@ PERMUTE_MS = (20, 28)  # apply_stride_permute against the element map at C = 2^M
 # scripts/predict_semiclassical.py over this package's draws), the one with
 # the widest min draw margin, 0.0994.
 SC_SEED = 189
+GATHER_CONTROLS = (14, 3, 0)  # pure, mixed and sub-vector controls at n = 28, M = 13
+PROBE_M, PROBE_W = 28, 16384
+UNFUSED = (8191, 3, 7, 13)  # C, a, L, M: n = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -108,19 +133,10 @@ def log(msg: str) -> None:
 
 def time_ms(fn, reps: int = 5) -> float:
     """Mean milliseconds per call of fn on the card: CUDA events around
-    `reps` calls after one warm-up call."""
-    import torch
+    `reps` calls after one warm-up call (profiling.cuda_ms)."""
+    from quantumcomputer_tpu_torch.utils.profiling import cuda_ms
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return cuda_ms(fn, reps)
 
 
 def card_line() -> str:
@@ -209,6 +225,10 @@ def run_oracle(site: str, planar, C: int, A_list, controls, M: int, plain: bool)
         if plain:
             return tops.apply_camodc_ladder_high_planes_(planar.clone(), C, A_list, controls, M)
         return oracle.apply_camodc_ladder_high_planar(planar, torch.empty_like(planar), C, A_list, controls, M)
+    if site == "gather":
+        if plain:
+            return tops.apply_camodc_high_planes_(planar.clone(), C, A_list[0], controls[0], M)
+        return oracle.apply_camodc_high_planar(planar, torch.empty_like(planar), C, A_list[0], controls[0], M)
     if plain:
         if site == "pair":
             return tops.apply_camodc_ladder_high_planes_(planar, C, A_list, controls, M)
@@ -308,22 +328,23 @@ def phase_cli() -> None:
 
 
 def reset_launches() -> None:
-    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, transpose
+    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, transpose
 
     fused.LAUNCHES = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
-    for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES):
+    for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches() -> dict:
-    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, transpose
+    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, transpose
 
     return {
         "fused_segment": fused.LAUNCHES, "block_sums": measure.LAUNCHES, **oracle.LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
+        **{f"probe_{k}": v for k, v in probes.LAUNCHES.items()},
     }
 
 
@@ -531,9 +552,9 @@ def phase_factor(report: dict) -> None:
 def exact_err(got, want) -> float:
     """Max abs difference of two tensors that must be equal (inf on a
     shape mismatch)."""
-    if got.shape != want.shape:
-        return float("inf")
-    return float((got - want).abs().max()) if got.numel() else 0.0
+    from quantumcomputer_tpu_torch.scripts import exact_err as err
+
+    return err(got, want)
 
 
 def planned_multipliers(C: int, M: int, count: int, seed: int) -> list:
@@ -794,6 +815,154 @@ def phase_semiclassical_factor(report: dict) -> None:
         check(n > 0, f"the semiclassical main path launched no chunk_gather {form}")
 
 
+def phase_gather_oracle(report: dict) -> None:
+    """The row-gather oracle at n = 28, M = 13: each control and dtype
+    through apply_camodc_high_planar (the launches counted are those calls),
+    then held against the plain version and timed beside it and beside the
+    cycle walk on the same gate."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import gates as tops
+    from quantumcomputer_tpu_torch.ops import oracle
+
+    C, a, L, M = FLAGSHIP
+    n = L + M
+    entry = report["oracle_gather"]
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).replace("torch.", "")
+        gen = torch.Generator(device=DEVICE).manual_seed(40)
+        x = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=dtype)
+        out = torch.empty_like(x)
+        for c in GATHER_CONTROLS:
+            before = oracle.LAUNCHES["gather"]
+            got = oracle.apply_camodc_high_planar(x, out, C, a, c, M)
+            entry["launches"] += oracle.LAUNCHES["gather"] - before
+            want = tops.apply_camodc_high_planes_(x.clone(), C, a, c, M)
+            err = exact_err(got, want)
+            del want
+            torch.cuda.synchronize()
+            check(err == 0.0, f"oracle_gather {dname} control {c} at n={n}: {err} != 0")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            k_ms = time_ms(lambda: oracle.apply_camodc_high_planar(x, out, C, a, c, M), reps=5)
+            p_ms = time_ms(lambda: tops.apply_camodc_high_planes_(out, C, a, c, M), reps=2)
+            walk = x.clone()
+            w_ms = time_ms(lambda: oracle.apply_camodc_high_cycle_planar(walk, C, a, c, M), reps=5)
+            del walk
+            if dtype == torch.float32 and c == GATHER_CONTROLS[0]:
+                entry["ms"], entry["plain_ms"] = k_ms, p_ms
+            gbs = 2 * x.numel() * x.element_size() / (k_ms * 1e6)
+            log(
+                f"kernel oracle_gather {dname} n={n} M={M} control {c}: max abs {err:.3e} (tol 0); kernel {k_ms:.4f} ms "
+                f"({gbs:.1f} GB/s 1R+1W), plain {p_ms:.4f} ms, cycle walk {w_ms:.4f} ms"
+            )
+        del x, out
+        torch.cuda.empty_cache()
+    check(entry["launches"] == 2 * len(GATHER_CONTROLS), f"oracle_gather launches {entry['launches']}")
+
+
+def phase_probes(report: dict) -> None:
+    """The probe scripts at M = 28 through their entry points, the launch
+    counters reset just before and read just after."""
+    from quantumcomputer_tpu_torch.scripts import prof_chunkgather, prof_rowperm
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = prof_chunkgather.run(PROBE_M, PROBE_W, reps=3, device=DEVICE)
+    rows += prof_rowperm.run(PROBE_M, reps=3, device=DEVICE)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    log(f"probes M={PROBE_M} W={PROBE_W}: {len(rows)} rows in {wall:.3f} s, launches {counts}")
+    for row in rows:
+        check(row["ok"], f"probe row {row['name'].strip()}: max abs {row['max_abs_err']} != 0")
+    by_name = {row["name"].strip(): row for row in rows}
+    for key, row_name in (
+        ("probe_copy", "aligned"), ("probe_roll2", "roll2"), ("probe_mxuroll", "mxuroll"),
+        ("probe_dynroll", "pallas dyn-roll blk8"), ("probe_rowroll", "pallas per-row roll"),
+    ):
+        row = by_name[row_name]
+        report[key].update(launches=counts[key], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"])
+        check(counts[key] > 0, f"the probe scripts launched no {key} kernel")
+
+
+def phase_validation() -> None:
+    """TABLE I, FIG. 2 and FIG. 3, the n = 28 norm traces, the m_high phase
+    profile and the fuse=False route, on the cuda backend."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh, shor_circuit_reference
+    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+    from quantumcomputer_tpu_torch.utils import experiments, profiling
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = experiments.table1_experiment(
+        runs=400, engine=StateVectorEngine(Register(L=3, M=4), torch.complex64, backend=KERNEL_BACKEND, device=DEVICE)
+    )
+    log(f"TABLE I on {KERNEL_BACKEND}: {res}; {time.perf_counter() - t0:.3f} s, launches {launches()}")
+    check(res.passed, f"TABLE I failed: {res}")
+    check(fused.LAUNCHES > 0, "TABLE I launched no fused-segment kernel")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = experiments.main(["--runs", "400", "--fig3"])
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    log(f"experiments CLI --runs 400 --fig3: exit {rc}, {time.perf_counter() - t0:.3f} s")
+    check(rc == 0, f"the experiments CLI returned {rc}")
+
+    circuit = shor_circuit_reference(39, 7, 6, 6)
+    ops = sum(fused.gate_to_op(g) is not None for g in circuit)
+    eng = StateVectorEngine(Register(L=6, M=6), torch.complex128, backend=KERNEL_BACKEND, device=DEVICE, fuse=False)
+    reset_launches()
+    tr = experiments.norm_deviation_trace(39, 7, 6, 6, engine=eng)
+    counts = launches()
+    log(
+        f"FIG. 2 (39, a=7, L=M=6, complex128, fuse=False): {len(tr.deviations)} gates, max deviation "
+        f"{tr.max_deviation:.3e} (tol 1e-13), launches {counts}"
+    )
+    check(tr.max_deviation < 1e-13, f"FIG. 2 max deviation {tr.max_deviation}")
+    check(counts["fused_segment"] == ops, f"FIG. 2: {counts['fused_segment']} fused launches for {ops} gates with an op form")
+
+    C, a, L, M = FLAGSHIP
+    for layout, make_circuit in (("standard", shor_circuit), ("m_high", shor_circuit_mhigh)):
+        circuit = make_circuit(C, a, L, M)
+        eng = StateVectorEngine(Register(L=L, M=M), torch.complex64, backend=KERNEL_BACKEND, device=DEVICE, layout=layout)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, norms = eng.run_with_norms(circuit)
+        wall = time.perf_counter() - t0
+        dev = float((norms - 1.0).abs().max())
+        log(
+            f"run_with_norms flagship n={L + M} {layout}: {len(norms)} norms ({wall:.3f} s, launches {launches()}), "
+            f"max |norm - 1| {dev:.3e} (tol {FLAGSHIP_TOL:.0e}): {[round(float(v), 9) for v in norms]}"
+        )
+        check(len(norms) == len(eng._plan(circuit)), f"{layout}: {len(norms)} norms for {len(eng._plan(circuit))} plan entries")
+        check(dev <= FLAGSHIP_TOL, f"{layout} flagship norm trace deviates by {dev}")
+        del state
+        if layout == "m_high":
+            phases = [("H layer", circuit[:L]), ("oracle ladder", circuit[L:2 * L]), ("inverse QFT", circuit[2 * L:])]
+            for p in profiling.phase_profile(eng, phases, iters=3):
+                log(f"phase_profile m_high n={L + M}: {p.label:13s} {p.n_gates:2d} gates {p.seconds * 1e3:.3f} ms")
+        torch.cuda.empty_cache()
+
+    C, a, L, M = UNFUSED
+    for layout, make_circuit in (("standard", shor_circuit), ("m_high", shor_circuit_mhigh)):
+        circuit = make_circuit(C, a, L, M)
+        ops = sum(fused.gate_to_op(g) is not None for g in circuit)
+        reg = Register(L=L, M=M)
+        reset_launches()
+        got = StateVectorEngine(reg, backend=KERNEL_BACKEND, device=DEVICE, layout=layout, fuse=False).run(circuit)
+        counts = launches()
+        want = StateVectorEngine(reg, backend=KERNEL_BACKEND, device=DEVICE, layout=layout).run(circuit)
+        dist = float(torch.linalg.vector_norm(got - want))
+        log(f"fuse=False n={L + M} {layout}: {len(circuit)} gates, {ops} with an op form; launches {counts}; "
+            f"||fuse=False - fuse=True||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
+        check(counts["fused_segment"] == ops, f"fuse=False {layout}: {counts['fused_segment']} fused launches for {ops} gates")
+        check(dist <= FLAGSHIP_TOL, f"fuse=False vs fuse=True {layout}: {dist}")
+
+
 def main() -> int:
     try:
         import torch
@@ -852,7 +1021,22 @@ def main() -> int:
             "replaces": "quantumcomputer_tpu/ops/pallas_chunkgather.py:79",
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
         },
+        "oracle_gather": {
+            "name": "oracle_gather", "route": "cuda",
+            "source": "quantumcomputer_tpu_torch/ops/csrc/oracle_gather.cu",
+            "replaces": "quantumcomputer_tpu/ops/pallas_oracle.py:47",
+            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+        },
     }
+    for name, replaces in (
+        ("probe_copy", "scripts/prof_chunkgather.py:86"), ("probe_roll2", "scripts/prof_chunkgather.py:99"),
+        ("probe_mxuroll", "scripts/prof_chunkgather.py:120"), ("probe_dynroll", "scripts/prof_rowperm.py:158"),
+        ("probe_rowroll", "scripts/prof_rowperm.py:186"),
+    ):
+        report[name] = {
+            "name": name, "route": "cuda", "source": "quantumcomputer_tpu_torch/ops/csrc/probes.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+        }
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -865,7 +1049,13 @@ def main() -> int:
     phase_semiclassical_timing(report)
     phase_semiclassical_cli()
     phase_semiclassical_factor(report)
+    phase_gather_oracle(report)
+    phase_probes(report)
+    phase_validation()
 
+    for entry in report.values():
+        check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,
+              f"kernel {entry['name']}: incomplete report {entry}")
     log(json.dumps({"kernels": list(report.values())}))
     log(card)
     print(json.dumps({

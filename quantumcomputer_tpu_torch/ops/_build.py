@@ -10,7 +10,8 @@ changed source never loads a stale library.  A failed build raises.
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the
 wrappers in ``ops/fused.py``, ``ops/measure.py``, ``ops/oracle.py``,
-``ops/transpose.py`` and ``ops/chunkgather.py`` raise when it is not 0.
+``ops/transpose.py``, ``ops/chunkgather.py`` and ``ops/probes.py`` raise
+when it is not 0.
 """
 
 from __future__ import annotations
@@ -111,6 +112,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         # in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows, log_rest, stream
         fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, p]
         fn.restype = ctypes.c_int
+    for name in ("qc_oracle_gather_f32", "qc_oracle_gather_f64"):
+        fn = getattr(lib, name)
+        # in_re, in_im, out_re, out_im, ginv, log_rows, log_rest, c_phys, stream
+        fn.argtypes = [p, p, p, p, p, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
     for name in ("qc_oracle_cycle_f32", "qc_oracle_cycle_f64"):
         fn = getattr(lib, name)
         # re, im, sched, log_rows, log_rest, c_phys, stream
@@ -130,6 +136,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         # x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream
         fn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_probe_copy", "qc_probe_roll2", "qc_probe_mxuroll"):
+        fn = getattr(lib, name)
+        # x, starts, out, dim, nc, W, stream
+        fn.argtypes = [p, p, p, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+    for name in ("qc_probe_dynroll", "qc_probe_rowroll"):
+        fn = getattr(lib, name)
+        # x, shifts, out, B, stream
+        fn.argtypes = [p, p, p, i64, p]
         fn.restype = ctypes.c_int
     lib.qc_error_string.argtypes = [ctypes.c_int]
     lib.qc_error_string.restype = ctypes.c_char_p

@@ -182,6 +182,16 @@ def plan_circuit(circuit: Circuit, n: int, M: int, tile_bits: int = TILE_BITS[to
     return segments
 
 
+def gate_segment(g: Gate, n: int, tile_bits: int) -> Optional[Tuple[tuple, tuple]]:
+    """(ops, axes) of one gate as a one-op segment, or None when the gate
+    has no op form: the single-gate entry points of the JAX package's
+    ``pallas_gates``, which run each gate as a one-op fused segment."""
+    if gate_to_op(g) is None:
+        return None
+    ((_, ops, axes),) = plan_circuit((g,), n, 0, tile_bits)
+    return ops, axes
+
+
 def tile_geometry(n: int, axes, tile_bits: int) -> Tuple[int, Tuple[int, ...]]:
     """(t, exposed axes >= t ascending) for a segment: the most contiguous
     low bits t such that t plus the exposed axes fit the tile."""

@@ -5,8 +5,11 @@ The counterpart of the JAX package's ``ops/pallas_oracle.py``.  In the
 m_high layout the work register is the top M physical bits, so over the
 (2^M, 2^(n-M)) view of each plane a controlled modular multiply moves whole
 rows of the columns whose control bit is set:
-x[j, col] <- x[ginv[j], col].  Three CUDA kernels carry it:
+x[j, col] <- x[ginv[j], col].  Four CUDA kernels carry it:
 
+  * ``gather`` (``csrc/oracle_gather.cu``): one gate out of place,
+    ``in`` -> ``out`` (``apply_camodc_high_planar``; the JAX package's
+    blocked row gather, which its dispatcher never picks either);
   * ``ladder`` (``csrc/oracle_ladder.cu``): a fused run of K <= 8 gates in
     one out-of-place gather, ``in`` -> ``out``;
   * ``cycle`` (``csrc/oracle_cycle.cu``): one gate in place, its control at
@@ -38,7 +41,7 @@ from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.sim import statevec as sv
 
 #: Kernel launches per kernel (CUDA tensors only).
-LAUNCHES = {"ladder": 0, "cycle": 0, "cycle_masked": 0}
+LAUNCHES = {"gather": 0, "ladder": 0, "cycle": 0, "cycle_masked": 0}
 
 # The JAX package's thresholds (pallas_oracle.py), in its units.
 LANE = 128
@@ -167,6 +170,12 @@ def _schedules(C: int, A_list: tuple, M: int, device: torch.device) -> torch.Ten
 
 
 @lru_cache(maxsize=256)
+def _ginv(C: int, atox: int, M: int, device: torch.device) -> torch.Tensor:
+    """int32 (2^M,) inverse permutation of one gate."""
+    return torch.from_numpy(tops.modmul_inverse_permutation(C, atox, M).astype(np.int32)).to(device)
+
+
+@lru_cache(maxsize=256)
 def _combo(C: int, A_list: tuple, device: torch.device) -> torch.Tensor:
     """int32 (2^K,) composed inverse multipliers."""
     return torch.from_numpy(tops.modexp_combo_multipliers(C, list(A_list)).astype(np.int32)).to(device)
@@ -203,6 +212,41 @@ def _stream(planar: torch.Tensor) -> int:
     return torch.cuda.current_stream(planar.device).cuda_stream
 
 
+def _check_out(planar: torch.Tensor, out: torch.Tensor) -> None:
+    if out.shape != planar.shape or out.dtype != planar.dtype or out.device != planar.device:
+        raise ValueError("out must match the state's shape, dtype and device")
+    if not out.is_contiguous() or out.data_ptr() == planar.data_ptr():
+        raise ValueError("out must be a distinct contiguous buffer")
+
+
+def apply_camodc_high_planar(planar: torch.Tensor, out: torch.Tensor, C: int, atox: int, c_phys: int, M: int) -> torch.Tensor:
+    """One controlled modular multiply (m_high layout), OUT OF PLACE: reads
+    `planar`, writes out[j, col] = ctrl(col) ? x[ginv[j], col] : x[j, col]
+    into `out` (a distinct buffer of the same shape and dtype) and returns
+    it.  The JAX function's own limits hold: 2^M >= 8 rows of >= 1024
+    columns."""
+    log_rows, log_rest = _geometry(planar, C, M, (c_phys,))
+    if (1 << log_rows) < ROWS_PER_BLOCK:
+        raise ValueError(f"2^M={1 << log_rows} < {ROWS_PER_BLOCK}: M too small for the row-gather oracle")
+    if (1 << log_rest) < MIN_REST:
+        raise ValueError(f"rows of 2^(n-M)={1 << log_rest} < {MIN_REST} columns are too short for the row-gather oracle")
+    kind = _device_kind(planar, "gather")
+    _check_out(planar, out)
+    if kind == "cpu":
+        return tops.apply_camodc_high_planes_(out.copy_(planar), C, atox, c_phys, M)
+    planes = (planar[0], planar[1], out[0], out[1])
+    if any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("the row-gather kernel needs 16-byte aligned planes")
+    ginv = _ginv(C, int(atox) % C, M, planar.device)
+    lib = _build.load()
+    fn = lib.qc_oracle_gather_f32 if planar.dtype == torch.float32 else lib.qc_oracle_gather_f64
+    with torch.cuda.device(planar.device):
+        err = fn(*(p.data_ptr() for p in planes), ginv.data_ptr(), log_rows, log_rest, c_phys, _stream(planar))
+    _build.check(err, "oracle gather")
+    LAUNCHES["gather"] += 1
+    return out
+
+
 def apply_camodc_ladder_high_planar(
     planar: torch.Tensor, out: torch.Tensor, C: int, A_list, controls, M: int
 ) -> torch.Tensor:
@@ -213,10 +257,7 @@ def apply_camodc_ladder_high_planar(
     log_rows, log_rest = _geometry(planar, C, M, controls)
     if len(controls) > MAX_LADDER_K or len(A_list) != len(controls):
         raise ValueError(f"a ladder takes 1..{MAX_LADDER_K} gates with one control each")
-    if out.shape != planar.shape or out.dtype != planar.dtype or out.device != planar.device:
-        raise ValueError("out must match the state's shape, dtype and device")
-    if not out.is_contiguous() or out.data_ptr() == planar.data_ptr():
-        raise ValueError("out must be a distinct contiguous buffer")
+    _check_out(planar, out)
     if _device_kind(planar, "ladder") == "cpu":
         return tops.apply_camodc_ladder_high_planes_(out.copy_(planar), C, A_list, controls, M)
     combo = _combo(C, tuple(int(A) for A in A_list), planar.device)

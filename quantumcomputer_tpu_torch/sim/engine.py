@@ -14,7 +14,10 @@ the plan per circuit instead.  Backends:
     through the row-permutation kernels (``ops/oracle.py``); the standard
     layout's oracle stays a torch gather, as it stays an XLA gather in the
     JAX package.  Measurement of f32 states of >= 2^16 amplitudes goes
-    through the block-sum kernel (``ops/measure.py``).
+    through the block-sum kernel (``ops/measure.py``).  With
+    ``fuse=False`` the circuit runs gate by gate (``apply_gate_planes_``),
+    every gate with a fused-op form as a one-op segment of the same
+    kernel: on this backend no such gate ever runs through the plain ops.
   * ``auto``: ``cuda`` when a CUDA device is present, else ``torch``.
 
 Layouts: ``standard`` (the reference's bit convention) and ``m_high`` (the
@@ -115,13 +118,20 @@ def _store_(planar: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 
 def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
-    """One gate on a planar state, in place: the oracles through their
-    in-place paths, anything else through the complex plain ops.  The
-    m_high oracles dispatch as the JAX package's pallas_gates does: a lone
-    gate to the masked walk when perm_supported, else to the cycle walk; a
-    K = 2 run to the in-place pair when pair_inplace_supported, any other run
-    to the out-of-place ladder through a temporary and a copy back
-    (apply_circuit_fused_ avoids that copy)."""
+    """One gate on a planar state, in place.  A gate with a fused-op form
+    runs as a one-op segment through fused.apply_fused (the kernel for a
+    CUDA tensor, its plain version for a CPU tensor), as the JAX package's
+    pallas_gates runs single gates; the oracles through their in-place
+    paths; only a gate with neither (mcphase) through the complex plain
+    ops.  The m_high oracles dispatch as the JAX package's pallas_gates
+    does: a lone gate to the masked walk when perm_supported, else to the
+    cycle walk; a K = 2 run to the in-place pair when
+    pair_inplace_supported, any other run to the out-of-place ladder
+    through a temporary and a copy back (apply_circuit_fused_ avoids that
+    copy)."""
+    seg = fused.gate_segment(g, sv.num_qubits(planar), fused.TILE_BITS[planar.dtype])
+    if seg is not None:
+        return fused.apply_fused(planar, seg[0], seg[1], M)
     if g.name == "camodc":
         C, atox = g.meta
         return tops.apply_c_amodc_planes_(planar, C, atox, g.qubits[0], M)
@@ -144,13 +154,27 @@ def _pair_in_place(planar: torch.Tensor, g: Gate) -> bool:
     return oracle.pair_inplace_supported(g.qubits, g.meta[1], sv.num_qubits(planar), planar.element_size())
 
 
-def apply_circuit_plain_(planar: torch.Tensor, circuit: Circuit, M: int) -> torch.Tensor:
+def apply_circuit_plain_(planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None) -> torch.Tensor:
     """The torch backend: every gate through the plain ops; the result is
-    written back into `planar`."""
+    written back into `planar`.  With a `norms` list, the norm after each
+    gate is appended to it (a 0-d tensor on the state's device)."""
     z = sv.to_complex(planar)
     for g in circuit:
         z = apply_gate(z, g, M)
+        if norms is not None:
+            norms.append(torch.sum(z.real * z.real) + torch.sum(z.imag * z.imag))
     return _store_(planar, z)
+
+
+def apply_circuit_per_gate_(planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None) -> torch.Tensor:
+    """The cuda backend with fusion off: every gate in place through
+    apply_gate_planes_ (the JAX package's apply_circuit_planes(fuse=False)).
+    `norms` as in apply_circuit_plain_."""
+    for g in circuit:
+        apply_gate_planes_(planar, g, M)
+        if norms is not None:
+            norms.append(sv.norm(planar))
+    return planar
 
 
 MAX_LADDER_RUN = oracle.MAX_LADDER_K
@@ -247,29 +271,33 @@ def plan_circuit(circuit: Circuit, M: int, n: int, real_dtype: torch.dtype, devi
     return fused.plan_circuit(circuit, n, M, fused.TILE_BITS[real_dtype])
 
 
-def apply_circuit_fused_(planar: torch.Tensor, circuit: Circuit, M: int, plan=None) -> torch.Tensor:
+def apply_circuit_fused_(
+    planar: torch.Tensor, circuit: Circuit, M: int, plan=None, norms: Optional[list] = None
+) -> torch.Tensor:
     """The cuda backend's path: fused segments through fused.apply_fused
     (the kernel for CUDA tensors, its plain version for CPU tensors), an
     out-of-place ladder between `planar` and one scratch buffer, every other
     single gate in place through apply_gate_planes_.  Returns the buffer
     that holds the result: `planar`, or the scratch buffer after an odd
-    number of ladders."""
+    number of ladders.  With a `norms` list, the norm after each entry of
+    the plan (segment or single gate) is appended to it."""
     if plan is None:
         plan = plan_circuit(circuit, M, sv.num_qubits(planar), planar.dtype, planar.device)
     cur, spare = planar, None
     for seg in plan:
         if seg[0] == "fused":
             fused.apply_fused(cur, seg[1], seg[2], M)
-            continue
-        g = seg[1]
-        if g.name == "camodc_ladder_high" and not _pair_in_place(cur, g):
+        elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
+            g = seg[1]
             if spare is None:
                 spare = torch.empty_like(cur)
             C, m_reg = g.meta[0], g.meta[1]
             oracle.apply_camodc_ladder_high_planar(cur, spare, C, g.meta[2:], g.qubits, m_reg)
             cur, spare = spare, cur
         else:
-            apply_gate_planes_(cur, g, M)
+            apply_gate_planes_(cur, seg[1], M)
+        if norms is not None:
+            norms.append(sv.norm(cur))
     return cur
 
 
@@ -285,7 +313,9 @@ class StateVectorEngine:
     """Executes circuits on a (2, 2^n) planar state resident on `device`.
 
     States are planar real tensors (plane 0 = Re, plane 1 = Im); float32
-    planes for complex64, float64 for complex128."""
+    planes for complex64, float64 for complex128.  `fuse` (cuda backend):
+    plan the circuit into fused segments and oracle ladders (True), or run
+    it gate by gate, each gate through its kernel (False)."""
 
     def __init__(
         self,
@@ -294,6 +324,7 @@ class StateVectorEngine:
         backend: str = "auto",
         device=None,
         layout: str = "standard",
+        fuse: bool = True,
     ):
         if layout not in ("standard", "m_high"):
             raise ValueError(f"unknown layout {layout!r}")
@@ -309,6 +340,7 @@ class StateVectorEngine:
         self.real_dtype = sv.real_dtype_of(dtype)
         self.dtype = torch.complex64 if self.real_dtype == torch.float32 else torch.complex128
         self.layout = layout
+        self.fuse = fuse
         # In the m_high layout the counting register is the low physical
         # bits, so the iQFT ladder boundary is physical bit 0 and the reset
         # |0..01> (work register = 1) is physical index 2^L.
@@ -327,6 +359,9 @@ class StateVectorEngine:
         """|00...01> (qc_shor.c:318-324), planar (layout-aware)."""
         return sv.initial_planar(self.register.n, self.real_dtype, self.reset_index, self.device)
 
+    def zero_state(self) -> torch.Tensor:
+        return sv.zero_planar(self.register.n, self.real_dtype, self.device)
+
     def logical_index(self, phys: int) -> int:
         """Map a measured physical basis index back to the logical
         (reference bit-convention) index."""
@@ -344,19 +379,37 @@ class StateVectorEngine:
             self._plans[circuit] = plan
         return plan
 
+    def _run(self, circuit: Circuit, state: Optional[torch.Tensor], norms: Optional[list]) -> torch.Tensor:
+        fresh = state is None
+        if fresh:
+            state = self.initial_state()
+        if self.backend == "torch":
+            return apply_circuit_plain_(state, circuit, self.m_eff, norms)
+        if not self.fuse:
+            return apply_circuit_per_gate_(state, circuit, self.m_eff, norms)
+        out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit), norms)
+        if out is not state and not fresh:
+            state.copy_(out)
+            return state
+        return out
+
     def run(self, circuit: Circuit, state: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply a circuit and return the planar state.  With no input state
         the run starts from the |0..01> reset.  A caller-supplied `state` is
         CONSUMED: it is updated in place (the counterpart of the JAX
         engine's buffer donation) and returned."""
-        if self.backend == "torch":
-            return apply_circuit_plain_(self.initial_state() if state is None else state, circuit, self.m_eff)
-        if state is None:
-            return apply_circuit_fused_(self.initial_state(), circuit, self.m_eff, self._plan(circuit))
-        out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit))
-        if out is not state:
-            state.copy_(out)
-        return state
+        return self._run(circuit, state, None)
+
+    def run_with_norms(self, circuit: Circuit, state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """run(), also returning the norm trace (Report §IV.A / FIG. 2) on
+        the execution path itself: one norm per fused segment and per single
+        gate of the plan with fusion on the cuda backend, one per gate
+        otherwise.  Each norm is sum re^2 + im^2 in the plane dtype; they
+        stay on the device until the run ends and come back as one 1-d CPU
+        tensor.  CONSUMES a caller-supplied `state`, like run()."""
+        norms: list = []
+        out = self._run(circuit, state, norms)
+        return out, (torch.stack(norms).cpu() if norms else torch.zeros(0, dtype=self.real_dtype))
 
     def run_norm(self, circuit: Circuit) -> float:
         """Reset -> circuit -> norm (probability conservation check)."""
@@ -388,5 +441,12 @@ class StateVectorEngine:
         """One basis index per draw in `rs`, without collapsing the state."""
         return torch.tensor([self._sample(state, float(r)) for r in rs], dtype=torch.int64)
 
+    def probabilities(self, state: torch.Tensor) -> torch.Tensor:
+        return sv.probabilities(state)
+
     def norm(self, state: torch.Tensor) -> float:
         return float(sv.norm(state))
+
+    def to_numpy(self, state: torch.Tensor) -> np.ndarray:
+        """Host-side complex copy of a planar state (for inspection/tests)."""
+        return sv.to_numpy_complex(state)

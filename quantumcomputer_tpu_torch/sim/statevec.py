@@ -46,6 +46,11 @@ def initial_planar(n: int, dtype=torch.float32, index: int = 1, device="cpu") ->
     return planar
 
 
+def zero_planar(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """|00...0> as planes."""
+    return initial_planar(n, dtype, 0, device)
+
+
 def to_complex(planar: torch.Tensor) -> torch.Tensor:
     """(2, dim) planes -> (dim,) complex tensor (a copy)."""
     return torch.complex(planar[0], planar[1])

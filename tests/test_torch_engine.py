@@ -122,3 +122,106 @@ def test_sample_does_not_collapse_and_logical_index_is_identity():
     assert idx.tolist() == [eng.run_and_measure_index(shor_circuit(C, a, L, M), r) for r in rs]
     assert torch.equal(state, before)
     assert eng.logical_index(int(idx[0])) == int(idx[0])
+
+
+# ---------------------------------------------------------------------------
+# fuse=False, the per-gate route, and the engine surface of the validation
+# layer.
+
+
+@pytest.mark.parametrize("layout", ["standard", "m_high"])
+def test_per_gate_route_equals_fused_route(layout):
+    """The cuda backend's per-gate route (fuse=False) and its planned route
+    give the same state; on CPU tensors both run the kernels' plain
+    versions, so they must agree with the torch backend at 1e-12."""
+    from quantumcomputer_tpu_torch import shor_circuit_mhigh
+
+    C, a, L, M = 39, 7, 9, 6
+    circuit = shor_circuit_mhigh(C, a, L, M) if layout == "m_high" else shor_circuit(C, a, L, M)
+    m_eff = 0 if layout == "m_high" else M
+    eng = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, backend="torch", layout=layout, fuse=False)
+    want = eng.run(circuit)
+    per_gate = tengine.apply_circuit_per_gate_(eng.initial_state(), circuit, m_eff)
+    planned = tengine.apply_circuit_fused_(eng.initial_state(), circuit, m_eff)
+    np.testing.assert_allclose(interop.state_to_numpy(per_gate), interop.state_to_numpy(want), atol=1e-12)
+    np.testing.assert_allclose(interop.state_to_numpy(planned), interop.state_to_numpy(per_gate), atol=1e-12)
+    fused_eng = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, backend="torch", layout=layout)
+    assert eng.fuse is False and fused_eng.fuse is True
+    assert torch.equal(fused_eng.run(circuit), want)
+
+
+def test_zero_state_probabilities_and_to_numpy_match_jax():
+    C, a, L, M = 15, 7, 3, 4
+    jeng = JEngine(JRegister(L=L, M=M), dtype=jnp.complex128)
+    eng = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, backend="torch")
+    zero = eng.zero_state()
+    assert zero.dtype == torch.float64 and zero.device.type == "cpu"
+    np.testing.assert_array_equal(interop.state_to_numpy(zero), np.asarray(jeng.zero_state()))
+    jstate = jeng.run(jshor_circuit(C, a, L, M))
+    state = eng.run(shor_circuit(C, a, L, M))
+    np.testing.assert_allclose(eng.to_numpy(state), jeng.to_numpy(jstate), atol=1e-12)
+    np.testing.assert_allclose(eng.probabilities(state).numpy(), np.asarray(jeng.probabilities(jstate)), atol=1e-12)
+
+
+def test_no_gate_with_an_op_form_reaches_the_plain_ops(monkeypatch):
+    """The cuda backend's routes send every gate with a fused-op form
+    through fused.apply_fused (a one-op segment when run alone), never
+    through the complex plain ops: counted by patching both."""
+    from quantumcomputer_tpu_torch.models import circuit as cir
+    from quantumcomputer_tpu_torch.models.circuit import Gate
+
+    n, M = 14, 5
+    u = np.linalg.qr(np.random.default_rng(3).standard_normal((4, 4)))[0]
+    gates = (
+        cir.H(13), cir.X(2), cir.RZ(9, 0.3), cir.PHASE(12, 0.4), cir.CPHASE(13, 1, 0.5), cir.CZ(3, 11),
+        cir.CNOT(10, 2), cir.SWAP(4, 12), cir.U2Q(13, 6, u), cir.IQFT_STAGE(13), cir.IQFT_STAGE(M),
+        cir.MCPHASE((1, 7, 12), 0.25), cir.CAMODC(21, 2, 7), Gate("camodc_high", (3,), meta=(21, 4, M)),
+    )
+    with_op = [g for g in gates if fused.gate_to_op(g) is not None]
+    assert len(with_op) == 11
+    plain_calls, kernel_calls = [], []
+    real_plain, real_fused = tengine.apply_gate, fused.apply_fused
+
+    def counting_plain(state, g, m):
+        plain_calls.append(g.name)
+        return real_plain(state, g, m)
+
+    def counting_fused(planar, ops, axes, m):
+        kernel_calls.append(ops)
+        return real_fused(planar, ops, axes, m)
+
+    monkeypatch.setattr(tengine, "apply_gate", counting_plain)
+    monkeypatch.setattr(fused, "apply_fused", counting_fused)
+    state = interop.state_from_numpy(np.random.default_rng(4).standard_normal((2, 1 << n)))
+    want = interop.state_to_numpy(tengine.apply_circuit_plain_(state.clone(), gates, M))
+    plain_calls.clear()
+    got = tengine.apply_circuit_per_gate_(state.clone(), gates, M)
+    assert plain_calls == ["mcphase"] and len(kernel_calls) == len(with_op)
+    np.testing.assert_allclose(interop.state_to_numpy(got), want, atol=1e-12)
+    plain_calls.clear()
+    kernel_calls.clear()
+    got = tengine.apply_circuit_fused_(state.clone(), gates, M)
+    assert plain_calls == ["mcphase"] and kernel_calls
+    np.testing.assert_allclose(interop.state_to_numpy(got), want, atol=1e-12)
+    for g in with_op:
+        plain_calls.clear()
+        tengine.apply_gate_planes_(state.clone(), g, M)
+        assert plain_calls == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["standard", "m_high"])
+def test_unfused_engine_on_card_launches_the_fused_kernel(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the engine's cuda backend has no CPU mode")
+    from quantumcomputer_tpu_torch import shor_circuit_mhigh
+
+    C, a, L, M = 8191, 3, 7, 13
+    circuit = shor_circuit_mhigh(C, a, L, M) if layout == "m_high" else shor_circuit(C, a, L, M)
+    ops = sum(fused.gate_to_op(g) is not None for g in circuit)
+    eng = StateVectorEngine(Register(L=L, M=M), backend="cuda", layout=layout, fuse=False)
+    before = fused.LAUNCHES
+    got = eng.run(circuit)
+    assert fused.LAUNCHES == before + ops
+    want = StateVectorEngine(Register(L=L, M=M), backend="cuda", layout=layout).run(circuit)
+    assert float(torch.linalg.vector_norm(got - want)) < 1e-5

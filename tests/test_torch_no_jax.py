@@ -1,7 +1,9 @@
-"""The port never imports jax: a fresh interpreter imports the package, runs
-a 7-qubit circuit and a tiny semiclassical attempt, and checks that no jax
-module was loaded.  chip_smoke.py is
-imported too (without running it), since it must run where jax is absent."""
+"""The port never imports jax: a fresh interpreter imports the package, its
+validation layer (profiling, experiments, debug) and its probe kernels and
+scripts, runs a 7-qubit circuit, a norm trace, a few TABLE I shots and a
+tiny semiclassical attempt, and checks that no jax module was loaded.
+chip_smoke.py is imported too (without running it), since it must run where
+jax is absent."""
 
 import os
 import subprocess
@@ -15,13 +17,20 @@ import quantumcomputer_tpu_torch as q
 import quantumcomputer_tpu_torch.cli
 import quantumcomputer_tpu_torch.interop
 import quantumcomputer_tpu_torch.ops.modperm
+import quantumcomputer_tpu_torch.ops.probes
+import quantumcomputer_tpu_torch.scripts.prof_chunkgather
+import quantumcomputer_tpu_torch.scripts.prof_rowperm
 from quantumcomputer_tpu_torch.algorithms import semiclassical
+from quantumcomputer_tpu_torch.utils import debug, experiments, profiling
 import chip_smoke
 
 eng = q.StateVectorEngine(q.Register(L=3, M=4), backend="torch")
 state = eng.run(q.shor_circuit(15, 7, 3, 4))
 assert state.shape == (2, 128), state.shape
 assert abs(eng.norm(state) - 1.0) < 1e-6
+assert profiling.norm_trace(eng, q.shor_circuit(15, 7, 3, 4)).max_deviation < 1e-5
+assert sum(experiments.omega_histogram(15, 7, 3, 4, runs=5, engine=eng).values()) == 5
+assert abs(debug.check_normalisation(state) - 1.0) < 1e-5
 rec = semiclassical.run_semiclassical(15, 7, 3, 4, [0.1, 0.6, 0.3], structured=True)
 assert rec.x_tilde in range(8) and len(rec.branch_probs) == 3
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
@@ -37,4 +46,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", PROGRAM], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    assert res.stdout.strip().splitlines()[-1] == "ok"
