@@ -8,25 +8,31 @@ Phases, each of which must pass:
      quantumcomputer_tpu_torch/ops/csrc (one nvcc per source, sm_90a) and
      print the build time;
   2. hold each kernel against its plain PyTorch version on the card: every
-     fused-segment op kind on seeded n = 20 states in float32 (max abs <= 3e-5)
-     and float64 (<= 1e-12), the block sums in float32 (<= 1e-6), and the
-     three m_high oracle kernels (ladder, cycle, cycle_masked) in float32 and
-     float64 at the shapes their call sites take, exactly (max abs == 0:
-     they only move data);
+     fused-segment op kind on seeded n = 20 states of unit-variance
+     components in float32 (max abs <= 3e-5) and float64 (<= 1e-12), and
+     seeded random circuits at n = 1-13 (the kernel's edge form below 4 / 3
+     tile bits included) in both; the block sums in float32 (<= 1e-6); the
+     m_high oracle kernels (ladder, cycle, cycle_masked, the row gather) in
+     float32 and float64 at the shapes their call sites take, and the walk
+     with its segment count forced to 1, 2, 3, 7 and 16, exactly (max abs
+     == 0: they only move data);
   3. factor 15 through the CLI (-C 15 -L 3 -M 4 -a 7), through the fused
      kernel, then again with --layout m_high, through the cycle kernel;
   4. the flagship circuit shor_circuit(8191, 3, 15, 13) at n = 28 (a 2 GiB
      complex64 state) with backend="cuda": norm within 1e-4 of 1, final state
      within ||d||_2 <= 1e-4 of the backend="torch" run on the same card, both
-     wall times; each fused segment of its plan and the block sums are held
-     against their plain versions at that size and timed beside them.  Then
-     the same circuit in the m_high layout (shor_circuit_mhigh): norm, the
-     torch backend's m_high state and the standard-layout state mapped
-     physical -> logical, each within ||d||_2 <= 1e-4; once more with the
-     memory budget forced below two states, where it must pair oracles in
-     place (cycle_masked) and launch no ladder; each fused segment of the
-     m_high plan and each oracle kernel held against its plain version at
-     n = 28, the oracle kernels timed beside theirs;
+     wall times; the block sums held against their plain version and timed
+     beside it.  Then the same circuit in the m_high layout
+     (shor_circuit_mhigh): norm, the torch backend's m_high state and the
+     standard-layout state mapped physical -> logical, each within
+     ||d||_2 <= 1e-4; once more with the memory budget forced below two
+     states, where it must pair oracles in place (cycle_masked) and launch
+     no ladder.  Every fused segment of both plans (6 standard, 4 m_high)
+     held against its plain version within 3e-5 on unit-variance components
+     and timed beside it and its bound; the ladder, the cycle walk at every
+     control the m_high plan walks (0-10) and the pair (13, 14) held exactly
+     against their plain versions and timed beside them, their bounds and
+     their library calls;
   5. the main paths: factor 8187 = 2729 x 3 end to end at n = 30 with
      shors_algorithm(backend="cuda"), in the standard layout and then in the
      m_high layout; every kernel's launch counter is reset just before each
@@ -64,8 +70,16 @@ Phases, each of which must pass:
      the plan); phase_profile of the m_high flagship; and a fuse=False run at
      n = 20 whose fused-kernel launches equal its gates with an op form.
 
-Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Any
-failure exits non-zero without that line.  Imports nothing of JAX.
+Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
+kernel's entry holds its launches on a main path, its max abs error, its ms
+and its plain version's, bound_ms and bound_by (the larger of its bytes over
+3.35 TB/s and its floating-point operations over 67 TFLOP/s) and library_ms,
+the time of one PyTorch call computing the same function (named in
+"library"), or null with the reason there.  fused_segment's ms, plain_ms and
+bound are those of segment 0 of the standard plan (a 5-H segment); its
+"segments" list holds every n = 28 segment of both plans, and
+"segments_mean_ms" / "segments_mean_plain_ms" their means.  Any failure
+exits non-zero without that line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -81,9 +95,14 @@ import time
 DEVICE = "cuda"
 KERNEL_BACKEND = "cuda"
 KERNEL_N = 20
+SMALL_NS = (1, 2, 3, 4, 5, 7, 10, 13)  # random circuits; n <= 3 (f32) / 2 (f64) take the edge form
 FLAGSHIP = (8191, 3, 15, 13)  # C, a, L, M: n = 28
 FACTOR = (8187, 13, 17, 13)  # C, a, L, M: n = 30
+# Fused segments are held on states of unit-variance components, so the
+# tolerance stands against values of order 1.
 TOL = {"float32": 3e-5, "float64": 1e-12}
+WALK_SEGMENT_COUNTS = (1, 2, 3, 7, 16)  # forced S of the segmented walk, at n = 20, M = 13
+WALK_PAIRS = ((0, 1), (1, 2), (2, 5), (6, 3))
 # (kernel, call site, controls, n, M): each case sized so that its call
 # site's eligibility predicate holds, as in the JAX package's dispatch.
 ORACLE_CASES = [
@@ -116,10 +135,37 @@ SC_SEED = 189
 GATHER_CONTROLS = (14, 3, 0)  # pure, mixed and sub-vector controls at n = 28, M = 13
 PROBE_M, PROBE_W = 28, 16384
 UNFUSED = (8191, 3, 7, 13)  # C, a, L, M: n = 20
+WALK_CONTROLS = tuple(range(11))  # the controls the m_high flagship plan walks (its 11 single gates)
+# The H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores.  A kernel's bound is the
+# larger of its bytes (each input read once, each output written once) and
+# its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# Floating-point operations per amplitude of each fused op kind: a 2x2
+# complex matrix on a pair is 4 complex multiplies and 2 adds (28 / 2); an
+# iQFT butterfly 8 / 2, and its phase one complex multiply on half.
+SEGMENT_FLOPS = {"u1q": 14, "diag1": 6, "diag2": 6, "iqft": 4, "u2q": 30}
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def bound(nbytes: float, flops: float = 0.0) -> tuple:
+    """(bound_ms, bound_by) of work that moves nbytes and does flops."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def set_bound(entry: dict, nbytes: float, flops: float = 0.0) -> None:
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops)
+
+
+def segment_flops(ops, M: int, n: int) -> float:
+    per_amp = sum(SEGMENT_FLOPS[op[0]] + (3 if op[0] == "iqft" and op[1] > M else 0) for op in ops)
+    return float(per_amp) * (1 << n)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -155,14 +201,34 @@ def random_unitary(rng, k: int):
     return q * (np.diagonal(r) / np.abs(np.diagonal(r)))
 
 
-def random_planar(rng, n: int, dtype, device):
-    """Seeded normalized random planar state (numpy, then to the card)."""
+def random_planar(rng, n: int, dtype, device, normalize: bool = True):
+    """Seeded random planar state (numpy, then to the card): normalized, or
+    of unit-variance components."""
     import numpy as np
     import torch
 
     psi = rng.standard_normal((2, 1 << n))
-    psi /= np.sqrt(np.sum(psi * psi))
+    if normalize:
+        psi /= np.sqrt(np.sum(psi * psi))
     return torch.from_numpy(psi).to(device=device, dtype=dtype)
+
+
+def random_circuit(rng, n: int, count: int) -> tuple:
+    """The iQFT stages of an n-qubit state, then `count` random gates of
+    every fused op kind."""
+    from quantumcomputer_tpu_torch.models import circuit as cir
+
+    gates = [cir.IQFT_STAGE(q) for q in range(n - 1, -1, -1)]
+    for _ in range(count):
+        kind, q = int(rng.integers(6 if n > 1 else 3)), int(rng.integers(n))
+        p = int(rng.integers(max(1, n - 1)))
+        p += p >= q
+        gates.append((
+            lambda: cir.H(q), lambda: cir.U1Q(q, random_unitary(rng, 2)), lambda: cir.RZ(q, float(rng.uniform(0, 6.3))),
+            lambda: cir.IQFT_STAGE(q), lambda: cir.CPHASE(q, p, float(rng.uniform(0, 6.3))),
+            lambda: cir.U2Q(max(p, q), min(p, q), random_unitary(rng, 4)),
+        )[kind]())
+    return tuple(gates)
 
 
 def op_kind_cases(rng, n: int):
@@ -251,6 +317,33 @@ def oracle_err(site: str, planar, C: int, A_list, controls, M: int) -> float:
     return float((got - want).abs().max())
 
 
+def time_library_row_gather(planar, C: int, A_list, controls, M: int) -> tuple:
+    """(library_ms, library) of the m_high oracle at `controls`, the top
+    column bits in order, as one advanced-indexing call out of place: over
+    the (2, 2^M, 2^K, rest >> K) view, out[p, f, m, r] = x[p, T[f, m], m, r]
+    with T the (2^M, 2^K) source rows of each control combination m.  The
+    index is built beforehand; the call is held exactly against the plain
+    version, then timed.  The port never calls it."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import gates as tops
+
+    K, log_rest = len(controls), planar.shape[1].bit_length() - 1 - M
+    check(tuple(controls) == tuple(range(log_rest - K, log_rest)), f"controls {controls} are not the top column bits")
+    combos = torch.from_numpy(tops.modexp_combo_multipliers(C, list(A_list))).to(planar.device)
+    f = torch.arange(1 << M, device=planar.device)[:, None]
+    rows = torch.where(f < C, (combos[None, :] * f) % C, f)
+    lanes = torch.arange(1 << K, device=planar.device)
+    view = planar.view(2, 1 << M, 1 << K, -1)
+    want = tops.apply_camodc_ladder_high_planes_(planar.clone(), C, A_list, controls, M)
+    err = exact_err(view[:, rows, lanes].reshape(2, -1), want)
+    del want
+    torch.cuda.synchronize()
+    check(err == 0.0, f"the library call of the oracle at controls {controls} differs: {err}")
+    lib_ms = time_ms(lambda: view[:, rows, lanes], reps=5)
+    return lib_ms, "one advanced-indexing call x.view(2, 2^M, 2^K, -1)[:, T, arange(2^K)] (out of place)"
+
+
 def phase_build() -> float:
     from quantumcomputer_tpu_torch.ops import _build
 
@@ -274,10 +367,12 @@ def phase_kernels(report: dict, n: int = KERNEL_N) -> None:
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).replace("torch.", "")
         rng = np.random.default_rng(20)
-        for name, gates, M in op_kind_cases(rng, n):
-            err = compare_plan(random_planar(rng, n, dtype, DEVICE), gates, M)
-            log(f"kernel fused_segment {name:11s} {dname} n={n}: max abs {err:.3e} (tol {TOL[dname]:.0e})")
-            check(err <= TOL[dname], f"fused_segment {name} {dname}: {err} > {TOL[dname]}")
+        cases = [(name, gates, M, n) for name, gates, M in op_kind_cases(rng, n)]
+        cases += [(f"random M={M}", random_circuit(rng, k, 30), M, k) for k in SMALL_NS for M in (0, 3, 13)]
+        for name, gates, M, k in cases:
+            err = compare_plan(random_planar(rng, k, dtype, DEVICE, normalize=False), gates, M)
+            log(f"kernel fused_segment {name:11s} {dname} n={k}: max abs {err:.3e} (tol {TOL[dname]:.0e})")
+            check(err <= TOL[dname], f"fused_segment {name} {dname} n={k}: {err} > {TOL[dname]}")
             report["fused_segment"]["max_abs_err"] = max(report["fused_segment"]["max_abs_err"], err)
     rng = np.random.default_rng(21)
     planar = random_planar(rng, n, torch.float32, DEVICE)
@@ -296,6 +391,41 @@ def phase_kernels(report: dict, n: int = KERNEL_N) -> None:
             log(f"kernel {kernel} ({site}) controls {controls} {dname} n={n_case} M={M}: max abs {err:.3e} (tol 0)")
             check(err == 0.0, f"{kernel} {site} {controls} {dname}: {err} != 0")
             report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"], err)
+        check_forced_segments(report, dtype)
+
+
+def check_forced_segments(report: dict, dtype) -> None:
+    """The segmented walk with its segment count forced (uneven cuts
+    included) and its vector width forced to one column and to 16 bytes, at
+    n = 20, M = 13: the cycle walk at controls 0-6 and the pair at
+    WALK_PAIRS (where the width fits the runs of moved columns), each
+    exactly equal to its plain version."""
+    import numpy as np
+
+    from quantumcomputer_tpu_torch.ops import oracle
+
+    C, a, n, M = 8191, 3, KERNEL_N, 13
+    dname = str(dtype).replace("torch.", "")
+    planar = random_planar(np.random.default_rng(23), n, dtype, DEVICE)
+    chosen = oracle.walk_segment_count, oracle.walk_vector
+    try:
+        for S in WALK_SEGMENT_COUNTS:
+            for vec in (1, oracle.WALK_VEC_BYTES // planar.element_size()):
+                oracle.walk_segment_count = lambda *args, S=S: S
+                oracle.walk_vector = lambda *args, vec=vec: vec
+                errs = {}
+                for controls in tuple((c,) for c in range(7)) + WALK_PAIRS:
+                    if (1 << min(controls)) < vec:
+                        continue
+                    kernel, site = ("cycle", "cycle") if len(controls) == 1 else ("cycle_masked", "pair")
+                    A_list = tuple(pow(a, 1 << c, C) for c in controls)
+                    errs[controls] = oracle_err(site, planar, C, A_list, controls, M)
+                    report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"], errs[controls])
+                log(f"kernel cycle / cycle_masked S={S} vector {vec} {dname} n={n} M={M}: controls {sorted(errs)}, "
+                    f"max abs {max(errs.values()):.3e} (tol 0)")
+                check(all(e == 0.0 for e in errs.values()), f"walk with S={S}, vector {vec} {dname}: {errs}")
+    finally:
+        oracle.walk_segment_count, oracle.walk_vector = chosen
 
 
 def phase_cli() -> None:
@@ -374,48 +504,87 @@ def phase_flagship(report: dict) -> None:
     log(f"flagship n={n} backend=torch: {plain_ms:.3f} ms; ||cuda - torch||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
     check(dist <= FLAGSHIP_TOL, f"flagship cuda vs torch distance {dist}")
 
+    entry = report["block_sums"]
     err = float((measure.block_sums(state) - measure.block_sums_plain(state)).abs().max())
-    report["block_sums"]["max_abs_err"] = max(report["block_sums"]["max_abs_err"], err)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
     check(err <= BLOCK_SUMS_TOL, f"block_sums on the flagship state: {err}")
-    report["block_sums"]["ms"] = time_ms(lambda: measure.block_sums(state), reps=10)
-    report["block_sums"]["plain_ms"] = time_ms(lambda: measure.block_sums_plain(state), reps=10)
+    entry["ms"] = time_ms(lambda: measure.block_sums(state), reps=10)
+    entry["plain_ms"] = time_ms(lambda: measure.block_sums_plain(state), reps=10)
+    nblocks = measure.block_sums(state).numel()
+    blocks = state.view(2, nblocks, -1)
+    entry["library_ms"] = time_ms(lambda: torch.linalg.vector_norm(blocks, dim=(0, 2)), reps=10)
+    entry["library"] = "torch.linalg.vector_norm over the (2, nblocks, block) view"
+    set_bound(entry, state.numel() * state.element_size(), 3.0 * state.numel())
     log(
-        f"kernel block_sums n={n}: max abs {err:.3e}; kernel {report['block_sums']['ms']:.4f} ms, "
-        f"plain {report['block_sums']['plain_ms']:.4f} ms"
+        f"kernel block_sums n={n}: max abs {err:.3e}; kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+        f"library {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
     )
-    del plain_state
-    phase_flagship_mhigh(report, state)
+    del plain_state, blocks
+    timed = phase_flagship_mhigh(report, state)
     del state
 
     gen = torch.Generator(device=DEVICE).manual_seed(28)
-    planar = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32)
-    planar /= torch.linalg.vector_norm(planar)
+    planar = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32)  # unit variance
     plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[torch.float32])
-    segments = [s for s in plan if s[0] == "fused"]
-    for i, (_, ops, axes) in enumerate(segments):
-        want = fused.plain_segment(planar, ops, M)
-        got = fused.apply_fused(planar.clone(), ops, axes, M)
-        err = float((got - want).abs().max())
-        del want, got
-        log(f"kernel fused_segment flagship segment {i} ({len(ops)} ops, axes {axes}): max abs {err:.3e}")
-        check(err <= TOL["float32"], f"flagship segment {i}: {err}")
-        report["fused_segment"]["max_abs_err"] = max(report["fused_segment"]["max_abs_err"], err)
-    _, ops, axes = segments[0]
-    report["fused_segment"]["ms"] = time_ms(lambda: fused.apply_fused(planar, ops, axes, M), reps=10)
-    report["fused_segment"]["plain_ms"] = time_ms(lambda: fused.plain_segment(planar, ops, M), reps=3)
-    log(
-        f"kernel fused_segment n={n} segment 0 ({len(ops)} ops): kernel {report['fused_segment']['ms']:.4f} ms, "
-        f"plain {report['fused_segment']['plain_ms']:.4f} ms"
-    )
+    standard = time_segments(report, planar, [s for s in plan if s[0] == "fused"], M, "standard")
     del planar
     torch.cuda.empty_cache()
+    entry = report["fused_segment"]
+    first = standard[0]
+    entry.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"])
+    entry["segments"] = standard + timed
+    entry["segments_mean_ms"] = sum(s["ms"] for s in entry["segments"]) / len(entry["segments"])
+    entry["segments_mean_plain_ms"] = sum(s["plain_ms"] for s in entry["segments"]) / len(entry["segments"])
+    log(
+        f"kernel fused_segment n={n}: standard segment 0 {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+        f"bound {entry['bound_ms']:.4f} ms; the {len(entry['segments'])} segments of both plans: mean kernel "
+        f"{entry['segments_mean_ms']:.4f} ms ({entry['bound_ms'] / entry['segments_mean_ms']:.1%} of bound), "
+        f"plain {entry['segments_mean_plain_ms']:.4f} ms"
+    )
 
 
-def phase_flagship_mhigh(report: dict, standard_state) -> None:
+def time_segments(report: dict, planar, segments, M: int, layout: str) -> list:
+    """Each fused segment of a plan at the flagship size: held against its
+    plain version, then kernel and plain version timed beside its bound.
+    Returns one record per segment (layout, index, ops, ms, plain_ms,
+    bound_ms, bound_by)."""
+    from collections import Counter
+
+    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.sim import statevec as sv
+
+    entry = report["fused_segment"]
+    n = sv.num_qubits(planar)
+    timed = []
+    for i, (_, ops, axes) in enumerate(segments):
+        want = fused.plain_segment(planar, ops, M)
+        err = float((fused.apply_fused(planar.clone(), ops, axes, M) - want).abs().max())
+        del want
+        check(err <= TOL["float32"], f"{layout} flagship segment {i}: {err}")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        k_ms = time_ms(lambda: fused.apply_fused(planar, ops, axes, M), reps=10)
+        p_ms = time_ms(lambda: fused.plain_segment(planar, ops, M), reps=3)
+        b_ms, by = bound(2 * planar.numel() * planar.element_size(), segment_flops(ops, M, n))
+        kinds = dict(Counter(op[0] for op in ops))
+        timed.append({
+            "layout": layout, "index": i, "ops": kinds, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+        })
+        t, high = fused.tile_geometry(n, axes, fused.TILE_BITS[planar.dtype])
+        log(
+            f"kernel fused_segment {layout} n={n} segment {i} ({kinds}, targets {[op[1] for op in ops]}, t={t}, "
+            f"axes {high}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({by}), {b_ms / k_ms:.1%} of bound"
+        )
+    return timed
+
+
+def phase_flagship_mhigh(report: dict, standard_state) -> list:
+    """The m_high flagship and its kernels; returns time_segments' rows of
+    the m_high plan."""
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
-    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.ops import gates as tops
     from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, plan_circuit
 
     C, a, L, M = FLAGSHIP
@@ -473,35 +642,44 @@ def phase_flagship_mhigh(report: dict, standard_state) -> None:
     # Each fused segment of the m_high plan (low physical bits, M = 0), then
     # each oracle kernel at n = 28 on the call sites of the flagship's plans.
     gen = torch.Generator(device=DEVICE).manual_seed(29)
-    planar = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32)
-    planar /= torch.linalg.vector_norm(planar)
+    planar = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32)  # unit variance
     plan = plan_circuit(circuit, 0, n, torch.float32, DEVICE)
-    for i, (_, ops, axes) in enumerate(s for s in plan if s[0] == "fused"):
-        want = fused.plain_segment(planar, ops, 0)
-        err = float((fused.apply_fused(planar.clone(), ops, axes, 0) - want).abs().max())
-        del want
-        log(f"kernel fused_segment m_high segment {i} ({len(ops)} ops, axes {axes}): max abs {err:.3e}")
-        check(err <= TOL["float32"], f"m_high flagship segment {i}: {err}")
-        report["fused_segment"]["max_abs_err"] = max(report["fused_segment"]["max_abs_err"], err)
+    timed = time_segments(report, planar, [s for s in plan if s[0] == "fused"], 0, "m_high")
+    state_bytes = planar.numel() * planar.element_size()
     for kernel, site, controls in (
         ("ladder", "ladder", tuple(range(11, 15))),
-        ("cycle", "cycle", (3,)),
+        *(("cycle", "cycle", (c,)) for c in WALK_CONTROLS),
         ("cycle_masked", "pair", (13, 14)),
     ):
         A_list = tuple(pow(a, 1 << c, C) for c in controls)
         err = oracle_err(site, planar, C, A_list, controls, M)
-        check(err == 0.0, f"{kernel} at n={n}: {err} != 0")
-        report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"], err)
+        check(err == 0.0, f"{kernel} controls {controls} at n={n}: {err} != 0")
         work = planar.clone()
-        report[kernel]["ms"] = time_ms(lambda: run_oracle(site, work, C, A_list, controls, M, plain=False), reps=10)
-        report[kernel]["plain_ms"] = time_ms(lambda: run_oracle(site, work, C, A_list, controls, M, plain=True), reps=3)
+        k_ms = time_ms(lambda: run_oracle(site, work, C, A_list, controls, M, plain=False), reps=10)
+        p_ms = time_ms(lambda: run_oracle(site, work, C, A_list, controls, M, plain=True), reps=3)
         del work
+        moved = {"ladder": 1.0, "cycle": 0.5, "cycle_masked": 0.75}[kernel]  # share of the state read and written
+        b_ms, by = bound(2 * moved * state_bytes)
+        if kernel == "cycle":
+            # The control-1 half, gathered along the rows (out of place).
+            half = planar.view(2, 1 << M, -1, 2, 1 << controls[0])[:, :, :, 1, :]
+            ginv = torch.from_numpy(tops.modmul_inverse_permutation(C, A_list[0], M)).to(DEVICE)
+            lib_ms = time_ms(lambda: torch.index_select(half, 1, ginv), reps=5)
+            library = "torch.index_select of the control-1 half along the rows"
+            del half, ginv
+        else:
+            lib_ms, library = time_library_row_gather(planar, C, A_list, controls, M)
+        entry = report[kernel]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if kernel != "cycle" or controls == (3,):
+            entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms, library=library)
         log(
-            f"kernel {kernel} ({site}) controls {controls} n={n}: max abs {err:.3e}; "
-            f"kernel {report[kernel]['ms']:.4f} ms, plain {report[kernel]['plain_ms']:.4f} ms"
+            f"kernel {kernel} ({site}) controls {controls} n={n}: max abs {err:.3e}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
         )
     del planar
     torch.cuda.empty_cache()
+    return timed
 
 
 def phase_factor(report: dict) -> None:
@@ -656,6 +834,45 @@ def phase_modperm_kernels(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def library_call(name: str, plain, args, kwargs):
+    """One PyTorch call that computes what a structured-permutation kernel
+    call computes, its index built here, beforehand: the yardstick
+    library_ms (the port never calls it)."""
+    import inspect
+
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import chunkgather as cg
+
+    a = inspect.signature(plain).bind(*args, **kwargs).arguments
+    x = a["x"]
+    if name == "tiled_transpose_padded":
+        return lambda: x.transpose(-1, -2).contiguous()
+    P = x.shape[1]
+
+    def windows(length, starts, W):
+        lane = torch.arange(W, device=x.device)
+        return starts.to(torch.int64).clamp(0, length - W)[:, None] + lane[None, :]
+
+    def blend(s0, s1, istar, W):
+        lane = torch.arange(W, device=x.device)
+        return torch.where(lane[None, :] < istar.to(torch.int64)[:, None], windows(P, s0, W), windows(P, s1, W))
+
+    if name == "chunk_gather":
+        idx = windows(P, a["starts"], a["W"])
+    elif name == "chunk_gather_src2":
+        x2 = a["x2"]
+        alt = (a["flags"] != 0)[:, None]
+        idx = torch.where(alt, P + windows(x2.shape[1], a["starts"], a["W"]), windows(P, a["starts"], a["W"]))
+        x = torch.cat([x, x2], dim=1)
+    elif name == "chunk_gather_blend":
+        idx = blend(a["s0"], a["s1"], a["istar"], a["W"])
+    else:
+        s0, s1, istar = cg.rowlaw_offsets(a["NC"], a["v"], a["vpad"], a["Wt"], P, x.device)
+        idx = blend(s0, s1, istar, a["Wt"])
+    return lambda: x[:, idx]
+
+
 def phase_semiclassical_timing(report: dict) -> None:
     """At M = 28 (C = 2^28 - 3, a = 7): each kernel call of the first planned
     step's permutation timed beside its plain version, one permutation of a
@@ -700,7 +917,9 @@ def phase_semiclassical_timing(report: dict) -> None:
         for name, fn in orig.items():
             setattr(modperm, name, fn)
     for key in ("transpose", "chunk_gather"):
-        report[key]["ms"] = report[key]["plain_ms"] = 0.0
+        report[key].update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes")
+    report["transpose"]["library"] = "x.transpose(-1, -2).contiguous() per call"
+    report["chunk_gather"]["library"] = "one advanced-indexing call x[:, idx] per call (src2: into cat(x, x2))"
     for name, args, kwargs in calls:
         key, plain = sites[name]
         if name == "chunk_gather_blend_rowlaw":
@@ -709,15 +928,28 @@ def phase_semiclassical_timing(report: dict) -> None:
         if name == "tiled_transpose_padded" and kwargs.get("extra_rows"):
             got, want = got[:, : -kwargs["extra_rows"]], want[:, : -kwargs["extra_rows"]]
         err = exact_err(got, want)
+        # Bytes: the input read once and the output written once (a chunk
+        # gather reads one source element per output element).
+        out_bytes = got.numel() * got.element_size()
+        nbytes = out_bytes + (args[0].numel() * args[0].element_size() if key == "transpose" else out_bytes)
+        library = library_call(name, plain, args, kwargs)
+        lib_err = exact_err(library(), want) if key == "chunk_gather" else 0.0
         del got, want
         check(err == 0.0, f"{name} at M={M}: {err} != 0")
+        check(lib_err == 0.0, f"the library call of {name} at M={M} differs: {lib_err}")
         k_ms = time_ms(lambda: orig[name](*args, **kwargs), reps=10)
         p_ms = time_ms(lambda: plain(*args, **kwargs), reps=3)
-        report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
-        report[key]["ms"] += k_ms
-        report[key]["plain_ms"] += p_ms
+        l_ms = time_ms(library, reps=3)
+        b_ms = bound(nbytes)[0]
+        entry = report[key]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        for field, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms)):
+            entry[field] += v
         shape = tuple(args[0].shape)
-        log(f"kernel {name} M={M} step {step} ({shape}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        log(
+            f"kernel {name} M={M} step {step} ({shape}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms, {b_ms / k_ms:.1%} of bound"
+        )
     del calls
     torch.cuda.empty_cache()
 
@@ -850,6 +1082,8 @@ def phase_gather_oracle(report: dict) -> None:
             del walk
             if dtype == torch.float32 and c == GATHER_CONTROLS[0]:
                 entry["ms"], entry["plain_ms"] = k_ms, p_ms
+                entry["library_ms"], entry["library"] = time_library_row_gather(x, C, (a,), (c,), M)
+                set_bound(entry, 2 * x.numel() * x.element_size())  # every element read, every element written
             gbs = 2 * x.numel() * x.element_size() / (k_ms * 1e6)
             log(
                 f"kernel oracle_gather {dname} n={n} M={M} control {c}: max abs {err:.3e} (tol 0); kernel {k_ms:.4f} ms "
@@ -874,14 +1108,34 @@ def phase_probes(report: dict) -> None:
     log(f"probes M={PROBE_M} W={PROBE_W}: {len(rows)} rows in {wall:.3f} s, launches {counts}")
     for row in rows:
         check(row["ok"], f"probe row {row['name'].strip()}: max abs {row['max_abs_err']} != 0")
+    import torch
+
     by_name = {row["name"].strip(): row for row in rows}
     for key, row_name in (
         ("probe_copy", "aligned"), ("probe_roll2", "roll2"), ("probe_mxuroll", "mxuroll"),
         ("probe_dynroll", "pallas dyn-roll blk8"), ("probe_rowroll", "pallas per-row roll"),
     ):
         row = by_name[row_name]
-        report[key].update(launches=counts[key], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"])
+        nbytes = row["gbps"] * row["ms"] * 1e6  # the row's 1R + 1W traffic, from its shapes
+        # The same bytes through one call: copy_ for the copy probe, torch.roll
+        # by one shift for the rolls (their per-chunk or per-row shifts have no
+        # single call).
+        src = torch.randn(int(round(nbytes / 8)), device=DEVICE)
+        if key == "probe_copy":
+            dst = torch.empty_like(src)
+            lib_ms, library = time_ms(lambda: dst.copy_(src), reps=5), "torch.Tensor.copy_ of the same bytes"
+            del dst
+        else:
+            lib_ms, library = time_ms(lambda: torch.roll(src, 12345), reps=5), "torch.roll of the same bytes by one shift"
+        del src
+        report[key].update(
+            launches=counts[key], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            library_ms=lib_ms, library=library,
+        )
+        set_bound(report[key], nbytes)
+        log(f"kernel {key}: {row['ms']:.4f} ms, library {lib_ms:.4f} ms, bound {report[key]['bound_ms']:.4f} ms")
         check(counts[key] > 0, f"the probe scripts launched no {key} kernel")
+    torch.cuda.empty_cache()
 
 
 def phase_validation() -> None:
@@ -978,65 +1232,30 @@ def main() -> int:
         return 1
     sys.path.insert(0, root)
 
+    no_call = "null: no single PyTorch call "
     report = {
-        "fused_segment": {
-            "name": "fused_segment", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/fused_segment.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_fused.py:1002",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "block_sums": {
-            "name": "block_sums", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/block_sums.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_measure.py:66",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "ladder": {
-            "name": "ladder", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/oracle_ladder.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_oracle.py:101",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "cycle": {
-            "name": "cycle", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/oracle_cycle.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_oracle.py:274",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "cycle_masked": {
-            "name": "cycle_masked", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/oracle_cycle.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_oracle.py:531",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "transpose": {
-            "name": "transpose", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/transpose.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_transpose.py:36",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "chunk_gather": {
-            "name": "chunk_gather", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/chunk_gather.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_chunkgather.py:79",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-        "oracle_gather": {
-            "name": "oracle_gather", "route": "cuda",
-            "source": "quantumcomputer_tpu_torch/ops/csrc/oracle_gather.cu",
-            "replaces": "quantumcomputer_tpu/ops/pallas_oracle.py:47",
-            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-        },
-    }
-    for name, replaces in (
-        ("probe_copy", "scripts/prof_chunkgather.py:86"), ("probe_roll2", "scripts/prof_chunkgather.py:99"),
-        ("probe_mxuroll", "scripts/prof_chunkgather.py:120"), ("probe_dynroll", "scripts/prof_rowperm.py:158"),
-        ("probe_rowroll", "scripts/prof_rowperm.py:186"),
-    ):
-        report[name] = {
-            "name": name, "route": "cuda", "source": "quantumcomputer_tpu_torch/ops/csrc/probes.cu",
+        name: {
+            "name": name, "route": "cuda", "source": f"quantumcomputer_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None, "library": library,
         }
+        for name, source, replaces, library in (
+            ("fused_segment", "fused_segment.cu", "quantumcomputer_tpu/ops/pallas_fused.py:1002",
+             no_call + "applies a segment of gates"),
+            ("block_sums", "block_sums.cu", "quantumcomputer_tpu/ops/pallas_measure.py:66", None),
+            ("ladder", "oracle_ladder.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:101", None),
+            ("cycle", "oracle_cycle.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:274", None),
+            ("cycle_masked", "oracle_cycle.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:531", None),
+            ("transpose", "transpose.cu", "quantumcomputer_tpu/ops/pallas_transpose.py:36", None),
+            ("chunk_gather", "chunk_gather.cu", "quantumcomputer_tpu/ops/pallas_chunkgather.py:79", None),
+            ("oracle_gather", "oracle_gather.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:47", None),
+            ("probe_copy", "probes.cu", "scripts/prof_chunkgather.py:86", None),
+            ("probe_roll2", "probes.cu", "scripts/prof_chunkgather.py:99", None),
+            ("probe_mxuroll", "probes.cu", "scripts/prof_chunkgather.py:120", None),
+            ("probe_dynroll", "probes.cu", "scripts/prof_rowperm.py:158", None),
+            ("probe_rowroll", "probes.cu", "scripts/prof_rowperm.py:186", None),
+        )
+    }
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -1056,6 +1275,10 @@ def main() -> int:
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,
               f"kernel {entry['name']}: incomplete report {entry}")
+        check(entry["bound_ms"] is not None and entry["bound_by"] in ("bytes", "operations"),
+              f"kernel {entry['name']}: no bound {entry}")
+        check(entry["library_ms"] is not None or str(entry["library"]).startswith("null"),
+              f"kernel {entry['name']}: neither library_ms nor a reason {entry}")
     log(json.dumps({"kernels": list(report.values())}))
     log(card)
     print(json.dumps({

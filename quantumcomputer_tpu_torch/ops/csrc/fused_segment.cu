@@ -10,31 +10,58 @@
 //   iqft  H(l), then exp(i*pi*(i & (2^l - 2^M)) / 2^l) on the bit-l == 1 half
 //   u2q   dense 4x4 on two qubits
 //
-// What bounds it: device-memory bandwidth.  Each op is a few flops per
-// amplitude, so a one-op pass moves 2 x 2 x sizeof(T) bytes per amplitude
-// for almost no arithmetic.  The design answer is the TPU kernel's: fuse a
-// whole segment into one pass, so G gates cost one read and one write of
-// the state instead of G of each.  Within the pass, each thread issues
-// LOAD_BATCH independent loads before it stores any of them to shared
-// memory, so enough bytes are in flight to stream device memory.
+// What bounds it: device-memory bandwidth, one read and one write of the
+// state per segment (1.282 ms for a 2 GiB complex64 state at 3.35 TB/s),
+// as long as the ops' arithmetic hides behind the copies.  Three costs
+// stand in the way, and the design answers each:
 //
-// Tiling.  A CUDA block owns one disjoint tile of 2^(t+k) amplitudes: the
-// low t index bits (contiguous, so loads and stores coalesce) plus k
-// exposed "axis" bits >= t, one per butterfly target above the low bits.
-// Every butterfly partner of every op in the segment therefore lies in the
-// same tile, which sits in shared memory while the ops run.  Diagonal ops
-// and the iQFT phase need only the element's global index: 64-bit (n may
-// reach 31), from a per-block table of the 2^k axis combinations OR'd with
-// the element's low bits.  The iQFT angle is formed from the
-// exact integer (i & mask) in double precision with sincospi: in float,
-// (i & mask) would round once it exceeds the 24-bit mantissa (l > 24).
+//   * Transcendentals.  An iQFT op's phase exp(i*pi*(idx & mask)/2^l) is
+//     split as the TPU kernel splits it, over disjoint bit fields of the
+//     index: (idx & mask) = (tile base & mask) + (axis bits & mask) + (low
+//     bits & mask) + (slot bits & mask).  F_base is one double sincospi per
+//     op per tile (shared memory); F_axes and F_low are tables built on the
+//     host in float64 and rounded once to the plane dtype (ftab), and each
+//     slot bit's factor sits in the op's coefficient record.  No amplitude
+//     needs a transcendental: its phase is P * (slot factors), P = F_base *
+//     F_axes * F_low once per thread.
+//   * Shared-memory passes.  A thread holds 2^NE amplitudes in registers
+//     (the low VB index bits, 16 bytes of a plane, plus NE - VB more tile
+//     bits, its "slots") and applies a whole group of consecutive ops whose
+//     targets are all slots, so a segment costs one shared-memory round trip
+//     per group (ops/fused.py, _group_ops), not one per op.  The tile's
+//     16-byte chunks are XOR-swizzled so that the threads of a warp hit
+//     distinct banks whichever bits a group holds.
+//   * Exposed latency.  Blocks are persistent (as many as fit the SMs) and
+//     walk the tiles; while a tile's ops run, the next tile arrives by
+//     16-byte cp.async into the block's second buffer, and stores leave as
+//     16-byte vectors.  (Deeper rings measured slower: they cost blocks.)
 //
-// The op list arrives as two small device arrays: ops_i (int32 records of
-// OPI_STRIDE: kind, qa, qb, pa, pb, unused; pa/pb are the tile-local bit
-// positions of the targets) and ops_f (float64 records of OPF_STRIDE).
+// What bounds it on the H100, measured at n = 28: issue, not bytes, once a
+// segment has more than about five ops.  Two blocks of 256 threads an SM
+// (128 registers a thread) leave few warps to hide each op's dependent
+// arithmetic, so the m_high layout's 10- and 12-op segments reach about
+// half of the bound while 3- and 5-op segments reach 70-85% (PERF.md).  A
+// real 2x2 matrix (H, X, RY) takes half the multiplies, and op records are
+// read from a shared-memory copy that each block makes once.
+//
+// Tiling: a tile holds 2^(t+k) amplitudes, the low t index bits
+// (contiguous) plus k exposed "axis" bits >= t, one per butterfly target
+// above the low bits, so every butterfly of the segment stays in the tile.
+// States too small for the register group (fewer than NE tile bits, or
+// t < VB) take the edge form VB = 0, NE = all tile bits, with scalar copies;
+// so do planes that are not 16-byte aligned, for their copies.
+//
+// The op list arrives as device arrays: ops_i (int32 records of OPI_STRIDE:
+// kind, q1, q2, slot of q1, slot of q2, then for an iQFT op the ftab offsets
+// of F_axes and F_low and 1 when it has a phase), ops_f (coefficients in the
+// plane dtype, OPF_STRIDE per op; an iQFT op's slot factors), groups
+// (GRP_STRIDE: op_begin, op_end, extra slot positions) and ftab (complex
+// tables, re/im interleaved).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,11 +70,12 @@ constexpr int OP_DIAG1 = 1;
 constexpr int OP_DIAG2 = 2;
 constexpr int OP_IQFT = 3;
 constexpr int OP_U2Q = 4;
-constexpr int OPI_STRIDE = 6;
+constexpr int OPI_STRIDE = 8;
 constexpr int OPF_STRIDE = 32;  // a 4x4 complex matrix: 16 re, then 16 im
+constexpr int GRP_STRIDE = 8;
 constexpr int MAX_AXES = 8;
 constexpr int THREADS = 256;
-constexpr int LOAD_BATCH = 8;  // loads in flight per thread while filling a tile
+constexpr int NSTAGE = 2;  // tiles in a block's shared-memory ring: one computed, one arriving
 
 struct Geom {
   int t;               // low contiguous index bits of a tile
@@ -55,189 +83,493 @@ struct Geom {
   int axes[MAX_AXES];  // ascending global bit positions, each >= t
 };
 
+template <typename T>
+using Chunk = typename std::conditional<sizeof(T) == 4, float4, double2>::type;  // 16 bytes
+
 __device__ __forceinline__ int64_t insert_zero(int64_t x, int p) {
   const int64_t low = x & ((int64_t(1) << p) - 1);
   return ((x >> p) << (p + 1)) | low;
 }
 
-// At most 64 registers a thread, so four blocks fit an SM and one block's
-// loads overlap another's shared-memory work.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 4)
-fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restrict__ ops_i,
-                     const double* __restrict__ ops_f, int nops, Geom g, int M) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // Global index of tile element j: hi[j >> t] | (j & low_mask), where
-  // hi[c] is the tile base with axis bits set from the combination c.
-  __shared__ int64_t hi[1 << MAX_AXES];
-  const int tile = 1 << (g.t + g.k);
-  const int64_t low_mask = (int64_t(1) << g.t) - 1;
-  T* sre = reinterpret_cast<T*>(smem);
-  T* sim = sre + tile;
-
-  if (threadIdx.x < (1 << g.k)) {
-    // Tile base: the block index spread over the bits that are neither low
-    // nor exposed (zeros inserted at the axis positions, ascending).
-    int64_t base = (int64_t)blockIdx.x << g.t;
-    for (int a = 0; a < g.k; ++a) base = insert_zero(base, g.axes[a]);
-    for (int a = 0; a < g.k; ++a) base |= (int64_t)((threadIdx.x >> a) & 1) << g.axes[a];
-    hi[threadIdx.x] = base;
-  }
-  __syncthreads();
-#define GLOBAL_INDEX(j) (hi[(j) >> g.t] | ((int64_t)(j) & low_mask))
-
-  // Load: LOAD_BATCH independent loads per thread in flight before any
-  // shared-memory store, so enough bytes are outstanding to stream HBM.
-  for (int j0 = threadIdx.x; j0 < tile; j0 += THREADS * LOAD_BATCH) {
-    T r[LOAD_BATCH], m[LOAD_BATCH];
+// Global index of tile tau's first amplitude: tau spread over the bits that
+// are neither low nor exposed.  Row c of the tile starts at tile_base | axoff[c].
+__device__ __forceinline__ int64_t tile_base(int64_t tau, const Geom& g) {
+  int64_t base = tau << g.t;
 #pragma unroll
-    for (int v = 0; v < LOAD_BATCH; ++v) {
-      const int j = j0 + v * THREADS;
-      if (j < tile) {
-        const int64_t idx = GLOBAL_INDEX(j);
-        r[v] = re[idx];
-        m[v] = im[idx];
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < LOAD_BATCH; ++v) {
-      const int j = j0 + v * THREADS;
-      if (j < tile) {
-        sre[j] = r[v];
-        sim[j] = m[v];
-      }
-    }
+  for (int a = 0; a < MAX_AXES; ++a) {  // static indices: g stays in the parameter space
+    if (a < g.k) base = insert_zero(base, g.axes[a]);
   }
-  __syncthreads();
+  return base;
+}
 
-  for (int o = 0; o < nops; ++o) {
-    const int* oi = ops_i + OPI_STRIDE * o;
-    const double* of = ops_f + OPF_STRIDE * o;
-    const int kind = oi[0];
-    if (kind == OP_U1Q) {
-      const int p = oi[3];
-      const T u00r = of[0], u01r = of[1], u10r = of[2], u11r = of[3];
-      const T u00i = of[4], u01i = of[5], u10i = of[6], u11i = of[7];
-      for (int k2 = threadIdx.x; k2 < tile / 2; k2 += THREADS) {
-        const int j0 = (int)insert_zero(k2, p);
-        const int j1 = j0 | (1 << p);
-        const T ar = sre[j0], ai = sim[j0], br = sre[j1], bi = sim[j1];
-        sre[j0] = (u00r * ar - u00i * ai) + (u01r * br - u01i * bi);
-        sim[j0] = (u00r * ai + u00i * ar) + (u01r * bi + u01i * br);
-        sre[j1] = (u10r * ar - u10i * ai) + (u11r * br - u11i * bi);
-        sim[j1] = (u10r * ai + u10i * ar) + (u11r * bi + u11i * br);
-      }
-    } else if (kind == OP_DIAG1) {
-      const int q = oi[1];
-      for (int j = threadIdx.x; j < tile; j += THREADS) {
-        const int b = (int)((GLOBAL_INDEX(j) >> q) & 1);
-        const T pr = of[2 * b], pi = of[2 * b + 1];
-        const T xr = sre[j], xi = sim[j];
-        sre[j] = xr * pr - xi * pi;
-        sim[j] = xr * pi + xi * pr;
-      }
-    } else if (kind == OP_DIAG2) {
-      const int qh = oi[1], ql = oi[2];
-      for (int j = threadIdx.x; j < tile; j += THREADS) {
-        const int64_t idx = GLOBAL_INDEX(j);
-        const int d = (int)(2 * ((idx >> qh) & 1) + ((idx >> ql) & 1));
-        const T pr = of[d], pi = of[4 + d];
-        const T xr = sre[j], xi = sim[j];
-        sre[j] = xr * pr - xi * pi;
-        sim[j] = xr * pi + xi * pr;
-      }
-    } else if (kind == OP_IQFT) {
-      const int l = oi[1], p = oi[3];
-      const int64_t mask = l > M ? (int64_t(1) << l) - (int64_t(1) << M) : 0;
-      const double inv = 1.0 / (double)(int64_t(1) << l);  // exact: a power of two
-      const T s = (T)0.70710678118654752440;
-      for (int k2 = threadIdx.x; k2 < tile / 2; k2 += THREADS) {
-        const int j0 = (int)insert_zero(k2, p);
-        const int j1 = j0 | (1 << p);
-        const T ar = sre[j0], ai = sim[j0], br = sre[j1], bi = sim[j1];
-        sre[j0] = s * (ar + br);
-        sim[j0] = s * (ai + bi);
-        T hr = s * (ar - br), hi_ = s * (ai - bi);
-        if (mask) {
-          double sn, cs;
-          sincospi((double)(GLOBAL_INDEX(j1) & mask) * inv, &sn, &cs);
-          const T c = (T)cs, sv = (T)sn;
-          const T nr = hr * c - hi_ * sv;
-          hi_ = hr * sv + hi_ * c;
-          hr = nr;
-        }
-        sre[j1] = hr;
-        sim[j1] = hi_;
-      }
-    } else if (kind == OP_U2Q) {
-      const int ph = oi[3], pl = oi[4];  // ph > pl
-      for (int k4 = threadIdx.x; k4 < tile / 4; k4 += THREADS) {
-        const int b0 = (int)insert_zero(insert_zero(k4, pl), ph);
-        int e[4];
-        T xr[4], xi[4];
-        for (int r = 0; r < 4; ++r) {
-          e[r] = b0 | ((r >> 1) << ph) | ((r & 1) << pl);
-          xr[r] = sre[e[r]];
-          xi[r] = sim[e[r]];
-        }
-        for (int r = 0; r < 4; ++r) {
-          T yr = 0, yi = 0;
-          for (int c = 0; c < 4; ++c) {
-            const T mr = of[4 * r + c], mi = of[16 + 4 * r + c];
-            yr += mr * xr[c] - mi * xi[c];
-            yi += mr * xi[c] + mi * xr[c];
-          }
-          sre[e[r]] = yr;
-          sim[e[r]] = yi;
-        }
-      }
-    }
-    __syncthreads();
-  }
+// Shared-memory position of tile element j: its 2^VB-element chunk XORed in
+// the low three chunk bits with a mix of the bits above them (a bijection;
+// chunks stay whole, so 16-byte copies land intact).
+template <int VB>
+__device__ __forceinline__ int swz(int j) {
+  const int c = j >> VB;
+  const int v = c >> 3;
+  return ((c ^ ((v ^ (v << 1) ^ (v << 2)) & 7)) << VB) | (j & ((1 << VB) - 1));
+}
 
-  for (int j = threadIdx.x; j < tile; j += THREADS) {
-    const int64_t idx = GLOBAL_INDEX(j);
-    re[idx] = sre[j];
-    im[idx] = sim[j];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(BYTES));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// Start the copy of tile tau into (sre, sim): 16-byte chunks when `vec`,
+// else one element per copy.
+template <typename T, int VB>
+__device__ __forceinline__ void load_tile(T* sre, T* sim, const T* re, const T* im, int64_t tbase,
+                                          const int64_t* axoff, const Geom& g, bool vec) {
+  const int tb = g.t + g.k;
+  if (vec) {
+    const int rbits = g.t - VB;  // chunks per row: 2^rbits
+    for (int q = threadIdx.x; q < (1 << (tb - VB)); q += THREADS) {
+      const int64_t idx = tbase | axoff[q >> rbits] | ((int64_t)(q & ((1 << rbits) - 1)) << VB);
+      const int p = swz<VB>(q << VB);
+      cp_async16(sre + p, re + idx);
+      cp_async16(sim + p, im + idx);
+    }
+  } else {
+    const int low_mask = (1 << g.t) - 1;
+    for (int j = threadIdx.x; j < (1 << tb); j += THREADS) {
+      const int64_t idx = tbase | axoff[j >> g.t] | (j & low_mask);
+      const int p = swz<VB>(j);
+      cp_async_ca<sizeof(T)>(sre + p, re + idx);
+      cp_async_ca<sizeof(T)>(sim + p, im + idx);
+    }
   }
-#undef GLOBAL_INDEX
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void store_tile(const T* sre, const T* sim, T* re, T* im, int64_t tbase,
+                                           const int64_t* axoff, const Geom& g, bool vec) {
+  const int tb = g.t + g.k;
+  if (vec) {
+    const int rbits = g.t - VB;
+    for (int q = threadIdx.x; q < (1 << (tb - VB)); q += THREADS) {
+      const int64_t idx = tbase | axoff[q >> rbits] | ((int64_t)(q & ((1 << rbits) - 1)) << VB);
+      const int p = swz<VB>(q << VB);
+      *reinterpret_cast<Chunk<T>*>(re + idx) = *reinterpret_cast<const Chunk<T>*>(sre + p);
+      *reinterpret_cast<Chunk<T>*>(im + idx) = *reinterpret_cast<const Chunk<T>*>(sim + p);
+    }
+  } else {
+    const int low_mask = (1 << g.t) - 1;
+    for (int j = threadIdx.x; j < (1 << tb); j += THREADS) {
+      const int64_t idx = tbase | axoff[j >> g.t] | (j & low_mask);
+      const int p = swz<VB>(j);
+      re[idx] = sre[p];
+      im[idx] = sim[p];
+    }
+  }
+}
+
+// Run f(std::integral_constant<int, s>) for a runtime slot s < NE, so that
+// register indices derived from s are compile-time constants.
+template <int NE, typename F>
+__device__ __forceinline__ void with_slot(int s, F&& f) {
+  switch (s) {
+    case 0: f(std::integral_constant<int, 0>{}); break;
+    case 1: if constexpr (NE > 1) f(std::integral_constant<int, 1>{}); break;
+    case 2: if constexpr (NE > 2) f(std::integral_constant<int, 2>{}); break;
+    case 3: if constexpr (NE > 3) f(std::integral_constant<int, 3>{}); break;
+    default: break;
+  }
 }
 
 template <typename T>
-int launch_fused(void* re, void* im, const void* ops_i, const void* ops_f, int64_t nops,
-                 int64_t n, int64_t t, int64_t naxes, int64_t axes_packed, int64_t M,
-                 void* stream) {
-  if (naxes < 0 || naxes > MAX_AXES || t < 0 || t + naxes > n || n - t - naxes > 30) {
+__device__ __forceinline__ void cmul(T& xr, T& xi, T pr, T pi) {
+  const T r = xr * pr - xi * pi;
+  xi = xr * pi + xi * pr;
+  xr = r;
+}
+
+// An op's record as a thread holds it, loaded from the block's shared copy
+// with 16-byte loads: the int fields and the first 8 coefficients (a 2x2
+// matrix, a diagonal, or an iQFT op's slot factors).  Fields are read only
+// at compile-time offsets, so the record stays in registers.
+template <typename T>
+struct OpRec {
+  int4 a, b;  // kind, q1, q2, s1 | s2, off_axes, off_low, has_phase
+  T c[8];
+};
+
+template <typename T>
+__device__ __forceinline__ void load_op(OpRec<T>& r, const int* oi, const T* of) {
+  r.a = reinterpret_cast<const int4*>(oi)[0];
+  r.b = reinterpret_cast<const int4*>(oi)[1];
+#pragma unroll
+  for (int v = 0; v < 8 * (int)sizeof(T) / 16; ++v) {
+    const Chunk<T> q = reinterpret_cast<const Chunk<T>*>(of)[v];
+    if constexpr (sizeof(T) == 4) {
+      r.c[4 * v] = q.x; r.c[4 * v + 1] = q.y; r.c[4 * v + 2] = q.z; r.c[4 * v + 3] = q.w;
+    } else {
+      r.c[2 * v] = q.x; r.c[2 * v + 1] = q.y;
+    }
+  }
+}
+
+// Highest set bit of a positive compile-time value.
+__host__ __device__ constexpr int top_bit(int x) { return x > 1 ? 1 + top_bit(x >> 1) : 0; }
+
+// One op on a thread's 2^NE register amplitudes.  j0: tile-local index of
+// amplitude 0 (slot bits zero); gidx0: its global index.
+template <typename T, int NE>
+__device__ __forceinline__ void apply_op(T (&xr)[1 << NE], T (&xi)[1 << NE], const OpRec<T>& r,
+                                         const T* __restrict__ of, const T* __restrict__ ftab,
+                                         const T* fbase, int j0, int64_t gidx0, const Geom& g) {
+  constexpr int E = 1 << NE;
+  const int kind = r.a.x;
+  if (kind == OP_U1Q) {
+    const T u00r = r.c[0], u01r = r.c[1], u10r = r.c[2], u11r = r.c[3];
+    const T u00i = r.c[4], u01i = r.c[5], u10i = r.c[6], u11i = r.c[7];
+    const bool real = u00i == 0 && u01i == 0 && u10i == 0 && u11i == 0;  // H, X, RY: half the work
+    with_slot<NE>(r.a.w, [&](auto A) {
+      constexpr int bit = 1 << decltype(A)::value;
+      if (real) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          if (e & bit) continue;
+          const T ar = xr[e], ai = xi[e], br = xr[e | bit], bi = xi[e | bit];
+          xr[e] = u00r * ar + u01r * br;
+          xi[e] = u00r * ai + u01r * bi;
+          xr[e | bit] = u10r * ar + u11r * br;
+          xi[e | bit] = u10r * ai + u11r * bi;
+        }
+        return;
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (e & bit) continue;
+        const T ar = xr[e], ai = xi[e], br = xr[e | bit], bi = xi[e | bit];
+        xr[e] = (u00r * ar - u00i * ai) + (u01r * br - u01i * bi);
+        xi[e] = (u00r * ai + u00i * ar) + (u01r * bi + u01i * br);
+        xr[e | bit] = (u10r * ar - u10i * ai) + (u11r * br - u11i * bi);
+        xi[e | bit] = (u10r * ai + u10i * ar) + (u11r * bi + u11i * br);
+      }
+    });
+  } else if (kind == OP_DIAG1) {
+    const int q = r.a.y, s = r.a.w;
+    const int gb = (int)((gidx0 >> q) & 1);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int b = gb | (s >= 0 ? (e >> s) & 1 : 0);
+      cmul(xr[e], xi[e], b ? r.c[2] : r.c[0], b ? r.c[3] : r.c[1]);
+    }
+  } else if (kind == OP_DIAG2) {
+    const int qh = r.a.y, ql = r.a.z, sh = r.a.w, sl = r.b.x;
+    const int gh = (int)((gidx0 >> qh) & 1), gl = (int)((gidx0 >> ql) & 1);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = 2 * (gh | (sh >= 0 ? (e >> sh) & 1 : 0)) + (gl | (sl >= 0 ? (e >> sl) & 1 : 0));
+      // A select chain, not r.c[d]: a runtime index would put r in local memory.
+      const T pr = d == 0 ? r.c[0] : d == 1 ? r.c[1] : d == 2 ? r.c[2] : r.c[3];
+      const T pi = d == 0 ? r.c[4] : d == 1 ? r.c[5] : d == 2 ? r.c[6] : r.c[7];
+      cmul(xr[e], xi[e], pr, pi);
+    }
+  } else if (kind == OP_IQFT) {
+    const int l = r.a.y, off_axes = r.b.y, off_low = r.b.z;
+    const bool phase = r.b.w > 0;
+    const T s = (T)0.70710678118654752440;
+    // P: the phase of amplitude 0 (F_base * F_axes * F_low), times 1/sqrt(2).
+    T pr = s, pi = 0;
+    if (phase) {
+      pr = fbase[0] * s;
+      pi = fbase[1] * s;
+      if (off_axes >= 0) {
+        const int c = off_axes + (j0 >> g.t);
+        cmul(pr, pi, __ldg(ftab + 2 * c), __ldg(ftab + 2 * c + 1));
+      }
+      if (off_low >= 0) {
+        const int c = off_low + (j0 & ((1 << min(l, g.t)) - 1));
+        cmul(pr, pi, __ldg(ftab + 2 * c), __ldg(ftab + 2 * c + 1));
+      }
+    }
+    with_slot<NE>(r.a.w, [&](auto A) {
+      constexpr int bit = 1 << decltype(A)::value;
+      // Q[e], e with the target bit set: P times the factor w_b (r.c[2b],
+      // r.c[2b + 1]) of each other slot bit b set in e, built up from the
+      // product one bit smaller.
+      T qr[E], qi[E];
+      qr[bit] = pr;
+      qi[bit] = pi;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (!(e & bit) || e == bit) continue;
+        const int b = top_bit(e & ~bit);
+        qr[e] = qr[e ^ (1 << b)];
+        qi[e] = qi[e ^ (1 << b)];
+        if (phase) cmul(qr[e], qi[e], r.c[2 * b], r.c[2 * b + 1]);
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (e & bit) continue;
+        const T ar = xr[e], ai = xi[e], br = xr[e | bit], bi = xi[e | bit];
+        xr[e] = s * (ar + br);
+        xi[e] = s * (ai + bi);
+        T hr = ar - br, hi = ai - bi;
+        cmul(hr, hi, qr[e | bit], qi[e | bit]);
+        xr[e | bit] = hr;
+        xi[e | bit] = hi;
+      }
+    });
+  } else if (kind == OP_U2Q) {
+    const int sh = r.a.w, sl = r.b.x;  // sh > sl
+    with_slot<NE>(sh, [&](auto H) {
+      with_slot<NE>(sl, [&](auto L) {
+        constexpr int hb = 1 << decltype(H)::value, lb = 1 << decltype(L)::value;
+        if constexpr (hb > lb) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            if (e & (hb | lb)) continue;
+            const int idx[4] = {e, e | lb, e | hb, e | hb | lb};
+            T yr[4], yi[4];
+#pragma unroll
+            for (int row = 0; row < 4; ++row) {
+              yr[row] = 0;
+              yi[row] = 0;
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const T mr = __ldg(of + 4 * row + c), mi = __ldg(of + 16 + 4 * row + c);
+                yr[row] += mr * xr[idx[c]] - mi * xi[idx[c]];
+                yi[row] += mr * xi[idx[c]] + mi * xr[idx[c]];
+              }
+            }
+#pragma unroll
+            for (int row = 0; row < 4; ++row) {
+              xr[idx[row]] = yr[row];
+              xi[idx[row]] = yi[row];
+            }
+          }
+        }
+      });
+    });
+  }
+}
+
+// Load 2^VB consecutive amplitudes of a plane from shared memory.
+template <typename T, int VB>
+__device__ __forceinline__ void smem_get(const T* src, T* dst) {
+  if constexpr (VB > 0 && (sizeof(T) << VB) == 16) {
+    const Chunk<T> v = *reinterpret_cast<const Chunk<T>*>(src);
+    if constexpr (sizeof(T) == 4) {
+      dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+    } else {
+      dst[0] = v.x; dst[1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < (1 << VB); ++v) dst[v] = src[v];
+  }
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void smem_put(T* dst, const T* src) {
+  if constexpr (VB > 0 && (sizeof(T) << VB) == 16) {
+    Chunk<T> v;
+    if constexpr (sizeof(T) == 4) {
+      v.x = src[0]; v.y = src[1]; v.z = src[2]; v.w = src[3];
+    } else {
+      v.x = src[0]; v.y = src[1];
+    }
+    *reinterpret_cast<Chunk<T>*>(dst) = v;
+  } else {
+#pragma unroll
+    for (int v = 0; v < (1 << VB); ++v) dst[v] = src[v];
+  }
+}
+
+// One register group over the tile in (sre, sim): each thread takes
+// subcubes of 2^NE amplitudes, applies the group's ops, and puts them back.
+// s_opi, s_opc: the block's shared copy of the op records; ops_f: the full
+// coefficient records (u2q reads its 4x4 matrix there).
+template <typename T, int VB, int NE>
+__device__ __forceinline__ void run_group(T* sre, T* sim, const int* __restrict__ grp, const int* s_opi,
+                                          const T* s_opc, const T* __restrict__ ops_f, const T* __restrict__ ftab,
+                                          const T* fbase, int64_t tbase, const int64_t* axoff, const Geom& g) {
+  constexpr int NX = NE - VB;  // extra slots beyond the vector bits
+  constexpr int NC = 1 << NX;
+  const int ob = __ldg(grp), oe = __ldg(grp + 1);
+  int pos[NX > 0 ? NX : 1];
+  int xoff[NC];
+#pragma unroll
+  for (int x = 0; x < NX; ++x) pos[x] = __ldg(grp + 2 + x);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int o = 0;
+#pragma unroll
+    for (int x = 0; x < NX; ++x) o |= ((c >> x) & 1) << pos[x];
+    xoff[c] = o;
+  }
+  const int nsub = 1 << (g.t + g.k - NE);
+  const int low_mask = (1 << g.t) - 1;
+  for (int sub = threadIdx.x; sub < nsub; sub += THREADS) {
+    int j0 = sub << VB;
+#pragma unroll
+    for (int x = 0; x < NX; ++x) j0 = (int)insert_zero(j0, pos[x]);
+    T xr[1 << NE], xi[1 << NE];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = swz<VB>(j0 | xoff[c]);
+      smem_get<T, VB>(sre + p, xr + (c << VB));
+      smem_get<T, VB>(sim + p, xi + (c << VB));
+    }
+    const int64_t gidx0 = tbase | axoff[j0 >> g.t] | (j0 & low_mask);
+    for (int o = ob; o < oe; ++o) {
+      OpRec<T> rec;
+      load_op(rec, s_opi + OPI_STRIDE * o, s_opc + 8 * o);
+      apply_op<T, NE>(xr, xi, rec, ops_f + OPF_STRIDE * o, ftab, fbase + 2 * o, j0, gidx0, g);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int p = swz<VB>(j0 | xoff[c]);
+      smem_put<T, VB>(sre + p, xr + (c << VB));
+      smem_put<T, VB>(sim + p, xi + (c << VB));
+    }
+  }
+}
+
+// Two blocks an SM: 128 registers a thread hold a group's 2^NE amplitudes
+// without spills (a cap of 80, for three blocks, spilled and ran slower).
+template <typename T, int VB, int NE>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restrict__ ops_i,
+                     const T* __restrict__ ops_f, const int* __restrict__ groups, int ngroups,
+                     const T* __restrict__ ftab, int nops, Geom g, int M, int64_t tiles, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int64_t axoff[1 << MAX_AXES];  // axoff[c]: the axis bits of row c, any tile
+  const int tile = 1 << (g.t + g.k);
+  T* bufs = reinterpret_cast<T*>(smem);     // ring slot b: re at bufs + 2*b*tile, im after it
+  T* fbase = bufs + 2 * NSTAGE * tile;      // F_base of each op for the current tile (re, im)
+  T* s_opc = fbase + 2 * ((nops + 1) & ~1); // each op's first 8 coefficients (16-byte aligned)
+  int* s_opi = reinterpret_cast<int*>(s_opc + 8 * nops);  // each op's int record
+  for (int i = threadIdx.x; i < 8 * nops; i += THREADS) {
+    s_opc[i] = ops_f[OPF_STRIDE * (i / 8) + i % 8];
+    s_opi[i] = ops_i[i];
+  }
+  for (int c = threadIdx.x; c < (1 << g.k); c += THREADS) {
+    int64_t off = 0;
+#pragma unroll
+    for (int a = 0; a < MAX_AXES; ++a) {
+      if (a < g.k) off |= (int64_t)((c >> a) & 1) << g.axes[a];
+    }
+    axoff[c] = off;
+  }
+  __syncthreads();
+
+  // The ring: tile i of this block lands in slot i % NSTAGE, NSTAGE - 1 tiles ahead.
+  const int64_t step = gridDim.x;
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    const int64_t tau = blockIdx.x + s * step;
+    if (tau < tiles) load_tile<T, VB>(bufs + 2 * s * tile, bufs + (2 * s + 1) * tile, re, im, tile_base(tau, g), axoff, g, vec);
+    cp_async_commit();
+  }
+  int b = 0;
+  for (int64_t tau = blockIdx.x; tau < tiles; tau += step, b = (b + 1) % NSTAGE) {
+    cp_async_wait_group<NSTAGE - 2>();  // this tile's copies are done (later ones may fly)
+    const int64_t tbase = tile_base(tau, g);
+    for (int o = threadIdx.x; o < nops; o += THREADS) {
+      const int* oi = ops_i + OPI_STRIDE * o;
+      if (__ldg(oi) == OP_IQFT && __ldg(oi + 7) > 0) {
+        const int l = __ldg(oi + 1);
+        const int64_t mask = (int64_t(1) << l) - (int64_t(1) << M);
+        double sn, cs;  // exact: (tbase & mask) < 2^31 and a power-of-two divisor
+        sincospi((double)(tbase & mask) / (double)(int64_t(1) << l), &sn, &cs);
+        fbase[2 * o] = (T)cs;
+        fbase[2 * o + 1] = (T)sn;
+      }
+    }
+    __syncthreads();  // the tile and fbase are ready; the slot stored last iteration is free
+    const int64_t nxt = tau + (NSTAGE - 1) * step;
+    const int nb = (b + NSTAGE - 1) % NSTAGE;
+    if (nxt < tiles) load_tile<T, VB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
+    cp_async_commit();
+    T* sre = bufs + 2 * b * tile;
+    T* sim = sre + tile;
+    for (int gi = 0; gi < ngroups; ++gi) {
+      run_group<T, VB, NE>(sre, sim, groups + GRP_STRIDE * gi, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g);
+      __syncthreads();
+    }
+    store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+    __syncthreads();  // before fbase and this slot are reused
+  }
+}
+
+template <typename T, int VB, int NE>
+int launch(T* re, T* im, const void* ops_i, const void* ops_f, const void* groups, int ngroups,
+           const void* ftab, int nops, const Geom& g, int M, int64_t tiles, void* stream) {
+  const bool vec = VB > 0 && (sizeof(T) << VB) == 16 && g.t >= VB &&
+                   (reinterpret_cast<uintptr_t>(re) % 16) == 0 && (reinterpret_cast<uintptr_t>(im) % 16) == 0;
+  // The ring, then per op: F_base (2 T), the first 8 coefficients, the int record.
+  const size_t smem = 2 * NSTAGE * sizeof(T) * (size_t(1) << (g.t + g.k)) + 10 * sizeof(T) * (size_t)(nops + 1) +
+                      OPI_STRIDE * sizeof(int) * (size_t)nops;
+  auto kern = fused_segment_kernel<T, VB, NE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem)) != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
+  kern<<<(unsigned int)grid, THREADS, smem, (cudaStream_t)stream>>>(
+      re, im, (const int*)ops_i, (const T*)ops_f, (const int*)groups, ngroups, (const T*)ftab, nops, g, M, tiles,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fused(void* re, void* im, const void* ops_i, const void* ops_f, const void* groups, int64_t ngroups,
+                 const void* ftab, int64_t nops, int64_t n, int64_t t, int64_t naxes, int64_t axes_packed,
+                 int64_t M, int64_t vb, int64_t ne, void* stream) {
+  if (naxes < 0 || naxes > MAX_AXES || t < 0 || t + naxes > n || n - t - naxes > 40 || t + naxes > 16 ||
+      ne < 1 || ne > t + naxes || nops < 0 || ngroups < 1) {
     return (int)cudaErrorInvalidValue;
   }
   Geom g;
   g.t = (int)t;
   g.k = (int)naxes;
   for (int a = 0; a < MAX_AXES; ++a) g.axes[a] = a < naxes ? (int)((axes_packed >> (8 * a)) & 0xff) : 0;
-  const size_t smem = 2 * sizeof(T) * (size_t(1) << (t + naxes));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_segment_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  const int64_t tiles = int64_t(1) << (n - t - naxes);
+  T* r = (T*)re;
+  T* i = (T*)im;
+  const int ng = (int)ngroups, no = (int)nops, m = (int)M;
+  constexpr int VB_MAIN = sizeof(T) == 4 ? 2 : 1;
+  constexpr int NE_MAIN = sizeof(T) == 4 ? 4 : 3;
+  if (vb == VB_MAIN && ne == NE_MAIN) return launch<T, VB_MAIN, NE_MAIN>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
+  if (vb == 0 && ne == 1) return launch<T, 0, 1>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
+  if (vb == 0 && ne == 2) return launch<T, 0, 2>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
+  if constexpr (NE_MAIN > 3) {
+    if (vb == 0 && ne == 3) return launch<T, 0, 3>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
   }
-  const unsigned int tiles = (unsigned int)(int64_t(1) << (n - t - naxes));
-  fused_segment_kernel<T><<<tiles, THREADS, smem, (cudaStream_t)stream>>>(
-      (T*)re, (T*)im, (const int*)ops_i, (const double*)ops_f, (int)nops, g, (int)M);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int qc_fused_segment_f32(void* re, void* im, void* ops_i, void* ops_f, int64_t nops,
-                                    int64_t n, int64_t t, int64_t naxes, int64_t axes_packed,
-                                    int64_t M, void* stream) {
-  return launch_fused<float>(re, im, ops_i, ops_f, nops, n, t, naxes, axes_packed, M, stream);
+extern "C" int qc_fused_segment_f32(void* re, void* im, void* ops_i, void* ops_f, void* groups, int64_t ngroups,
+                                    void* ftab, int64_t nops, int64_t n, int64_t t, int64_t naxes,
+                                    int64_t axes_packed, int64_t M, int64_t vb, int64_t ne, void* stream) {
+  return launch_fused<float>(re, im, ops_i, ops_f, groups, ngroups, ftab, nops, n, t, naxes, axes_packed, M, vb,
+                             ne, stream);
 }
 
-extern "C" int qc_fused_segment_f64(void* re, void* im, void* ops_i, void* ops_f, int64_t nops,
-                                    int64_t n, int64_t t, int64_t naxes, int64_t axes_packed,
-                                    int64_t M, void* stream) {
-  return launch_fused<double>(re, im, ops_i, ops_f, nops, n, t, naxes, axes_packed, M, stream);
+extern "C" int qc_fused_segment_f64(void* re, void* im, void* ops_i, void* ops_f, void* groups, int64_t ngroups,
+                                    void* ftab, int64_t nops, int64_t n, int64_t t, int64_t naxes,
+                                    int64_t axes_packed, int64_t M, int64_t vb, int64_t ne, void* stream) {
+  return launch_fused<double>(re, im, ops_i, ops_f, groups, ngroups, ftab, nops, n, t, naxes, axes_packed, M, vb,
+                              ne, stream);
 }
 
 extern "C" const char* qc_error_string(int err) {

@@ -1,5 +1,5 @@
 // In-place controlled modular multiply (m_high layout) along the cycles of
-// its row permutation, for Hopper (sm_90a).  Two kernels share the walk:
+// its row permutation, for Hopper (sm_90a).  Two entry points share the walk:
 //
 //   qc_oracle_cycle_*         replaces pallas_oracle.py::_cycle_kernel: one
 //                             gate, its control at any column bit;
@@ -11,51 +11,66 @@
 // Over the (rows = 2^M, rest = 2^(n-M)) row-major view of each plane
 // (element (j, col) at j * rest + col), a column whose control mask is m
 // has its rows permuted, x[j] <- x[ginv_m[j]], and a column of mask 0 is
-// never touched.  The permutation acts on the rows of one column, so
-// distinct columns are independent: a thread owns one column of one plane,
-// and the kernel enumerates only the columns of nonzero mask (the mask bits
-// are inserted into the thread index), so a GPU thread never reads a column
-// it does not move.  Neighbouring threads take neighbouring columns of one
-// mask, so a warp reads and writes consecutive elements of a row.  The TPU
-// kernels could not skip the control-0 columns below their slab width; the
-// per-column walk can, at any control position.
+// never touched: the kernels enumerate only the columns of nonzero mask (the
+// mask bits are inserted into the thread's column index).
 //
-// In place, one column's walk must read every row before it writes it.  The
-// schedule (ops/oracle.py, cycle_schedule; int32 (3, rows): out_row,
-// src_row, kind) orders the rows along the permutation's cycles:
+// In place, a walk must read every row before it writes it.  The schedule
+// (ops/oracle.py, cycle_schedule; int32 (3, rows): out_row, src_row, kind)
+// orders the rows along the permutation's cycles:
 //   kind 0  chain step:  x[out] <- x[src], and src is the next step's out;
 //   kind 1  cycle head:  as kind 0, but out (the head row) is also the
 //           source of the cycle's closing step;
 //   kind 2  fixed point: nothing moves;
 //   kind 3  closing:     x[out] <- the head row's original value.
-// The TPU kernel keeps the head's original value in a scratch slot.  Here
-// the head's own write is deferred to the closing step instead: the head
-// row then still holds its original value when the closing step reads it,
-// so every step reads exactly one row, from device memory, and every row
+// The head's own write is deferred to the closing step, so the head row
+// still holds its original value when the closing step reads it: every row
 // is read once and written once (1R + 1W of the moved columns).
 //
-// What bounds it: device-memory latency first.  A step is one load and one
-// store per column, and a column's steps run in order.  But no load depends
-// on an earlier step's store: step t reads row src[t] = out[t+1], which is
-// first written at step t+1 (the head row at the closing step itself, after
-// its read).  So a thread starts the loads of DEPTH steps before it stores
-// any of them, and DEPTH loads are in flight per thread.  The schedule is
-// staged through shared memory STAGE steps at a time; every thread of a
-// block walks the same schedule.  Measured on the H100 at n = 28: depth 32
-// is 9% faster than 16; issuing the next batch's loads before this batch's
-// stores, and 16-byte vectors per thread, were both slower.
+// What bounds it: device-memory bandwidth, 1R + 1W of the moved half
+// (0.641 ms for a 2 GiB complex64 state at 3.35 TB/s).  One thread a
+// column walking all 2^M steps in order would give 32,768 threads at n = 28
+// (12% of the card's), each step one 128-byte line a warp: too few bytes in
+// flight.  So the walk is cut open along the schedule as well:
+//
+//   * Segments.  The schedule splits into S contiguous step ranges
+//     (ops/oracle.py, walk_segments), walked concurrently.  A row is read at
+//     step t and written at step t + 1 (a head row: read and written at its
+//     closing step), so only two values cross a cut: the source row of a
+//     segment's last step, which the next segment overwrites first, and, for
+//     a cycle that closes in a segment but opened in an earlier one, the
+//     value its head read.  A first, small launch copies those rows of the
+//     moved columns into scratch; each segment then takes them from there,
+//     and the result is x[ginv] whatever order the blocks run in.
+//   * Vectors.  A thread moves V contiguous columns (16 bytes) per step when
+//     every run of moved columns fills a 32-byte sector (ops/oracle.py,
+//     walk_vector), so a warp moves 512 bytes of a row per step; below it,
+//     one column a thread.
+//     Runs shorter than a 128-byte line still cost whole sectors and lines,
+//     so the walk's share of its bound falls below control 5 (f32); see
+//     PERF.md.
+//   * Depth.  No load depends on an earlier step's store (step t reads
+//     src[t] = out[t + 1]), so a thread issues the loads of DEPTH steps
+//     before their stores.  S is chosen from the shapes (ops/oracle.py) so
+//     that the grid fills the card's resident threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int STAGE = 1024;  // schedule steps staged in shared memory at a time
-constexpr int DEPTH = 32;    // steps whose loads are in flight per thread
+constexpr int THREADS = 128;
+constexpr int STAGE = 512;  // schedule steps staged in shared memory at a time
+constexpr int DEPTH = 8;    // steps whose loads are in flight per thread
 constexpr int KIND_HEAD = 1;
 constexpr int KIND_SELF = 2;
 constexpr int KIND_CLOSE = 3;
+constexpr int SEG_STRIDE = 8;  // t0, t1, a_row, b_row, head_row (ops/oracle.py)
+constexpr int MAX_SEGMENTS = 1 << 14;
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
 
 // x with a bit of value `bit` inserted at position p (bits >= p shift up).
 __device__ __forceinline__ int64_t insert_bit(int64_t x, int p, int64_t bit) {
@@ -63,7 +78,7 @@ __device__ __forceinline__ int64_t insert_bit(int64_t x, int p, int64_t bit) {
   return ((x >> p) << (p + 1)) | (bit << p) | low;
 }
 
-// Column bits inserted into a thread's index: mask bit sel[i] of m at
+// Column bits inserted into an active-column index: mask bit sel[i] of m at
 // column bit pos[i], positions ascending.
 struct Insert {
   int nbits;
@@ -71,41 +86,78 @@ struct Insert {
   int sel[2];
 };
 
+__device__ __forceinline__ int64_t column(int64_t v, int m, const Insert& ins) {
+  for (int b = 0; b < ins.nbits; ++b) v = insert_bit(v, ins.pos[b], (m >> ins.sel[b]) & 1);
+  return v;
+}
+
+// Scratch element of (segment, which row, plane, mask) at active column u.
+__device__ __forceinline__ int64_t scratch_at(int sigma, int which, int plane, int mi, int nmasks, int64_t active,
+                                              int64_t u) {
+  return ((((int64_t)sigma * 2 + which) * 2 + plane) * nmasks + mi) * active + u;
+}
+
+// Copy each segment's cut rows (a_row, b_row) of the moved columns into
+// scratch, before any segment writes.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-cycle_walk_kernel(T* re, T* im, const int32_t* __restrict__ sched, int64_t rows, int log_rest,
+walk_preread_kernel(const T* re, const T* im, T* __restrict__ scratch, const int32_t* __restrict__ segs, int S,
+                    int nmasks, int64_t active, int log_rest, Insert ins) {
+  const int64_t u = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (u >= active) return;
+  const int plane = blockIdx.z & 1, mi = blockIdx.z >> 1;
+  const int sigma = blockIdx.y >> 1, which = blockIdx.y & 1;
+  const int row = segs[((int64_t)mi * S + sigma) * SEG_STRIDE + 2 + which];
+  if (row < 0) return;
+  const T* x = plane ? im : re;
+  scratch[scratch_at(sigma, which, plane, mi, nmasks, active, u)] =
+      x[((int64_t)row << log_rest) + column(u, mi + 1, ins)];
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+cycle_walk_kernel(T* re, T* im, const int32_t* __restrict__ sched, const int32_t* __restrict__ segs,
+                  const T* __restrict__ scratch, int64_t rows, int S, int nmasks, int64_t active, int log_rest,
                   Insert ins) {
+  using P = Pack<T, V>;
   __shared__ int32_t s_out[STAGE];
   __shared__ int32_t s_src[STAGE];
   __shared__ int32_t s_kind[STAGE];
-  const int m = (int)blockIdx.z + 1;  // this block's control mask
-  const int32_t* sc = sched + (int64_t)blockIdx.z * 3 * rows;
-  T* x = blockIdx.y ? im : re;
-  const int64_t rest = int64_t(1) << log_rest;
-  const int64_t v = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  const bool active = v < (rest >> ins.nbits);
-  int64_t col = v;
-  for (int b = 0; b < ins.nbits; ++b) col = insert_bit(col, ins.pos[b], (m >> ins.sel[b]) & 1);
+  const int plane = blockIdx.z & 1, mi = blockIdx.z >> 1;
+  const int sigma = blockIdx.y;
+  const int32_t* sc = sched + (int64_t)mi * 3 * rows;
+  const int32_t* rec = segs + ((int64_t)mi * S + sigma) * SEG_STRIDE;
+  const int64_t t0 = rec[0], t1 = rec[1];
+  const int a_row = rec[2], b_row = rec[3];
+  T* x = plane ? im : re;
+  const int64_t u = ((int64_t)blockIdx.x * THREADS + threadIdx.x) * V;  // first active column of this thread
+  const bool live = u < active;
+  const int64_t col = column(u, mi + 1, ins);
 
-  T pending = T(0);
-  int64_t pending_row = 0;
-  for (int64_t t0 = 0; t0 < rows; t0 += STAGE) {
-    const int steps = (int)(rows - t0 < STAGE ? rows - t0 : STAGE);
+  P pending = {};
+  int64_t pending_row = rec[4];
+  if (live && b_row >= 0) {
+    pending = *reinterpret_cast<const P*>(scratch + scratch_at(sigma, 1, plane, mi, nmasks, active, u));
+  }
+  const P* cut = reinterpret_cast<const P*>(scratch + scratch_at(sigma, 0, plane, mi, nmasks, active, u));
+  for (int64_t st0 = t0; st0 < t1; st0 += STAGE) {
+    const int steps = (int)(t1 - st0 < STAGE ? t1 - st0 : STAGE);
     __syncthreads();  // the previous stage is no longer read
     for (int s = threadIdx.x; s < steps; s += THREADS) {
-      s_out[s] = sc[t0 + s];
-      s_src[s] = sc[rows + t0 + s];
-      s_kind[s] = sc[2 * rows + t0 + s];
+      s_out[s] = sc[st0 + s];
+      s_src[s] = sc[rows + st0 + s];
+      s_kind[s] = sc[2 * rows + st0 + s];
     }
     __syncthreads();
-    if (!active) continue;
+    if (!live) continue;
+    const int last = (a_row >= 0 && st0 + steps == t1) ? steps - 1 : -1;  // the step whose source is in scratch
     for (int k0 = 0; k0 < steps; k0 += DEPTH) {
-      T val[DEPTH];
+      P val[DEPTH];
 #pragma unroll
       for (int k = 0; k < DEPTH; ++k) {
         const int s = k0 + k;
         if (s < steps && s_kind[s] != KIND_SELF) {
-          val[k] = x[(int64_t)s_src[s] * rest + col];
+          val[k] = s == last ? *cut : *reinterpret_cast<const P*>(x + ((int64_t)s_src[s] << log_rest) + col);
         }
       }
 #pragma unroll
@@ -119,43 +171,65 @@ cycle_walk_kernel(T* re, T* im, const int32_t* __restrict__ sched, int64_t rows,
           pending_row = s_out[s];
           continue;
         }
-        x[(int64_t)s_out[s] * rest + col] = val[k];
-        if (kind == KIND_CLOSE) x[pending_row * rest + col] = pending;
+        *reinterpret_cast<P*>(x + ((int64_t)s_out[s] << log_rest) + col) = val[k];
+        if (kind == KIND_CLOSE) *reinterpret_cast<P*>(x + (pending_row << log_rest) + col) = pending;
       }
     }
   }
 }
 
 template <typename T>
-int launch_walk(void* re, void* im, const void* sched, int64_t nmasks, int64_t log_rows,
-                int64_t log_rest, const Insert& ins, void* stream) {
-  if (log_rows < 0 || log_rows > 30 || log_rest < ins.nbits || log_rows + log_rest > 40) {
+int launch_walk(void* re, void* im, const void* sched, const void* segs, void* scratch, int64_t S,
+                int64_t nmasks, int64_t log_rows, int64_t log_rest, const Insert& ins, int64_t vec, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (log_rows < 0 || log_rows > 30 || log_rest < ins.nbits || log_rows + log_rest > 40 || S < 1 ||
+      S > MAX_SEGMENTS || S > (int64_t(1) << log_rows) || (vec != 1 && vec != VEC)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int b = 0; b < ins.nbits; ++b) {
     if (ins.pos[b] < 0 || ins.pos[b] >= log_rest) return (int)cudaErrorInvalidValue;
+    if (vec > 1 && (int64_t(1) << ins.pos[b]) < vec) return (int)cudaErrorInvalidValue;
   }
-  const int64_t blocks = ((int64_t(1) << (log_rest - ins.nbits)) + THREADS - 1) / THREADS;
+  if (vec > 1 && ((reinterpret_cast<uintptr_t>(re) | reinterpret_cast<uintptr_t>(im) |
+                   reinterpret_cast<uintptr_t>(scratch)) % 16) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t active = int64_t(1) << (log_rest - ins.nbits);
+  const int64_t blocks = (active + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned int)blocks, 2, (unsigned int)nmasks);
-  cycle_walk_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (T*)re, (T*)im, (const int32_t*)sched, int64_t(1) << log_rows, (int)log_rest, ins);
+  cudaStream_t st = (cudaStream_t)stream;
+  walk_preread_kernel<T><<<dim3((unsigned int)blocks, (unsigned int)(2 * S), (unsigned int)(2 * nmasks)), THREADS, 0,
+                           st>>>((const T*)re, (const T*)im, (T*)scratch, (const int32_t*)segs, (int)S, (int)nmasks,
+                                 active, (int)log_rest, ins);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)((active / vec + THREADS - 1) / THREADS), (unsigned int)S, (unsigned int)(2 * nmasks));
+  const int64_t rows = int64_t(1) << log_rows;
+  if (vec > 1) {
+    cycle_walk_kernel<T, VEC><<<grid, THREADS, 0, st>>>((T*)re, (T*)im, (const int32_t*)sched, (const int32_t*)segs,
+                                                        (const T*)scratch, rows, (int)S, (int)nmasks, active,
+                                                        (int)log_rest, ins);
+  } else {
+    cycle_walk_kernel<T, 1><<<grid, THREADS, 0, st>>>((T*)re, (T*)im, (const int32_t*)sched, (const int32_t*)segs,
+                                                      (const T*)scratch, rows, (int)S, (int)nmasks, active,
+                                                      (int)log_rest, ins);
+  }
   return (int)cudaGetLastError();
 }
 
 // One gate: the control bit c_phys set (mask 1), one schedule.
 template <typename T>
-int cycle(void* re, void* im, const void* sched, int64_t log_rows, int64_t log_rest,
-          int64_t c_phys, void* stream) {
+int cycle(void* re, void* im, const void* sched, const void* segs, void* scratch, int64_t S, int64_t log_rows,
+          int64_t log_rest, int64_t c_phys, int64_t vec, void* stream) {
   const Insert ins{1, {(int)c_phys, 0}, {0, 0}};
-  return launch_walk<T>(re, im, sched, 1, log_rows, log_rest, ins, stream);
+  return launch_walk<T>(re, im, sched, segs, scratch, S, 1, log_rows, log_rest, ins, vec, stream);
 }
 
 // nmasks == 1: one gate on control pos_a (pos_b unused); nmasks == 3: a
 // pair, schedule m - 1 for the columns with bit_a + 2 * bit_b == m.
 template <typename T>
-int cycle_masked(void* re, void* im, const void* sched, int64_t nmasks, int64_t log_rows,
-                 int64_t log_rest, int64_t pos_a, int64_t pos_b, void* stream) {
+int cycle_masked(void* re, void* im, const void* sched, const void* segs, void* scratch, int64_t S, int64_t nmasks,
+                 int64_t log_rows, int64_t log_rest, int64_t pos_a, int64_t pos_b, int64_t vec, void* stream) {
   Insert ins{1, {(int)pos_a, 0}, {0, 0}};
   if (nmasks == 3) {
     if (pos_a == pos_b) return (int)cudaErrorInvalidValue;
@@ -168,31 +242,33 @@ int cycle_masked(void* re, void* im, const void* sched, int64_t nmasks, int64_t 
   } else if (nmasks != 1) {
     return (int)cudaErrorInvalidValue;
   }
-  return launch_walk<T>(re, im, sched, nmasks, log_rows, log_rest, ins, stream);
+  return launch_walk<T>(re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, ins, vec, stream);
 }
 
 }  // namespace
 
-// sched: int32 (3, 2^log_rows) on the device.
-extern "C" int qc_oracle_cycle_f32(void* re, void* im, void* sched, int64_t log_rows,
-                                   int64_t log_rest, int64_t c_phys, void* stream) {
-  return cycle<float>(re, im, sched, log_rows, log_rest, c_phys, stream);
+// sched: int32 (3, 2^log_rows); segs: int32 (S, SEG_STRIDE); scratch: 2 * S
+// rows of the moved columns of both planes, on the device.
+extern "C" int qc_oracle_cycle_f32(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
+                                   int64_t log_rows, int64_t log_rest, int64_t c_phys, int64_t vec, void* stream) {
+  return cycle<float>(re, im, sched, segs, scratch, S, log_rows, log_rest, c_phys, vec, stream);
 }
 
-extern "C" int qc_oracle_cycle_f64(void* re, void* im, void* sched, int64_t log_rows,
-                                   int64_t log_rest, int64_t c_phys, void* stream) {
-  return cycle<double>(re, im, sched, log_rows, log_rest, c_phys, stream);
+extern "C" int qc_oracle_cycle_f64(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
+                                   int64_t log_rows, int64_t log_rest, int64_t c_phys, int64_t vec, void* stream) {
+  return cycle<double>(re, im, sched, segs, scratch, S, log_rows, log_rest, c_phys, vec, stream);
 }
 
-// sched: int32 (nmasks, 3, 2^log_rows) on the device.
-extern "C" int qc_oracle_cycle_masked_f32(void* re, void* im, void* sched, int64_t nmasks,
-                                          int64_t log_rows, int64_t log_rest, int64_t pos_a,
-                                          int64_t pos_b, void* stream) {
-  return cycle_masked<float>(re, im, sched, nmasks, log_rows, log_rest, pos_a, pos_b, stream);
+// sched: int32 (nmasks, 3, 2^log_rows); segs: int32 (nmasks, S, SEG_STRIDE).
+extern "C" int qc_oracle_cycle_masked_f32(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
+                                          int64_t nmasks, int64_t log_rows, int64_t log_rest, int64_t pos_a,
+                                          int64_t pos_b, int64_t vec, void* stream) {
+  return cycle_masked<float>(re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec, stream);
 }
 
-extern "C" int qc_oracle_cycle_masked_f64(void* re, void* im, void* sched, int64_t nmasks,
-                                          int64_t log_rows, int64_t log_rest, int64_t pos_a,
-                                          int64_t pos_b, void* stream) {
-  return cycle_masked<double>(re, im, sched, nmasks, log_rows, log_rest, pos_a, pos_b, stream);
+extern "C" int qc_oracle_cycle_masked_f64(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
+                                          int64_t nmasks, int64_t log_rows, int64_t log_rest, int64_t pos_a,
+                                          int64_t pos_b, int64_t vec, void* stream) {
+  return cycle_masked<double>(re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec,
+                              stream);
 }

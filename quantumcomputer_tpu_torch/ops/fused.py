@@ -4,8 +4,9 @@ The counterpart of the JAX package's ``ops/pallas_fused.py`` (planner and
 ``_fused_kernel``) and of ``ops/pallas_gates.py`` (its single-gate entry
 points, here one-op segments).  Every gate of a fused segment is applied in
 ONE pass over the state: the kernel (``csrc/fused_segment.cu``) loads a tile
-into shared memory, applies all of the segment's ops there, and writes the
-tile back in place.
+into shared memory, applies all of the segment's ops there, a register
+group of ops at a time (``host_descriptor``), and writes the tile back in
+place.
 
 A tile holds the low t index bits (contiguous, so memory access coalesces)
 plus up to ``TILE_BITS - LOW_BITS`` exposed "axis" bits, one per butterfly
@@ -49,13 +50,22 @@ from quantumcomputer_tpu_torch.sim import statevec as sv
 LOW_BITS = 7  # targets below this bit always lie inside a tile
 # Tile size per plane dtype: 2^bits amplitudes x 2 planes = 32 KB of shared memory.
 TILE_BITS = {torch.float32: 12, torch.float64: 11}
+# The kernel's register groups: a thread holds 2^GROUP_BITS amplitudes of a
+# tile, the low VEC_BITS index bits (16 bytes of a plane) plus
+# GROUP_BITS - VEC_BITS more, and applies every op of a group to them.
+VEC_BITS = {torch.float32: 2, torch.float64: 1}
+GROUP_BITS = {torch.float32: 4, torch.float64: 3}
 
 #: Kernel launches made by apply_fused (CUDA tensors only).
 LAUNCHES = 0
 
 _KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4}
-_OPI_STRIDE = 6
+# Op record: kind, q1, q2, slot of q1, slot of q2 (-1: not a group slot),
+# then an iQFT op's F_axes and F_low offsets in ftab (-1: none) and 1 when
+# it has a phase.
+_OPI_STRIDE = 8
 _OPF_STRIDE = 32
+_GRP_STRIDE = 8  # op_begin, op_end, then the group's extra slot positions
 
 
 def gate_to_op(g: Gate) -> Optional[tuple]:
@@ -240,10 +250,80 @@ def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
 # CUDA kernel wrapper.
 
 
-@lru_cache(maxsize=256)
-def _descriptor(ops: tuple, axes: tuple, n: int, M: int, tile_bits: int, device: torch.device):
-    """Tile geometry and the device-side op records of one segment."""
-    t, high = tile_geometry(n, axes, tile_bits)
+def iqft_phases(values, l: int, M: int) -> np.ndarray:
+    """exp(i*pi*(v & mask) / 2^l), mask = 2^l - 2^M, for integer values v,
+    in complex128: the angle is formed from the exact integer (v & mask)."""
+    mask = (1 << l) - (1 << M) if l > M else 0
+    frac = (np.asarray(values, np.int64) & mask).astype(np.float64) / float(1 << l)  # exact, in [0, 1)
+    # Reduce to an angle of at most pi/4 (exact steps for these dyadic
+    # fractions), so that rounding pi * x costs no more than an ulp.
+    flip = frac > 0.5
+    x = np.where(flip, 1.0 - frac, frac)  # cos(pi x) changes sign, sin does not
+    swap = x > 0.25
+    y = np.pi * np.where(swap, 0.5 - x, x)
+    c, s = np.where(swap, np.sin(y), np.cos(y)), np.where(swap, np.cos(y), np.sin(y))
+    return np.where(flip, -c, c) + 1j * s
+
+
+def iqft_axis_phases(l: int, M: int, high) -> np.ndarray:
+    """F_axes: the iQFT op's phase factor of each exposed-axis combination c
+    (bit a of c = axis high[a]), 2^len(high) values."""
+    c = np.arange(1 << len(high))
+    bits = np.zeros_like(c)
+    for a, q in enumerate(high):
+        bits |= ((c >> a) & 1) << q
+    return iqft_phases(bits, l, M)
+
+
+def iqft_low_phases(l: int, M: int, t: int) -> np.ndarray:
+    """F_low: the iQFT op's phase factor of the low t bits of an index.
+    Only bits below l count, so 2^min(l, t) values; all ones when M >= t."""
+    return iqft_phases(np.arange(1 << min(l, t)), l, M)
+
+
+def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
+    """Cut a segment's ops into register groups, in order: every target of a
+    group lies in its 2^ne-amplitude slots, the low vb bits plus at most
+    ne - vb more tile bits.  Returns (op_begin, op_end, extra positions
+    ascending, padded with unused tile bits to ne - vb)."""
+    groups, cur, begin = [], set(), 0
+    for i, op in enumerate(ops):
+        need = {local(q) for q in _op_targets(op)} - set(range(vb))
+        if len(cur | need) > ne - vb:
+            groups.append((begin, i, cur))
+            begin, cur = i, set()
+        cur |= need
+    groups.append((begin, len(ops), cur))
+    out = []
+    for b, e, extra in groups:
+        pad = (p for p in range(vb, tb) if p not in extra)
+        while len(extra) < ne - vb:
+            extra = extra | {next(pad)}
+        out.append((b, e, tuple(sorted(extra))))
+    return out
+
+
+def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype):
+    """The kernel's view of one segment, as numpy arrays: (t, high, vb, ne,
+    ops_i, ops_f, groups, ftab).
+
+    A tile holds the low t index bits plus the exposed axes `high`; a thread
+    holds 2^ne of its amplitudes (the low vb bits plus ne - vb group bits).
+    States too small for that (t < vb or fewer than ne tile bits) take the
+    edge form vb = 0, ne = all tile bits: one thread holds the whole tile.
+    An iQFT op's phase exp(i*pi*(idx & mask)/2^l) splits over disjoint bit
+    fields of idx: F_base (the tile base, formed in the kernel once per
+    tile), F_axes (the axis bits) and F_low (the low bits, slot bits zero),
+    both in ftab, and one factor w_s per slot bit s, in the op's ops_f
+    record; all in the plane dtype, re/im interleaved, so no amplitude
+    needs a transcendental."""
+    t, high = tile_geometry(n, axes, TILE_BITS[dtype])
+    tb = t + len(high)
+    vb, ne = VEC_BITS[dtype], GROUP_BITS[dtype]
+    if t < vb or tb < ne:
+        vb, ne = 0, tb
+    if ne < 1:
+        raise ValueError(f"a {n}-qubit state has no tile bits")
 
     def local(q: int) -> int:
         if q < t:
@@ -252,24 +332,59 @@ def _descriptor(ops: tuple, axes: tuple, n: int, M: int, tile_bits: int, device:
             raise ValueError(f"target qubit {q} is neither below t={t} nor an exposed axis {high}")
         return t + high.index(q)
 
-    ops_i = np.zeros((len(ops), _OPI_STRIDE), np.int32)
+    def glob(p: int) -> int:  # global bit of tile-local position p
+        return p if p < t else high[p - t]
+
+    groups = _group_ops(ops, local, t, tb, vb, ne)
+    ops_i = np.full((len(ops), _OPI_STRIDE), -1, np.int32)
     ops_f = np.zeros((len(ops), _OPF_STRIDE), np.float64)
-    for k, op in enumerate(ops):
-        ops_i[k, 0] = _KIND[op[0]]
-        ops_i[k, 1] = op[1]
-        if op[0] in ("diag2", "u2q"):
-            ops_i[k, 2] = op[2]
-        targets = _op_targets(op)
-        for j, q in enumerate(targets):
-            ops_i[k, 3 + j] = local(q)
-        vals = op[-1] if op[0] != "iqft" else ()
-        ops_f[k, : len(vals)] = vals
-    return (
-        t,
-        high,
-        torch.from_numpy(ops_i).to(device),
-        torch.from_numpy(ops_f).to(device),
-    )
+    grp = np.zeros((len(groups), _GRP_STRIDE), np.int32)
+    tables: list = []
+    size = 0
+
+    def table(values) -> int:
+        nonlocal size
+        tables.append(values)
+        size += len(values)
+        return size - len(values)
+
+    for gi, (b, e, extra) in enumerate(groups):
+        grp[gi, :2] = b, e
+        grp[gi, 2 : 2 + len(extra)] = extra
+        slots = list(range(vb)) + list(extra)  # slot s holds tile-local position slots[s]
+        for k in range(b, e):
+            op = ops[k]
+            qs = (op[1], op[2]) if op[0] in ("diag2", "u2q") else (op[1],)
+            ops_i[k, 0] = _KIND[op[0]]
+            for j, q in enumerate(qs):
+                ops_i[k, 1 + j] = q
+                p = local(q) if (q < t or q in high) else -1
+                ops_i[k, 3 + j] = slots.index(p) if p in slots else -1
+            if op[0] == "iqft":
+                l = op[1]
+                if l > M:
+                    mask = (1 << l) - (1 << M)
+                    if any(mask >> q & 1 for q in high):
+                        ops_i[k, 5] = table(iqft_axis_phases(l, M, high))
+                    if mask & ((1 << t) - 1):
+                        ops_i[k, 6] = table(iqft_low_phases(l, M, t))
+                    ops_i[k, 7] = 1
+                    w = iqft_phases([1 << glob(p) for p in slots], l, M)
+                    ops_f[k, : 2 * ne] = np.stack([w.real, w.imag], axis=1).reshape(-1)
+            else:
+                vals = op[-1]
+                ops_f[k, : len(vals)] = vals
+    ftab = np.concatenate(tables) if tables else np.ones(1, np.complex128)
+    ftab = np.stack([ftab.real, ftab.imag], axis=1).reshape(-1)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    return t, high, vb, ne, ops_i, ops_f.astype(np_dtype), grp, ftab.astype(np_dtype)
+
+
+@lru_cache(maxsize=256)
+def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, device: torch.device):
+    """host_descriptor with its arrays on the device."""
+    t, high, vb, ne, *arrays = host_descriptor(ops, axes, n, M, dtype)
+    return (t, high, vb, ne, *(torch.from_numpy(a).to(device) for a in arrays))
 
 
 def _check_planar(planar: torch.Tensor) -> int:
@@ -295,8 +410,8 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
         raise ValueError(f"no fused-segment path for device {planar.device}")
     if not ops:
         return planar
-    t, high, ops_i, ops_f = _descriptor(
-        tuple(ops), tuple(axes), n, M, TILE_BITS[planar.dtype], planar.device
+    t, high, vb, ne, ops_i, ops_f, groups, ftab = _descriptor(
+        tuple(ops), tuple(axes), n, M, planar.dtype, planar.device
     )
     lib = _build.load()
     fn = lib.qc_fused_segment_f32 if planar.dtype == torch.float32 else lib.qc_fused_segment_f64
@@ -304,7 +419,8 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
     with torch.cuda.device(planar.device):
         err = fn(
             planar[0].data_ptr(), planar[1].data_ptr(), ops_i.data_ptr(), ops_f.data_ptr(),
-            len(ops), n, t, len(high), packed, M, torch.cuda.current_stream().cuda_stream,
+            groups.data_ptr(), groups.shape[0], ftab.data_ptr(), len(ops), n, t, len(high), packed,
+            M, vb, ne, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "fused_segment")
     LAUNCHES += 1

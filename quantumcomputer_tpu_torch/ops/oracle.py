@@ -13,7 +13,8 @@ x[j, col] <- x[ginv[j], col].  Four CUDA kernels carry it:
   * ``ladder`` (``csrc/oracle_ladder.cu``): a fused run of K <= 8 gates in
     one out-of-place gather, ``in`` -> ``out``;
   * ``cycle`` (``csrc/oracle_cycle.cu``): one gate in place, its control at
-    any column bit, walking the permutation's cycles;
+    any column bit, walking the permutation's cycles in concurrent schedule
+    segments (``walk_segments``);
   * ``cycle_masked`` (the same source, its own entry point): the in-place
     walk with one schedule per nonzero control mask; a lone gate
     (``apply_camodc_high_perm_planar``) or a fused pair of gates
@@ -100,6 +101,61 @@ def cycle_schedule(ginv: np.ndarray):
     return out_row, src_row, prev_kind
 
 
+# The segmented walk (csrc/oracle_cycle.cu).  Segments are chosen so that
+# the grid holds about the card's resident threads (132 SMs x 2048), with
+# at least WALK_MIN_STEPS steps each, so the rows copied at the cuts stay a
+# small share of the moved rows.
+WALK_TARGET_THREADS = 1 << 18
+WALK_MIN_STEPS = 64
+WALK_MAX_SEGMENTS = 1 << 14
+WALK_VEC_BYTES = 16
+WALK_SECTOR_BYTES = 32
+_SEG_STRIDE = 8  # t0, t1, a_row, b_row, head_row, unused
+
+
+def walk_segment_count(rows: int, active: int, nmasks: int, vec: int) -> int:
+    """S, the number of schedule segments walked concurrently: the power of
+    two that brings the threads (2 planes x masks x active columns / vec
+    per segment) closest below WALK_TARGET_THREADS."""
+    per_segment = 2 * nmasks * max(1, active // vec)
+    cap = max(1, min(WALK_MAX_SEGMENTS, rows // WALK_MIN_STEPS, WALK_TARGET_THREADS // per_segment))
+    return 1 << (cap.bit_length() - 1)
+
+
+def walk_segments(out_row, src_row, kind, S: int) -> np.ndarray:
+    """Cut a cycle schedule into S contiguous step ranges and list what
+    crosses each cut.  int32 (S, 8) records: t0, t1, a_row, b_row,
+    head_row, and three unused.
+
+    A row is read at step t (as src[t]) and written at step t + 1, or, a
+    head row, read and written at its closing step.  So the only values a
+    segment needs from before its neighbours write are: a_row, the source
+    of its last step when the next segment's first step overwrites it (a
+    chain or head step, else -1); and b_row, for a cycle that opened in an
+    earlier segment and closes in this one, the source its head read, with
+    head_row the head it writes at the close (else -1).  The walk copies
+    those rows first, so the segments may then run in any order."""
+    rows = len(kind)
+    if not 1 <= S <= rows:
+        raise ValueError(f"{S} segments do not fit a {rows}-step schedule")
+    kind = np.asarray(kind)
+    bounds = [s * rows // S for s in range(S + 1)]
+    heads = np.flatnonzero(kind == 1)
+    closes = np.flatnonzero(kind == 3)
+    segs = np.full((S, _SEG_STRIDE), -1, np.int32)
+    for s in range(S):
+        t0, t1 = bounds[s], bounds[s + 1]
+        segs[s, 0], segs[s, 1] = t0, t1
+        if kind[t1 - 1] in (0, 1):
+            segs[s, 2] = src_row[t1 - 1]
+        if kind[t0] in (0, 3):  # the cycle at t0 opened earlier
+            close = closes[np.searchsorted(closes, t0)]
+            if close < t1:
+                head = heads[np.searchsorted(heads, t0) - 1]
+                segs[s, 3], segs[s, 4] = src_row[head], out_row[head]
+    return segs
+
+
 def _min_perm_cb2(itemsize: int) -> int:
     return MIN_PERM_SLAB_BYTES // (LANE * itemsize)
 
@@ -163,10 +219,20 @@ def mask_multipliers(C: int, A_list, M: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=256)
-def _schedules(C: int, A_list: tuple, M: int, device: torch.device) -> torch.Tensor:
+def _host_schedules(C: int, A_list: tuple, M: int) -> np.ndarray:
     """int32 (2^K - 1, 3, 2^M): the cycle schedule of each nonzero mask."""
-    scheds = np.stack([np.stack(cycle_schedule(g)) for g in mask_multipliers(C, A_list, M)])
-    return torch.from_numpy(scheds).to(device)
+    return np.stack([np.stack(cycle_schedule(g)) for g in mask_multipliers(C, A_list, M)])
+
+
+@lru_cache(maxsize=256)
+def _schedules(C: int, A_list: tuple, M: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_host_schedules(C, A_list, M)).to(device)
+
+
+@lru_cache(maxsize=256)
+def _segments(C: int, A_list: tuple, M: int, S: int, device: torch.device) -> torch.Tensor:
+    """int32 (2^K - 1, S, 8): walk_segments of each mask's schedule."""
+    return torch.from_numpy(np.stack([walk_segments(*s, S) for s in _host_schedules(C, A_list, M)])).to(device)
 
 
 @lru_cache(maxsize=256)
@@ -278,38 +344,45 @@ def apply_camodc_high_cycle_planar(planar: torch.Tensor, C: int, atox: int, c_ph
     """One controlled modular multiply (m_high layout), IN PLACE, its
     control at any column bit: the cycle-ordered walk over the control-1
     columns.  Returns `planar`."""
-    log_rows, log_rest = _geometry(planar, C, M, (c_phys,))
+    _geometry(planar, C, M, (c_phys,))
     if _device_kind(planar, "cycle") == "cpu":
         return tops.apply_camodc_high_planes_(planar, C, atox, c_phys, M)
-    sched = _schedules(C, (int(atox),), M, planar.device)
-    lib = _build.load()
-    fn = lib.qc_oracle_cycle_f32 if planar.dtype == torch.float32 else lib.qc_oracle_cycle_f64
-    with torch.cuda.device(planar.device):
-        err = fn(
-            planar[0].data_ptr(), planar[1].data_ptr(), sched.data_ptr(),
-            log_rows, log_rest, c_phys, _stream(planar),
-        )
-    _build.check(err, "oracle cycle")
-    LAUNCHES["cycle"] += 1
-    return planar
+    return _walk(planar, C, (int(atox),), (int(c_phys),), M, "cycle")
 
 
-def _cycle_masked(planar: torch.Tensor, C: int, A_list: tuple, controls: tuple, M: int) -> torch.Tensor:
-    """The masked in-place walk over the columns of nonzero control mask
-    (one gate: one mask; a pair: three), on a CUDA tensor."""
+def walk_vector(planar: torch.Tensor, controls) -> int:
+    """Columns a walk thread moves per step: 16 bytes when every run of
+    moved columns (2^min(controls) of them) fills a 32-byte sector and the
+    planes are 16-byte aligned, else 1."""
+    item = planar.element_size()
+    aligned = all(p.data_ptr() % WALK_VEC_BYTES == 0 for p in (planar[0], planar[1]))
+    return WALK_VEC_BYTES // item if aligned and (item << min(controls)) >= WALK_SECTOR_BYTES else 1
+
+
+def _walk(planar: torch.Tensor, C: int, A_list: tuple, controls: tuple, M: int, kernel: str) -> torch.Tensor:
+    """The segmented in-place walk on a CUDA tensor: `cycle` (one gate) or
+    `cycle_masked` (one gate, or a pair's three masks)."""
     log_rows, log_rest = M, sv.num_qubits(planar) - M
     sched = _schedules(C, A_list, M, planar.device)
     nmasks = sched.shape[0]
-    pos_b = controls[1] if len(controls) == 2 else -1
+    active = 1 << (log_rest - len(controls))
+    vec = walk_vector(planar, controls)
+    S = walk_segment_count(1 << log_rows, active, nmasks, vec)
+    segs = _segments(C, A_list, M, S, planar.device)
+    scratch = torch.empty(2 * S * 2 * nmasks * active, dtype=planar.dtype, device=planar.device)
     lib = _build.load()
-    fn = lib.qc_oracle_cycle_masked_f32 if planar.dtype == torch.float32 else lib.qc_oracle_cycle_masked_f64
+    f64 = planar.dtype == torch.float64
+    ptrs = (planar[0].data_ptr(), planar[1].data_ptr(), sched.data_ptr(), segs.data_ptr(), scratch.data_ptr(), S)
     with torch.cuda.device(planar.device):
-        err = fn(
-            planar[0].data_ptr(), planar[1].data_ptr(), sched.data_ptr(), nmasks,
-            log_rows, log_rest, controls[0], pos_b, _stream(planar),
-        )
-    _build.check(err, "oracle cycle_masked")
-    LAUNCHES["cycle_masked"] += 1
+        if kernel == "cycle":
+            fn = lib.qc_oracle_cycle_f64 if f64 else lib.qc_oracle_cycle_f32
+            err = fn(*ptrs, log_rows, log_rest, controls[0], vec, _stream(planar))
+        else:
+            fn = lib.qc_oracle_cycle_masked_f64 if f64 else lib.qc_oracle_cycle_masked_f32
+            pos_b = controls[1] if len(controls) == 2 else -1
+            err = fn(*ptrs, nmasks, log_rows, log_rest, controls[0], pos_b, vec, _stream(planar))
+    _build.check(err, f"oracle {kernel}")
+    LAUNCHES[kernel] += 1
     return planar
 
 
@@ -320,7 +393,7 @@ def apply_camodc_high_perm_planar(planar: torch.Tensor, C: int, atox: int, c_phy
     _geometry(planar, C, M, (c_phys,))
     if _device_kind(planar, "perm") == "cpu":
         return tops.apply_camodc_high_planes_(planar, C, atox, c_phys, M)
-    return _cycle_masked(planar, C, (int(atox),), (int(c_phys),), M)
+    return _walk(planar, C, (int(atox),), (int(c_phys),), M, "cycle_masked")
 
 
 def apply_camodc_pair_inplace_planar(planar: torch.Tensor, C: int, A_pair, controls, M: int) -> torch.Tensor:
@@ -333,4 +406,4 @@ def apply_camodc_pair_inplace_planar(planar: torch.Tensor, C: int, A_pair, contr
     _geometry(planar, C, M, controls)
     if _device_kind(planar, "pair") == "cpu":
         return tops.apply_camodc_ladder_high_planes_(planar, C, A_pair, controls, M)
-    return _cycle_masked(planar, C, tuple(int(A) for A in A_pair), tuple(int(c) for c in controls), M)
+    return _walk(planar, C, tuple(int(A) for A in A_pair), tuple(int(c) for c in controls), M, "cycle_masked")

@@ -9,6 +9,7 @@ gate ops.  The CUDA kernel itself is tested only where a card is present."""
 import math
 
 import jax.numpy as jnp
+import mpmath
 import numpy as np
 import pytest
 import torch
@@ -184,6 +185,196 @@ def test_wrapper_takes_plain_version_only_on_cpu():
         fused.apply_fused(torch.empty((2, 1 << 10), device="meta"), ops, (), 0)
 
 
+# ---------------------------------------------------------------------------
+# The kernel's split iQFT angle and register groups (host_descriptor), held
+# on the CPU: the tables against the exact phase, and a numpy emulation of
+# the kernel's arithmetic against the plain segment and the JAX package.
+
+
+def _exact_phase(idx: int, l: int, M: int) -> complex:
+    """exp(i*pi*(idx & mask)/2^l) at 50 digits, rounded once to complex128."""
+    mask = (1 << l) - (1 << M) if l > M else 0
+    with mpmath.workdps(50):
+        x = mpmath.mpf(idx & mask) / (1 << l)
+        return complex(float(mpmath.cospi(x)), float(mpmath.sinpi(x)))
+
+
+def _cdiff(a, b) -> float:
+    return max(abs(a.real - b.real), abs(a.imag - b.imag))
+
+
+def _split_case(seed):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(8, 32))
+    t = int(rng.integers(1, min(n, 12) + 1))
+    k = int(rng.integers(0, min(5, n - t) + 1))
+    high = tuple(sorted(int(a) for a in rng.choice(np.arange(t, n), size=k, replace=False)))
+    l = int(rng.integers(1, n))
+    return n, t, high, l, rng
+
+
+@pytest.mark.parametrize("M", [0, 3, 13])
+@pytest.mark.parametrize("seed", range(12))
+def test_split_iqft_tables_give_the_exact_phase(M, seed):
+    """F_low times a reference F_tile (the exact phase of the index with its
+    low bits zero) is exp(i*pi*(idx & mask)/2^l), and F_base * F_axes is
+    that F_tile; F_low is all ones when M >= t."""
+    n, t, high, l, rng = _split_case(seed * 3 + M)
+    f_low = fused.iqft_low_phases(l, M, t)
+    f_axes = fused.iqft_axis_phases(l, M, high)
+    assert len(f_low) == 1 << min(l, t) and len(f_axes) == 1 << len(high)
+    if M >= t:
+        np.testing.assert_array_equal(f_low, np.ones_like(f_low))
+    for idx in (int(v) for v in rng.integers(0, 1 << n, size=64)):
+        low = idx & ((1 << t) - 1)
+        c = sum(((idx >> q) & 1) << a for a, q in enumerate(high))
+        tile_idx = idx - low
+        base = tile_idx & ~sum(1 << q for q in high)
+        want = _exact_phase(idx, l, M)
+        f_tile = _exact_phase(tile_idx, l, M)
+        got = f_low[low & ((1 << min(l, t)) - 1)] * f_tile
+        assert _cdiff(got, want) <= 4e-16
+        assert _cdiff(fused.iqft_phases([base], l, M)[0] * f_axes[c], f_tile) <= 4e-16  # F_base * F_axes
+        low32 = np.complex64(f_low[low & ((1 << min(l, t)) - 1)])
+        assert _cdiff(complex(low32 * np.complex64(f_tile)), want) <= 3e-7
+
+
+def _insert_zero(x, p):
+    return ((x >> p) << (p + 1)) | (x & ((1 << p) - 1))
+
+
+def _emulate_kernel(psi, ops, axes, n, M, dtype):
+    """The CUDA kernel's arithmetic on a complex128 state, tile by tile and
+    register group by group, from host_descriptor's arrays (the tables in
+    the plane dtype, products in complex128)."""
+    t, high, vb, ne, ops_i, ops_f, grp, ftab = fused.host_descriptor(ops, axes, n, M, dtype)
+    ft = ftab[0::2].astype(np.float64) + 1j * ftab[1::2].astype(np.float64)
+    of = ops_f.astype(np.float64)
+    k, s = len(high), 1 / math.sqrt(2)
+    tb = t + k
+    out = psi.copy()
+    c = np.arange(1 << k)
+    for tau in range(1 << (n - tb)):
+        base = tau << t
+        for a in high:
+            base = _insert_zero(base, a)
+        hi = base | (np.zeros(1 << k, np.int64) + sum(((c >> a) & 1) << q for a, q in enumerate(high)))
+        j = np.arange(1 << tb)
+        gidx = hi[j >> t] | (j & ((1 << t) - 1))
+        tile = out[gidx]
+        for b, e, *extra in grp:
+            extra = [int(p) for p in extra[: ne - vb]]
+            j0 = np.arange(1 << (tb - ne)) << vb
+            for p in extra:
+                j0 = _insert_zero(j0, p)
+            off = [(x & ((1 << vb) - 1)) | sum(((x >> (vb + i)) & 1) << p for i, p in enumerate(extra)) for x in range(1 << ne)]
+            J = j0[:, None] | np.array(off)[None, :]
+            X = tile[J]
+            g0 = hi[j0 >> t] | (j0 & ((1 << t) - 1))
+            for o in range(b, e):
+                kind, q1, q2, s1, s2, oax, olow, oe = (int(v) for v in ops_i[o])
+                f = of[o]
+                slot = lambda sl, x: ((x >> sl) & 1) if sl >= 0 else 0  # noqa: E731
+                pairs = [(x, x | (1 << s1)) for x in range(1 << ne) if not (x >> s1) & 1] if kind in (0, 3) else []
+                if kind == 0:
+                    u = f[:4].reshape(2, 2) + 1j * f[4:8].reshape(2, 2)
+                    for x0, x1 in pairs:
+                        a_, b_ = X[:, x0].copy(), X[:, x1].copy()
+                        X[:, x0], X[:, x1] = u[0, 0] * a_ + u[0, 1] * b_, u[1, 0] * a_ + u[1, 1] * b_
+                elif kind == 1:
+                    for x in range(1 << ne):
+                        bit = ((g0 >> q1) & 1) | slot(s1, x)
+                        X[:, x] *= np.where(bit == 1, f[2] + 1j * f[3], f[0] + 1j * f[1])
+                elif kind == 2:
+                    for x in range(1 << ne):
+                        d = 2 * (((g0 >> q1) & 1) | slot(s1, x)) + (((g0 >> q2) & 1) | slot(s2, x))
+                        X[:, x] *= f[d] + 1j * f[4 + d]
+                elif kind == 3:
+                    P = np.full(len(j0), s, complex)
+                    if oe > 0:
+                        P = P * fused.iqft_phases([base], q1, M)[0]  # F_base, which the kernel forms per tile
+                        if oax >= 0:
+                            P = P * ft[oax + (j0 >> t)]
+                        if olow >= 0:
+                            P = P * ft[olow + (j0 & ((1 << min(q1, t)) - 1))]
+                    for x0, x1 in pairs:
+                        a_, b_ = X[:, x0].copy(), X[:, x1].copy()
+                        X[:, x0] = s * (a_ + b_)
+                        w = f[0 : 2 * ne : 2] + 1j * f[1 : 2 * ne : 2]  # one factor per slot bit
+                        E = np.prod([w[b] for b in range(ne) if (x1 >> b) & 1]) if oe > 0 else 1.0
+                        X[:, x1] = (a_ - b_) * (P * E if oe > 0 else s)
+                else:
+                    m4 = f[:16].reshape(4, 4) + 1j * f[16:].reshape(4, 4)
+                    hb, lb = 1 << s1, 1 << s2
+                    for x in range(1 << ne):
+                        if x & (hb | lb) == 0:
+                            idx = [x, x | lb, x | hb, x | hb | lb]
+                            X[:, idx] = X[:, idx] @ m4.T
+            tile[J] = X
+        out[gidx] = tile
+    return out
+
+
+@pytest.mark.parametrize("n,M", [(12, 0), (12, 3), (13, 4), (14, 0), (14, 13)])
+def test_split_angle_emulation_matches_jax_iqft(n, M):
+    """The kernel's split-angle iQFT over tiles with exposed axes, emulated
+    from its f64 tables, equals the JAX package's iQFT stages (XLA,
+    complex128) within 1e-12."""
+    rng = np.random.default_rng(n * 31 + M)
+    jgates = tuple(jcir.IQFT_STAGE(l) for l in range(n - 1, -1, -1))
+    circuit = interop.circuit_from_reference(jgates)
+    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    psi /= np.linalg.norm(psi)
+    plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[torch.float64])
+    assert any(fused.tile_geometry(n, axes, fused.TILE_BITS[torch.float64])[1] for _, _, axes in plan)
+    got = psi
+    for _, ops, axes in plan:
+        got = _emulate_kernel(got, ops, axes, n, M, torch.float64)
+    want = jnp.asarray(psi)
+    for g in jgates:
+        want = jengine.apply_gate(want, g, M, backend="xla")
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,M", [(1, 0), (2, 3), (3, 0), (4, 13), (5, 3), (9, 0), (13, 3), (15, 0), (16, 13)])
+def test_kernel_emulation_matches_plain_segment(dtype, n, M):
+    """Every op kind through the kernel's register groups (edge form for the
+    smallest states) equals plain_segment: within 1e-12 from f64 tables,
+    3e-5 from f32 ones."""
+    rng = np.random.default_rng(n * 7 + M)
+    circuit = _random_circuit(rng, n, 30) if n > 1 else (cir.H(0), cir.IQFT_STAGE(0), cir.RZ(0, 0.3), cir.IQFT_STAGE(0))
+    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    psi /= np.linalg.norm(psi)
+    want = interop.state_from_numpy(np.stack([psi.real, psi.imag]))
+    got = psi
+    for _, ops, axes in fused.plan_circuit(circuit, n, M, fused.TILE_BITS[dtype]):
+        want = fused.plain_segment(want, ops, M)
+        got = _emulate_kernel(got, ops, axes, n, M, dtype)
+    np.testing.assert_allclose(got, want[0].numpy() + 1j * want[1].numpy(), atol=ATOL64 if dtype == torch.float64 else ATOL32)
+
+
+def test_register_groups_of_the_flagship_segments():
+    """At n = 28 every target of a group is one of its slots, and the
+    segments take 3-5 register groups (one shared-memory pass each)."""
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.sim.engine import fuse_oracles
+
+    C, a, L, M = 8191, 3, 15, 13
+    n = L + M
+    for circuit, m in ((shor_circuit(C, a, L, M), M), (shor_circuit_mhigh(C, a, L, M), 0)):
+        for seg in fused.plan_circuit(fuse_oracles(circuit, m, n, 4, True), n, m, 12):
+            if seg[0] != "fused":
+                continue
+            t, high, vb, ne, ops_i, _, grp, _ = fused.host_descriptor(seg[1], seg[2], n, m, torch.float32)
+            assert (vb, ne) == (2, 4)
+            assert 1 <= len(grp) <= 5
+            for b, e, *extra in grp:
+                for o in range(b, e):
+                    if ops_i[o, 0] in (0, 3, 4):
+                        assert ops_i[o, 3] >= 0 and (ops_i[o, 0] != 4 or ops_i[o, 3] > ops_i[o, 4] >= 0)
+
+
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -215,3 +406,22 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
     assert fused.LAUNCHES == before + len(plan)
     tol = ATOL32 if dtype == torch.float32 else ATOL64
     assert float((planar - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,M", [(1, 0), (2, 3), (3, 0), (4, 13), (5, 3), (10, 0), (13, 4), (14, 13), (16, 0)])
+def test_split_angle_kernel_matches_plain_on_card(cuda_device, dtype, n, M):
+    """The emulation cases on the card: the iQFT stages and a random mix,
+    edge form included, against the plain segment."""
+    rng = np.random.default_rng(n * 5 + M)
+    circuit = tuple(cir.IQFT_STAGE(l) for l in range(n - 1, -1, -1))
+    if n > 1:
+        circuit += _random_circuit(rng, n, 20)
+    planar = interop.state_from_numpy(_planes(rng, n), cuda_device).to(dtype)
+    want = planar.clone()
+    for _, ops, axes in fused.plan_circuit(circuit, n, M, fused.TILE_BITS[dtype]):
+        want = fused.plain_segment(want, ops, M)
+        fused.apply_fused(planar, ops, axes, M)
+    torch.cuda.synchronize()
+    assert float((planar - want).abs().max()) <= (ATOL32 if dtype == torch.float32 else ATOL64)

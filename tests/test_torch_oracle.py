@@ -195,6 +195,96 @@ def test_wrappers_validate_their_arguments():
 
 
 # ---------------------------------------------------------------------------
+# The segmented walk (csrc/oracle_cycle.cu), emulated on the CPU from the
+# host's schedules and segments: the cut rows copied first, then whole
+# segments in any order, must give x[ginv] on the moved columns exactly.
+
+
+def _emulate_walk(x, cols, sched, segs, order):
+    """Walk each segment of `segs` in `order` over the columns `cols` of the
+    (rows, rest) array x, in place, as a kernel thread does."""
+    out_row, src_row, kind = sched
+    cut = {s: (x[a, cols].copy() if a >= 0 else None, x[b, cols].copy() if b >= 0 else None)
+           for s, (_, _, a, b, *_r) in enumerate(segs)}
+    for s in order:
+        t0, t1, a_row, _, head_row = (int(v) for v in segs[s][:5])
+        pending, pending_row = cut[s][1], head_row
+        for t in range(t0, t1):
+            if kind[t] == 2:
+                continue
+            val = cut[s][0] if (t == t1 - 1 and a_row >= 0) else x[src_row[t], cols].copy()
+            if kind[t] == 1:
+                pending, pending_row = val, out_row[t]
+                continue
+            x[out_row[t], cols] = val
+            if kind[t] == 3:
+                x[pending_row, cols] = pending
+
+
+def _perm(name, rows):
+    j = np.arange(rows)
+    if name == "fixed_points":  # a few swaps, the rest fixed
+        g = j.copy()
+        g[[1, 5]], g[[9, 2]] = g[[5, 1]], g[[2, 9]]
+        return g
+    if name == "two_cycles":
+        return j ^ 1
+    return (j + 1) % rows  # one cycle through all rows
+
+
+WALK_PERMS = [
+    ("fixed_points", None), ("two_cycles", None), ("one_cycle", None),
+    ("flagship", (3,)), ("flagship", (3 ** 512 % 8191,)), ("flagship_pair", (3, 9)),
+]
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 16, "rows"])
+@pytest.mark.parametrize("perm,A", WALK_PERMS, ids=[f"{p}-{a}" for p, a in WALK_PERMS])
+def test_segmented_walk_is_exact_in_any_order(perm, A, S):
+    """Forward, reversed and three seeded random segment orders all give
+    x[:, ginv] on the moved columns exactly and leave the others alone: the
+    single-gate form (one mask) and the pair (three masks) alike."""
+    if perm.startswith("flagship"):
+        C, M = 8191, 13
+        ginvs = oracle.mask_multipliers(C, A, M)
+    else:
+        M = 6
+        ginvs = [_perm(perm, 1 << M)]
+    rows, rest = 1 << M, 8
+    controls = (1, 2) if len(ginvs) == 3 else (1,)
+    col = np.arange(rest)
+    mask = sum(((col >> c) & 1) << k for k, c in enumerate(controls))
+    S = rows if S == "rows" else S
+    rng = np.random.default_rng(rows + S)
+    x0 = rng.standard_normal((rows, rest))
+    want = x0.copy()
+    for m, g in enumerate(ginvs, start=1):
+        want[:, mask == m] = x0[g][:, mask == m]
+    scheds = [oracle.cycle_schedule(np.asarray(g, np.int32)) for g in ginvs]
+    segs = [oracle.walk_segments(*sched, S) for sched in scheds]
+    for seg in segs:
+        assert [int(v) for v in seg[:, 0]] == [s * rows // S for s in range(S)]
+    orders = [range(S), range(S - 1, -1, -1)] + [np.random.default_rng(seed).permutation(S) for seed in range(3)]
+    for order in orders:
+        x = x0.copy()
+        for m, (sched, seg) in enumerate(zip(scheds, segs), start=1):  # masks move disjoint columns
+            _emulate_walk(x, mask == m, sched, seg, order)
+        np.testing.assert_array_equal(x, want)
+
+
+def test_walk_segment_count_fills_the_card():
+    # n = 28, M = 13: a lone gate moves 2^14 columns a plane, 4 per thread in f32.
+    assert oracle.walk_segment_count(1 << 13, 1 << 14, 1, 4) == 32
+    assert oracle.walk_segment_count(1 << 13, 1 << 13, 3, 4) == 16  # the pair
+    assert oracle.walk_segment_count(1 << 13, 1 << 14, 1, 1) == 8  # control 0 or 1: one column a thread
+    assert oracle.walk_segment_count(1 << 13, 1 << 16, 1, 4) == 8  # n = 30
+    assert oracle.walk_segment_count(1 << 4, 1 << 3, 1, 1) == 1  # too few steps to cut
+    state = torch.zeros((2, 1 << 10))
+    assert oracle.walk_vector(state, (3,)) == 4 and oracle.walk_vector(state, (2,)) == 1  # runs of 32 / 16 bytes
+    assert oracle.walk_vector(state.double(), (2, 5)) == 2 and oracle.walk_vector(state.double(), (1, 5)) == 1
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version, exactly (pure data
 # movement).
 
@@ -233,6 +323,48 @@ def test_masked_kernel_matches_plain_on_card(cuda_device, dtype):
     oracle.apply_camodc_high_perm_planar(state, C, 29, 13, M)
     want = tops.apply_camodc_ladder_high_planes_(want, C, (29, 7), (13, 14), M)
     oracle.apply_camodc_pair_inplace_planar(state, C, (29, 7), (13, 14), M)
+    torch.cuda.synchronize()
+    assert torch.equal(state, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("A", [A for p, A in WALK_PERMS if p.startswith("flagship")])
+def test_segmented_walk_kernel_on_card(cuda_device, monkeypatch, dtype, S, A):
+    """The emulation's flagship cases through the kernel, S forced: the
+    multipliers at M = 13 (single gate at controls 0 and 3, the pair at
+    (1, 2)), exactly equal to the plain version."""
+    monkeypatch.setattr(oracle, "walk_segment_count", lambda *a: S)
+    C, M, n = 8191, 13, 20
+    state = _card_state(np.random.default_rng(S), n, dtype, cuda_device)
+    if len(A) == 2:
+        want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A, (1, 2), M)
+        oracle.apply_camodc_pair_inplace_planar(state, C, A, (1, 2), M)
+    else:
+        for c in (0, 3):
+            want = tops.apply_camodc_high_planes_(state.clone(), C, A[0], c, M)
+            oracle.apply_camodc_high_cycle_planar(state, C, A[0], c, M)
+            torch.cuda.synchronize()
+            assert torch.equal(state, want)
+    torch.cuda.synchronize()
+    assert torch.equal(state, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("c_phys", [2, 3, 6])
+def test_walk_vector_width_forced_on_card(cuda_device, monkeypatch, dtype, wide, c_phys):
+    """The walk with its vector width forced to one column or to 16 bytes
+    (runs of 4 or more moved columns hold either), exactly equal to the
+    plain version."""
+    vec = oracle.WALK_VEC_BYTES // torch.tensor([], dtype=dtype).element_size() if wide else 1
+    monkeypatch.setattr(oracle, "walk_vector", lambda *a: vec)
+    C, A, M, n = 8191, 3, 13, 20
+    state = _card_state(np.random.default_rng(c_phys), n, dtype, cuda_device)
+    want = tops.apply_camodc_high_planes_(state.clone(), C, A, c_phys, M)
+    oracle.apply_camodc_high_cycle_planar(state, C, A, c_phys, M)
     torch.cuda.synchronize()
     assert torch.equal(state, want)
 
