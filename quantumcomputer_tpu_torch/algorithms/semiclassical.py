@@ -27,7 +27,9 @@ segmented forms).  Eager PyTorch needs none of that: one step loop updates
 the state, and the deferred phase, the bits and the branch probabilities
 stay on the device until the attempt ends.  The draws are an argument
 (``rs``, L uniforms in the compute dtype), so one draw vector drives both
-packages.  Checkpointing, sharding and dd64 are not yet ported.
+packages.  dtype="dd64", the JAX package's double-float parity mode, runs
+complex128, which the card has natively.  Checkpointing, sharding and
+complex32 are not yet ported.
 """
 
 from __future__ import annotations
@@ -247,9 +249,9 @@ def run_semiclassical(
     forced_bits = validate_forced_bits(forced_bits, L, "L")
     if checkpoint_dir is not None:
         raise ValueError("semiclassical checkpointing is not yet ported to quantumcomputer_tpu_torch")
-    if isinstance(dtype, str) and dtype in ("dd64", "complex32", "c32"):
+    if isinstance(dtype, str) and dtype in ("complex32", "c32"):
         raise ValueError(f"{dtype} semiclassical is not yet ported to quantumcomputer_tpu_torch")
-    rdtype = sv.real_dtype_of(dtype)
+    rdtype = sv.real_dtype_of(torch.complex128 if dtype == "dd64" else dtype)
     cdt = _compute_dtype(rdtype)
     device = torch.device(device)
     if not step_program_fits(M, rdtype, device):

@@ -175,6 +175,8 @@ def shors_algorithm(
     num_fractions: int = nt.NUM_CONTINUED_FRACTIONS,
     trials_per_denominator: int = nt.TRIALS_PER_DENOMINATOR,
     layout: str = "standard",
+    oracle: str = "gather",
+    strict_reference: bool = False,
     semiclassical: bool = False,
 ) -> ShorResult:
     """Full Shor algorithm (qc_shor.c:1003-1134).
@@ -184,20 +186,54 @@ def shors_algorithm(
     ``torch.Generator`` seeded with `seed` (wall clock when None), so the
     draws do not depend on the engine's device.
 
+    dtype="dd64", the JAX package's double-float parity mode, runs
+    complex128, which the card has natively.  oracle="benes" runs the
+    oracles inside the fused segments on the cuda backend; on the torch
+    backend it logs the JAX package's warning and runs the gather.
+    strict_reference=True builds a StateVectorEngine(strict_reference=True),
+    on the CUDA device when one is present (and refuses an engine built
+    without it).
+
     semiclassical=True runs each attempt on the one-control-qubit engine
     (``algorithms/semiclassical.py``): a 2^M state instead of 2^(L+M), the
     same outcome distribution, on the CUDA device when the backend is
     ``cuda`` and on the CPU otherwise."""
     if C < 4 or L < 1 or M < 1:
         return ShorResult(outcome=Outcome.BAD_ARGUMENTS, C=C)
+    if dtype == "dd64":
+        if layout != "standard":
+            raise ValueError("dd64 parity mode uses the standard layout")
+        dtype = torch.complex128
     if semiclassical:
-        if engine is not None or layout != "standard":
-            raise ValueError("semiclassical mode is its own engine: no layout/engine arguments")
+        if engine is not None or layout != "standard" or strict_reference:
+            raise ValueError("semiclassical mode is its own engine: no layout/strict_reference/engine arguments")
+        if oracle != "gather":
+            log.warning(
+                "semiclassical mode ignores oracle=%r (its oracle is the blockwise on-device index generation)", oracle
+            )
         device = "cuda" if resolve_backend(backend) == "cuda" else "cpu"
-        # The draws in the engine's compute dtype.
+        # The draws in the engine's compute dtype (dd64 is complex128 by now).
         draw_dtype = torch.float64 if dtype in (torch.complex128, "complex128") else torch.float32
-    elif engine is None:
-        engine = StateVectorEngine(Register(L=L, M=M), dtype=dtype, backend=backend, layout=layout)
+    elif engine is not None:
+        if strict_reference and not getattr(engine, "strict_reference", False):
+            # A caller-supplied engine carries its own oracle semantics.
+            raise ValueError(
+                "strict_reference=True conflicts with the provided engine "
+                "(construct it with StateVectorEngine(strict_reference=True))"
+            )
+    else:
+        if strict_reference and backend == "auto":
+            backend = "torch"
+        if oracle == "benes" and resolve_backend(backend) == "torch":
+            log.warning(
+                "oracle='benes' requires the single-chip cuda backend; "
+                "falling back to the gather oracle (mesh=none, backend=torch)"
+            )
+            oracle = "gather"
+        engine = StateVectorEngine(
+            Register(L=L, M=M), dtype=dtype, backend=backend, layout=layout,
+            oracle=oracle, strict_reference=strict_reference,
+        )
     if seed is None:
         seed = int(time.time_ns() % (1 << 31))
     gen = torch.Generator().manual_seed(seed)

@@ -4,9 +4,13 @@ The same flags, choices, validation messages and exit codes as
 ``quantumcomputer_tpu/cli.py`` (exit 2 for bad arguments, 3 when no period
 is found), with ``--backend auto|torch|cuda`` in place of
 ``auto|xla|pallas``.  ``--semiclassical`` runs on the CUDA device with the
-cuda backend and on the CPU otherwise.  Flags whose path is not ported yet
-exit 2 with a message that says so; ``--backend cuda`` on a host with no
-CUDA device exits 2 as well, and never runs on the CPU.
+cuda backend and on the CPU otherwise.  ``--dtype dd64`` runs complex128,
+which the card has natively; ``--strict-reference`` forces the torch
+backend, as the JAX package forces xla, and runs its plain ops on the CUDA
+device when one is present.  Flags whose path is not ported yet
+(``--devices > 1``, ``--checkpoint-dir``, ``--dtype complex32``) exit 2
+with a message that says so; ``--backend cuda`` on a host with no CUDA
+device exits 2 as well, and never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -42,7 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--dtype",
         choices=["complex64", "complex128", "complex32", "dd64"],
         default="complex64",
-        help="amplitude precision: complex64 (default) or complex128 (f64 planes on the same device)",
+        help=(
+            "amplitude precision: complex64 (default), complex128 (f64 planes on the same device) "
+            "or dd64 (the JAX package's f64-parity mode, here complex128)"
+        ),
     )
     p.add_argument(
         "--backend",
@@ -52,11 +59,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--devices", type=int, default=1, help="shard the state vector over this many devices")
     p.add_argument("--layout", choices=["standard", "m_high"], default="standard", help="physical qubit layout")
-    p.add_argument("--oracle", choices=["gather", "benes"], default="gather", help="modular-multiply kernel")
+    p.add_argument(
+        "--oracle",
+        choices=["gather", "benes"],
+        default="gather",
+        help="modular-multiply kernel (benes: inside the fused segments' in-place pass; cuda backend)",
+    )
     p.add_argument("--fractions", type=int, default=nt.NUM_CONTINUED_FRACTIONS, help="continued-fraction depth")
     p.add_argument("--trials", type=int, default=nt.TRIALS_PER_DENOMINATOR, help="multiples tried per denominator")
     p.add_argument("--semiclassical", action="store_true", help="one-control-qubit period finding")
-    p.add_argument("--strict-reference", action="store_true", help="reference bug-compatibility oracle")
+    p.add_argument(
+        "--strict-reference",
+        action="store_true",
+        help="reference bug-compatibility oracle (warn-and-wrap scatter when 2^M < C); forces backend=torch",
+    )
     p.add_argument("--checkpoint-dir", default=None, help="snapshot the state between circuit segments")
     return p
 
@@ -115,10 +131,14 @@ def validate(args: argparse.Namespace) -> Optional[str]:
         return None
     if args.L + args.M > 32:
         return "L + M > 32 qubits exceeds the index budget (the reference's own bound, qc_shor.c:68-73)."
-    if args.L + args.M > 31 and args.dtype != "complex128":
+    if args.L + args.M - (args.devices.bit_length() - 1) > 31 and args.dtype != "complex128":
+        # The JAX package's condition and message, word for word: its
+        # "runs on CPU" clause describes the JAX package's complex128 mode;
+        # this package runs complex128 on the card.
         return (
-            "L + M > 31 qubits exceeds the 2^31 index budget of the hierarchical "
-            "sampler (use --dtype complex128, which samples with the flat scan)."
+            "L + M > 31 qubits exceeds the int32 single-chip index budget: "
+            "shard with --devices so L + M - log2(devices) <= 31 "
+            "(or use --dtype complex128, which runs on CPU with 64-bit indices)."
         )
     if args.layout == "m_high" and args.devices > (1 << args.M):
         return "m_high sharding needs devices <= 2^M (global bits must fit in the work register)."
@@ -129,14 +149,10 @@ def not_ported(args: argparse.Namespace) -> Optional[str]:
     """The first flag whose path this package does not carry yet, or None."""
     if args.devices > 1:
         return "--devices > 1"
-    if args.oracle == "benes":
-        return "--oracle benes"
     if args.checkpoint_dir is not None:
         return "--checkpoint-dir"
-    if args.strict_reference:
-        return "--strict-reference"
-    if args.dtype in ("complex32", "dd64"):
-        return f"--dtype {args.dtype}"
+    if args.dtype == "complex32":
+        return "--dtype complex32"
     return None
 
 
@@ -158,6 +174,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for w in issue_warnings(args.C, args.L, args.M):
         print(f" --- *WARNING* {w}")
 
+    # Plain torch ops for exact comparison runs, as the JAX package forces xla.
+    backend = "torch" if args.strict_reference else args.backend
     print("\n --- Finding factors...\n")
     result = shors_algorithm(
         C=args.C,
@@ -165,11 +183,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         M=args.M,
         forced_trial_int=args.a,
         seed=args.seed,
-        dtype=torch.complex128 if args.dtype == "complex128" else torch.complex64,
-        backend=args.backend,
+        dtype={"complex128": torch.complex128, "dd64": "dd64"}.get(args.dtype, torch.complex64),
+        backend=backend,
         num_fractions=args.fractions,
         trials_per_denominator=args.trials,
         layout=args.layout,
+        oracle=args.oracle,
+        strict_reference=args.strict_reference,
         semiclassical=args.semiclassical,
     )
 

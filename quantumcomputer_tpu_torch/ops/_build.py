@@ -99,8 +99,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     for name in ("qc_fused_segment_f32", "qc_fused_segment_f64"):
         fn = getattr(lib, name)
-        # re, im, ops_i, ops_f, groups, ngroups, ftab, nops, n, t, naxes, axes_packed, M, vb, ne, stream
-        fn.argtypes = [p, p, p, p, p, i64, p, i64, i64, i64, i64, i64, i64, i64, i64, p]
+        # re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes, axes_packed, M, vb, ne, stream
+        fn.argtypes = [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p]
         fn.restype = ctypes.c_int
     for name in ("qc_block_sums_f32", "qc_block_sums_f64"):
         fn = getattr(lib, name)

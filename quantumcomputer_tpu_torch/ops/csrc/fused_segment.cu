@@ -9,6 +9,16 @@
 //   diag2 diagonal 4-vector on two qubits
 //   iqft  H(l), then exp(i*pi*(i & (2^l - 2^M)) / 2^l) on the bit-l == 1 half
 //   u2q   dense 4x4 on two qubits
+//   camodc  where control bit c is 1, the work register [0, M) permuted
+//         f -> A*f mod C: the branch camodc_k of the TPU kernel
+//         (pallas_fused.py:967-997), there 2M - 1 masked exchange stages
+//         because TPU lanes cannot gather.  Here it is a shared-memory
+//         gather by the inverse permutation (run_camodc): one read and one
+//         write of shared memory per moved element, against 2M - 1 of each
+//         for the stages.  Its segment's tile holds whole 2^M-element work
+//         blocks (t >= M, at most 2^13 amplitudes; one ring slot when two do
+//         not fit MAX_RING_BYTES), and a tile on which every op is a camodc
+//         whose tile-base control bit is 0 is neither loaded nor stored.
 //
 // What bounds it: device-memory bandwidth, one read and one write of the
 // state per segment (1.282 ms for a 2 GiB complex64 state at 3.35 TB/s),
@@ -53,10 +63,13 @@
 //
 // The op list arrives as device arrays: ops_i (int32 records of OPI_STRIDE:
 // kind, q1, q2, slot of q1, slot of q2, then for an iQFT op the ftab offsets
-// of F_axes and F_low and 1 when it has a phase), ops_f (coefficients in the
-// plane dtype, OPF_STRIDE per op; an iQFT op's slot factors), groups
-// (GRP_STRIDE: op_begin, op_end, extra slot positions) and ftab (complex
-// tables, re/im interleaved).
+// of F_axes and F_low and 1 when it has a phase; for a camodc op kind,
+// control, M, the control's tile-local position or -1 for a tile-base bit,
+// -1, its offset in ptab), ops_f (coefficients in the plane dtype,
+// OPF_STRIDE per op; an iQFT op's slot factors), groups (GRP_STRIDE:
+// op_begin, op_end, extra slot positions; a camodc op is a group of its
+// own), ftab (complex tables, re/im interleaved) and ptab (each camodc op's
+// inverse permutation, 2^M int16).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,12 +83,16 @@ constexpr int OP_DIAG1 = 1;
 constexpr int OP_DIAG2 = 2;
 constexpr int OP_IQFT = 3;
 constexpr int OP_U2Q = 4;
+constexpr int OP_CAMODC = 5;
 constexpr int OPI_STRIDE = 8;
 constexpr int OPF_STRIDE = 32;  // a 4x4 complex matrix: 16 re, then 16 im
 constexpr int GRP_STRIDE = 8;
 constexpr int MAX_AXES = 8;
 constexpr int THREADS = 256;
-constexpr int NSTAGE = 2;  // tiles in a block's shared-memory ring: one computed, one arriving
+constexpr int MAX_PERM_TILE_BITS = 13;  // a camodc segment's tile: M <= 13
+// The ring holds two tiles (one computed, one arriving) when they fit these
+// bytes, else one; only camodc segments' larger tiles take one.
+constexpr size_t MAX_RING_BYTES = size_t(128) << 10;
 
 struct Geom {
   int t;               // low contiguous index bits of a tile
@@ -440,18 +457,66 @@ __device__ __forceinline__ void run_group(T* sre, T* sim, const int* __restrict_
   }
 }
 
+// A camodc op (record rec) on the tile in (sre, sim): where its control bit
+// is 1, every 2^M-element work block j & ~w is gathered through the inverse
+// permutation, out[j] = in[(j & ~w) | ginv[j & w]], one plane at a time:
+// each thread reads its elements' sources into registers, the block syncs,
+// then each thread writes them.  The control is an L-register bit (>= M),
+// constant over a work block, so an element whose control is 0 is neither
+// read nor written, and neither is its block.  The tile holds at most
+// 2^MAX_PERM_TILE_BITS amplitudes, MAXE a thread.
+template <typename T, int VB>
+__device__ __forceinline__ void run_camodc(T* sre, T* sim, const int* rec, const short* __restrict__ ptab, int M,
+                                           int64_t tbase, const Geom& g) {
+  constexpr int MAXE = (1 << MAX_PERM_TILE_BITS) / THREADS;
+  const int c = rec[1], cpos = rec[3];
+  if (cpos < 0 && !((tbase >> c) & 1)) return;  // control 0 on the whole tile (block-uniform)
+  const short* __restrict__ ginv = ptab + rec[5];
+  const int tile = 1 << (g.t + g.k);
+  const int w = (1 << M) - 1;
+  for (int plane = 0; plane < 2; ++plane) {
+    T* s = plane ? sim : sre;
+    T v[MAXE];
+#pragma unroll
+    for (int e = 0; e < MAXE; ++e) {
+      const int j = threadIdx.x + e * THREADS;
+      if (j < tile && (cpos < 0 || ((j >> cpos) & 1))) v[e] = s[swz<VB>((j & ~w) | __ldg(ginv + (j & w)))];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < MAXE; ++e) {
+      const int j = threadIdx.x + e * THREADS;
+      if (j < tile && (cpos < 0 || ((j >> cpos) & 1))) s[swz<VB>(j)] = v[e];
+    }
+    __syncthreads();
+  }
+}
+
+// False when every op of the segment is a camodc whose control is a tile-base
+// bit that is 0 in this tile: then no op changes the tile.
+__device__ __forceinline__ bool tile_active(const int* s_opi, int nops, int64_t tbase) {
+  for (int o = 0; o < nops; ++o) {
+    const int* r = s_opi + OPI_STRIDE * o;
+    if (r[0] != OP_CAMODC || r[3] >= 0 || ((tbase >> r[1]) & 1)) return true;
+  }
+  return false;
+}
+
 // Two blocks an SM: 128 registers a thread hold a group's 2^NE amplitudes
 // without spills (a cap of 80, for three blocks, spilled and ran slower).
-template <typename T, int VB, int NE>
+// PERM: the instance for segments with camodc ops; run_camodc's registers
+// would otherwise cost every segment spills.
+template <typename T, int VB, int NE, bool PERM>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restrict__ ops_i,
                      const T* __restrict__ ops_f, const int* __restrict__ groups, int ngroups,
-                     const T* __restrict__ ftab, int nops, Geom g, int M, int64_t tiles, bool vec) {
+                     const T* __restrict__ ftab, const short* __restrict__ ptab, int nops, Geom g, int M,
+                     int64_t tiles, bool vec, bool ring) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t axoff[1 << MAX_AXES];  // axoff[c]: the axis bits of row c, any tile
   const int tile = 1 << (g.t + g.k);
   T* bufs = reinterpret_cast<T*>(smem);     // ring slot b: re at bufs + 2*b*tile, im after it
-  T* fbase = bufs + 2 * NSTAGE * tile;      // F_base of each op for the current tile (re, im)
+  T* fbase = bufs + 2 * (ring ? 2 : 1) * tile;  // F_base of each op for the current tile (re, im)
   T* s_opc = fbase + 2 * ((nops + 1) & ~1); // each op's first 8 coefficients (16-byte aligned)
   int* s_opi = reinterpret_cast<int*>(s_opc + 8 * nops);  // each op's int record
   for (int i = threadIdx.x; i < 8 * nops; i += THREADS) {
@@ -468,18 +533,19 @@ fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restri
   }
   __syncthreads();
 
-  // The ring: tile i of this block lands in slot i % NSTAGE, NSTAGE - 1 tiles ahead.
+  // The ring: with `ring`, tile i of this block lands in slot i % 2 while
+  // tile i - 1 is computed; without, each tile lands in slot 0 once the one
+  // before it is stored.  A tile no op changes is neither loaded nor stored.
   const int64_t step = gridDim.x;
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    const int64_t tau = blockIdx.x + s * step;
-    if (tau < tiles) load_tile<T, VB>(bufs + 2 * s * tile, bufs + (2 * s + 1) * tile, re, im, tile_base(tau, g), axoff, g, vec);
-    cp_async_commit();
-  }
+  int64_t tau = blockIdx.x;
+  bool act = tau < tiles && (!PERM || tile_active(s_opi, nops, tile_base(tau, g)));
+  if (act) load_tile<T, VB>(bufs, bufs + tile, re, im, tile_base(tau, g), axoff, g, vec);
+  cp_async_commit();
   int b = 0;
-  for (int64_t tau = blockIdx.x; tau < tiles; tau += step, b = (b + 1) % NSTAGE) {
-    cp_async_wait_group<NSTAGE - 2>();  // this tile's copies are done (later ones may fly)
+  for (; tau < tiles; tau += step) {
+    cp_async_wait_group<0>();  // this tile's copies are done
     const int64_t tbase = tile_base(tau, g);
-    for (int o = threadIdx.x; o < nops; o += THREADS) {
+    for (int o = threadIdx.x; act && o < nops; o += THREADS) {
       const int* oi = ops_i + OPI_STRIDE * o;
       if (__ldg(oi) == OP_IQFT && __ldg(oi + 7) > 0) {
         const int l = __ldg(oi + 1);
@@ -491,30 +557,51 @@ fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restri
       }
     }
     __syncthreads();  // the tile and fbase are ready; the slot stored last iteration is free
-    const int64_t nxt = tau + (NSTAGE - 1) * step;
-    const int nb = (b + NSTAGE - 1) % NSTAGE;
-    if (nxt < tiles) load_tile<T, VB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
-    cp_async_commit();
-    T* sre = bufs + 2 * b * tile;
-    T* sim = sre + tile;
-    for (int gi = 0; gi < ngroups; ++gi) {
-      run_group<T, VB, NE>(sre, sim, groups + GRP_STRIDE * gi, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g);
-      __syncthreads();
+    const int64_t nxt = tau + step;
+    const bool nact = nxt < tiles && (!PERM || tile_active(s_opi, nops, tile_base(nxt, g)));
+    const int nb = ring ? b ^ 1 : b;
+    if (ring) {
+      if (nact) load_tile<T, VB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
+      cp_async_commit();
     }
-    store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+    if (act) {
+      T* sre = bufs + 2 * b * tile;
+      T* sim = sre + tile;
+      for (int gi = 0; gi < ngroups; ++gi) {
+        const int* grp = groups + GRP_STRIDE * gi;
+        if constexpr (PERM) {
+          const int* first = s_opi + OPI_STRIDE * __ldg(grp);
+          if (first[0] == OP_CAMODC) {  // a group of its own; it ends in a sync
+            run_camodc<T, VB>(sre, sim, first, ptab, M, tbase, g);
+            continue;
+          }
+        }
+        run_group<T, VB, NE>(sre, sim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g);
+        __syncthreads();
+      }
+      store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+    }
     __syncthreads();  // before fbase and this slot are reused
+    if (!ring) {
+      if (nact) load_tile<T, VB>(bufs, bufs + tile, re, im, tile_base(nxt, g), axoff, g, vec);
+      cp_async_commit();
+    }
+    b = nb;
+    act = nact;
   }
 }
 
-template <typename T, int VB, int NE>
+template <typename T, int VB, int NE, bool PERM>
 int launch(T* re, T* im, const void* ops_i, const void* ops_f, const void* groups, int ngroups,
-           const void* ftab, int nops, const Geom& g, int M, int64_t tiles, void* stream) {
+           const void* ftab, const void* ptab, int nops, const Geom& g, int M, int64_t tiles, void* stream) {
   const bool vec = VB > 0 && (sizeof(T) << VB) == 16 && g.t >= VB &&
                    (reinterpret_cast<uintptr_t>(re) % 16) == 0 && (reinterpret_cast<uintptr_t>(im) % 16) == 0;
+  const size_t slot = 2 * sizeof(T) * (size_t(1) << (g.t + g.k));  // one tile, both planes
+  const bool ring = 2 * slot <= MAX_RING_BYTES;
   // The ring, then per op: F_base (2 T), the first 8 coefficients, the int record.
-  const size_t smem = 2 * NSTAGE * sizeof(T) * (size_t(1) << (g.t + g.k)) + 10 * sizeof(T) * (size_t)(nops + 1) +
+  const size_t smem = (ring ? 2 : 1) * slot + 10 * sizeof(T) * (size_t)(nops + 1) +
                       OPI_STRIDE * sizeof(int) * (size_t)nops;
-  auto kern = fused_segment_kernel<T, VB, NE>;
+  auto kern = fused_segment_kernel<T, VB, NE, PERM>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, dev = 0, sms = 0;
@@ -522,19 +609,44 @@ int launch(T* re, T* im, const void* ops_i, const void* ops_f, const void* group
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
+  int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
+  // A block walks tiles tau = blockIdx.x + i * grid.  With an even grid every
+  // tile a block sees has the same low tile-base bits, so when the skipped
+  // tiles are those of low controls whole blocks would idle: keep it odd.
+  if (PERM && grid > 1 && grid % 2 == 0) --grid;
   kern<<<(unsigned int)grid, THREADS, smem, (cudaStream_t)stream>>>(
-      re, im, (const int*)ops_i, (const T*)ops_f, (const int*)groups, ngroups, (const T*)ftab, nops, g, M, tiles,
-      vec);
+      re, im, (const int*)ops_i, (const T*)ops_f, (const int*)groups, ngroups, (const T*)ftab, (const short*)ptab,
+      nops, g, M, tiles, vec, ring);
   return (int)cudaGetLastError();
+}
+
+// The instance for the register group form (vb, ne): the main form, or an
+// edge form of a state with few tile bits.
+template <typename T, bool PERM>
+int dispatch(int64_t vb, int64_t ne, void* re, void* im, const void* ops_i, const void* ops_f, const void* groups,
+             int64_t ngroups, const void* ftab, const void* ptab, int64_t nops, const Geom& g, int64_t M,
+             int64_t tiles, void* stream) {
+  T* r = (T*)re;
+  T* i = (T*)im;
+  const int ng = (int)ngroups, no = (int)nops, m = (int)M;
+  constexpr int VB_MAIN = sizeof(T) == 4 ? 2 : 1;
+  constexpr int NE_MAIN = sizeof(T) == 4 ? 4 : 3;
+  if (vb == VB_MAIN && ne == NE_MAIN) return launch<T, VB_MAIN, NE_MAIN, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  if (vb == 0 && ne == 1) return launch<T, 0, 1, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  if (vb == 0 && ne == 2) return launch<T, 0, 2, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  if constexpr (NE_MAIN > 3) {
+    if (vb == 0 && ne == 3) return launch<T, 0, 3, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch_fused(void* re, void* im, const void* ops_i, const void* ops_f, const void* groups, int64_t ngroups,
-                 const void* ftab, int64_t nops, int64_t n, int64_t t, int64_t naxes, int64_t axes_packed,
-                 int64_t M, int64_t vb, int64_t ne, void* stream) {
+                 const void* ftab, const void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t, int64_t naxes,
+                 int64_t axes_packed, int64_t M, int64_t vb, int64_t ne, void* stream) {
   if (naxes < 0 || naxes > MAX_AXES || t < 0 || t + naxes > n || n - t - naxes > 40 || t + naxes > 16 ||
-      ne < 1 || ne > t + naxes || nops < 0 || ngroups < 1) {
+      ne < 1 || ne > t + naxes || nops < 0 || ngroups < 1 || nperm < 0 ||
+      (nperm > 0 && (t < M || M < 1 || t + naxes > MAX_PERM_TILE_BITS))) {
     return (int)cudaErrorInvalidValue;
   }
   Geom g;
@@ -542,34 +654,26 @@ int launch_fused(void* re, void* im, const void* ops_i, const void* ops_f, const
   g.k = (int)naxes;
   for (int a = 0; a < MAX_AXES; ++a) g.axes[a] = a < naxes ? (int)((axes_packed >> (8 * a)) & 0xff) : 0;
   const int64_t tiles = int64_t(1) << (n - t - naxes);
-  T* r = (T*)re;
-  T* i = (T*)im;
-  const int ng = (int)ngroups, no = (int)nops, m = (int)M;
-  constexpr int VB_MAIN = sizeof(T) == 4 ? 2 : 1;
-  constexpr int NE_MAIN = sizeof(T) == 4 ? 4 : 3;
-  if (vb == VB_MAIN && ne == NE_MAIN) return launch<T, VB_MAIN, NE_MAIN>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
-  if (vb == 0 && ne == 1) return launch<T, 0, 1>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
-  if (vb == 0 && ne == 2) return launch<T, 0, 2>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
-  if constexpr (NE_MAIN > 3) {
-    if (vb == 0 && ne == 3) return launch<T, 0, 3>(r, i, ops_i, ops_f, groups, ng, ftab, no, g, m, tiles, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (nperm > 0) return dispatch<T, true>(vb, ne, re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nops, g, M, tiles, stream);
+  return dispatch<T, false>(vb, ne, re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nops, g, M, tiles, stream);
 }
 
 }  // namespace
 
 extern "C" int qc_fused_segment_f32(void* re, void* im, void* ops_i, void* ops_f, void* groups, int64_t ngroups,
-                                    void* ftab, int64_t nops, int64_t n, int64_t t, int64_t naxes,
-                                    int64_t axes_packed, int64_t M, int64_t vb, int64_t ne, void* stream) {
-  return launch_fused<float>(re, im, ops_i, ops_f, groups, ngroups, ftab, nops, n, t, naxes, axes_packed, M, vb,
-                             ne, stream);
+                                    void* ftab, void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t,
+                                    int64_t naxes, int64_t axes_packed, int64_t M, int64_t vb, int64_t ne,
+                                    void* stream) {
+  return launch_fused<float>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes,
+                             axes_packed, M, vb, ne, stream);
 }
 
 extern "C" int qc_fused_segment_f64(void* re, void* im, void* ops_i, void* ops_f, void* groups, int64_t ngroups,
-                                    void* ftab, int64_t nops, int64_t n, int64_t t, int64_t naxes,
-                                    int64_t axes_packed, int64_t M, int64_t vb, int64_t ne, void* stream) {
-  return launch_fused<double>(re, im, ops_i, ops_f, groups, ngroups, ftab, nops, n, t, naxes, axes_packed, M, vb,
-                              ne, stream);
+                                    void* ftab, void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t,
+                                    int64_t naxes, int64_t axes_packed, int64_t M, int64_t vb, int64_t ne,
+                                    void* stream) {
+  return launch_fused<double>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes,
+                              axes_packed, M, vb, ne, stream);
 }
 
 extern "C" const char* qc_error_string(int err) {

@@ -14,17 +14,28 @@ target at or above ``LOW_BITS``; 2^TILE_BITS amplitudes of both planes fill
 32 KB of shared memory.  Diagonal ops never constrain the tile: the kernel
 computes each element's global index.  The planner packs consecutive
 fusable gates until the axis budget is spent; only gates with no op form
-(the controlled modular multiply's gather, ``mcphase``) break a run.
+(``mcphase``, and the controlled modular multiply unless the oracle is
+fused) break a run.
 
 Op descriptors (hashable tuples, as in the JAX package):
-  ("u1q",   q, (re00, re01, re10, re11, im00, im01, im10, im11))
-  ("diag1", q, (re0, im0, re1, im1))
-  ("diag2", q_hi, q_lo, (re0..re3, im0..im3))
-  ("iqft",  l)           fused H(l) + stage ladder diagonal down to M
-  ("u2q",   q_hi, q_lo, (16 re, 16 im)), basis 2*bit(q_hi) + bit(q_lo)
+  ("u1q",    q, (re00, re01, re10, re11, im00, im01, im10, im11))
+  ("diag1",  q, (re0, im0, re1, im1))
+  ("diag2",  q_hi, q_lo, (re0..re3, im0..im3))
+  ("iqft",   l)           fused H(l) + stage ladder diagonal down to M
+  ("u2q",    q_hi, q_lo, (16 re, 16 im)), basis 2*bit(q_hi) + bit(q_lo)
+  ("camodc", c, C, A)     where bit c is 1, the work register [0, M) is
+                          permuted f -> A*f mod C (f < C): the oracle of
+                          ``--oracle benes`` (``fuse_oracle=True``)
+
+A camodc op permutes whole 2^M-element work blocks, so its segment's tile
+holds at least the low M bits: its tile budget is max(TILE_BITS, M) bits,
+at most 2^13 amplitudes.  The plain version applies the op as the JAX
+kernel does, as the 2M - 1 masked exchange stages of a Benes network
+(``ops/benes.py``); the CUDA kernel gathers each work block through the
+inverse permutation in shared memory.  Both compute the same function.
 
 The TPU-only op kinds ``lanemat``/``rowmat``/``xtable`` (MXU rewrites of the
-same math) and the opt-in Benes oracle ``camodc_k`` are not ported.
+same math) are not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from quantumcomputer_tpu_torch.models.circuit import (
 )
 from quantumcomputer_tpu_torch.ops import _build
 from quantumcomputer_tpu_torch.ops import gates as tops
+from quantumcomputer_tpu_torch.ops.benes import benes_route
 from quantumcomputer_tpu_torch.sim import statevec as sv
 
 LOW_BITS = 7  # targets below this bit always lie inside a tile
@@ -56,21 +68,33 @@ TILE_BITS = {torch.float32: 12, torch.float64: 11}
 VEC_BITS = {torch.float32: 2, torch.float64: 1}
 GROUP_BITS = {torch.float32: 4, torch.float64: 3}
 
-#: Kernel launches made by apply_fused (CUDA tensors only).
-LAUNCHES = 0
+#: Oracle ops in one segment, as in the JAX package (its bound on the VMEM of
+#: the Benes mask tables); it groups the Shor circuit's oracles two to a segment.
+MAX_CAMODC_PER_SEGMENT = 2
 
-_KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4}
+#: Kernel launches made by apply_fused (CUDA tensors only), and those of
+#: them whose segment holds a camodc op.
+LAUNCHES = 0
+CAMODC_LAUNCHES = 0
+
+_KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4, "camodc": 5}
 # Op record: kind, q1, q2, slot of q1, slot of q2 (-1: not a group slot),
 # then an iQFT op's F_axes and F_low offsets in ftab (-1: none) and 1 when
-# it has a phase.
+# it has a phase.  A camodc op's: kind, control, M, the control's tile-local
+# position (-1: a tile-base bit), -1, its table's offset in ptab, -1, -1.
 _OPI_STRIDE = 8
 _OPF_STRIDE = 32
 _GRP_STRIDE = 8  # op_begin, op_end, then the group's extra slot positions
 
 
-def gate_to_op(g: Gate) -> Optional[tuple]:
-    """The fused-op form of a gate, or None when it has none."""
+def gate_to_op(g: Gate, M: int = 0, fuse_oracle: bool = False) -> Optional[tuple]:
+    """The fused-op form of a gate, or None when it has none.  The
+    controlled modular multiply has one only with fuse_oracle and
+    1 <= M <= 13, the JAX package's condition."""
     name = g.name
+    if name == "camodc" and fuse_oracle and 1 <= M <= 13:
+        C, atox = g.meta
+        return ("camodc", g.qubits[0], int(C), int(atox % C))
     if name in DENSE_1Q:
         u = gate_matrix_1q(g)
         return ("u1q", g.qubits[0], tuple(float(v) for v in np.concatenate([u.real.ravel(), u.imag.ravel()])))
@@ -157,37 +181,56 @@ def compose_ops(ops) -> tuple:
     return tuple(o for o in out if o is not None)
 
 
-def plan_circuit(circuit: Circuit, n: int, M: int, tile_bits: int = TILE_BITS[torch.float32]):
+def segment_tile_bits(ops, M: int, tile_bits: int) -> int:
+    """A segment's tile budget: tile_bits, or max(tile_bits, M) when it holds
+    a camodc op, whose tile must hold whole 2^M-element work blocks."""
+    return max(tile_bits, M) if any(op[0] == "camodc" for op in ops) else tile_bits
+
+
+def plan_circuit(
+    circuit: Circuit, n: int, M: int, tile_bits: int = TILE_BITS[torch.float32], fuse_oracle: bool = False
+):
     """Segment a circuit into fused runs and single gates.
 
     Returns a list of ("fused", ops_tuple, axes_tuple) / ("single", gate).
     A run closes when its exposed axes would exceed the tile budget
     (tile_bits - LOW_BITS); states of at most 2^tile_bits amplitudes fit
-    one tile whole and need no axes."""
+    one tile whole and need no axes.  With fuse_oracle the controlled
+    modular multiplies become camodc ops (gate_to_op), at most
+    MAX_CAMODC_PER_SEGMENT to a run; a run that holds one keeps its low
+    max(LOW_BITS, M) bits in the tile, within max(tile_bits, M) tile bits."""
     low = LOW_BITS if n > tile_bits else n
-    max_axes = tile_bits - LOW_BITS
+    perm_low = max(LOW_BITS, M)
     segments: List[tuple] = []
     run: List[tuple] = []
     axes: List[int] = []
+    n_camodc = 0
+
+    def fits(axes, camodc: bool) -> bool:
+        if not camodc:
+            return len(axes) <= tile_bits - LOW_BITS
+        return n <= tile_bits or perm_low + sum(a >= perm_low for a in axes) <= max(tile_bits, M)
 
     def flush():
-        nonlocal run, axes
+        nonlocal run, axes, n_camodc
         if run:
             segments.append(("fused", compose_ops(tuple(run)), tuple(sorted(axes, reverse=True))))
-        run, axes = [], []
+        run, axes, n_camodc = [], [], 0
 
     for g in circuit:
-        op = gate_to_op(g)
+        op = gate_to_op(g, M, fuse_oracle)
         if op is None:
             flush()
             segments.append(("single", g))
             continue
+        camodc = op[0] == "camodc"
         need = [q for q in _op_targets(op) if q >= low and q not in axes]
-        if len(axes) + len(need) > max_axes:
+        if (camodc and n_camodc >= MAX_CAMODC_PER_SEGMENT) or not fits(axes + need, camodc or n_camodc > 0):
             flush()
             need = [q for q in _op_targets(op) if q >= low]
         run.append(op)
         axes.extend(need)
+        n_camodc += camodc
     flush()
     return segments
 
@@ -234,7 +277,29 @@ def _apply_op(z: torch.Tensor, op: tuple, M: int) -> torch.Tensor:
         v = op[3]
         m4 = np.array(v[:16]).reshape(4, 4) + 1j * np.array(v[16:]).reshape(4, 4)
         return tops.apply_2q(z, m4, op[1], op[2])
+    if kind == "camodc":
+        return apply_camodc_benes(z, op[1], op[2], op[3], M)
     raise ValueError(f"unknown fused op {op}")
+
+
+@lru_cache(maxsize=64)
+def camodc_route(C: int, A: int, M: int) -> tuple:
+    """The Benes stages (bit, bool mask over the 2^M work values) of the
+    scatter permutation f -> A*f mod C for f < C, f otherwise, cached per
+    (C, A, M) as in the JAX package (the route costs about 0.2 s at M = 13)."""
+    return tuple((b, mask.astype(bool)) for b, mask in benes_route(tops.modmul_permutation(C, A, M)))
+
+
+def apply_camodc_benes(z: torch.Tensor, c: int, C: int, A: int, M: int) -> torch.Tensor:
+    """The camodc op on a flat complex state as the JAX kernel computes it:
+    where control bit c is 1, stage by stage, work value p takes the value
+    at p ^ 2^b where the stage's mask[p] is set."""
+    x = tops._camodc_view(z, c, M)
+    x1 = x[:, 1]
+    p = torch.arange(1 << M, device=z.device)
+    for b, mask in camodc_route(C, A % C, M):
+        x1 = torch.where(torch.from_numpy(mask).to(z.device), x1[..., p ^ (1 << b)], x1)
+    return torch.stack([x[:, 0], x1], dim=1).reshape(-1)
 
 
 def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
@@ -285,15 +350,23 @@ def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
     """Cut a segment's ops into register groups, in order: every target of a
     group lies in its 2^ne-amplitude slots, the low vb bits plus at most
     ne - vb more tile bits.  Returns (op_begin, op_end, extra positions
-    ascending, padded with unused tile bits to ne - vb)."""
+    ascending, padded with unused tile bits to ne - vb).  A camodc op, which
+    permutes whole work blocks, is a group of its own."""
     groups, cur, begin = [], set(), 0
     for i, op in enumerate(ops):
+        if op[0] == "camodc":
+            if i > begin:
+                groups.append((begin, i, cur))
+            groups.append((i, i + 1, set()))
+            begin, cur = i + 1, set()
+            continue
         need = {local(q) for q in _op_targets(op)} - set(range(vb))
         if len(cur | need) > ne - vb:
             groups.append((begin, i, cur))
             begin, cur = i, set()
         cur |= need
-    groups.append((begin, len(ops), cur))
+    if begin < len(ops) or not groups:
+        groups.append((begin, len(ops), cur))
     out = []
     for b, e, extra in groups:
         pad = (p for p in range(vb, tb) if p not in extra)
@@ -316,9 +389,14 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
     tile), F_axes (the axis bits) and F_low (the low bits, slot bits zero),
     both in ftab, and one factor w_s per slot bit s, in the op's ops_f
     record; all in the plane dtype, re/im interleaved, so no amplitude
-    needs a transcendental."""
-    t, high = tile_geometry(n, axes, TILE_BITS[dtype])
+    needs a transcendental.  A camodc op's record holds its control's
+    tile-local position (-1 when the control is a tile-base bit) and the
+    offset of its inverse permutation in camodc_tables; the tile holds at
+    least the low M bits."""
+    t, high = tile_geometry(n, axes, segment_tile_bits(ops, M, TILE_BITS[dtype]))
     tb = t + len(high)
+    if any(op[0] == "camodc" for op in ops) and t < M:
+        raise ValueError(f"a camodc segment needs the low M={M} bits in its tile, got t={t}")
     vb, ne = VEC_BITS[dtype], GROUP_BITS[dtype]
     if t < vb or tb < ne:
         vb, ne = 0, tb
@@ -348,12 +426,20 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
         size += len(values)
         return size - len(values)
 
+    n_perm = 0
     for gi, (b, e, extra) in enumerate(groups):
         grp[gi, :2] = b, e
         grp[gi, 2 : 2 + len(extra)] = extra
         slots = list(range(vb)) + list(extra)  # slot s holds tile-local position slots[s]
         for k in range(b, e):
             op = ops[k]
+            if op[0] == "camodc":
+                c = op[1]
+                if not M <= c < n:
+                    raise ValueError(f"camodc control {c} must be a bit of the L register [{M}, {n})")
+                ops_i[k, :6] = _KIND["camodc"], c, M, local(c) if (c < t or c in high) else -1, -1, n_perm << M
+                n_perm += 1
+                continue
             qs = (op[1], op[2]) if op[0] in ("diag2", "u2q") else (op[1],)
             ops_i[k, 0] = _KIND[op[0]]
             for j, q in enumerate(qs):
@@ -380,10 +466,19 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
     return t, high, vb, ne, ops_i, ops_f.astype(np_dtype), grp, ftab.astype(np_dtype)
 
 
+def camodc_tables(ops: tuple, M: int) -> np.ndarray:
+    """ptab: the inverse permutation f -> A^-1 * f mod C (f < C) of each
+    camodc op of a segment, in op order, 2^M int16 values each (one zero
+    when the segment has none)."""
+    tabs = [tops.modmul_inverse_permutation(op[2], op[3], M) for op in ops if op[0] == "camodc"]
+    return np.concatenate(tabs).astype(np.int16) if tabs else np.zeros(1, np.int16)
+
+
 @lru_cache(maxsize=256)
 def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, device: torch.device):
-    """host_descriptor with its arrays on the device."""
+    """host_descriptor and camodc_tables with their arrays on the device."""
     t, high, vb, ne, *arrays = host_descriptor(ops, axes, n, M, dtype)
+    arrays.append(camodc_tables(ops, M))
     return (t, high, vb, ne, *(torch.from_numpy(a).to(device) for a in arrays))
 
 
@@ -402,7 +497,7 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
 
     A CUDA tensor goes through the kernel; a CPU tensor through
     plain_segment.  Any other device raises."""
-    global LAUNCHES
+    global LAUNCHES, CAMODC_LAUNCHES
     n = _check_planar(planar)
     if planar.device.type == "cpu":
         return planar.copy_(plain_segment(planar, ops, M))
@@ -410,18 +505,21 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
         raise ValueError(f"no fused-segment path for device {planar.device}")
     if not ops:
         return planar
-    t, high, vb, ne, ops_i, ops_f, groups, ftab = _descriptor(
+    t, high, vb, ne, ops_i, ops_f, groups, ftab, ptab = _descriptor(
         tuple(ops), tuple(axes), n, M, planar.dtype, planar.device
     )
     lib = _build.load()
     fn = lib.qc_fused_segment_f32 if planar.dtype == torch.float32 else lib.qc_fused_segment_f64
     packed = sum(a << (8 * i) for i, a in enumerate(high))
+    n_perm = sum(op[0] == "camodc" for op in ops)
     with torch.cuda.device(planar.device):
         err = fn(
             planar[0].data_ptr(), planar[1].data_ptr(), ops_i.data_ptr(), ops_f.data_ptr(),
-            groups.data_ptr(), groups.shape[0], ftab.data_ptr(), len(ops), n, t, len(high), packed,
-            M, vb, ne, torch.cuda.current_stream().cuda_stream,
+            groups.data_ptr(), groups.shape[0], ftab.data_ptr(), ptab.data_ptr(), n_perm, len(ops), n, t,
+            len(high), packed, M, vb, ne, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "fused_segment")
     LAUNCHES += 1
+    if n_perm:
+        CAMODC_LAUNCHES += 1
     return planar

@@ -152,6 +152,31 @@ def apply_c_amodc(state: torch.Tensor, C: int, atox: int, c_q: int, M: int) -> t
     return apply_c_amodc_dyn(state, ginv, c_q, M)
 
 
+def modmul_permutation(C: int, A: int, M: int) -> np.ndarray:
+    """Forward map g over the M register: f -> (A*f) mod C for f < C,
+    identity for f >= C (qc_shor.c:608-657); the JAX package's
+    ``sim/reference.modmul_permutation``.  No unitarity check: when 2^M < C
+    the image spills past the register."""
+    f = np.arange(1 << M, dtype=np.int64)
+    return np.where(f < C, (A % C) * f % C, f)
+
+
+def apply_c_amodc_strict(state: torch.Tensor, C: int, atox: int, c_q: int, M: int) -> torch.Tensor:
+    """Reference bug-compatibility oracle (StateVectorEngine(strict_reference=
+    True)): the scatter-add realization of the reference's matrix
+    construction (qc_shor.c:595-660), which only warns when 2^M < C; the
+    image f' = A*f mod C then spills past the M register and collides,
+    and the gate is not unitary.  As the JAX package's scatter does,
+    updates whose index falls past the state are dropped."""
+    dim = state.shape[0]
+    g = torch.from_numpy(modmul_permutation(C, atox % C, M)).to(state.device)
+    k = torch.arange(dim, device=state.device)
+    m_mask = (1 << M) - 1
+    j = torch.where(((k >> c_q) & 1) == 1, (k & ~m_mask) | g[k & m_mask], k)
+    keep = j < dim
+    return torch.zeros_like(state).index_add_(0, j[keep], state[keep])
+
+
 def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: int) -> torch.Tensor:
     """apply_c_amodc on a (2, 2^n) planar state, IN PLACE: each plane's
     control==1 half is gathered (one half-plane temporary) and written back."""

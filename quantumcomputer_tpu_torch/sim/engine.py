@@ -11,14 +11,24 @@ the plan per circuit instead.  Backends:
     package's pallas path fuses them, then the rest is cut into fused
     segments (``ops/fused.plan_circuit``), each applied by the
     fused-segment kernel in one in-place pass.  The m_high oracles go
-    through the row-permutation kernels (``ops/oracle.py``); the standard
-    layout's oracle stays a torch gather, as it stays an XLA gather in the
-    JAX package.  Measurement of f32 states of >= 2^16 amplitudes goes
-    through the block-sum kernel (``ops/measure.py``).  With
+    through the row-permutation kernels (``ops/oracle.py``).  The standard
+    layout's oracle is a torch gather, as it is an XLA gather in the JAX
+    package, unless ``oracle="benes"``: then each oracle is a camodc op
+    inside a fused segment's pass, two to a segment (with ``fuse=False``
+    it stays the gather, as in the JAX package).  Measurement of f32
+    states of >= 2^16 amplitudes goes through the block-sum kernel
+    (``ops/measure.py``).  With
     ``fuse=False`` the circuit runs gate by gate (``apply_gate_planes_``),
     every gate with a fused-op form as a one-op segment of the same
     kernel: on this backend no such gate ever runs through the plain ops.
   * ``auto``: ``cuda`` when a CUDA device is present, else ``torch``.
+
+Options, as in the JAX package's engine: ``strict_reference=True`` runs the
+oracles as the reference's warn-and-wrap scatter (``camodc_strict``; torch
+backend, standard layout, on the CUDA device when one is present);
+``nan_checks=True`` prints ``*** non-finite
+amplitudes after <label>`` after each gate or segment whose state holds a
+non-finite amplitude, with the JAX package's labels.
 
 Layouts: ``standard`` (the reference's bit convention) and ``m_high`` (the
 work register in the top physical bits; ``models/shor_circuit.
@@ -100,6 +110,10 @@ def apply_gate(state: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     if name == "camodc":
         C, atox = g.meta
         return tops.apply_c_amodc(state, C, atox, g.qubits[0], M)
+    if name == "camodc_strict":
+        # Emitted only by the strict_reference engine's rewrite (_prep).
+        C, atox = g.meta
+        return tops.apply_c_amodc_strict(state, C, atox, g.qubits[0], M)
     if name == "camodc_high":
         C, atox, m_reg = g.meta
         return tops.apply_camodc_high(state, C, atox, g.qubits[0], m_reg)
@@ -154,26 +168,42 @@ def _pair_in_place(planar: torch.Tensor, g: Gate) -> bool:
     return oracle.pair_inplace_supported(g.qubits, g.meta[1], sv.num_qubits(planar), planar.element_size())
 
 
-def apply_circuit_plain_(planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None) -> torch.Tensor:
+def check_finite(x: torch.Tensor, label: str) -> None:
+    """The JAX engine's nan_checks hook: print its line when `x` holds a
+    non-finite value (a host sync; only with nan_checks on)."""
+    if not bool(torch.isfinite(x).all()):
+        print(f"*** non-finite amplitudes after {label}")
+
+
+def apply_circuit_plain_(
+    planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None, nan_checks: bool = False
+) -> torch.Tensor:
     """The torch backend: every gate through the plain ops; the result is
     written back into `planar`.  With a `norms` list, the norm after each
-    gate is appended to it (a 0-d tensor on the state's device)."""
+    gate is appended to it (a 0-d tensor on the state's device); with
+    nan_checks, check_finite after each gate."""
     z = sv.to_complex(planar)
-    for g in circuit:
+    for i, g in enumerate(circuit):
         z = apply_gate(z, g, M)
         if norms is not None:
             norms.append(torch.sum(z.real * z.real) + torch.sum(z.imag * z.imag))
+        if nan_checks:
+            check_finite(z, f"gate {i} {g.name}{g.qubits}")
     return _store_(planar, z)
 
 
-def apply_circuit_per_gate_(planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None) -> torch.Tensor:
+def apply_circuit_per_gate_(
+    planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None, nan_checks: bool = False
+) -> torch.Tensor:
     """The cuda backend with fusion off: every gate in place through
     apply_gate_planes_ (the JAX package's apply_circuit_planes(fuse=False)).
-    `norms` as in apply_circuit_plain_."""
-    for g in circuit:
+    `norms` and `nan_checks` as in apply_circuit_plain_."""
+    for i, g in enumerate(circuit):
         apply_gate_planes_(planar, g, M)
         if norms is not None:
             norms.append(sv.norm(planar))
+        if nan_checks:
+            check_finite(planar, f"gate {i} {g.name}{g.qubits}")
     return planar
 
 
@@ -262,17 +292,25 @@ def fuse_oracles(circuit: Circuit, M: int, n: int, itemsize: int, ladder_fits: b
     return tuple(split)
 
 
-def plan_circuit(circuit: Circuit, M: int, n: int, real_dtype: torch.dtype, device):
+def plan_circuit(
+    circuit: Circuit, M: int, n: int, real_dtype: torch.dtype, device, fuse_oracle: bool = False
+) -> list:
     """The cuda backend's plan of a circuit on an n-qubit state of plane
     dtype `real_dtype` on `device`: fuse_oracles, then fused segments and
-    single gates."""
+    single gates; with fuse_oracle (``oracle="benes"``) the standard
+    layout's oracles join the fused segments as camodc ops."""
     itemsize = torch.empty((), dtype=real_dtype).element_size()
     circuit = fuse_oracles(circuit, M, n, itemsize, two_state_programs_fit(n, real_dtype, device))
-    return fused.plan_circuit(circuit, n, M, fused.TILE_BITS[real_dtype])
+    return fused.plan_circuit(circuit, n, M, fused.TILE_BITS[real_dtype], fuse_oracle=fuse_oracle)
 
 
 def apply_circuit_fused_(
-    planar: torch.Tensor, circuit: Circuit, M: int, plan=None, norms: Optional[list] = None
+    planar: torch.Tensor,
+    circuit: Circuit,
+    M: int,
+    plan=None,
+    norms: Optional[list] = None,
+    nan_checks: bool = False,
 ) -> torch.Tensor:
     """The cuda backend's path: fused segments through fused.apply_fused
     (the kernel for CUDA tensors, its plain version for CPU tensors), an
@@ -280,11 +318,12 @@ def apply_circuit_fused_(
     single gate in place through apply_gate_planes_.  Returns the buffer
     that holds the result: `planar`, or the scratch buffer after an odd
     number of ladders.  With a `norms` list, the norm after each entry of
-    the plan (segment or single gate) is appended to it."""
+    the plan (segment or single gate) is appended to it; with nan_checks,
+    check_finite after each entry."""
     if plan is None:
         plan = plan_circuit(circuit, M, sv.num_qubits(planar), planar.dtype, planar.device)
     cur, spare = planar, None
-    for seg in plan:
+    for i, seg in enumerate(plan):
         if seg[0] == "fused":
             fused.apply_fused(cur, seg[1], seg[2], M)
         elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
@@ -298,6 +337,9 @@ def apply_circuit_fused_(
             apply_gate_planes_(cur, seg[1], M)
         if norms is not None:
             norms.append(sv.norm(cur))
+        if nan_checks:
+            g = seg[1]
+            check_finite(cur, f"fused segment {i} ({len(g)} ops)" if seg[0] == "fused" else f"gate {g.name}{g.qubits}")
     return cur
 
 
@@ -315,7 +357,13 @@ class StateVectorEngine:
     States are planar real tensors (plane 0 = Re, plane 1 = Im); float32
     planes for complex64, float64 for complex128.  `fuse` (cuda backend):
     plan the circuit into fused segments and oracle ladders (True), or run
-    it gate by gate, each gate through its kernel (False)."""
+    it gate by gate, each gate through its kernel (False).  `oracle`:
+    "gather", or "benes" for the standard layout's oracles inside the fused
+    segments (cuda backend with fuse=True; the gather elsewhere).
+    `strict_reference` needs the torch backend (which backend="auto" then
+    resolves to) and the standard layout, and with no `device` runs on the
+    CUDA device when one is present; `nan_checks` as in the module
+    docstring."""
 
     def __init__(
         self,
@@ -325,12 +373,28 @@ class StateVectorEngine:
         device=None,
         layout: str = "standard",
         fuse: bool = True,
+        oracle: str = "gather",
+        nan_checks: bool = False,
+        strict_reference: bool = False,
     ):
         if layout not in ("standard", "m_high"):
             raise ValueError(f"unknown layout {layout!r}")
-        self.backend = resolve_backend(backend)
+        self.backend = resolve_backend("torch" if strict_reference and backend == "auto" else backend)
+        if strict_reference and (self.backend != "torch" or layout != "standard"):
+            # Reference bug-compatibility (qc_shor.c:340-351, 654): the
+            # modular multiplies run the warn-and-wrap scatter even when
+            # 2^M < C; small exact comparison runs on the plain ops.
+            raise ValueError("strict_reference mode requires backend='torch' and the standard layout")
+        if oracle not in ("gather", "benes"):
+            raise ValueError(f"unknown oracle backend {oracle!r}")
+        self.oracle = oracle
+        self.nan_checks = nan_checks
+        self.strict_reference = strict_reference
         if device is None:
-            device = "cuda" if self.backend == "cuda" else "cpu"
+            # strict_reference picks the plain ops, not the host: like the
+            # JAX package's forced xla, it runs on the card when there is one.
+            on_card = self.backend == "cuda" or (strict_reference and torch.cuda.is_available())
+            device = "cuda" if on_card else "cpu"
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise ValueError("no CUDA device is available")
@@ -375,19 +439,31 @@ class StateVectorEngine:
     def _plan(self, circuit: Circuit):
         plan = self._plans.get(circuit)
         if plan is None:
-            plan = plan_circuit(circuit, self.m_eff, self.register.n, self.real_dtype, self.device)
+            plan = plan_circuit(
+                circuit, self.m_eff, self.register.n, self.real_dtype, self.device, self.oracle == "benes"
+            )
             self._plans[circuit] = plan
         return plan
+
+    def _prep(self, circuit: Circuit) -> Circuit:
+        """The JAX engine's rewrite: in strict_reference mode every modular
+        multiply becomes its warn-and-wrap scatter twin."""
+        if not self.strict_reference:
+            return circuit
+        return tuple(
+            Gate("camodc_strict", g.qubits, g.params, g.meta) if g.name == "camodc" else g for g in circuit
+        )
 
     def _run(self, circuit: Circuit, state: Optional[torch.Tensor], norms: Optional[list]) -> torch.Tensor:
         fresh = state is None
         if fresh:
             state = self.initial_state()
+        circuit, checks = self._prep(circuit), self.nan_checks
         if self.backend == "torch":
-            return apply_circuit_plain_(state, circuit, self.m_eff, norms)
+            return apply_circuit_plain_(state, circuit, self.m_eff, norms, checks)
         if not self.fuse:
-            return apply_circuit_per_gate_(state, circuit, self.m_eff, norms)
-        out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit), norms)
+            return apply_circuit_per_gate_(state, circuit, self.m_eff, norms, checks)
+        out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit), norms, nan_checks=checks)
         if out is not state and not fresh:
             state.copy_(out)
             return state

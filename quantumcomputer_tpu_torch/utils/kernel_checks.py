@@ -1,0 +1,309 @@
+"""Kernel checks that need a CUDA card, each kernel against its plain version.
+
+These are the card-only cases of the port's test suite.  They live in the
+package, not under ``tests/``, because the tests import the JAX package to
+compare against it and the card's machine has no JAX.  ``chip_smoke.py``
+runs them as one phase (``run_all``); cases that another phase of the smoke
+already runs at the same shapes are not repeated here.  The smoke's other
+phases build their inputs with this module's helpers (``random_planar``,
+``random_circuit``, ``compare_plan``).
+
+Every input is made from a numpy seed.  Data movement (oracles, transpose,
+chunk gathers, probes, the stride permutation) must be exact; the fused
+segment is held to 3e-5 (float32) / 1e-12 (float64) and the block sums to
+1e-6, the tolerances of the CPU suite.  Each check raises KernelCheckFailure
+on the first disagreement and returns one line per case for the log.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Tuple
+
+import numpy as np
+import torch
+
+from quantumcomputer_tpu_torch.models import circuit as cir
+from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, modperm, oracle, probes
+from quantumcomputer_tpu_torch.ops import gates as tops
+from quantumcomputer_tpu_torch.scripts import exact_err
+
+DTYPES = (torch.float32, torch.float64)
+FUSED_TOL = {torch.float32: 3e-5, torch.float64: 1e-12}
+BLOCK_SUMS_TOL = 1e-6
+
+
+class KernelCheckFailure(AssertionError):
+    pass
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise KernelCheckFailure(msg)
+
+
+def _name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def random_unitary(rng, k: int) -> np.ndarray:
+    z = rng.standard_normal((k, k)) + 1j * rng.standard_normal((k, k))
+    q, r = np.linalg.qr(z)
+    return q * (np.diagonal(r) / np.abs(np.diagonal(r)))
+
+
+def random_planar(rng, n: int, dtype, device, normalize: bool = True) -> torch.Tensor:
+    """Seeded random planar state (numpy, then to `device`): normalised, or
+    of unit-variance components."""
+    psi = rng.standard_normal((2, 1 << n))
+    if normalize:
+        psi /= np.sqrt(np.sum(psi * psi))
+    return torch.from_numpy(psi).to(device=device, dtype=dtype)
+
+
+def random_circuit(rng, n: int, count: int) -> tuple:
+    """The iQFT stages of an n-qubit state, then `count` random gates of
+    every fused op kind."""
+    gates = [cir.IQFT_STAGE(q) for q in range(n - 1, -1, -1)]
+    for _ in range(count):
+        kind, q = int(rng.integers(6 if n > 1 else 3)), int(rng.integers(n))
+        p = int(rng.integers(max(1, n - 1)))
+        p += p >= q
+        gates.append((
+            lambda: cir.H(q), lambda: cir.U1Q(q, random_unitary(rng, 2)), lambda: cir.RZ(q, float(rng.uniform(0, 6.3))),
+            lambda: cir.IQFT_STAGE(q), lambda: cir.CPHASE(q, p, float(rng.uniform(0, 6.3))),
+            lambda: cir.U2Q(max(p, q), min(p, q), random_unitary(rng, 4)),
+        )[kind]())
+    return tuple(gates)
+
+
+def compare_plan(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> Tuple[float, int, int]:
+    """Run a circuit's fused plan on copies of `planar` through the kernel
+    (in place) and through plain_segment: (max abs difference of the final
+    planes, fused-segment launches, segments)."""
+    n = int(planar.shape[1]).bit_length() - 1
+    plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[planar.dtype], fuse_oracle=fuse_oracle)
+    _check(all(s[0] == "fused" for s in plan), f"unexpected single gates in plan {plan}")
+    want, got = planar.clone(), planar.clone()
+    before = fused.LAUNCHES
+    for _, ops, axes in plan:
+        want = fused.plain_segment(want, ops, M)
+        fused.apply_fused(got, ops, axes, M)
+    torch.cuda.synchronize()
+    return float((got - want).abs().max()), fused.LAUNCHES - before, len(plan)
+
+
+def fused_random_circuit(device) -> List[str]:
+    """A random 40-gate circuit at n = 18, M = 4: one launch per segment."""
+    out = []
+    for dtype in DTYPES:
+        rng = np.random.default_rng(9)
+        circuit = random_circuit(rng, 18, 40)
+        err, launched, segments = compare_plan(random_planar(rng, 18, dtype, device), circuit, 4)
+        _check(launched == segments, f"fused n=18: {launched} launches for {segments} segments")
+        _check(err <= FUSED_TOL[dtype], f"fused n=18 {_name(dtype)}: {err} > {FUSED_TOL[dtype]}")
+        out.append(f"fused_segment random n=18 M=4 {_name(dtype)}: max abs {err:.3e}, {launched} launches")
+    return out
+
+
+def fused_split_angle(device) -> List[str]:
+    """The iQFT stages of every bit plus 20 random gates, at the (n, M) the
+    smoke's random circuits do not take."""
+    out = []
+    for dtype in DTYPES:
+        for n, M in ((13, 4), (14, 13), (16, 0)):
+            rng = np.random.default_rng(n * 5 + M)
+            circuit = random_circuit(rng, n, 20)
+            err, _, _ = compare_plan(random_planar(rng, n, dtype, device), circuit, M)
+            _check(err <= FUSED_TOL[dtype], f"fused split angle n={n} M={M} {_name(dtype)}: {err}")
+            out.append(f"fused_segment split angle n={n} M={M} {_name(dtype)}: max abs {err:.3e}")
+    return out
+
+
+def block_sums_f64(device) -> List[str]:
+    """The block sums of a float64 state (the smoke's other phases take f32)."""
+    rng = np.random.default_rng(6)
+    psi = 1e-2 * rng.standard_normal((2, 1 << 20))
+    psi[:, rng.choice(1 << 20, 48, replace=False)] += rng.standard_normal((2, 48))
+    psi *= np.exp(-np.arange(1 << 20) / float(1 << 18))
+    state = torch.from_numpy(psi / np.sqrt(np.sum(psi * psi))).to(device)
+    before = measure.LAUNCHES
+    got = measure.block_sums(state)
+    _check(measure.LAUNCHES == before + 1, "block_sums float64 launched no kernel")
+    err = float((got - measure.block_sums_plain(state)).abs().max())
+    _check(err <= BLOCK_SUMS_TOL, f"block_sums float64: {err} > {BLOCK_SUMS_TOL}")
+    return [f"block_sums float64 n=20: max abs {err:.3e}"]
+
+
+def walk_flagship_multipliers(device) -> List[str]:
+    """The segmented walk with its segment count S forced, on the flagship's
+    multipliers at M = 13: the single gate at controls 0 and 3 for A = 3 and
+    3^512, and the pair (3, 9) at controls (1, 2)."""
+    C, M, n = 8191, 13, 20
+    chosen = oracle.walk_segment_count
+    out = []
+    try:
+        for dtype in DTYPES:
+            for S in (1, 2, 3, 7, 16):
+                oracle.walk_segment_count = lambda *args, S=S: S
+                for A in ((3,), (pow(3, 512, C),), (3, 9)):
+                    state = random_planar(np.random.default_rng(S), n, dtype, device)
+                    if len(A) == 2:
+                        want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A, (1, 2), M)
+                        oracle.apply_camodc_pair_inplace_planar(state, C, A, (1, 2), M)
+                        torch.cuda.synchronize()
+                        _check(torch.equal(state, want), f"pair {A} S={S} {_name(dtype)} differs")
+                        continue
+                    for c in (0, 3):
+                        want = tops.apply_camodc_high_planes_(state.clone(), C, A[0], c, M)
+                        oracle.apply_camodc_high_cycle_planar(state, C, A[0], c, M)
+                        torch.cuda.synchronize()
+                        _check(torch.equal(state, want), f"cycle A={A[0]} control {c} S={S} {_name(dtype)} differs")
+            out.append(f"cycle / cycle_masked flagship multipliers, S forced to 1, 2, 3, 7, 16, {_name(dtype)}: exact")
+    finally:
+        oracle.walk_segment_count = chosen
+    return out
+
+
+def ladder_unsorted_controls(device) -> List[str]:
+    """The ladder at controls (0, 5, 3): low, unsorted column bits."""
+    C, a, M, n, controls = 33, 7, 6, 21, (0, 5, 3)
+    A_list = tuple(pow(a, 1 << k, C) for k in range(len(controls)))
+    out = []
+    for dtype in DTYPES:
+        state = random_planar(np.random.default_rng(41), n, dtype, device)
+        want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A_list, controls, M)
+        got = oracle.apply_camodc_ladder_high_planar(state, torch.empty_like(state), C, A_list, controls, M)
+        torch.cuda.synchronize()
+        err = exact_err(got, want)
+        _check(err == 0.0, f"ladder controls {controls} {_name(dtype)}: {err} != 0")
+        out.append(f"ladder controls {controls} n={n} {_name(dtype)}: exact")
+    return out
+
+
+def gather_oracle_controls(device) -> List[str]:
+    """The row-gather oracle at (n, control) (17, 3) and (21, 13), one launch
+    each."""
+    C, A, M = 33, 29, 6
+    out = []
+    for dtype in DTYPES:
+        for n, c in ((17, 3), (21, 13)):
+            state = random_planar(np.random.default_rng(n + c), n, dtype, device)
+            want = tops.apply_camodc_high_planes_(state.clone(), C, A, c, M)
+            before = oracle.LAUNCHES["gather"]
+            got = oracle.apply_camodc_high_planar(state, torch.empty_like(state), C, A, c, M)
+            torch.cuda.synchronize()
+            _check(oracle.LAUNCHES["gather"] == before + 1, "the row gather launched no kernel")
+            _check(torch.equal(got, want), f"row gather n={n} control {c} {_name(dtype)} differs")
+            out.append(f"oracle_gather n={n} control {c} {_name(dtype)}: exact")
+    return out
+
+
+def chunk_gather_narrow(device) -> List[str]:
+    """The four chunk-gather forms at P = 2^16 with 1536-wide chunks whose
+    starts run past both ends of the plane."""
+    out = []
+    for dtype in DTYPES:
+        g = torch.Generator().manual_seed(2)
+        P, W, NC = 1 << 16, 1536, 300
+        x = torch.randn((2, P), dtype=dtype, generator=g).to(device)
+        x2 = torch.randn((2, 2 * W), dtype=dtype, generator=g).to(device)
+        s0 = torch.randint(-W, P + W, (NC,), generator=g).to(device)
+        s1 = torch.randint(-W, P + W, (NC,), generator=g).to(device)
+        istar = torch.randint(-5, W + 5, (NC,), generator=g).to(device)
+        flags = torch.randint(0, 2, (NC,), generator=g).to(device)
+        pairs = [
+            (chunkgather.chunk_gather(x, s0, W), chunkgather.chunk_gather_plain(x, s0, W)),
+            (chunkgather.chunk_gather_src2(x, x2, s0, flags, W), chunkgather.chunk_gather_src2_plain(x, x2, s0, flags, W)),
+            (chunkgather.chunk_gather_blend(x, s0, s1, istar, W), chunkgather.chunk_gather_blend_plain(x, s0, s1, istar, W)),
+            (
+                chunkgather.chunk_gather_blend_rowlaw(x, 200, 1700, 1792, W),
+                chunkgather.chunk_gather_blend_rowlaw_plain(x, 200, 1700, 1792, W),
+            ),
+        ]
+        torch.cuda.synchronize()
+        for form, (got, want) in zip(("gather", "src2", "blend", "rowlaw"), pairs):
+            _check(torch.equal(got, want), f"chunk_gather {form} W={W} {_name(dtype)} differs")
+        out.append(f"chunk_gather four forms P=2^16 W={W} {_name(dtype)}: exact")
+    return out
+
+
+def stride_permute_m22(device) -> List[str]:
+    """apply_stride_permute at M = 22 (C = 2^22 - 3) for three planned
+    multipliers, against the element map."""
+    M = 22
+    C = (1 << M) - 3
+    rng = np.random.default_rng(22)
+    mults = []
+    for a in rng.integers(2, C - 1, 4000):
+        a = int(a)
+        if math.gcd(a, C) == 1 and modperm.plan_stride_permute(C, a, M) is not None:
+            mults.append(a)
+            if len(mults) == 3:
+                break
+    x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(3))
+    j = torch.arange(1 << M)
+    for a_inv in mults:
+        got = modperm.modmul_stride_permute(x.to(device), C, a_inv, M).cpu()
+        _check(torch.equal(got, x[:, torch.where(j < C, (a_inv * j) % C, j)]), f"stride permute M=22 a_inv={a_inv} differs")
+    return [f"apply_stride_permute M={M} a_inv {mults}: exact"]
+
+
+def probe_kernels(device) -> List[str]:
+    """The probes on a 2^16 plane (W = 2048): the three chunk probes at
+    aligned, in-range and out-of-range starts, and both rolls."""
+    M, W = 16, 2048
+    dim, nc = 1 << M, (1 << M) // W
+    out = []
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(dim).astype(np.float32)).to(device)
+    rng = np.random.default_rng(9)
+    starts = (np.arange(nc) * W, rng.integers(0, dim - W - 1024, nc), rng.integers(-3000, dim + 3000, nc))
+    for name in ("copy", "roll2", "mxuroll"):
+        fn = getattr(probes, f"chunk_{name}")
+        plain = probes.chunk_copy_plain if name == "copy" else probes.chunk_gather_plain
+        for st in starts:
+            s = torch.from_numpy(st.astype(np.int32)).to(device)
+            before = probes.LAUNCHES[name]
+            got = fn(x, s, W)
+            torch.cuda.synchronize()
+            _check(probes.LAUNCHES[name] == before + 1, f"probe {name} launched no kernel")
+            _check(torch.equal(got, plain(x, s, W)), f"probe {name} differs")
+        out.append(f"probe_{name} M={M} W={W}, aligned / in-range / out-of-range starts: exact")
+    rng = np.random.default_rng(10)
+    x3 = torch.from_numpy(rng.standard_normal((300, 8, 128)).astype(np.float32)).to(device)
+    for per_row in (False, True):
+        c = torch.from_numpy(rng.integers(-300, 300, 2400 if per_row else 300).astype(np.int32)).to(device)
+        fn, plain = (probes.rowroll, probes.rowroll_plain) if per_row else (probes.dynroll, probes.dynroll_plain)
+        got = fn(x3, c)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, plain(x3, c)), f"probe {'rowroll' if per_row else 'dynroll'} differs")
+        out.append(f"probe_{'rowroll' if per_row else 'dynroll'} (300, 8, 128): exact")
+    return out
+
+
+CHECKS: List[Callable[[torch.device], List[str]]] = [
+    fused_random_circuit,
+    fused_split_angle,
+    block_sums_f64,
+    walk_flagship_multipliers,
+    ladder_unsorted_controls,
+    gather_oracle_controls,
+    chunk_gather_narrow,
+    stride_permute_m22,
+    probe_kernels,
+]
+
+
+def run_all(device="cuda", log: Callable[[str], None] = print) -> int:
+    """Every check on `device` (a CUDA device: the kernels have no CPU
+    mode); logs each case and returns their count.  Raises on the first
+    failure."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the kernel checks run on a CUDA device, not {device}")
+    count = 0
+    for check in CHECKS:
+        for line in check(device):
+            log(f"  {line}")
+            count += 1
+    return count

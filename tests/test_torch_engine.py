@@ -15,6 +15,7 @@ from quantumcomputer_tpu.models.shor_circuit import shor_circuit as jshor_circui
 from quantumcomputer_tpu.sim.engine import Register as JRegister
 from quantumcomputer_tpu.sim.engine import StateVectorEngine as JEngine
 from quantumcomputer_tpu_torch import Register, StateVectorEngine, interop, shor_circuit
+from quantumcomputer_tpu_torch.models import circuit as tcir
 from quantumcomputer_tpu_torch.ops import fused
 from quantumcomputer_tpu_torch.sim import engine as tengine
 from quantumcomputer_tpu_torch.sim import statevec as sv
@@ -209,19 +210,90 @@ def test_no_gate_with_an_op_form_reaches_the_plain_ops(monkeypatch):
         assert plain_calls == []
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["standard", "m_high"])
-def test_unfused_engine_on_card_launches_the_fused_kernel(layout):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the engine's cuda backend has no CPU mode")
-    from quantumcomputer_tpu_torch import shor_circuit_mhigh
+# ---------------------------------------------------------------------------
+# The engine options of the JAX package's constructor: oracle, nan_checks,
+# strict_reference.
 
-    C, a, L, M = 8191, 3, 7, 13
-    circuit = shor_circuit_mhigh(C, a, L, M) if layout == "m_high" else shor_circuit(C, a, L, M)
-    ops = sum(fused.gate_to_op(g) is not None for g in circuit)
-    eng = StateVectorEngine(Register(L=L, M=M), backend="cuda", layout=layout, fuse=False)
-    before = fused.LAUNCHES
-    got = eng.run(circuit)
-    assert fused.LAUNCHES == before + ops
-    want = StateVectorEngine(Register(L=L, M=M), backend="cuda", layout=layout).run(circuit)
-    assert float(torch.linalg.vector_norm(got - want)) < 1e-5
+
+def test_benes_oracle_plans_the_oracles_into_segments():
+    """oracle="benes": the plan the cuda backend would run holds every
+    oracle as a camodc op, two to a segment, as the JAX pallas plan groups
+    them; the gather engine keeps them single."""
+    C, a, L, M = 15, 7, 12, 4
+    circuit = shor_circuit(C, a, L, M)
+    benes = StateVectorEngine(Register(L=L, M=M), backend="torch", oracle="benes")._plan(circuit)
+    gather = StateVectorEngine(Register(L=L, M=M), backend="torch")._plan(circuit)
+    assert [seg[0] for seg in gather].count("single") == L
+    assert all(seg[0] == "fused" for seg in benes)
+    counts = [sum(op[0] == "camodc" for op in seg[1]) for seg in benes]
+    assert sum(counts) == L and max(counts) == fused.MAX_CAMODC_PER_SEGMENT
+    want = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, backend="torch").run(circuit)
+    got = tengine.apply_circuit_fused_(sv.initial_planar(L + M, torch.float64), circuit, M, plan=benes)
+    np.testing.assert_allclose(interop.state_to_numpy(got), interop.state_to_numpy(want), atol=1e-12)
+
+
+def test_engine_options_are_checked_as_in_jax():
+    reg = Register(L=3, M=4)
+    with pytest.raises(ValueError, match="unknown oracle backend"):
+        StateVectorEngine(reg, backend="torch", oracle="slot")
+    with pytest.raises(ValueError, match="strict_reference mode requires"):
+        StateVectorEngine(reg, backend="torch", layout="m_high", strict_reference=True)
+    eng = StateVectorEngine(reg, strict_reference=True, nan_checks=True)
+    assert (eng.backend, eng.strict_reference, eng.nan_checks, eng.oracle) == ("torch", True, True, "gather")
+    assert [g.name for g in eng._prep(shor_circuit(15, 7, 3, 4))].count("camodc_strict") == 3
+
+
+@pytest.mark.parametrize("backend", ["auto", "torch"])
+def test_strict_reference_runs_on_the_card_when_there_is_one(monkeypatch, backend):
+    """strict_reference picks the plain ops, not the host: with a CUDA device
+    present (faked here; nothing is allocated) its engine defaults to it,
+    the CLI's forced backend="torch" included; device="cpu" keeps the CPU,
+    and without a card it is the CPU."""
+    reg = Register(L=3, M=4)
+    assert StateVectorEngine(reg, backend=backend, strict_reference=True).device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tengine, "state_fits", lambda *args: True)
+    eng = StateVectorEngine(reg, backend=backend, strict_reference=True)
+    assert (eng.backend, eng.device.type) == ("torch", "cuda")
+    assert StateVectorEngine(reg, backend=backend, strict_reference=True, device="cpu").device.type == "cpu"
+    assert StateVectorEngine(reg, backend="torch").device.type == "cpu"
+
+
+def test_strict_reference_equals_the_gather_when_unitary():
+    """With 2^M >= C the warn-and-wrap scatter is the same permutation as
+    the gather: both engines give the same state at complex128."""
+    C, a, L, M = 21, 2, 4, 5
+    circuit = shor_circuit(C, a, L, M)
+    strict = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, strict_reference=True).run(circuit)
+    plain = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, backend="torch").run(circuit)
+    np.testing.assert_allclose(interop.state_to_numpy(strict), interop.state_to_numpy(plain), atol=1e-12)
+
+
+def test_nan_checks_label_each_route(capsys):
+    """The JAX labels: per gate "gate i name(qubits)" on the torch backend
+    and with fuse=False; per plan entry "fused segment i (k ops)" or
+    "gate name(qubits)" on the planned route."""
+    M = 4
+    circuit = (tcir.H(5), tcir.CAMODC(15, 7, 5), tcir.H(6))
+    planes = np.zeros((2, 1 << 8))
+    planes[0, 1] = np.nan
+    tengine.apply_circuit_per_gate_(interop.state_from_numpy(planes), circuit, M, nan_checks=True)
+    assert capsys.readouterr().out.splitlines() == [
+        f"*** non-finite amplitudes after gate {i} {g.name}{g.qubits}" for i, g in enumerate(circuit)
+    ]
+    tengine.apply_circuit_fused_(interop.state_from_numpy(planes), circuit, M, nan_checks=True)
+    assert capsys.readouterr().out.splitlines() == [
+        "*** non-finite amplitudes after fused segment 0 (1 ops)",
+        "*** non-finite amplitudes after gate camodc(5,)",
+        "*** non-finite amplitudes after fused segment 2 (1 ops)",
+    ]
+    tengine.apply_circuit_fused_(interop.state_from_numpy(np.ones((2, 1 << 8))), circuit, M, nan_checks=True)
+    assert capsys.readouterr().out == ""
+
+
+def test_kernel_checks_need_a_card():
+    from quantumcomputer_tpu_torch.utils import kernel_checks
+
+    assert len(kernel_checks.CHECKS) == 9
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel_checks.run_all("cpu")

@@ -4,7 +4,8 @@ against the JAX package's pallas_fused, on the same seeded inputs.
 The JAX kernel runs in interpret mode on the CPU, as tests/test_pallas_fused.py
 runs it; the port runs its plain segment (the CUDA kernel's spec).  f32 is
 held to the JAX suite's ATOL; f64 to 1e-12 against the JAX package's x64 XLA
-gate ops.  The CUDA kernel itself is tested only where a card is present."""
+gate ops.  The CUDA kernel is held against the plain segment on the card by
+chip_smoke.py and quantumcomputer_tpu_torch/utils/kernel_checks.py."""
 
 import math
 
@@ -248,6 +249,7 @@ def _emulate_kernel(psi, ops, axes, n, M, dtype):
     register group by group, from host_descriptor's arrays (the tables in
     the plane dtype, products in complex128)."""
     t, high, vb, ne, ops_i, ops_f, grp, ftab = fused.host_descriptor(ops, axes, n, M, dtype)
+    ptab = fused.camodc_tables(ops, M).astype(np.int64)
     ft = ftab[0::2].astype(np.float64) + 1j * ftab[1::2].astype(np.float64)
     of = ops_f.astype(np.float64)
     k, s = len(high), 1 / math.sqrt(2)
@@ -261,8 +263,17 @@ def _emulate_kernel(psi, ops, axes, n, M, dtype):
         hi = base | (np.zeros(1 << k, np.int64) + sum(((c >> a) & 1) << q for a, q in enumerate(high)))
         j = np.arange(1 << tb)
         gidx = hi[j >> t] | (j & ((1 << t) - 1))
+        if all(r[0] == 5 and r[3] < 0 and not (base >> r[1]) & 1 for r in ops_i):
+            continue  # no op changes this tile: the kernel skips it
         tile = out[gidx]
         for b, e, *extra in grp:
+            if ops_i[b, 0] == 5:  # camodc: its own group, a gather of each work block
+                _, cq, m, cpos, _, off, _, _ = (int(v) for v in ops_i[b])
+                on = (j >> cpos) & 1 if cpos >= 0 else np.full(len(j), (base >> cq) & 1)
+                w = (1 << m) - 1
+                src = np.where(on == 1, (j & ~w) | ptab[off + (j & w)], j)
+                tile = tile[src]
+                continue
             extra = [int(p) for p in extra[: ne - vb]]
             j0 = np.arange(1 << (tb - ne)) << vb
             for p in extra:
@@ -354,6 +365,44 @@ def test_kernel_emulation_matches_plain_segment(dtype, n, M):
     np.testing.assert_allclose(got, want[0].numpy() + 1j * want[1].numpy(), atol=ATOL64 if dtype == torch.float64 else ATOL32)
 
 
+CAMODC_EMULATION = [
+    ("base control", 14, 4, (cir.CAMODC(15, 7, 13),)),
+    ("two ops", 14, 4, (cir.CAMODC(15, 7, 13), cir.CAMODC(15, 13, 12))),
+    ("axis control", 14, 6, (cir.X(12), cir.CAMODC(33, 29, 12), cir.CAMODC(33, 7, 13))),
+    ("low control", 14, 4, (cir.CAMODC(15, 7, 6), cir.CAMODC(15, 13, 13))),
+    ("M=13", 16, 13, (cir.CAMODC(8191, 3, 15), cir.CAMODC(8191, 9, 14))),
+    ("whole state", 5, 4, (cir.CAMODC(15, 7, 4),)),
+    ("edge form", 3, 2, (cir.CAMODC(3, 2, 2),)),
+    ("mixed with H", 15, 6, (cir.H(14), cir.H(13), cir.CAMODC(33, 29, 12), cir.H(2), cir.CAMODC(33, 7, 14))),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", CAMODC_EMULATION, ids=[c[0] for c in CAMODC_EMULATION])
+def test_camodc_kernel_emulation_matches_plain_segment(dtype, case):
+    """The kernel's camodc op (a gather of each work block through the
+    inverse permutation, tiles with every control 0 skipped), emulated from
+    host_descriptor and camodc_tables, equals the plain Benes stages:
+    exactly where the segment only moves data."""
+    name, n, M, circuit = case
+    rng = np.random.default_rng(n * 3 + M)
+    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    if dtype == torch.float32:
+        psi = psi.astype(np.complex64).astype(np.complex128)  # values the f32 planes hold exactly
+    plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[dtype], fuse_oracle=True)
+    assert all(s[0] == "fused" for s in plan) and any(op[0] == "camodc" for s in plan for op in s[1])
+    want = interop.state_from_numpy(np.stack([psi.real, psi.imag])).to(dtype)
+    got = psi
+    for _, ops, axes in plan:
+        want = fused.plain_segment(want, ops, M)
+        got = _emulate_kernel(got, ops, axes, n, M, dtype)
+    want = want[0].numpy() + 1j * want[1].numpy()
+    if name == "mixed with H":
+        np.testing.assert_allclose(got, want, atol=ATOL64 if dtype == torch.float64 else ATOL32)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
 def test_register_groups_of_the_flagship_segments():
     """At n = 28 every target of a group is one of its slots, and the
     segments take 3-5 register groups (one shared-memory pass each)."""
@@ -380,48 +429,3 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the fused-segment kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_matches_plain_on_card(cuda_device, dtype):
-    n, M = 18, 4
-    rng = np.random.default_rng(9)
-    circuit = _random_circuit(rng, n, 40)
-    planar = interop.state_from_numpy(_planes(rng, n), cuda_device).to(dtype)
-    want = planar.clone()
-    before = fused.LAUNCHES
-    plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[dtype])
-    for _, ops, axes in plan:
-        want = fused.plain_segment(want, ops, M)
-        fused.apply_fused(planar, ops, axes, M)
-    torch.cuda.synchronize()
-    assert fused.LAUNCHES == before + len(plan)
-    tol = ATOL32 if dtype == torch.float32 else ATOL64
-    assert float((planar - want).abs().max()) <= tol
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,M", [(1, 0), (2, 3), (3, 0), (4, 13), (5, 3), (10, 0), (13, 4), (14, 13), (16, 0)])
-def test_split_angle_kernel_matches_plain_on_card(cuda_device, dtype, n, M):
-    """The emulation cases on the card: the iQFT stages and a random mix,
-    edge form included, against the plain segment."""
-    rng = np.random.default_rng(n * 5 + M)
-    circuit = tuple(cir.IQFT_STAGE(l) for l in range(n - 1, -1, -1))
-    if n > 1:
-        circuit += _random_circuit(rng, n, 20)
-    planar = interop.state_from_numpy(_planes(rng, n), cuda_device).to(dtype)
-    want = planar.clone()
-    for _, ops, axes in fused.plan_circuit(circuit, n, M, fused.TILE_BITS[dtype]):
-        want = fused.plain_segment(want, ops, M)
-        fused.apply_fused(planar, ops, axes, M)
-    torch.cuda.synchronize()
-    assert float((planar - want).abs().max()) <= (ATOL32 if dtype == torch.float32 else ATOL64)

@@ -15,7 +15,6 @@ import torch
 
 from quantumcomputer_tpu.ops import pallas_oracle as po
 from quantumcomputer_tpu_torch import interop
-from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.ops import oracle
 
 C, A, M = 33, 29, 6
@@ -76,23 +75,3 @@ def test_gather_validates_its_arguments():
         oracle.apply_camodc_high_planar(state, state, C, A, 0, M)
     with pytest.raises(ValueError, match="match the state"):
         oracle.apply_camodc_high_planar(state, out.double(), C, A, 0, M)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the row-gather kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,c_phys", [(17, 0), (17, 1), (17, 3), (21, 13), (21, 14)])
-def test_gather_kernel_matches_plain_on_card(cuda_device, dtype, n, c_phys):
-    state = interop.state_from_numpy(_planes32(np.random.default_rng(n + c_phys), n), cuda_device).to(dtype)
-    want = tops.apply_camodc_high_planes_(state.clone(), C, A, c_phys, M)
-    before = oracle.LAUNCHES["gather"]
-    got = oracle.apply_camodc_high_planar(state, torch.empty_like(state), C, A, c_phys, M)
-    torch.cuda.synchronize()
-    assert oracle.LAUNCHES["gather"] == before + 1
-    assert torch.equal(got, want)

@@ -4,7 +4,8 @@ same draws.
 
 The JAX block-sum kernel runs in interpret mode on the CPU, as
 tests/test_pallas_measure.py runs it; the port runs its plain block sums (the
-CUDA kernel's spec).  The CUDA kernel itself is tested only on a card."""
+CUDA kernel's spec).  The CUDA kernel is held against it on the card by
+chip_smoke.py and quantumcomputer_tpu_torch/utils/kernel_checks.py."""
 
 import jax
 import jax.numpy as jnp
@@ -116,20 +117,3 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     assert measure.LAUNCHES == before
     with pytest.raises(ValueError, match="no block-sum path"):
         measure.block_sums(torch.empty((2, 1 << 16), device="meta"))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the block-sums kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_matches_plain_on_card(cuda_device, dtype):
-    state = interop.state_from_numpy(_planes(20, 6, decay=True), cuda_device).to(dtype)
-    before = measure.LAUNCHES
-    got = measure.block_sums(state)
-    assert measure.LAUNCHES == before + 1
-    torch.testing.assert_close(got, measure.block_sums_plain(state), rtol=0, atol=ATOL)

@@ -8,7 +8,8 @@ comparison is exact (tolerance 0).  The JAX transpose and chunk-gather
 kernels run in Pallas interpret mode, as the JAX suite runs them on the CPU.
 Plans must equal the JAX planner's under the accelerator's factor floor
 (min_factor=256), field for field.  The CUDA kernels are held against their
-plain versions only where a card is present."""
+plain versions on the card by chip_smoke.py and
+quantumcomputer_tpu_torch/utils/kernel_checks.py."""
 
 import math
 
@@ -297,58 +298,3 @@ def test_negation_and_single_leg_plans():
     assert modperm.plan_stride_permute(C, 3, M) is None  # 3 = 3 * 1^-1: below the floor
     with pytest.raises(ValueError, match="unsupported"):
         modperm.modmul_stride_permute(torch.from_numpy(x), C, 3, M)
-
-
-# ---------------------------------------------------------------------------
-# On the card: each kernel against its plain version (exact).
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the transpose and chunk-gather kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("shape,extra_rows", [((2, 512, 384), 0), ((1, 300, 523), 0), ((2, 256, 1000), 1)])
-def test_transpose_kernel_matches_plain_on_card(cuda_device, dtype, shape, extra_rows):
-    x = torch.randn(shape, dtype=dtype, generator=torch.Generator().manual_seed(1)).to(cuda_device)
-    got = transpose.tiled_transpose_padded(x, extra_rows)
-    want = transpose.transpose_plain(x, extra_rows)
-    torch.cuda.synchronize()
-    rows = got.shape[1] - extra_rows
-    assert torch.equal(got[:, :rows], want[:, :rows])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_chunk_gather_kernels_match_plain_on_card(cuda_device, dtype):
-    g = torch.Generator().manual_seed(2)
-    P, W, NC = 1 << 16, 1536, 300
-    x = torch.randn((2, P), dtype=dtype, generator=g).to(cuda_device)
-    x2 = torch.randn((2, 2 * W), dtype=dtype, generator=g).to(cuda_device)
-    s0 = torch.randint(-W, P + W, (NC,), generator=g).to(cuda_device)
-    s1 = torch.randint(-W, P + W, (NC,), generator=g).to(cuda_device)
-    istar = torch.randint(-5, W + 5, (NC,), generator=g).to(cuda_device)
-    flags = torch.randint(0, 2, (NC,), generator=g).to(cuda_device)
-    pairs = [
-        (chunkgather.chunk_gather(x, s0, W), chunkgather.chunk_gather_plain(x, s0, W)),
-        (chunkgather.chunk_gather_src2(x, x2, s0, flags, W), chunkgather.chunk_gather_src2_plain(x, x2, s0, flags, W)),
-        (chunkgather.chunk_gather_blend(x, s0, s1, istar, W), chunkgather.chunk_gather_blend_plain(x, s0, s1, istar, W)),
-        (chunkgather.chunk_gather_blend_rowlaw(x, 200, 1700, 1792, W), chunkgather.chunk_gather_blend_rowlaw_plain(x, 200, 1700, 1792, W)),
-    ]
-    torch.cuda.synchronize()
-    for got, want in pairs:
-        assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-def test_apply_stride_permute_on_card(cuda_device):
-    C, mults = _planned_multipliers(22, 3, seed=22)
-    x = torch.randn((1, 1 << 22), generator=torch.Generator().manual_seed(3))
-    j = torch.arange(1 << 22)
-    for a_inv in mults:
-        got = modperm.modmul_stride_permute(x.to(cuda_device), C, a_inv, 22).cpu()
-        assert torch.equal(got, x[:, torch.where(j < C, (a_inv * j) % C, j)])

@@ -1,7 +1,9 @@
 """The port never imports jax: a fresh interpreter imports the package, its
-validation layer (profiling, experiments, debug) and its probe kernels and
-scripts, runs a 7-qubit circuit, a norm trace, a few TABLE I shots and a
-tiny semiclassical attempt, and checks that no jax module was loaded.
+validation layer (profiling, experiments, debug), its probe kernels and
+scripts, the Benes router and the card-only kernel checks, runs a 7-qubit
+circuit, a norm trace, a few TABLE I shots, a tiny semiclassical attempt
+and the Benes oracle path (plain segments, strict_reference, dd64,
+nan_checks), and checks that no jax module was loaded.
 chip_smoke.py is imported too (without running it), since it must run where
 jax is absent."""
 
@@ -21,7 +23,9 @@ import quantumcomputer_tpu_torch.ops.probes
 import quantumcomputer_tpu_torch.scripts.prof_chunkgather
 import quantumcomputer_tpu_torch.scripts.prof_rowperm
 from quantumcomputer_tpu_torch.algorithms import semiclassical
-from quantumcomputer_tpu_torch.utils import debug, experiments, profiling
+from quantumcomputer_tpu_torch.utils import debug, experiments, kernel_checks, profiling
+from quantumcomputer_tpu_torch.ops import benes
+from quantumcomputer_tpu_torch.sim import engine as tengine
 import chip_smoke
 
 eng = q.StateVectorEngine(q.Register(L=3, M=4), backend="torch")
@@ -33,6 +37,15 @@ assert sum(experiments.omega_histogram(15, 7, 3, 4, runs=5, engine=eng).values()
 assert abs(debug.check_normalisation(state) - 1.0) < 1e-5
 rec = semiclassical.run_semiclassical(15, 7, 3, 4, [0.1, 0.6, 0.3], structured=True)
 assert rec.x_tilde in range(8) and len(rec.branch_probs) == 3
+assert len(benes.benes_route(list(range(16))[::-1])) == 7
+circuit = q.shor_circuit(15, 7, 3, 4)
+plan = tengine.plan_circuit(circuit, 4, 7, eng.real_dtype, "cpu", fuse_oracle=True)
+planned = tengine.apply_circuit_fused_(eng.initial_state(), circuit, 4, plan, nan_checks=True)
+assert float((planned - state).abs().max()) < 1e-6
+strict = q.StateVectorEngine(q.Register(L=3, M=4), strict_reference=True)
+assert abs(strict.norm(strict.run(circuit)) - 1.0) < 1e-6
+assert q.algorithms.shor.shors_algorithm(15, 3, 4, forced_trial_int=7, seed=0, dtype="dd64").factors == (5, 3)
+assert callable(kernel_checks.run_all)
 loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules

@@ -7,7 +7,8 @@ the port plans what the JAX package plans.  The plain versions are held to
 the JAX XLA ops at 1e-12 in complex128; each JAX Pallas oracle kernel runs
 once in interpret mode, as the JAX suite runs it, and the port's wrapper
 (its plain version, on a CPU tensor) must equal it within that suite's
-1e-6 at f32.  The CUDA kernels are tested only where a card is present."""
+1e-6 at f32.  The CUDA kernels are held against their plain versions on the
+card by chip_smoke.py and quantumcomputer_tpu_torch/utils/kernel_checks.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -282,101 +283,3 @@ def test_walk_segment_count_fills_the_card():
     state = torch.zeros((2, 1 << 10))
     assert oracle.walk_vector(state, (3,)) == 4 and oracle.walk_vector(state, (2,)) == 1  # runs of 32 / 16 bytes
     assert oracle.walk_vector(state.double(), (2, 5)) == 2 and oracle.walk_vector(state.double(), (1, 5)) == 1
-
-
-# ---------------------------------------------------------------------------
-# On the card: each kernel against its plain version, exactly (pure data
-# movement).
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the oracle kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-def _card_state(rng, n, dtype, device):
-    return interop.state_from_numpy(np.stack([_psi(rng, n).real, _psi(rng, n).imag]), device).to(dtype)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("c_phys", [0, 3, 9, 13])
-def test_cycle_kernel_matches_plain_on_card(cuda_device, dtype, c_phys):
-    C, A, M, n = 33, 29, 6, 20
-    state = _card_state(np.random.default_rng(c_phys), n, dtype, cuda_device)
-    want = tops.apply_camodc_high_planes_(state.clone(), C, A, c_phys, M)
-    before = oracle.LAUNCHES["cycle"]
-    oracle.apply_camodc_high_cycle_planar(state, C, A, c_phys, M)
-    torch.cuda.synchronize()
-    assert oracle.LAUNCHES["cycle"] == before + 1
-    assert torch.equal(state, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_masked_kernel_matches_plain_on_card(cuda_device, dtype):
-    C, M, n = 33, 6, 21
-    state = _card_state(np.random.default_rng(40), n, dtype, cuda_device)
-    want = tops.apply_camodc_high_planes_(state.clone(), C, 29, 13, M)
-    oracle.apply_camodc_high_perm_planar(state, C, 29, 13, M)
-    want = tops.apply_camodc_ladder_high_planes_(want, C, (29, 7), (13, 14), M)
-    oracle.apply_camodc_pair_inplace_planar(state, C, (29, 7), (13, 14), M)
-    torch.cuda.synchronize()
-    assert torch.equal(state, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S", [1, 2, 3, 7, 16])
-@pytest.mark.parametrize("A", [A for p, A in WALK_PERMS if p.startswith("flagship")])
-def test_segmented_walk_kernel_on_card(cuda_device, monkeypatch, dtype, S, A):
-    """The emulation's flagship cases through the kernel, S forced: the
-    multipliers at M = 13 (single gate at controls 0 and 3, the pair at
-    (1, 2)), exactly equal to the plain version."""
-    monkeypatch.setattr(oracle, "walk_segment_count", lambda *a: S)
-    C, M, n = 8191, 13, 20
-    state = _card_state(np.random.default_rng(S), n, dtype, cuda_device)
-    if len(A) == 2:
-        want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A, (1, 2), M)
-        oracle.apply_camodc_pair_inplace_planar(state, C, A, (1, 2), M)
-    else:
-        for c in (0, 3):
-            want = tops.apply_camodc_high_planes_(state.clone(), C, A[0], c, M)
-            oracle.apply_camodc_high_cycle_planar(state, C, A[0], c, M)
-            torch.cuda.synchronize()
-            assert torch.equal(state, want)
-    torch.cuda.synchronize()
-    assert torch.equal(state, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("wide", [False, True])
-@pytest.mark.parametrize("c_phys", [2, 3, 6])
-def test_walk_vector_width_forced_on_card(cuda_device, monkeypatch, dtype, wide, c_phys):
-    """The walk with its vector width forced to one column or to 16 bytes
-    (runs of 4 or more moved columns hold either), exactly equal to the
-    plain version."""
-    vec = oracle.WALK_VEC_BYTES // torch.tensor([], dtype=dtype).element_size() if wide else 1
-    monkeypatch.setattr(oracle, "walk_vector", lambda *a: vec)
-    C, A, M, n = 8191, 3, 13, 20
-    state = _card_state(np.random.default_rng(c_phys), n, dtype, cuda_device)
-    want = tops.apply_camodc_high_planes_(state.clone(), C, A, c_phys, M)
-    oracle.apply_camodc_high_cycle_planar(state, C, A, c_phys, M)
-    torch.cuda.synchronize()
-    assert torch.equal(state, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("controls", [(11, 12), (11, 12, 13, 14), (0, 5, 3)])
-def test_ladder_kernel_matches_plain_on_card(cuda_device, dtype, controls):
-    C, a, M, n = 33, 7, 6, 21
-    A_list = tuple(pow(a, 1 << k, C) for k in range(len(controls)))
-    state = _card_state(np.random.default_rng(41), n, dtype, cuda_device)
-    want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A_list, controls, M)
-    got = oracle.apply_camodc_ladder_high_planar(state, torch.empty_like(state), C, A_list, controls, M)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)

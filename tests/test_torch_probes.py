@@ -16,7 +16,8 @@ scripts' own definition of what the probe computes:
     8-row block in ``kern`` (prof_rowperm.py:158) and one per row in
     ``kern2`` (prof_rowperm.py:186).
 
-The kernels themselves are held against the plain versions on the card."""
+The kernels themselves are held against the plain versions on the card by
+chip_smoke.py and quantumcomputer_tpu_torch/utils/kernel_checks.py."""
 
 import numpy as np
 import pytest
@@ -131,42 +132,3 @@ def test_scripts_need_a_card(monkeypatch, capsys):
     assert prof_chunkgather.main() == 1
     assert prof_rowperm.main() == 1
     assert "no CUDA device" in capsys.readouterr().err
-
-
-# ---------------------------------------------------------------------------
-# On the card: each kernel against its plain version, exactly.
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the probe kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["copy", "roll2", "mxuroll"])
-def test_chunk_kernels_match_plain_on_card(cuda_device, name):
-    fn = getattr(probes, f"chunk_{name}")
-    plain = probes.chunk_copy_plain if name == "copy" else probes.chunk_gather_plain
-    x = torch.from_numpy(_plane(8)).to(cuda_device)
-    rng = np.random.default_rng(9)
-    for st in (np.arange(NC) * W, rng.integers(0, DIM - W - 1024, NC), rng.integers(-3000, DIM + 3000, NC)):
-        s = torch.from_numpy(st.astype(np.int32)).to(cuda_device)
-        before = probes.LAUNCHES[name]
-        got = fn(x, s, W)
-        torch.cuda.synchronize()
-        assert probes.LAUNCHES[name] == before + 1
-        assert torch.equal(got, plain(x, s, W))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("per_row", [False, True])
-def test_roll_kernels_match_plain_on_card(cuda_device, per_row):
-    rng = np.random.default_rng(10)
-    x = torch.from_numpy(rng.standard_normal((300, 8, 128)).astype(np.float32)).to(cuda_device)
-    c = torch.from_numpy(rng.integers(-300, 300, 2400 if per_row else 300).astype(np.int32)).to(cuda_device)
-    fn, plain = (probes.rowroll, probes.rowroll_plain) if per_row else (probes.dynroll, probes.dynroll_plain)
-    got = fn(x, c)
-    torch.cuda.synchronize()
-    assert torch.equal(got, plain(x, c))

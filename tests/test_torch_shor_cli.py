@@ -2,6 +2,8 @@
 cli.py) against the JAX package's: the same print lines, validation messages,
 exit codes and classical post-processing."""
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -77,6 +79,7 @@ SEMICLASSICAL_BAD = [
         ["-C", "15", "-L", "3", "-M", "4", "-a", "1"],
         ["-C", "15", "-L", "0", "-M", "4"],
         ["-C", "15", "-L", "30", "-M", "4"],
+        ["-C", "15", "-L", "16", "-M", "16"],
         ["-C", "15", "-L", "3", "-M", "4", "--dtype", "dd64", "--layout", "m_high"],
         ["-C", "15", "-L", "3", "-M", "4", "--layout", "m_high", "--devices", "32"],
     ]
@@ -101,11 +104,8 @@ def test_missing_M_is_an_argparse_error():
     [
         (["--semiclassical", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
         (["--devices", "2"], "--devices > 1"),
-        (["--oracle", "benes"], "--oracle benes"),
         (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
-        (["--strict-reference"], "--strict-reference"),
         (["--dtype", "complex32"], "--dtype complex32"),
-        (["--dtype", "dd64"], "--dtype dd64"),
     ],
 )
 def test_unported_flags_exit_2(extra, flag, capsys):
@@ -119,12 +119,58 @@ def test_unported_flags_exit_2(extra, flag, capsys):
     [
         (["--devices", "2"], "--devices > 1"),
         (["--dtype", "complex32"], "--dtype complex32"),
-        (["--dtype", "dd64"], "--dtype dd64"),
     ],
 )
 def test_unported_semiclassical_flags_exit_2(extra, flag, capsys):
     assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--semiclassical"] + extra) == 2
     assert capsys.readouterr().err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
+
+
+@pytest.mark.parametrize(
+    "extra,line",
+    [
+        (["--oracle", "benes"], "oracle='benes' requires the single-chip cuda backend; falling back to the gather oracle"),
+        (["--strict-reference"], None),
+        (["--dtype", "dd64"], None),
+        (["--semiclassical", "--dtype", "dd64"], None),
+    ],
+)
+def test_cli_factors_15_with_the_ported_flags(extra, line, capsys, caplog):
+    """The flags this package once refused: on a CPU host --oracle benes
+    logs the JAX package's warning and runs the gather; --strict-reference
+    runs the warn-and-wrap oracle on the torch backend; dd64 runs complex128."""
+    logger = logging.getLogger("quantumcomputer_tpu_torch")
+    logger.addHandler(caplog.handler)
+    try:
+        assert cli.main(FACTOR_15 + extra) == 0
+    finally:
+        logger.removeHandler(caplog.handler)
+    assert " --- Factors of 15 found: (5, 3)." in capsys.readouterr().out
+    assert line is None or any(line in r.getMessage() for r in caplog.records)
+
+
+def _namespace(argv):
+    return cli.build_parser().parse_args(argv), jcli.build_parser().parse_args(argv)
+
+
+@pytest.mark.parametrize("LM", [31, 32, 33])
+@pytest.mark.parametrize("devices", [1, 2])
+@pytest.mark.parametrize("dtype", ["complex64", "complex128", "complex32", "dd64"])
+@pytest.mark.parametrize("semiclassical", [False, True])
+def test_validate_equals_jax_over_the_grid(LM, devices, dtype, semiclassical):
+    """The L + M bounds (with the --devices term), dtypes and
+    --semiclassical: both packages' validate give the same answer."""
+    argv = ["-C", "15", "-L", str(LM - 13), "-M", "13", "--devices", str(devices), "--dtype", dtype]
+    argv += ["--semiclassical"] if semiclassical else []
+    ours, theirs = _namespace(argv)
+    assert cli.validate(ours) == jcli.validate(theirs)
+
+
+def test_devices_2_at_32_qubits_reaches_not_ported(capsys):
+    argv = ["-C", "15", "-L", "16", "-M", "16", "--devices", "2"]
+    assert jcli.validate(jcli.build_parser().parse_args(argv)) is None
+    assert cli.main(argv) == 2
+    assert capsys.readouterr().err.strip() == "Error: --devices > 1 is not yet ported to quantumcomputer_tpu_torch."
 
 
 def test_cli_factors_15_in_the_mhigh_layout(capsys):
