@@ -83,7 +83,24 @@ Phases, each of which must pass:
      flagship in both layouts (every norm within 1e-4 of 1, one per entry of
      the plan); phase_profile of the m_high flagship; and a fuse=False run at
      n = 20 whose fused-kernel launches equal its gates with an op form,
-     within ||d||_2 <= 1e-5 of the fused run.
+     within ||d||_2 <= 1e-5 of the fused run;
+ 11. complex32 (bf16 planes, f32 compute), through the bf16 instance of every
+     kernel of its paths (phase 2 holds each at n = 20 against its plain
+     version: the fused segment within one bf16 ulp per pass, the block sums
+     within 1e-6, the camodc op, oracles, transpose and chunk gathers
+     exactly): the n = 28 flagship in the standard layout, m_high and
+     oracle="benes", each in turns with complex64, norm within 5e-3 of 1,
+     ||psi_c32 - psi_c64||_2 <= 6e-3, benes equal to the gather exactly;
+     m_high below two states (cycle_masked) equal to the two-state plan
+     exactly; every bf16 segment and oracle
+     kernel of those plans timed beside its bound; 8187 at n = 30 in both
+     layouts and with benes; the CLI on 15 and the n = 31 demo
+     (-C 8189 -L 18 -M 13 -a 2 --dtype complex32 --layout m_high, seeds in
+     turn until it factors, about 75% an attempt); the M = 28 semiclassical
+     kernels and steps at bf16; 1,060,314,373 at M = 30 (4 GiB work state),
+     bits equal to the prediction, branch deviation from the complex64
+     attempt under the draws' margin; TABLE I through the experiments CLI
+     and run_with_norms (float32 norms) at complex32.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
 kernel's entry holds its launches on a main path, its max abs error, its ms
@@ -97,7 +114,9 @@ bound are those of segment 0 of the standard plan (a 5-H segment); its
 numbers are those of the first oracle segment of the benes flagship (a
 pair), launches those of the benes n = 30 run; its "segments" list holds
 every oracle segment, "flagship_ms" / "flagship_gather_ms" the two runs of
-each flagship.  Any failure exits non-zero without that line.  Imports
+each flagship.  The bf16 instances have entries of their own ("<name>_bf16",
+launches from the complex32 main paths, max_ulps beside max_abs_err for the
+fused segment).  Any failure exits non-zero without that line.  Imports
 nothing of JAX.
 """
 
@@ -118,8 +137,9 @@ SMALL_NS = (1, 2, 3, 4, 5, 7, 10, 13)  # random circuits; n <= 3 (f32) / 2 (f64)
 FLAGSHIP = (8191, 3, 15, 13)  # C, a, L, M: n = 28
 FACTOR = (8187, 13, 17, 13)  # C, a, L, M: n = 30
 # Fused segments are held on states of unit-variance components, so the
-# tolerance stands against values of order 1.
-TOL = {"float32": 3e-5, "float64": 1e-12}
+# tolerance stands against values of order 1; bf16 in bf16 ulps of the plain
+# result (utils/kernel_checks.bf16_ulps: the ulp taken at 2^-8 and above).
+TOL = {"float32": 3e-5, "float64": 1e-12, "bfloat16": 1.0}
 WALK_SEGMENT_COUNTS = (1, 2, 3, 7, 16)  # forced S of the segmented walk, at n = 20, M = 13
 WALK_PAIRS = ((0, 1), (1, 2), (2, 5), (6, 3))
 # (kernel, call site, controls, n, M): each case sized so that its call
@@ -143,6 +163,17 @@ ORACLE_CASES = [
 BLOCK_SUMS_TOL = 1e-6
 FLAGSHIP_TOL = 1e-4
 UNFUSED_TOL = 1e-5  # fuse=False against fuse=True at n = 20
+# complex32 (bf16 planes): the norm within the JAX package's bound
+# (tests/test_complex32.py:37), and ||psi_c32 - psi_c64||_2 at n = 28 within
+# a bound set from the H100 readings (2.1e-3 to 2.7e-3 over the three forms)
+# with about twice their largest as margin.
+C32_NORM_TOL = 5e-3
+C32_DIST_TOL = 6e-3
+# The n = 31 single-card demo (README): -C 8189 -L 18 -M 13 -a 2 at complex32 in
+# the m_high layout, an 8 GiB state.  By the exact outcome distribution about
+# 75% of single attempts factor, so seeds are tried in turn.
+C32_CLI = ["-C", "8189", "-L", "18", "-M", "13", "-a", "2", "--dtype", "complex32", "--layout", "m_high", "-v"]
+C32_CLI_SEEDS = range(8)
 # The camodc op's cases: M -> (C, A1, A2), the JAX suite's moduli.
 CAMODC_MODULI = {4: (15, 7, 13), 6: (33, 29, 7), 8: (251, 13, 15), 13: (8191, 3, 9)}
 SC_M28 = ((1 << 28) - 3, 7, 8, 28)  # C, a, L, M: the JAX bench's semiclassical configuration
@@ -352,40 +383,85 @@ def phase_build() -> float:
     return seconds
 
 
+def dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def engine_dtype(planes):
+    """The engine's dtype for states of plane dtype `planes`: complex64 for
+    float32 planes, the "complex32" token for bfloat16."""
+    import torch
+
+    return "complex32" if planes == torch.bfloat16 else torch.complex64
+
+
+def key(kernel: str, dtype) -> str:
+    """The report entry of a kernel's instance for planes of `dtype`: its
+    bf16 instance has an entry of its own."""
+    import torch
+
+    return f"{kernel}_bf16" if dtype == torch.bfloat16 else kernel
+
+
+def fused_err(report: dict, entry: str, pairs) -> tuple:
+    """(err, text) of fused-segment results against their plain versions
+    (kernel_checks.plan_states' pairs): max abs for float32 / float64; for
+    bf16 the max in bf16 ulps over the passes (with the largest share of
+    elements that differ; the max abs goes to the report too)."""
+    import torch
+
+    from quantumcomputer_tpu_torch.utils.kernel_checks import bf16_ulps
+
+    abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
+    report[entry]["max_abs_err"] = max(report[entry]["max_abs_err"], abs_err)
+    if pairs[0][0].dtype != torch.bfloat16:
+        return abs_err, f"max abs {abs_err:.3e}"
+    stats = [bf16_ulps(g, w) for g, w in pairs]
+    ulps, share = max(u for u, _ in stats), max(f for _, f in stats)
+    report[entry]["max_ulps"] = max(report[entry].get("max_ulps", 0.0), ulps)
+    return ulps, (f"max {ulps:.3f} bf16 ulps over {len(pairs)} pass(es), up to {share:.3e} of elements differ, "
+                  f"max abs {abs_err:.3e}")
+
+
 def phase_kernels(report: dict, n: int = KERNEL_N) -> None:
     import numpy as np
     import torch
 
     from quantumcomputer_tpu_torch.ops import measure
-    from quantumcomputer_tpu_torch.utils.kernel_checks import compare_plan, random_circuit, random_planar
+    from quantumcomputer_tpu_torch.utils.kernel_checks import plan_states, random_circuit, random_planar
 
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).replace("torch.", "")
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         rng = np.random.default_rng(20)
         cases = [(name, gates, M, n) for name, gates, M in op_kind_cases(rng, n)]
         cases += [(f"random M={M}", random_circuit(rng, k, 30), M, k) for k in SMALL_NS for M in (0, 3, 13)]
         for name, gates, M, k in cases:
-            err = compare_plan(random_planar(rng, k, dtype, DEVICE, normalize=False), gates, M)[0]
-            log(f"kernel fused_segment {name:11s} {dname} n={k}: max abs {err:.3e} (tol {TOL[dname]:.0e})")
-            check(err <= TOL[dname], f"fused_segment {name} {dname} n={k}: {err} > {TOL[dname]}")
-            report["fused_segment"]["max_abs_err"] = max(report["fused_segment"]["max_abs_err"], err)
-    rng = np.random.default_rng(21)
-    planar = random_planar(rng, n, torch.float32, DEVICE)
-    err = float((measure.block_sums(planar) - measure.block_sums_plain(planar)).abs().max())
-    log(f"kernel block_sums float32 n={n}: max abs {err:.3e} (tol {BLOCK_SUMS_TOL:.0e})")
-    check(err <= BLOCK_SUMS_TOL, f"block_sums float32: {err} > {BLOCK_SUMS_TOL}")
-    report["block_sums"]["max_abs_err"] = max(report["block_sums"]["max_abs_err"], err)
+            pairs = plan_states(random_planar(rng, k, dtype, DEVICE, normalize=False), gates, M)[0]
+            err, text = fused_err(report, key("fused_segment", dtype), pairs)
+            log(f"kernel fused_segment {name:11s} {dname(dtype)} n={k}: {text} (tol {TOL[dname(dtype)]:.0e})")
+            check(err <= TOL[dname(dtype)], f"fused_segment {name} {dname(dtype)} n={k}: {err} > {TOL[dname(dtype)]}")
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(21)
+        planar = random_planar(rng, n, dtype, DEVICE)
+        sums = measure.block_sums(planar)
+        err = float((sums - measure.block_sums_plain(planar)).abs().max())
+        log(f"kernel block_sums {dname(dtype)} n={n}: {dname(sums.dtype)} sums, max abs {err:.3e} (tol {BLOCK_SUMS_TOL:.0e})")
+        check(sums.dtype == torch.float32, f"block_sums {dname(dtype)} returned {sums.dtype}")
+        check(err <= BLOCK_SUMS_TOL, f"block_sums {dname(dtype)}: {err} > {BLOCK_SUMS_TOL}")
+        entry = report[key("block_sums", dtype)]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
 
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).replace("torch.", "")
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         rng = np.random.default_rng(22)
         for kernel, site, controls, n_case, M in ORACLE_CASES:
+            if kernel == "oracle_gather" and dtype == torch.bfloat16:
+                continue  # off the path, no bf16 instance yet (ROADMAP)
             C, a = oracle_modulus(M)
             A_list = tuple(pow(a, 1 << k, C) for k in range(len(controls)))
             err = oracle_err(site, random_planar(rng, n_case, dtype, DEVICE), C, A_list, controls, M)
-            log(f"kernel {kernel} ({site}) controls {controls} {dname} n={n_case} M={M}: max abs {err:.3e} (tol 0)")
-            check(err == 0.0, f"{kernel} {site} {controls} {dname}: {err} != 0")
-            report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"], err)
+            log(f"kernel {kernel} ({site}) controls {controls} {dname(dtype)} n={n_case} M={M}: max abs {err:.3e} (tol 0)")
+            check(err == 0.0, f"{kernel} {site} {controls} {dname(dtype)}: {err} != 0")
+            entry = report[key(kernel, dtype)]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
         check_forced_segments(report, dtype)
 
 
@@ -398,21 +474,19 @@ def phase_camodc_kernels(report: dict, n: int = KERNEL_N) -> None:
     import torch
 
     from quantumcomputer_tpu_torch.ops import fused
-    from quantumcomputer_tpu_torch.utils.kernel_checks import compare_plan, random_planar
+    from quantumcomputer_tpu_torch.utils.kernel_checks import plan_states, random_planar
 
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).replace("torch.", "")
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         rng = np.random.default_rng(24)
         for name, gates, M, exact in camodc_cases(n):
             before = fused.CAMODC_LAUNCHES
-            err = compare_plan(random_planar(rng, n, dtype, DEVICE, normalize=False), gates, M, fuse_oracle=True)[0]
-            tol = 0.0 if exact else TOL[dname]
-            log(f"kernel camodc {name:20s} {dname} n={n}: max abs {err:.3e} (tol {tol:.0e}), "
+            pairs = plan_states(random_planar(rng, n, dtype, DEVICE, normalize=False), gates, M, fuse_oracle=True)[0]
+            err, text = fused_err(report, key("camodc" if exact else "fused_segment", dtype), pairs)
+            tol = 0.0 if exact else TOL[dname(dtype)]
+            log(f"kernel camodc {name:20s} {dname(dtype)} n={n}: {text} (tol {tol:.0e}), "
                 f"{fused.CAMODC_LAUNCHES - before} camodc segment(s)")
-            check(fused.CAMODC_LAUNCHES > before, f"camodc {name} {dname}: no segment with a camodc op launched")
-            check(err <= tol, f"camodc {name} {dname}: {err} > {tol}")
-            key = "camodc" if exact else "fused_segment"
-            report[key]["max_abs_err"] = max(report[key]["max_abs_err"], err)
+            check(fused.CAMODC_LAUNCHES > before, f"camodc {name} {dname(dtype)}: no segment with a camodc op launched")
+            check(err <= tol, f"camodc {name} {dname(dtype)}: {err} > {tol}")
 
 
 def phase_kernel_checks() -> None:
@@ -437,7 +511,6 @@ def check_forced_segments(report: dict, dtype) -> None:
     from quantumcomputer_tpu_torch.utils.kernel_checks import random_planar
 
     C, a, n, M = 8191, 3, KERNEL_N, 13
-    dname = str(dtype).replace("torch.", "")
     planar = random_planar(np.random.default_rng(23), n, dtype, DEVICE)
     chosen = oracle.walk_segment_count, oracle.walk_vector
     try:
@@ -452,10 +525,11 @@ def check_forced_segments(report: dict, dtype) -> None:
                     kernel, site = ("cycle", "cycle") if len(controls) == 1 else ("cycle_masked", "pair")
                     A_list = tuple(pow(a, 1 << c, C) for c in controls)
                     errs[controls] = oracle_err(site, planar, C, A_list, controls, M)
-                    report[kernel]["max_abs_err"] = max(report[kernel]["max_abs_err"], errs[controls])
-                log(f"kernel cycle / cycle_masked S={S} vector {vec} {dname} n={n} M={M}: controls {sorted(errs)}, "
+                    entry = report[key(kernel, dtype)]
+                    entry["max_abs_err"] = max(entry["max_abs_err"], errs[controls])
+                log(f"kernel cycle / cycle_masked S={S} vector {vec} {dname(dtype)} n={n} M={M}: controls {sorted(errs)}, "
                     f"max abs {max(errs.values()):.3e} (tol 0)")
-                check(all(e == 0.0 for e in errs.values()), f"walk with S={S}, vector {vec} {dname}: {errs}")
+                check(all(e == 0.0 for e in errs.values()), f"walk with S={S}, vector {vec} {dname(dtype)}: {errs}")
     finally:
         oracle.walk_segment_count, oracle.walk_vector = chosen
 
@@ -629,8 +703,6 @@ def phase_flagship_benes(report: dict, gather_state) -> None:
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit
-    from quantumcomputer_tpu_torch.ops import fused
-    from quantumcomputer_tpu_torch.ops import gates as tops
     from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
 
     C, a, L, M = FLAGSHIP
@@ -659,8 +731,32 @@ def phase_flagship_benes(report: dict, gather_state) -> None:
     check(abs(norm - 1.0) <= FLAGSHIP_TOL, f"benes flagship norm {norm}")
     check(dist <= FLAGSHIP_TOL, f"benes vs gather flagship distance {dist}")
 
-    gen = torch.Generator(device=DEVICE).manual_seed(30)
-    planar = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32)  # unit variance
+    time_camodc_segments(report, unit_planar(n, torch.float32, 30), plan, M)
+
+
+def unit_planar(n: int, dtype, seed: int):
+    """A (2, 2^n) state of unit-variance components on the card, seeded."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32).to(dtype)
+
+
+def time_camodc_segments(report: dict, planar, plan, M: int) -> None:
+    """Every segment of a benes plan that holds a camodc op, on `planar`:
+    held exactly against its plain version and timed beside it, its bound
+    (the bytes of the tiles it changes, read and written once) and its
+    library call (torch.index_select of each op's control-1 half, summed);
+    the first one's numbers and the list go to the report entry of the
+    planes' dtype."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.ops import gates as tops
+    from quantumcomputer_tpu_torch.sim import statevec as sv
+
+    entry = report[key("camodc", planar.dtype)]
+    n = sv.num_qubits(planar)
     state_bytes = planar.numel() * planar.element_size()
     rows = []
     for i, (kind, ops, axes) in enumerate(plan):
@@ -670,14 +766,14 @@ def phase_flagship_benes(report: dict, gather_state) -> None:
         err = exact_err(fused.apply_fused(planar.clone(), ops, axes, M), want)
         del want
         torch.cuda.synchronize()
-        check(err == 0.0, f"benes flagship segment {i}: {err} != 0")
+        check(err == 0.0, f"benes flagship segment {i} {dname(planar.dtype)}: {err} != 0")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         k_ms = time_ms(lambda: fused.apply_fused(planar, ops, axes, M), reps=10)
         p_ms = time_ms(lambda: fused.plain_segment(planar, ops, M), reps=2)
         share = changed_share(ops, axes, n, M, planar.dtype)
         b_ms, by = bound(2 * share * state_bytes)
         lib_ms = 0.0
-        for op in ops:
+        for op in (op for op in ops if op[0] == "camodc"):
             half = planar.view(2, -1, 2, 1 << (op[1] - M), 1 << M)[:, :, 1]
             ginv = torch.from_numpy(tops.modmul_inverse_permutation(op[2], op[3], M)).to(DEVICE)
             lib_ms += time_ms(lambda: torch.index_select(half, -1, ginv), reps=5)
@@ -687,9 +783,9 @@ def phase_flagship_benes(report: dict, gather_state) -> None:
             "bound_by": by, "library_ms": lib_ms, "changed_share": share,
         })
         log(
-            f"kernel camodc flagship segment {i} (controls {[op[1] for op in ops]}, changed share {share}): max abs "
-            f"{err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({by}), {b_ms / k_ms:.1%} of bound"
+            f"kernel {entry['name']} flagship segment {i} (controls {[op[1] for op in ops]}, changed share {share}): "
+            f"max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
         )
     del planar
     torch.cuda.empty_cache()
@@ -710,15 +806,15 @@ def time_segments(report: dict, planar, segments, M: int, layout: str) -> list:
     from quantumcomputer_tpu_torch.ops import fused
     from quantumcomputer_tpu_torch.sim import statevec as sv
 
-    entry = report["fused_segment"]
+    entry = key("fused_segment", planar.dtype)
+    tol = TOL[dname(planar.dtype)]
     n = sv.num_qubits(planar)
     timed = []
     for i, (_, ops, axes) in enumerate(segments):
         want = fused.plain_segment(planar, ops, M)
-        err = float((fused.apply_fused(planar.clone(), ops, axes, M) - want).abs().max())
+        err, text = fused_err(report, entry, [(fused.apply_fused(planar.clone(), ops, axes, M), want)])
         del want
-        check(err <= TOL["float32"], f"{layout} flagship segment {i}: {err}")
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        check(err <= tol, f"{layout} flagship segment {i} {dname(planar.dtype)}: {err} > {tol}")
         k_ms = time_ms(lambda: fused.apply_fused(planar, ops, axes, M), reps=10)
         p_ms = time_ms(lambda: fused.plain_segment(planar, ops, M), reps=3)
         b_ms, by = bound(2 * planar.numel() * planar.element_size(), segment_flops(ops, M, n))
@@ -728,8 +824,8 @@ def time_segments(report: dict, planar, segments, M: int, layout: str) -> list:
         })
         t, high = fused.tile_geometry(n, axes, fused.TILE_BITS[planar.dtype])
         log(
-            f"kernel fused_segment {layout} n={n} segment {i} ({kinds}, targets {[op[1] for op in ops]}, t={t}, "
-            f"axes {high}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"kernel {entry} {layout} n={n} segment {i} ({kinds}, targets {[op[1] for op in ops]}, t={t}, "
+            f"axes {high}): {text}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"({by}), {b_ms / k_ms:.1%} of bound"
         )
     return timed
@@ -741,7 +837,6 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
-    from quantumcomputer_tpu_torch.ops import gates as tops
     from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, plan_circuit
 
     C, a, L, M = FLAGSHIP
@@ -798,14 +893,28 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
 
     # Each fused segment of the m_high plan (low physical bits, M = 0), then
     # each oracle kernel at n = 28 on the call sites of the flagship's plans.
-    gen = torch.Generator(device=DEVICE).manual_seed(29)
-    planar = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32)  # unit variance
+    planar = unit_planar(n, torch.float32, 29)
     plan = plan_circuit(circuit, 0, n, torch.float32, DEVICE)
     timed = time_segments(report, planar, [s for s in plan if s[0] == "fused"], 0, "m_high")
+    time_mhigh_oracles(report, planar, C, a, M, tuple(range(11, 15)), WALK_CONTROLS)
+    return timed
+
+
+def time_mhigh_oracles(report: dict, planar, C: int, a: int, M: int, ladder, walks) -> None:
+    """The m_high oracle kernels at the flagship size on `planar`: the
+    ladder at controls `ladder`, the cycle walk at each of `walks` and the
+    pair (13, 14), each held exactly against its plain version and timed
+    beside it, its bound and its library call; the report entry of the
+    planes' dtype takes the ladder, the walk at control 3 and the pair."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import gates as tops
+
     state_bytes = planar.numel() * planar.element_size()
+    n = planar.shape[1].bit_length() - 1
     for kernel, site, controls in (
-        ("ladder", "ladder", tuple(range(11, 15))),
-        *(("cycle", "cycle", (c,)) for c in WALK_CONTROLS),
+        ("ladder", "ladder", tuple(ladder)),
+        *(("cycle", "cycle", (c,)) for c in walks),
         ("cycle_masked", "pair", (13, 14)),
     ):
         A_list = tuple(pow(a, 1 << c, C) for c in controls)
@@ -826,38 +935,42 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
             del half, ginv
         else:
             lib_ms, library = time_library_row_gather(planar, C, A_list, controls, M)
-        entry = report[kernel]
+        entry = report[key(kernel, planar.dtype)]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if kernel != "cycle" or controls == (3,):
             entry.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, library_ms=lib_ms, library=library)
         log(
-            f"kernel {kernel} ({site}) controls {controls} n={n}: max abs {err:.3e}; kernel {k_ms:.4f} ms, "
+            f"kernel {entry['name']} ({site}) controls {controls} n={n}: max abs {err:.3e}; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
         )
-    del planar
     torch.cuda.empty_cache()
-    return timed
 
 
-def phase_factor(report: dict) -> None:
+def phase_factor(report: dict, planes) -> None:
+    """Factor 8187 at n = 30 end to end in the standard layout, m_high and
+    with oracle="benes", on planes of `planes` (float32: complex64; bfloat16:
+    complex32); the launch
+    counters reset just before each run and read just after, into the
+    report entries of that dtype's kernel instances."""
     import torch
 
     from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
     from quantumcomputer_tpu_torch.ops import fused, measure
 
     C, a, L, M = FACTOR
+    dtype = engine_dtype(planes)
     fused.LAUNCHES = 0
     measure.LAUNCHES = 0
     t0 = time.perf_counter()
     result = shors_algorithm(
-        C, L, M, forced_trial_int=a, seed=0, dtype=torch.complex64,
+        C, L, M, forced_trial_int=a, seed=0, dtype=dtype,
         backend=KERNEL_BACKEND, max_attempts_per_a=4,
     )
     wall = time.perf_counter() - t0
-    report["fused_segment"]["launches"] = fused.LAUNCHES
-    report["block_sums"]["launches"] = measure.LAUNCHES
+    report[key("fused_segment", planes)]["launches"] = fused.LAUNCHES
+    report[key("block_sums", planes)]["launches"] = measure.LAUNCHES
     log(
-        f"factor n={L + M} C={C} a={a}: {result.outcome.value}, factors {result.factors}, "
+        f"factor n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; "
         f"launches fused_segment {fused.LAUNCHES}, block_sums {measure.LAUNCHES}"
     )
@@ -868,15 +981,15 @@ def phase_factor(report: dict) -> None:
     reset_launches()
     t0 = time.perf_counter()
     result = shors_algorithm(
-        C, L, M, forced_trial_int=a, seed=0, dtype=torch.complex64,
+        C, L, M, forced_trial_int=a, seed=0, dtype=dtype,
         backend=KERNEL_BACKEND, max_attempts_per_a=4, layout="m_high",
     )
     wall = time.perf_counter() - t0
     counts = launches()
     for k in ("ladder", "cycle"):
-        report[k]["launches"] = counts[k]
+        report[key(k, planes)]["launches"] = counts[k]
     log(
-        f"factor m_high n={L + M} C={C} a={a}: {result.outcome.value}, factors {result.factors}, "
+        f"factor m_high n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; launches {counts}"
     )
     check(result.factors == (2729, 3), f"m_high factors {result.factors} != (2729, 3)")
@@ -899,16 +1012,16 @@ def phase_factor(report: dict) -> None:
         reset_launches()
         t0 = time.perf_counter()
         result = shors_algorithm(
-            C, L, M, forced_trial_int=a, seed=0, dtype=torch.complex64,
+            C, L, M, forced_trial_int=a, seed=0, dtype=dtype,
             backend=KERNEL_BACKEND, max_attempts_per_a=4, oracle="benes",
         )
         wall = time.perf_counter() - t0
         counts = launches()
     finally:
         tops.apply_c_amodc_planes_ = gather_oracle
-    report["camodc"]["launches"] = counts["camodc"]
+    report[key("camodc", planes)]["launches"] = counts["camodc"]
     log(
-        f"factor oracle=benes n={L + M} C={C} a={a}: {result.outcome.value}, factors {result.factors}, "
+        f"factor oracle=benes n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; launches {counts}, "
         f"gather oracle calls {len(gathers)}"
     )
@@ -961,12 +1074,12 @@ def phase_modperm_kernels(report: dict) -> None:
     from quantumcomputer_tpu_torch.ops import chunkgather as cg
     from quantumcomputer_tpu_torch.ops import transpose as tr
 
-    for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).replace("torch.", "")
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         g = torch.Generator().manual_seed(30)
 
         def rand(*shape):
-            return torch.randn(shape, generator=g, dtype=dtype).to(DEVICE)
+            wide = torch.float32 if dtype == torch.bfloat16 else dtype
+            return torch.randn(shape, generator=g, dtype=wide).to(device=DEVICE, dtype=dtype)
 
         for shape, extra in (((2, 512, 384), 0), ((1, 300, 523), 0), ((2, 256, 1000), 1), ((1, 4133, 2176), 1)):
             x = rand(*shape)
@@ -974,8 +1087,8 @@ def phase_modperm_kernels(report: dict) -> None:
             rows = want.shape[1] - extra  # the extra rows are unwritten in both
             err = exact_err(got[:, :rows], want[:, :rows])
             torch.cuda.synchronize()
-            log(f"kernel transpose {dname} {shape} extra_rows={extra} -> {tuple(got.shape)}: max abs {err:.3e} (tol 0)")
-            check(err == 0.0, f"transpose {dname} {shape}: {err} != 0")
+            log(f"kernel transpose {dname(dtype)} {shape} extra_rows={extra} -> {tuple(got.shape)}: max abs {err:.3e} (tol 0)")
+            check(err == 0.0, f"transpose {dname(dtype)} {shape}: {err} != 0")
 
         P, W, NC = 1 << 20, 4096, 600
         x, x2 = rand(2, P), rand(2, 2 * W)
@@ -1001,8 +1114,8 @@ def phase_modperm_kernels(report: dict) -> None:
         for name, got, want in cases:
             err = exact_err(got, want)
             torch.cuda.synchronize()
-            log(f"kernel chunk_gather {name} {dname}: max abs {err:.3e} (tol 0)")
-            check(err == 0.0, f"chunk_gather {name} {dname}: {err} != 0")
+            log(f"kernel chunk_gather {name} {dname(dtype)}: max abs {err:.3e} (tol 0)")
+            check(err == 0.0, f"chunk_gather {name} {dname(dtype)}: {err} != 0")
         del x, x2, xr, cases
 
     # Random planned multipliers, and at the M of the timing phase the steps
@@ -1064,10 +1177,11 @@ def library_call(name: str, plain, args, kwargs):
     return lambda: x[:, idx]
 
 
-def phase_semiclassical_timing(report: dict) -> None:
-    """At M = 28 (C = 2^28 - 3, a = 7): each kernel call of the first planned
+def phase_semiclassical_timing(report: dict, planes) -> None:
+    """At M = 28 (C = 2^28 - 3, a = 7), on planes of `planes` (float32 or
+    bfloat16): each kernel call of the first planned
     step's permutation timed beside its plain version, one permutation of a
-    1 GiB plane against the element gather, and one step per oracle path."""
+    plane against the element gather, and one step per oracle path."""
     import torch
 
     from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
@@ -1080,7 +1194,7 @@ def phase_semiclassical_timing(report: dict) -> None:
     plans = sc._structured_plans(C, a_invs, M)
     step = next(s for s, p in enumerate(plans) if p is not None)
     plan = plans[step]
-    x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(31)).to(DEVICE)
+    x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(31)).to(device=DEVICE, dtype=planes)
 
     # Record each kernel call of one permutation (its inputs stay alive).
     sites = {
@@ -1107,12 +1221,12 @@ def phase_semiclassical_timing(report: dict) -> None:
     finally:
         for name, fn in orig.items():
             setattr(modperm, name, fn)
-    for key in ("transpose", "chunk_gather"):
-        report[key].update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes")
-    report["transpose"]["library"] = "x.transpose(-1, -2).contiguous() per call"
-    report["chunk_gather"]["library"] = "one advanced-indexing call x[:, idx] per call (src2: into cat(x, x2))"
+    for kernel in ("transpose", "chunk_gather"):
+        report[key(kernel, planes)].update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes")
+    report[key("transpose", planes)]["library"] = "x.transpose(-1, -2).contiguous() per call"
+    report[key("chunk_gather", planes)]["library"] = "one advanced-indexing call x[:, idx] per call (src2: into cat(x, x2))"
     for name, args, kwargs in calls:
-        key, plain = sites[name]
+        kernel, plain = sites[name]
         if name == "chunk_gather_blend_rowlaw":
             args[0][:, -args[3]:].zero_()  # the slack row: defined input for the comparison
         got, want = orig[name](*args, **kwargs), plain(*args, **kwargs)
@@ -1122,9 +1236,9 @@ def phase_semiclassical_timing(report: dict) -> None:
         # Bytes: the input read once and the output written once (a chunk
         # gather reads one source element per output element).
         out_bytes = got.numel() * got.element_size()
-        nbytes = out_bytes + (args[0].numel() * args[0].element_size() if key == "transpose" else out_bytes)
+        nbytes = out_bytes + (args[0].numel() * args[0].element_size() if kernel == "transpose" else out_bytes)
         library = library_call(name, plain, args, kwargs)
-        lib_err = exact_err(library(), want) if key == "chunk_gather" else 0.0
+        lib_err = exact_err(library(), want) if kernel == "chunk_gather" else 0.0
         del got, want
         check(err == 0.0, f"{name} at M={M}: {err} != 0")
         check(lib_err == 0.0, f"the library call of {name} at M={M} differs: {lib_err}")
@@ -1132,14 +1246,14 @@ def phase_semiclassical_timing(report: dict) -> None:
         p_ms = time_ms(lambda: plain(*args, **kwargs), reps=3)
         l_ms = time_ms(library, reps=3)
         b_ms = bound(nbytes)[0]
-        entry = report[key]
+        entry = report[key(kernel, planes)]
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         for field, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms)):
             entry[field] += v
         shape = tuple(args[0].shape)
         log(
-            f"kernel {name} M={M} step {step} ({shape}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms, {b_ms / k_ms:.1%} of bound"
+            f"kernel {name} {dname(planes)} M={M} step {step} ({shape}): max abs {err:.3e}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms, {b_ms / k_ms:.1%} of bound"
         )
     del calls
     torch.cuda.empty_cache()
@@ -1149,22 +1263,23 @@ def phase_semiclassical_timing(report: dict) -> None:
     src = torch.where(j < C, (j * a_invs[step]) % C, j)
     del j
     gather_ms = time_ms(lambda: x[:, src], reps=5)
-    log(f"apply_stride_permute M={M} plan {plan}: {perm_ms:.4f} ms per 1 GiB plane; element gather x[:, src] {gather_ms:.4f} ms")
+    log(f"apply_stride_permute {dname(planes)} M={M} plan {plan}: {perm_ms:.4f} ms per plane; element gather x[:, src] "
+        f"{gather_ms:.4f} ms")
     del src, x
     torch.cuda.empty_cache()
 
     gen = torch.Generator().manual_seed(32)
     w = torch.randn((2, 1 << M), generator=gen).to(DEVICE)
-    w /= torch.linalg.vector_norm(w)
+    w = (w / torch.linalg.vector_norm(w)).to(planes)
     phi, r = torch.tensor(0.375, device=DEVICE), torch.tensor(0.4, device=DEVICE)
     outs = {}
     for path, p in (("structured", plan), ("gather", None)):
-        ms = time_ms(lambda: sc._step(w, phi, M, torch.float32, C, a_invs[step], p, r, -1), reps=3)
-        bit, p_cond, out, _ = sc._step(w, phi, M, torch.float32, C, a_invs[step], p, r, -1)
+        ms = time_ms(lambda: sc._step(w, phi, M, planes, C, a_invs[step], p, r, -1), reps=3)
+        bit, p_cond, out, _ = sc._step(w, phi, M, planes, C, a_invs[step], p, r, -1)
         outs[path] = (int(bit), float(p_cond), out)
-        log(f"semiclassical step M={M} ({path}): {ms:.4f} ms, bit {int(bit)}, p_cond {float(p_cond):.9f}")
-    dist = float(torch.linalg.vector_norm(outs["structured"][2] - outs["gather"][2]))
-    log(f"semiclassical step M={M}: structured vs gather ||d||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
+        log(f"semiclassical step {dname(planes)} M={M} ({path}): {ms:.4f} ms, bit {int(bit)}, p_cond {float(p_cond):.9f}")
+    dist = float(torch.linalg.vector_norm(outs["structured"][2].float() - outs["gather"][2].float()))
+    log(f"semiclassical step {dname(planes)} M={M}: structured vs gather ||d||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
     check(outs["structured"][0] == outs["gather"][0], "structured and gather steps measured different bits")
     check(dist <= FLAGSHIP_TOL, f"structured vs gather step distance {dist}")
     del w, outs
@@ -1191,7 +1306,13 @@ def phase_semiclassical_cli() -> None:
     log(f"cli --semiclassical M=28: exit {rc}, {wall:.3f} s, launches {counts}")
 
 
-def phase_semiclassical_factor(report: dict) -> None:
+def phase_semiclassical_factor(report: dict, planes, reference=None):
+    """Factor 1,060,314,373 at M = 30 on planes of `planes` (float32: an
+    8 GiB complex64 work state; bfloat16: 4 GiB complex32) with the bits equal to the exact prediction on
+    the same draws; the launch counters reset just before and read just
+    after.  With `reference` (an earlier attempt's record on the same
+    draws) the branch probabilities' largest deviation from it is printed
+    beside the draws' margin.  Returns the attempt's record."""
     import importlib.util
 
     import torch
@@ -1215,17 +1336,18 @@ def phase_semiclassical_factor(report: dict) -> None:
     reset_launches()
     t0 = time.perf_counter()
     result = shors_algorithm(
-        C, L, M, forced_trial_int=a, seed=SC_SEED, dtype=torch.complex64, backend=KERNEL_BACKEND, semiclassical=True
+        C, L, M, forced_trial_int=a, seed=SC_SEED, dtype=engine_dtype(planes),
+        backend=KERNEL_BACKEND, semiclassical=True,
     )
     wall = time.perf_counter() - t0
     counts = launches()
-    report["transpose"]["launches"] = counts["transpose"]
-    report["chunk_gather"]["launches"] = counts["chunk_gather"]
+    report[key("transpose", planes)]["launches"] = counts["transpose"]
+    report[key("chunk_gather", planes)]["launches"] = counts["chunk_gather"]
     attempt = result.attempts[0]
     rec = attempt.semiclassical
     n_struct, n_gather = rec.oracles.count("structured"), rec.oracles.count("gather")
     log(
-        f"semiclassical factor M={M} C={C} a={a} L={L}: {result.outcome.value}, factors {result.factors}, "
+        f"semiclassical factor {dname(planes)} M={M} C={C} a={a} L={L}: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}; attempt {attempt.elapsed_s:.3f} s ({attempt.elapsed_s / L * 1e3:.3f} ms per step), "
         f"total {wall:.3f} s; steps structured {n_struct}, gather {n_gather}; launches {counts}, "
         f"chunk_gather forms {dict(chunkgather.LAUNCHES)}"
@@ -1236,6 +1358,12 @@ def phase_semiclassical_factor(report: dict) -> None:
     check(counts["transpose"] > 0, "the semiclassical main path launched no transpose kernel")
     for form, n in chunkgather.LAUNCHES.items():
         check(n > 0, f"the semiclassical main path launched no chunk_gather {form}")
+    if reference is not None:
+        dev = max(abs(p - q) for p, q in zip(rec.branch_probs, reference.branch_probs))
+        log(f"semiclassical {dname(planes)} M={M}: largest branch-probability deviation from the complex64 attempt {dev:.3e}, "
+            f"against the draws' min margin {margin:.6f}")
+        check(dev < margin, f"branch deviation {dev} reaches the draw margin {margin}")
+    return rec
 
 
 def phase_gather_oracle(report: dict) -> None:
@@ -1252,7 +1380,6 @@ def phase_gather_oracle(report: dict) -> None:
     n = L + M
     entry = report["oracle_gather"]
     for dtype in (torch.float32, torch.float64):
-        dname = str(dtype).replace("torch.", "")
         gen = torch.Generator(device=DEVICE).manual_seed(40)
         x = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=dtype)
         out = torch.empty_like(x)
@@ -1264,7 +1391,7 @@ def phase_gather_oracle(report: dict) -> None:
             err = exact_err(got, want)
             del want
             torch.cuda.synchronize()
-            check(err == 0.0, f"oracle_gather {dname} control {c} at n={n}: {err} != 0")
+            check(err == 0.0, f"oracle_gather {dname(dtype)} control {c} at n={n}: {err} != 0")
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             k_ms = time_ms(lambda: oracle.apply_camodc_high_planar(x, out, C, a, c, M), reps=5)
             p_ms = time_ms(lambda: tops.apply_camodc_high_planes_(out, C, a, c, M), reps=2)
@@ -1277,7 +1404,7 @@ def phase_gather_oracle(report: dict) -> None:
                 set_bound(entry, 2 * x.numel() * x.element_size())  # every element read, every element written
             gbs = 2 * x.numel() * x.element_size() / (k_ms * 1e6)
             log(
-                f"kernel oracle_gather {dname} n={n} M={M} control {c}: max abs {err:.3e} (tol 0); kernel {k_ms:.4f} ms "
+                f"kernel oracle_gather {dname(dtype)} n={n} M={M} control {c}: max abs {err:.3e} (tol 0); kernel {k_ms:.4f} ms "
                 f"({gbs:.1f} GB/s 1R+1W), plain {p_ms:.4f} ms, cycle walk {w_ms:.4f} ms"
             )
         del x, out
@@ -1302,7 +1429,7 @@ def phase_probes(report: dict) -> None:
     import torch
 
     by_name = {row["name"].strip(): row for row in rows}
-    for key, row_name in (
+    for probe, row_name in (
         ("probe_copy", "aligned"), ("probe_roll2", "roll2"), ("probe_mxuroll", "mxuroll"),
         ("probe_dynroll", "pallas dyn-roll blk8"), ("probe_rowroll", "pallas per-row roll"),
     ):
@@ -1312,20 +1439,20 @@ def phase_probes(report: dict) -> None:
         # by one shift for the rolls (their per-chunk or per-row shifts have no
         # single call).
         src = torch.randn(int(round(nbytes / 8)), device=DEVICE)
-        if key == "probe_copy":
+        if probe == "probe_copy":
             dst = torch.empty_like(src)
             lib_ms, library = time_ms(lambda: dst.copy_(src), reps=5), "torch.Tensor.copy_ of the same bytes"
             del dst
         else:
             lib_ms, library = time_ms(lambda: torch.roll(src, 12345), reps=5), "torch.roll of the same bytes by one shift"
         del src
-        report[key].update(
-            launches=counts[key], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+        report[probe].update(
+            launches=counts[probe], max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             library_ms=lib_ms, library=library,
         )
-        set_bound(report[key], nbytes)
-        log(f"kernel {key}: {row['ms']:.4f} ms, library {lib_ms:.4f} ms, bound {report[key]['bound_ms']:.4f} ms")
-        check(counts[key] > 0, f"the probe scripts launched no {key} kernel")
+        set_bound(report[probe], nbytes)
+        log(f"kernel {probe}: {row['ms']:.4f} ms, library {lib_ms:.4f} ms, bound {report[probe]['bound_ms']:.4f} ms")
+        check(counts[probe] > 0, f"the probe scripts launched no {probe} kernel")
     torch.cuda.empty_cache()
 
 
@@ -1408,6 +1535,241 @@ def phase_validation() -> None:
         check(dist <= UNFUSED_TOL, f"fuse=False vs fuse=True {layout}: {dist}")
 
 
+def phase_flagship_c32(report: dict) -> None:
+    """The n = 28 flagship at complex32 (a 1 GiB bf16 state), in the standard
+    layout, m_high and with oracle="benes": each timed in turns with its
+    complex64 run (c64, c32, c32, c64), its norm within C32_NORM_TOL of 1,
+    ||psi_c32 - psi_c64||_2 within C32_DIST_TOL, and the benes state equal
+    to the gather's; the bf16 block sums on the standard state held and
+    timed; the m_high circuit below a two-state budget (in-place oracles,
+    cycle_masked); then every fused segment of the standard and m_high
+    plans, every benes oracle segment and the m_high oracle kernels at bf16
+    held against their plain versions and timed beside their bounds."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.ops import measure
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    C, a, L, M = FLAGSHIP
+    n = L + M
+    reg = Register(L=L, M=M)
+    states, engines, runs = {}, {}, {}
+    for name, layout, oracle_kind in (("standard", "standard", "gather"), ("m_high", "m_high", "gather"),
+                                      ("benes", "standard", "benes")):
+        circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
+        kw = dict(device=DEVICE, layout=layout, oracle=oracle_kind)
+        e64 = StateVectorEngine(reg, torch.complex64, backend=KERNEL_BACKEND, **kw)
+        e32 = StateVectorEngine(reg, "complex32", **kw)
+        runs[name] = {"c64": [], "c32": []}
+        for which in ("c64", "c32", "c32", "c64"):
+            eng = e32 if which == "c32" else e64
+            runs[name][which].append(time_ms(lambda: eng.run(circuit), reps=3))
+        reset_launches()
+        s32 = e32.run(circuit)
+        counts = launches()
+        norm = e32.norm(s32)
+        dist = float(torch.linalg.vector_norm(s32.float() - e64.run(circuit)))
+        torch.cuda.empty_cache()
+        log(
+            f"flagship complex32 n={n} {name}: {runs[name]['c32']} ms against complex64 {runs[name]['c64']} ms "
+            f"(turns c64, c32, c32, c64); {len(e32._plan(circuit))} plan entries; norm {norm:.9f} (tol "
+            f"{C32_NORM_TOL:.0e}); ||c32 - c64||_2 = {dist:.4e} (tol {C32_DIST_TOL:.0e}); launches {counts}"
+        )
+        check(s32.dtype == torch.bfloat16, f"the complex32 {name} state is {s32.dtype}")
+        check(abs(norm - 1.0) <= C32_NORM_TOL, f"complex32 {name} flagship norm {norm}")
+        check(dist <= C32_DIST_TOL, f"complex32 {name} flagship distance to complex64 {dist}")
+        report["fused_segment_bf16"].setdefault("flagship", {})[name] = dict(
+            c32_ms=runs[name]["c32"], c64_ms=runs[name]["c64"], norm=norm, dist_c64=dist
+        )
+        states[name], engines[name] = s32, (e32, circuit)
+    check(torch.equal(states["benes"], states["standard"]), "the complex32 benes state differs from the gather's")
+    log("flagship complex32: the benes state equals the gather state exactly")
+
+    entry = report["block_sums_bf16"]
+    state = states["standard"]
+    err = float((measure.block_sums(state) - measure.block_sums_plain(state)).abs().max())
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    check(err <= BLOCK_SUMS_TOL, f"block_sums on the complex32 flagship state: {err}")
+    entry["ms"] = time_ms(lambda: measure.block_sums(state), reps=10)
+    entry["plain_ms"] = time_ms(lambda: measure.block_sums_plain(state), reps=10)
+    blocks = state.view(2, measure.block_sums(state).numel(), -1)
+    entry["library_ms"] = time_ms(lambda: torch.linalg.vector_norm(blocks, dim=(0, 2), dtype=torch.float32), reps=10)
+    entry["library"] = "torch.linalg.vector_norm(dtype=float32) over the (2, nblocks, block) view"
+    set_bound(entry, state.numel() * state.element_size() + 4 * blocks.shape[1], 3.0 * state.numel())
+    log(
+        f"kernel block_sums_bf16 n={n}: max abs {err:.3e}; kernel {entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, "
+        f"library {entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} ms"
+    )
+    del blocks, state
+
+    # The memory ceiling at bf16: a budget that holds one state and not two.
+    e32, circuit = engines["m_high"]
+    os.environ["QC_TPU_HBM_BYTES"] = str(states["m_high"].numel() * 2 * 3 // 2)
+    try:
+        ceiling = StateVectorEngine(reg, "complex32", device=DEVICE, layout="m_high")
+        ceiling_ms = time_ms(lambda: ceiling.run(circuit), reps=1)
+        reset_launches()
+        low = ceiling.run(circuit)
+        counts = launches()
+    finally:
+        del os.environ["QC_TPU_HBM_BYTES"]
+    same = torch.equal(low, states["m_high"])
+    del low
+    log(f"flagship complex32 m_high below two states: {ceiling_ms:.3f} ms, launches {counts}; equal to the two-state "
+        f"plan bit for bit: {same}")
+    check(counts["cycle_masked"] > 0, "the complex32 memory-ceiling run launched no cycle_masked kernel")
+    check(counts["ladder"] == 0, "the complex32 memory-ceiling run launched the out-of-place ladder")
+    check(same, "the complex32 memory-ceiling flagship state differs from the two-state plan's")
+    report["cycle_masked_bf16"]["launches"] = counts["cycle_masked"]
+    mhigh_plan = e32._plan(circuit)
+    benes_plan = engines["benes"][0]._plan(engines["benes"][1])
+    standard_plan = engines["standard"][0]._plan(engines["standard"][1])
+    del states, engines
+    torch.cuda.empty_cache()
+
+    planar = unit_planar(n, torch.bfloat16, 28)
+    timed = time_segments(report, planar, [s for s in standard_plan if s[0] == "fused"], M, "standard")
+    timed += time_segments(report, planar, [s for s in mhigh_plan if s[0] == "fused"], 0, "m_high")
+    entry = report["fused_segment_bf16"]
+    first = timed[0]
+    entry.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"])
+    entry["segments"] = timed
+    entry["segments_mean_ms"] = sum(t["ms"] for t in timed) / len(timed)
+    entry["segments_mean_plain_ms"] = sum(t["plain_ms"] for t in timed) / len(timed)
+    log(f"kernel fused_segment_bf16 n={n}: standard segment 0 {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f}); "
+        f"the {len(timed)} segments of both plans: mean {entry['segments_mean_ms']:.4f} ms")
+    time_camodc_segments(report, planar.clone(), benes_plan, M)
+    singles = [entry[1] for entry in mhigh_plan if entry[0] == "single"]
+    ladder = next(g.qubits for g in singles if g.name == "camodc_ladder_high")
+    walks = tuple(g.qubits[0] for g in singles if g.name == "camodc_high")
+    log(f"m_high complex32 plan at n={n}: ladder at controls {ladder}, walks at controls {walks}")
+    time_mhigh_oracles(report, planar, C, a, M, ladder, walks)
+    del planar
+    torch.cuda.empty_cache()
+
+
+def phase_cli_c32() -> None:
+    """The CLI at complex32: 15 (-C 15 -L 3 -M 4 -a 7), then the n = 31
+    demo (C32_CLI, an 8 GiB bf16 state), seeds in turn until it factors;
+    the launch counters reset before each run and read after it."""
+    from quantumcomputer_tpu_torch import cli
+
+    for argv, want in ((["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--dtype", "complex32", "-v", "--seed", "0"],
+                        " --- Factors of 15 found: (5, 3)."),):
+        reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        counts = launches()
+        check(rc == 0 and want in buf.getvalue(), f"the complex32 CLI on 15 returned {rc}")
+        check(counts["fused_segment"] > 0, "the complex32 CLI run on 15 launched no fused-segment kernel")
+        log(f"cli --dtype complex32: factored 15 = 5 x 3, launches {counts}")
+    for seed in C32_CLI_SEEDS:
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(C32_CLI + ["--seed", str(seed)])
+        wall = time.perf_counter() - t0
+        counts = launches()
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        log(f"cli n=31 complex32 m_high --seed {seed}: exit {rc}, {wall:.3f} s, launches {counts}")
+        check(rc in (0, 3), f"the n=31 CLI returned {rc}")
+        for k in ("fused_segment", "block_sums", "ladder", "cycle"):
+            check(counts[k] > 0, f"the n=31 complex32 CLI run launched no {k} kernel")
+        if rc == 0:
+            check(" --- Factors of 8189 found: (431, 19)." in buf.getvalue(), "the n=31 CLI did not factor 8189")
+            return
+    raise SmokeFailure(f"the n=31 complex32 CLI factored 8189 under none of the seeds {list(C32_CLI_SEEDS)}")
+
+
+def phase_validation_c32() -> None:
+    """The validation layer at complex32: the experiments CLI with --dtype
+    complex32 (TABLE I, 400 shots, on the complex32 cuda engine), and
+    run_with_norms on the n = 28 flagship in both layouts (float32 norms,
+    every one within C32_NORM_TOL of 1, one per entry of the plan)."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+    from quantumcomputer_tpu_torch.utils import experiments
+
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = experiments.main(["--runs", "400", "--dtype", "complex32"])
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    counts = launches()
+    log(f"experiments CLI --runs 400 --dtype complex32: exit {rc}, {time.perf_counter() - t0:.3f} s, launches {counts}")
+    check(rc == 0 and "-> PASS" in buf.getvalue(), f"TABLE I at complex32 returned {rc}")
+    check(counts["fused_segment"] > 0, "TABLE I at complex32 launched no fused-segment kernel")
+
+    C, a, L, M = FLAGSHIP
+    for layout, make_circuit in (("standard", shor_circuit), ("m_high", shor_circuit_mhigh)):
+        circuit = make_circuit(C, a, L, M)
+        eng = StateVectorEngine(Register(L=L, M=M), "complex32", device=DEVICE, layout=layout)
+        reset_launches()
+        state, norms = eng.run_with_norms(circuit)
+        dev = float((norms - 1.0).abs().max())
+        log(
+            f"run_with_norms complex32 flagship n={L + M} {layout}: {len(norms)} {dname(norms.dtype)} norms (launches "
+            f"{launches()}), max |norm - 1| {dev:.3e} (tol {C32_NORM_TOL:.0e}): {[round(float(v), 6) for v in norms]}"
+        )
+        check(state.dtype == torch.bfloat16 and norms.dtype == torch.float32, f"{layout}: {state.dtype}, {norms.dtype}")
+        check(len(norms) == len(eng._plan(circuit)), f"{layout}: {len(norms)} norms for {len(eng._plan(circuit))} entries")
+        check(dev <= C32_NORM_TOL, f"complex32 {layout} flagship norm trace deviates by {dev}")
+        del state
+        torch.cuda.empty_cache()
+
+
+def new_report() -> dict:
+    """One JSON entry per kernel instance: the float32 / float64 kernels,
+    then the bf16 ("complex32") instances, whose `replaces` names the TPU
+    kernel's bf16 lines."""
+    no_call = "null: no single PyTorch call "
+    camodc_library = "torch.index_select of each camodc op's control-1 half along the work register, summed (out of place)"
+    rows = (
+        ("fused_segment", "fused_segment.cu", "pallas_fused.py:1002", no_call + "applies a segment of gates"),
+        ("camodc", "fused_segment.cu", "pallas_fused.py:967", camodc_library),
+        ("block_sums", "block_sums.cu", "pallas_measure.py:66", None),
+        ("ladder", "oracle_ladder.cu", "pallas_oracle.py:101", None),
+        ("cycle", "oracle_cycle.cu", "pallas_oracle.py:274", None),
+        ("cycle_masked", "oracle_cycle.cu", "pallas_oracle.py:531", None),
+        ("transpose", "transpose.cu", "pallas_transpose.py:36", None),
+        ("chunk_gather", "chunk_gather.cu", "pallas_chunkgather.py:79", None),
+        ("oracle_gather", "oracle_gather.cu", "pallas_oracle.py:47", None),
+        ("probe_copy", "probes.cu", "scripts/prof_chunkgather.py:86", None),
+        ("probe_roll2", "probes.cu", "scripts/prof_chunkgather.py:99", None),
+        ("probe_mxuroll", "probes.cu", "scripts/prof_chunkgather.py:120", None),
+        ("probe_dynroll", "probes.cu", "scripts/prof_rowperm.py:158", None),
+        ("probe_rowroll", "probes.cu", "scripts/prof_rowperm.py:186", None),
+        # The bf16 instances, on the complex32 paths.
+        ("fused_segment_bf16", "fused_segment.cu", "pallas_fused.py:1010-1025", no_call + "applies a segment of gates"),
+        ("camodc_bf16", "fused_segment.cu", "pallas_fused.py:1089-1091", camodc_library),
+        ("block_sums_bf16", "block_sums.cu", "pallas_measure.py:60-63", None),
+        ("ladder_bf16", "oracle_ladder.cu", "pallas_oracle.py:147-163", None),
+        ("cycle_bf16", "oracle_cycle.cu", "pallas_oracle.py:389-392", None),
+        ("cycle_masked_bf16", "oracle_cycle.cu", "pallas_oracle.py:431-449", None),
+        ("transpose_bf16", "transpose.cu", "pallas_transpose.py:36", None),
+        ("chunk_gather_bf16", "chunk_gather.cu", "pallas_chunkgather.py:211-239", None),
+    )
+    return {
+        name: {
+            "name": name, "route": "cuda", "source": f"quantumcomputer_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces if replaces.startswith("scripts/") else f"quantumcomputer_tpu/ops/{replaces}",
+            "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+            "bound_ms": None, "bound_by": None, "library_ms": None, "library": library,
+        }
+        for name, source, replaces, library in rows
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -1423,32 +1785,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, root)
 
-    no_call = "null: no single PyTorch call "
-    report = {
-        name: {
-            "name": name, "route": "cuda", "source": f"quantumcomputer_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
-            "bound_ms": None, "bound_by": None, "library_ms": None, "library": library,
-        }
-        for name, source, replaces, library in (
-            ("fused_segment", "fused_segment.cu", "quantumcomputer_tpu/ops/pallas_fused.py:1002",
-             no_call + "applies a segment of gates"),
-            ("camodc", "fused_segment.cu", "quantumcomputer_tpu/ops/pallas_fused.py:967",
-             "torch.index_select of each camodc op's control-1 half along the work register, summed (out of place)"),
-            ("block_sums", "block_sums.cu", "quantumcomputer_tpu/ops/pallas_measure.py:66", None),
-            ("ladder", "oracle_ladder.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:101", None),
-            ("cycle", "oracle_cycle.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:274", None),
-            ("cycle_masked", "oracle_cycle.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:531", None),
-            ("transpose", "transpose.cu", "quantumcomputer_tpu/ops/pallas_transpose.py:36", None),
-            ("chunk_gather", "chunk_gather.cu", "quantumcomputer_tpu/ops/pallas_chunkgather.py:79", None),
-            ("oracle_gather", "oracle_gather.cu", "quantumcomputer_tpu/ops/pallas_oracle.py:47", None),
-            ("probe_copy", "probes.cu", "scripts/prof_chunkgather.py:86", None),
-            ("probe_roll2", "probes.cu", "scripts/prof_chunkgather.py:99", None),
-            ("probe_mxuroll", "probes.cu", "scripts/prof_chunkgather.py:120", None),
-            ("probe_dynroll", "probes.cu", "scripts/prof_rowperm.py:158", None),
-            ("probe_rowroll", "probes.cu", "scripts/prof_rowperm.py:186", None),
-        )
-    }
+    report = new_report()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
@@ -1458,14 +1795,21 @@ def main() -> int:
     phase_kernel_checks()
     phase_cli()
     phase_flagship(report)
-    phase_factor(report)
+    phase_factor(report, torch.float32)
     phase_modperm_kernels(report)
-    phase_semiclassical_timing(report)
+    phase_semiclassical_timing(report, torch.float32)
     phase_semiclassical_cli()
-    phase_semiclassical_factor(report)
+    sc64 = phase_semiclassical_factor(report, torch.float32)
     phase_gather_oracle(report)
     phase_probes(report)
     phase_validation()
+    # complex32 (bf16 planes): every path again, through the bf16 instances.
+    phase_flagship_c32(report)
+    phase_factor(report, torch.bfloat16)
+    phase_cli_c32()
+    phase_semiclassical_timing(report, torch.bfloat16)
+    phase_semiclassical_factor(report, torch.bfloat16, reference=sc64)
+    phase_validation_c32()
 
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,

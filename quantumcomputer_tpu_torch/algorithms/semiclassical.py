@@ -28,8 +28,11 @@ the state, and the deferred phase, the bits and the branch probabilities
 stay on the device until the attempt ends.  The draws are an argument
 (``rs``, L uniforms in the compute dtype), so one draw vector drives both
 packages.  dtype="dd64", the JAX package's double-float parity mode, runs
-complex128, which the card has natively.  Checkpointing, sharding and
-complex32 are not yet ported.
+complex128, which the card has natively.  dtype="complex32" stores the work
+state in bf16 and rounds where the JAX package does: angles, draws and
+branch sums run in float32, the rotation ct * g - st * g' is computed in
+float32 and rounded to bf16 once, and the collapse is bf16 arithmetic.
+Checkpointing and sharding are not yet ported.
 """
 
 from __future__ import annotations
@@ -93,6 +96,15 @@ def _blocks(dim: int):
     return ((j, j + blk) for j in range(0, dim, blk))
 
 
+def _rotate(a1, gr, gi, ct, st, cdt) -> None:
+    """a1 = (ct * gr - st * gi, st * gr + ct * gi), computed in cdt and
+    rounded to a1's dtype once (a 0-d cdt tensor would not promote a bf16
+    tensor, so the operands are widened explicitly)."""
+    gr, gi = gr.to(cdt), gi.to(cdt)
+    a1[0] = ct * gr - st * gi
+    a1[1] = st * gr + ct * gi
+
+
 def _oracle_pass(w, M: int, rdtype, cdt, C: int, a_inv: int, ct, st) -> tuple:
     """a1 = e^{i theta} U (w/sqrt2) with U the gather by (a_inv * j) mod C,
     and the branch sums (p0, p1), in one blockwise sweep: each block's
@@ -104,8 +116,7 @@ def _oracle_pass(w, M: int, rdtype, cdt, C: int, a_inv: int, ct, st) -> tuple:
     for lo, hi in _blocks(1 << M):
         idx = tops.modmul_permute_onchip(a_inv, torch.arange(lo, hi, device=w.device), C)
         g = w[:, idx] * s2  # == (w * s2)[:, idx]: the scale commutes exactly
-        a1[0, lo:hi] = ct * g[0] - st * g[1]
-        a1[1, lo:hi] = st * g[0] + ct * g[1]
+        _rotate(a1[:, lo:hi], g[0], g[1], ct, st, cdt)
         del g, idx
         q0, q1 = _branch_sums(w[:, lo:hi], a1[:, lo:hi], s2, cdt)
         p0 += q0
@@ -119,10 +130,15 @@ def _oracle_pass_structured(w, M: int, rdtype, cdt, plan, ct, st) -> tuple:
     s2 = _s2(rdtype, w.device)
     gr = modperm.apply_stride_permute(w[0:1], plan)[0].mul_(s2)
     gi = modperm.apply_stride_permute(w[1:2], plan)[0].mul_(s2)
-    # The rotation written into a1 plane by plane: one plane of temporaries.
     a1 = torch.empty_like(w)
-    torch.mul(gr, ct, out=a1[0]).sub_(gi * st)
-    torch.mul(gr, st, out=a1[1]).add_(gi * ct)
+    if a1.dtype == cdt:
+        # The rotation written into a1 plane by plane: one plane of temporaries.
+        torch.mul(gr, ct, out=a1[0]).sub_(gi * st)
+        torch.mul(gr, st, out=a1[1]).add_(gi * ct)
+    else:
+        # bf16: widened and rounded once, block by block (temporaries of a block).
+        for lo, hi in _blocks(1 << M):
+            _rotate(a1[:, lo:hi], gr[lo:hi], gi[lo:hi], ct, st, cdt)
     del gr, gi
     p0 = torch.zeros((), dtype=cdt, device=w.device)
     p1 = torch.zeros((), dtype=cdt, device=w.device)
@@ -222,11 +238,12 @@ def run_semiclassical(
     dtype=torch.complex64,
     forced_bits: Optional[List[int]] = None,
     structured: Optional[bool] = None,
-    device="cpu",
+    device=None,
     checkpoint_dir: Optional[str] = None,
 ) -> SemiclassicalRecord:
     """One semiclassical attempt: L measure-and-reset steps on the 2^M work
-    register, on `device`.
+    register, on `device`: None is the CUDA device when one is present and
+    the CPU otherwise (``StateVectorEngine``'s rule).
 
     rs: the L uniform draws (a tensor or array, taken in the compute
     dtype).  forced_bits walks one branch regardless of the draws; the
@@ -249,11 +266,9 @@ def run_semiclassical(
     forced_bits = validate_forced_bits(forced_bits, L, "L")
     if checkpoint_dir is not None:
         raise ValueError("semiclassical checkpointing is not yet ported to quantumcomputer_tpu_torch")
-    if isinstance(dtype, str) and dtype in ("complex32", "c32"):
-        raise ValueError(f"{dtype} semiclassical is not yet ported to quantumcomputer_tpu_torch")
     rdtype = sv.real_dtype_of(torch.complex128 if dtype == "dd64" else dtype)
     cdt = _compute_dtype(rdtype)
-    device = torch.device(device)
+    device = torch.device(device if device is not None else "cuda" if torch.cuda.is_available() else "cpu")
     if not step_program_fits(M, rdtype, device):
         raise ValueError(
             f"semiclassical work state 2^{M} amplitudes exceeds the device memory budget "
@@ -289,14 +304,14 @@ def find_period_semiclassical(
     dtype=torch.complex64,
     num_fractions: int = nt.NUM_CONTINUED_FRACTIONS,
     trials_per_denominator: int = nt.TRIALS_PER_DENOMINATOR,
-    device="cpu",
+    device=None,
     structured: Optional[bool] = None,
     mesh=None,
     checkpoint_dir: Optional[str] = None,
 ):
     """The semiclassical attempt, then omega -> continued fractions ->
-    period test (the full-register path's classical pipeline).  Returns
-    (period or None, SemiclassicalRecord)."""
+    period test (the full-register path's classical pipeline).  `device`
+    as in run_semiclassical.  Returns (period or None, SemiclassicalRecord)."""
     if mesh is not None:
         raise ValueError("sharded semiclassical is not yet ported to quantumcomputer_tpu_torch")
     rec = run_semiclassical(

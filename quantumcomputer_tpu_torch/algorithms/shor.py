@@ -28,7 +28,7 @@ import torch
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
 from quantumcomputer_tpu_torch.algorithms.semiclassical import find_period_semiclassical
 from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
-from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, resolve_backend
+from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, is_complex32, resolve_backend
 from quantumcomputer_tpu_torch.utils.logging import get_logger, ui_active, verbosity
 
 log = get_logger("shor")
@@ -187,7 +187,10 @@ def shors_algorithm(
     draws do not depend on the engine's device.
 
     dtype="dd64", the JAX package's double-float parity mode, runs
-    complex128, which the card has natively.  oracle="benes" runs the
+    complex128, which the card has natively.  dtype="complex32" (bf16
+    planes, float32 draws) runs the full-register engine on the cuda
+    backend only: backend="torch" is overridden with the JAX package's
+    warning, and a host with no CUDA device raises the engine's error.  oracle="benes" runs the
     oracles inside the fused segments on the cuda backend; on the torch
     backend it logs the JAX package's warning and runs the gather.
     strict_reference=True builds a StateVectorEngine(strict_reference=True),
@@ -224,6 +227,13 @@ def shors_algorithm(
     else:
         if strict_reference and backend == "auto":
             backend = "torch"
+        if is_complex32(dtype):
+            if backend == "torch":
+                log.warning(
+                    "complex32 requires the cuda planar path (no 32-bit complex dtype exists); "
+                    "overriding backend='torch' -> 'cuda'"
+                )
+            backend = "cuda"  # bf16 storage exists only on the kernel path
         if oracle == "benes" and resolve_backend(backend) == "torch":
             log.warning(
                 "oracle='benes' requires the single-chip cuda backend; "

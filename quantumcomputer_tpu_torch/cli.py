@@ -7,10 +7,13 @@ is found), with ``--backend auto|torch|cuda`` in place of
 cuda backend and on the CPU otherwise.  ``--dtype dd64`` runs complex128,
 which the card has natively; ``--strict-reference`` forces the torch
 backend, as the JAX package forces xla, and runs its plain ops on the CUDA
-device when one is present.  Flags whose path is not ported yet
-(``--devices > 1``, ``--checkpoint-dir``, ``--dtype complex32``) exit 2
-with a message that says so; ``--backend cuda`` on a host with no CUDA
-device exits 2 as well, and never runs on the CPU.
+device when one is present.  ``--dtype complex32`` (bf16 planes computed
+in float32) forces the cuda backend for the full register, as the JAX
+package forces pallas; the semiclassical engine runs it on the card or the
+CPU like any dtype.  Flags whose path is not ported yet (``--devices > 1``,
+``--checkpoint-dir``) exit 2 with a message that says so; the cuda backend
+on a host with no CUDA device (``--backend cuda``, or a full-register
+``--dtype complex32``) exits 2 as well, and never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["complex64", "complex128", "complex32", "dd64"],
         default="complex64",
         help=(
-            "amplitude precision: complex64 (default), complex128 (f64 planes on the same device) "
+            "amplitude precision: complex64 (default), complex128 (f64 planes on the same device), "
+            "complex32 (bf16 storage, f32 compute; cuda backend) "
             "or dd64 (the JAX package's f64-parity mode, here complex128)"
         ),
     )
@@ -151,8 +155,6 @@ def not_ported(args: argparse.Namespace) -> Optional[str]:
         return "--devices > 1"
     if args.checkpoint_dir is not None:
         return "--checkpoint-dir"
-    if args.dtype == "complex32":
-        return "--dtype complex32"
     return None
 
 
@@ -166,7 +168,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if missing:
         print(f"Error: {missing} is not yet ported to {PACKAGE}.", file=sys.stderr)
         return 2
-    if args.backend == "cuda" and not torch.cuda.is_available():
+    backend = args.backend
+    if args.dtype == "complex32" and not args.semiclassical:
+        backend = "cuda"  # no 32-bit complex dtype: bf16 planes run on the kernel path only
+    if args.strict_reference:
+        backend = "torch"  # plain torch ops for exact comparison runs, as the JAX package forces xla
+    if backend == "cuda" and not torch.cuda.is_available():
         print("Error: --backend cuda needs a CUDA device, and none is available.", file=sys.stderr)
         return 2
 
@@ -174,8 +181,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for w in issue_warnings(args.C, args.L, args.M):
         print(f" --- *WARNING* {w}")
 
-    # Plain torch ops for exact comparison runs, as the JAX package forces xla.
-    backend = "torch" if args.strict_reference else args.backend
     print("\n --- Finding factors...\n")
     result = shors_algorithm(
         C=args.C,
@@ -183,7 +188,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         M=args.M,
         forced_trial_int=args.a,
         seed=args.seed,
-        dtype={"complex128": torch.complex128, "dd64": "dd64"}.get(args.dtype, torch.complex64),
+        dtype={"complex128": torch.complex128, "dd64": "dd64", "complex32": "complex32"}.get(args.dtype, torch.complex64),
         backend=backend,
         num_fractions=args.fractions,
         trials_per_denominator=args.trials,

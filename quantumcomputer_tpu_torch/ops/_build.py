@@ -11,7 +11,8 @@ Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the
 wrappers in ``ops/fused.py``, ``ops/measure.py``, ``ops/oracle.py``,
 ``ops/transpose.py``, ``ops/chunkgather.py`` and ``ops/probes.py`` raise
-when it is not 0.
+when it is not 0.  A kernel has one entry point per plane dtype, named
+``<kernel>_f32``, ``_f64`` or ``_bf16`` (``entry``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
+import torch
+
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -36,6 +39,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+#: Entry-point suffix per plane dtype.
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -97,46 +103,29 @@ def _build(out: str) -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name in ("qc_fused_segment_f32", "qc_fused_segment_f64"):
-        fn = getattr(lib, name)
+    kernels = (
         # re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes, axes_packed, M, vb, ne, stream
-        fn.argtypes = [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_block_sums_f32", "qc_block_sums_f64"):
-        fn = getattr(lib, name)
+        ("qc_fused_segment", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p]),
         # re, im, out, nblocks, block, stream
-        fn.argtypes = [p, p, p, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_oracle_ladder_f32", "qc_oracle_ladder_f64"):
-        fn = getattr(lib, name)
+        ("qc_block_sums", ("f32", "f64", "bf16"), [p, p, p, i64, i64, p]),
         # in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows, log_rest, stream
-        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_oracle_gather_f32", "qc_oracle_gather_f64"):
-        fn = getattr(lib, name)
+        ("qc_oracle_ladder", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, p]),
         # in_re, in_im, out_re, out_im, ginv, log_rows, log_rest, c_phys, stream
-        fn.argtypes = [p, p, p, p, p, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_oracle_cycle_f32", "qc_oracle_cycle_f64"):
-        fn = getattr(lib, name)
+        ("qc_oracle_gather", ("f32", "f64"), [p, p, p, p, p, i64, i64, i64, p]),
         # re, im, sched, segs, scratch, S, log_rows, log_rest, c_phys, vec, stream
-        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_oracle_cycle_masked_f32", "qc_oracle_cycle_masked_f64"):
-        fn = getattr(lib, name)
+        ("qc_oracle_cycle", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, p]),
         # re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec, stream
-        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_transpose_f32", "qc_transpose_f64"):
-        fn = getattr(lib, name)
+        ("qc_oracle_cycle_masked", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]),
         # x, out, B, R, Cc, extra_rows, stream
-        fn.argtypes = [p, p, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-    for name in ("qc_chunk_gather_f32", "qc_chunk_gather_f64"):
-        fn = getattr(lib, name)
+        ("qc_transpose", ("f32", "f64", "bf16"), [p, p, i64, i64, i64, i64, p]),
         # x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream
-        fn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
+        ("qc_chunk_gather", ("f32", "f64", "bf16"), [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, p]),
+    )
+    for kernel, suffixes, argtypes in kernels:
+        for suffix in suffixes:
+            fn = getattr(lib, f"{kernel}_{suffix}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     for name in ("qc_probe_copy", "qc_probe_roll2", "qc_probe_mxuroll"):
         fn = getattr(lib, name)
         # x, starts, out, dim, nc, W, stream
@@ -163,6 +152,15 @@ def load() -> ctypes.CDLL:
             _bind(lib)
             _lib = lib
         return _lib
+
+
+def entry(kernel: str, dtype: torch.dtype):
+    """The C entry point of `kernel` (e.g. "qc_transpose") for planes of
+    `dtype`; raises TypeError for a dtype the kernel has no instance of."""
+    fn = getattr(load(), f"{kernel}_{SUFFIX.get(dtype, '?')}", None)
+    if fn is None:
+        raise TypeError(f"{kernel} has no {dtype} instance")
+    return fn
 
 
 def check(err: int, what: str) -> None:

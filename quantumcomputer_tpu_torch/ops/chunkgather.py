@@ -33,14 +33,14 @@ from quantumcomputer_tpu_torch.ops import _build
 LAUNCHES = {"gather": 0, "src2": 0, "blend": 0, "rowlaw": 0}
 
 _MODES = {"gather": 0, "src2": 1, "blend": 2, "rowlaw": 3}
-_DTYPES = (torch.float32, torch.float64)
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def _check_x(x: torch.Tensor, W: int, what: str = "x") -> None:
     if x.dim() != 2:
         raise ValueError(f"{what} must be (B, P), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"{what} must be float32 or float64, got {x.dtype}")
+        raise TypeError(f"{what} must be float32, float64 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     if W <= 0 or x.shape[1] < W:
@@ -114,8 +114,7 @@ def _launch(form: str, x, x2, a0, a1, a2, NC: int, W: int, v: int = 0, vpad: int
         if x2.dtype != x.dtype or x2.device != x.device or x2.shape[0] != B:
             raise ValueError("x2 must match x's dtype, device and batch")
         P2 = x2.shape[1]
-    lib = _build.load()
-    fn = lib.qc_chunk_gather_f32 if x.dtype == torch.float32 else lib.qc_chunk_gather_f64
+    fn = _build.entry("qc_chunk_gather", x.dtype)
 
     def ptr(t):
         return None if t is None else t.data_ptr()

@@ -12,8 +12,11 @@
 // measurement block with strided loads, accumulates per thread, and
 // reduces in shared memory with a fixed tree, so the result is the same
 // from run to run (no atomics).  f32 states accumulate in f32, f64 states
-// in f64, as the JAX kernel does.
+// in f64, and bf16 ("complex32") states in f32 with f32 sums out, as the JAX
+// kernel does (pallas_measure.py:60-63, :101): each bf16 value widens
+// exactly on load.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -21,15 +24,20 @@ namespace {
 
 constexpr int THREADS = 512;
 
-template <typename T>
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+
+// S: the plane type, T: the accumulation and output type.
+template <typename S, typename T>
 __global__ void __launch_bounds__(THREADS)
-block_sums_kernel(const T* __restrict__ re, const T* __restrict__ im, T* __restrict__ out,
+block_sums_kernel(const S* __restrict__ re, const S* __restrict__ im, T* __restrict__ out,
                   int64_t block) {
   __shared__ T partial[THREADS];
   const int64_t start = (int64_t)blockIdx.x * block;
   T acc = 0;
   for (int64_t i = threadIdx.x; i < block; i += THREADS) {
-    const T r = re[start + i], m = im[start + i];
+    const T r = widen(re[start + i]), m = widen(im[start + i]);
     acc += r * r + m * m;
   }
   partial[threadIdx.x] = acc;
@@ -41,12 +49,12 @@ block_sums_kernel(const T* __restrict__ re, const T* __restrict__ im, T* __restr
   if (threadIdx.x == 0) out[blockIdx.x] = partial[0];
 }
 
-template <typename T>
+template <typename S, typename T>
 int launch_block_sums(const void* re, const void* im, void* out, int64_t nblocks, int64_t block,
                       void* stream) {
   if (nblocks < 1 || nblocks > (int64_t(1) << 30) || block < 1) return (int)cudaErrorInvalidValue;
-  block_sums_kernel<T><<<(unsigned int)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)re, (const T*)im, (T*)out, block);
+  block_sums_kernel<S, T><<<(unsigned int)nblocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const S*)re, (const S*)im, (T*)out, block);
   return (int)cudaGetLastError();
 }
 
@@ -54,10 +62,16 @@ int launch_block_sums(const void* re, const void* im, void* out, int64_t nblocks
 
 extern "C" int qc_block_sums_f32(void* re, void* im, void* out, int64_t nblocks, int64_t block,
                                  void* stream) {
-  return launch_block_sums<float>(re, im, out, nblocks, block, stream);
+  return launch_block_sums<float, float>(re, im, out, nblocks, block, stream);
 }
 
 extern "C" int qc_block_sums_f64(void* re, void* im, void* out, int64_t nblocks, int64_t block,
                                  void* stream) {
-  return launch_block_sums<double>(re, im, out, nblocks, block, stream);
+  return launch_block_sums<double, double>(re, im, out, nblocks, block, stream);
+}
+
+// bf16 planes in, float32 sums out.
+extern "C" int qc_block_sums_bf16(void* re, void* im, void* out, int64_t nblocks, int64_t block,
+                                  void* stream) {
+  return launch_block_sums<__nv_bfloat16, float>(re, im, out, nblocks, block, stream);
 }

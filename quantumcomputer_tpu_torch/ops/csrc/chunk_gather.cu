@@ -27,6 +27,7 @@
 // an unaligned contiguous run coalesced, so the TPU kernel's row-granular
 // slab DMAs and in-register lane rolls (_extract) have no counterpart.
 // Offsets are 64-bit: with B = 2 at M = 30, b*P + s + e passes 2^31.
+// bf16 ("complex32") planes move as 2-byte elements (qc_chunk_gather_bf16).
 
 #include <cstdint>
 
@@ -125,4 +126,10 @@ extern "C" int qc_chunk_gather_f64(const void* x, const void* x2, void* out, con
                                    const void* a2, int64_t mode, int64_t B, int64_t P, int64_t P2, int64_t NC,
                                    int64_t W, int64_t v, int64_t vpad, void* stream) {
   return launch<double>(x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream);
+}
+
+extern "C" int qc_chunk_gather_bf16(const void* x, const void* x2, void* out, const void* a0, const void* a1,
+                                    const void* a2, int64_t mode, int64_t B, int64_t P, int64_t P2, int64_t NC,
+                                    int64_t W, int64_t v, int64_t vpad, void* stream) {
+  return launch<uint16_t>(x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream);
 }

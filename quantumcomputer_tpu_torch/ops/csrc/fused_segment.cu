@@ -61,6 +61,17 @@
 // t < VB) take the edge form VB = 0, NE = all tile bits, with scalar copies;
 // so do planes that are not 16-byte aligned, for their copies.
 //
+// bf16 storage ("complex32", qc_fused_segment_bf16; the TPU kernel's
+// store_bf16 instance, pallas_fused.py:1010-1025): the planes are bf16 in
+// device memory and every op computes in f32, rounded to bf16 once per
+// pass, at the store, as the TPU kernel does.  cp.async cannot convert, so a
+// tile arrives by 16-byte cp.async into a bf16 staging slot and is widened
+// once into an f32 work tile before the first register group; the staging
+// slot is then free, and the next tile's copy overlaps this tile's ops from
+// that one slot (16 KB staging + 32 KB work, against the f32 ring's 64 KB).
+// The other design, synchronous 16-byte loads widened in registers, would
+// cost no staging slot but leave each tile's load exposed behind its ops.
+//
 // The op list arrives as device arrays: ops_i (int32 records of OPI_STRIDE:
 // kind, q1, q2, slot of q1, slot of q2, then for an iQFT op the ftab offsets
 // of F_axes and F_low and 1 when it has a phase; for a camodc op kind,
@@ -71,6 +82,7 @@
 // own), ftab (complex tables, re/im interleaved) and ptab (each camodc op's
 // inverse permutation, 2^M int16).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,8 +156,9 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait_group() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// Start the copy of tile tau into (sre, sim): 16-byte chunks when `vec`,
-// else one element per copy.
+// Start the copy of tile tau into (sre, sim), element j at swz<VB>(j):
+// 16-byte chunks of 2^VB elements when `vec`, else one element per copy
+// (synchronous for 2-byte elements, which cp.async cannot copy).
 template <typename T, int VB>
 __device__ __forceinline__ void load_tile(T* sre, T* sim, const T* re, const T* im, int64_t tbase,
                                           const int64_t* axoff, const Geom& g, bool vec) {
@@ -163,8 +176,65 @@ __device__ __forceinline__ void load_tile(T* sre, T* sim, const T* re, const T* 
     for (int j = threadIdx.x; j < (1 << tb); j += THREADS) {
       const int64_t idx = tbase | axoff[j >> g.t] | (j & low_mask);
       const int p = swz<VB>(j);
-      cp_async_ca<sizeof(T)>(sre + p, re + idx);
-      cp_async_ca<sizeof(T)>(sim + p, im + idx);
+      if constexpr (sizeof(T) >= 4) {
+        cp_async_ca<sizeof(T)>(sre + p, re + idx);
+        cp_async_ca<sizeof(T)>(sim + p, im + idx);
+      } else {
+        sre[p] = re[idx];
+        sim[p] = im[idx];
+      }
+    }
+  }
+}
+
+// bf16 storage: the staging slot (element j at swz<SB>(j), SB = 3: a
+// 16-byte chunk is 8 elements) widened into the f32 work tile (element j at
+// swz<VB>(j)), exactly.  With VB = 2 a thread moves 4 elements, 8 bytes in
+// and 16 out (4 consecutive elements are contiguous in both layouts).
+template <int SB, int VB>
+__device__ __forceinline__ void widen_tile(const __nv_bfloat16* s, float* w, int tile) {
+  if constexpr (VB == 2) {
+    for (int q = threadIdx.x; q < tile / 4; q += THREADS) {
+      const uint2 v = *reinterpret_cast<const uint2*>(s + swz<SB>(4 * q));
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      *reinterpret_cast<float4*>(w + swz<VB>(4 * q)) = make_float4(a.x, a.y, b.x, b.y);
+    }
+  } else {
+    for (int j = threadIdx.x; j < tile; j += THREADS) w[swz<VB>(j)] = __bfloat162float(s[swz<SB>(j)]);
+  }
+}
+
+// bf16 storage: store the f32 work tile, each element rounded once to the
+// nearest bf16 (ties to even).  With `vec` (VB = 2, t >= 3) a thread stores
+// 4 elements as 8 bytes.
+template <int VB>
+__device__ __forceinline__ void store_tile_bf16(const float* sre, const float* sim, __nv_bfloat16* re,
+                                                __nv_bfloat16* im, int64_t tbase, const int64_t* axoff,
+                                                const Geom& g, bool vec) {
+  const int tb = g.t + g.k;
+  if (VB == 2 && vec) {
+    const int rbits = g.t - 2;
+    for (int q = threadIdx.x; q < (1 << (tb - 2)); q += THREADS) {
+      const int64_t idx = tbase | axoff[q >> rbits] | ((int64_t)(q & ((1 << rbits) - 1)) << 2);
+      const int p = swz<VB>(q << 2);
+#pragma unroll
+      for (int plane = 0; plane < 2; ++plane) {
+        const float4 x = *reinterpret_cast<const float4*>((plane ? sim : sre) + p);
+        const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y), b = __floats2bfloat162_rn(x.z, x.w);
+        uint2 v;
+        v.x = *reinterpret_cast<const unsigned*>(&a);
+        v.y = *reinterpret_cast<const unsigned*>(&b);
+        *reinterpret_cast<uint2*>((plane ? im : re) + idx) = v;
+      }
+    }
+  } else {
+    const int low_mask = (1 << g.t) - 1;
+    for (int j = threadIdx.x; j < (1 << tb); j += THREADS) {
+      const int64_t idx = tbase | axoff[j >> g.t] | (j & low_mask);
+      const int p = swz<VB>(j);
+      re[idx] = __float2bfloat16_rn(sre[p]);
+      im[idx] = __float2bfloat16_rn(sim[p]);
     }
   }
 }
@@ -502,21 +572,33 @@ __device__ __forceinline__ bool tile_active(const int* s_opi, int nops, int64_t 
   return false;
 }
 
+// Bytes of the ring (staging slots) of a tile of `tile` elements of S.
+template <typename S>
+__host__ __device__ __forceinline__ size_t ring_bytes(int tile, bool ring) {
+  return ((ring ? 2 : 1) * 2 * sizeof(S) * (size_t)tile + 15) & ~(size_t)15;
+}
+
 // Two blocks an SM: 128 registers a thread hold a group's 2^NE amplitudes
 // without spills (a cap of 80, for three blocks, spilled and ran slower).
 // PERM: the instance for segments with camodc ops; run_camodc's registers
-// would otherwise cost every segment spills.
-template <typename T, int VB, int NE, bool PERM>
+// would otherwise cost every segment spills.  S: the storage type, T: the
+// compute type; S = bf16 with T = float stages each tile and widens it into
+// a work tile (see the header), S = T computes in the ring slot itself.
+template <typename S, typename T, int VB, int NE, bool PERM>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restrict__ ops_i,
+fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restrict__ ops_i,
                      const T* __restrict__ ops_f, const int* __restrict__ groups, int ngroups,
                      const T* __restrict__ ftab, const short* __restrict__ ptab, int nops, Geom g, int M,
                      int64_t tiles, bool vec, bool ring) {
+  constexpr bool WIDEN = !std::is_same<S, T>::value;
+  constexpr int SB = WIDEN ? 3 : VB;  // the staging slot's swizzle: 16-byte chunks of S
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t axoff[1 << MAX_AXES];  // axoff[c]: the axis bits of row c, any tile
   const int tile = 1 << (g.t + g.k);
-  T* bufs = reinterpret_cast<T*>(smem);     // ring slot b: re at bufs + 2*b*tile, im after it
-  T* fbase = bufs + 2 * (ring ? 2 : 1) * tile;  // F_base of each op for the current tile (re, im)
+  S* bufs = reinterpret_cast<S*>(smem);     // ring slot b: re at bufs + 2*b*tile, im after it
+  // The tile the ops run on: the ring slot itself, or (WIDEN) the f32 work tile after the ring.
+  T* work = reinterpret_cast<T*>(smem + ring_bytes<S>(tile, ring));
+  T* fbase = work + (WIDEN ? 2 * tile : 0);  // F_base of each op for the current tile (re, im)
   T* s_opc = fbase + 2 * ((nops + 1) & ~1); // each op's first 8 coefficients (16-byte aligned)
   int* s_opi = reinterpret_cast<int*>(s_opc + 8 * nops);  // each op's int record
   for (int i = threadIdx.x; i < 8 * nops; i += THREADS) {
@@ -535,11 +617,14 @@ fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restri
 
   // The ring: with `ring`, tile i of this block lands in slot i % 2 while
   // tile i - 1 is computed; without, each tile lands in slot 0 once the one
-  // before it is stored.  A tile no op changes is neither loaded nor stored.
+  // before it is stored.  WIDEN has one slot and no ring: the next tile lands
+  // in it once this one is widened into the work tile, while this one is
+  // computed.  A tile no op changes is neither loaded nor stored.
+  const bool early = ring || WIDEN;  // the next tile's copy starts before this tile's ops
   const int64_t step = gridDim.x;
   int64_t tau = blockIdx.x;
   bool act = tau < tiles && (!PERM || tile_active(s_opi, nops, tile_base(tau, g)));
-  if (act) load_tile<T, VB>(bufs, bufs + tile, re, im, tile_base(tau, g), axoff, g, vec);
+  if (act) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(tau, g), axoff, g, vec);
   cp_async_commit();
   int b = 0;
   for (; tau < tiles; tau += step) {
@@ -557,16 +642,26 @@ fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restri
       }
     }
     __syncthreads();  // the tile and fbase are ready; the slot stored last iteration is free
+    T* sre;
+    if constexpr (WIDEN) {
+      if (act) {
+        widen_tile<SB, VB>(bufs, work, tile);
+        widen_tile<SB, VB>(bufs + tile, work + tile, tile);
+      }
+      __syncthreads();  // the work tile is ready; the staging slot is free
+      sre = work;
+    } else {
+      sre = bufs + 2 * b * tile;
+    }
+    T* sim = sre + tile;
     const int64_t nxt = tau + step;
     const bool nact = nxt < tiles && (!PERM || tile_active(s_opi, nops, tile_base(nxt, g)));
     const int nb = ring ? b ^ 1 : b;
-    if (ring) {
-      if (nact) load_tile<T, VB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
+    if (early) {
+      if (nact) load_tile<S, SB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
       cp_async_commit();
     }
     if (act) {
-      T* sre = bufs + 2 * b * tile;
-      T* sim = sre + tile;
       for (int gi = 0; gi < ngroups; ++gi) {
         const int* grp = groups + GRP_STRIDE * gi;
         if constexpr (PERM) {
@@ -579,11 +674,15 @@ fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restri
         run_group<T, VB, NE>(sre, sim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g);
         __syncthreads();
       }
-      store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+      if constexpr (WIDEN) {
+        store_tile_bf16<VB>(sre, sim, re, im, tbase, axoff, g, vec);
+      } else {
+        store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+      }
     }
     __syncthreads();  // before fbase and this slot are reused
-    if (!ring) {
-      if (nact) load_tile<T, VB>(bufs, bufs + tile, re, im, tile_base(nxt, g), axoff, g, vec);
+    if (!early) {
+      if (nact) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(nxt, g), axoff, g, vec);
       cp_async_commit();
     }
     b = nb;
@@ -591,17 +690,22 @@ fused_segment_kernel(T* __restrict__ re, T* __restrict__ im, const int* __restri
   }
 }
 
-template <typename T, int VB, int NE, bool PERM>
-int launch(T* re, T* im, const void* ops_i, const void* ops_f, const void* groups, int ngroups,
+template <typename S, typename T, int VB, int NE, bool PERM>
+int launch(S* re, S* im, const void* ops_i, const void* ops_f, const void* groups, int ngroups,
            const void* ftab, const void* ptab, int nops, const Geom& g, int M, int64_t tiles, void* stream) {
-  const bool vec = VB > 0 && (sizeof(T) << VB) == 16 && g.t >= VB &&
-                   (reinterpret_cast<uintptr_t>(re) % 16) == 0 && (reinterpret_cast<uintptr_t>(im) % 16) == 0;
-  const size_t slot = 2 * sizeof(T) * (size_t(1) << (g.t + g.k));  // one tile, both planes
-  const bool ring = 2 * slot <= MAX_RING_BYTES;
-  // The ring, then per op: F_base (2 T), the first 8 coefficients, the int record.
-  const size_t smem = (ring ? 2 : 1) * slot + 10 * sizeof(T) * (size_t)(nops + 1) +
-                      OPI_STRIDE * sizeof(int) * (size_t)nops;
-  auto kern = fused_segment_kernel<T, VB, NE, PERM>;
+  constexpr bool WIDEN = !std::is_same<S, T>::value;
+  const bool aligned = (reinterpret_cast<uintptr_t>(re) % 16) == 0 && (reinterpret_cast<uintptr_t>(im) % 16) == 0;
+  // 16-byte copies: chunks of 2^VB elements, or (WIDEN) staged chunks of 8
+  // bf16 and stores of 4 (VB = 2 only).
+  const bool vec = aligned && (WIDEN ? VB == 2 && g.t >= 3 : VB > 0 && (sizeof(T) << VB) == 16 && g.t >= VB);
+  const int tile = 1 << (g.t + g.k);
+  const size_t slot = 2 * sizeof(S) * (size_t)tile;  // one tile, both planes
+  const bool ring = !WIDEN && 2 * slot <= MAX_RING_BYTES;
+  // The ring, the work tile (WIDEN), then per op: F_base (2 T), the first 8
+  // coefficients, the int record.
+  const size_t smem = ring_bytes<S>(tile, ring) + (WIDEN ? 2 * sizeof(T) * (size_t)tile : 0) +
+                      10 * sizeof(T) * (size_t)(nops + 1) + OPI_STRIDE * sizeof(int) * (size_t)nops;
+  auto kern = fused_segment_kernel<S, T, VB, NE, PERM>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, dev = 0, sms = 0;
@@ -621,26 +725,27 @@ int launch(T* re, T* im, const void* ops_i, const void* ops_f, const void* group
 }
 
 // The instance for the register group form (vb, ne): the main form, or an
-// edge form of a state with few tile bits.
-template <typename T, bool PERM>
+// edge form of a state with few tile bits.  S: the storage type, T: the
+// compute type.
+template <typename S, typename T, bool PERM>
 int dispatch(int64_t vb, int64_t ne, void* re, void* im, const void* ops_i, const void* ops_f, const void* groups,
              int64_t ngroups, const void* ftab, const void* ptab, int64_t nops, const Geom& g, int64_t M,
              int64_t tiles, void* stream) {
-  T* r = (T*)re;
-  T* i = (T*)im;
+  S* r = (S*)re;
+  S* i = (S*)im;
   const int ng = (int)ngroups, no = (int)nops, m = (int)M;
   constexpr int VB_MAIN = sizeof(T) == 4 ? 2 : 1;
   constexpr int NE_MAIN = sizeof(T) == 4 ? 4 : 3;
-  if (vb == VB_MAIN && ne == NE_MAIN) return launch<T, VB_MAIN, NE_MAIN, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
-  if (vb == 0 && ne == 1) return launch<T, 0, 1, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
-  if (vb == 0 && ne == 2) return launch<T, 0, 2, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  if (vb == VB_MAIN && ne == NE_MAIN) return launch<S, T, VB_MAIN, NE_MAIN, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  if (vb == 0 && ne == 1) return launch<S, T, 0, 1, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+  if (vb == 0 && ne == 2) return launch<S, T, 0, 2, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
   if constexpr (NE_MAIN > 3) {
-    if (vb == 0 && ne == 3) return launch<T, 0, 3, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
+    if (vb == 0 && ne == 3) return launch<S, T, 0, 3, PERM>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, no, g, m, tiles, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename S, typename T>
 int launch_fused(void* re, void* im, const void* ops_i, const void* ops_f, const void* groups, int64_t ngroups,
                  const void* ftab, const void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t, int64_t naxes,
                  int64_t axes_packed, int64_t M, int64_t vb, int64_t ne, void* stream) {
@@ -654,8 +759,8 @@ int launch_fused(void* re, void* im, const void* ops_i, const void* ops_f, const
   g.k = (int)naxes;
   for (int a = 0; a < MAX_AXES; ++a) g.axes[a] = a < naxes ? (int)((axes_packed >> (8 * a)) & 0xff) : 0;
   const int64_t tiles = int64_t(1) << (n - t - naxes);
-  if (nperm > 0) return dispatch<T, true>(vb, ne, re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nops, g, M, tiles, stream);
-  return dispatch<T, false>(vb, ne, re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nops, g, M, tiles, stream);
+  if (nperm > 0) return dispatch<S, T, true>(vb, ne, re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nops, g, M, tiles, stream);
+  return dispatch<S, T, false>(vb, ne, re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nops, g, M, tiles, stream);
 }
 
 }  // namespace
@@ -664,16 +769,25 @@ extern "C" int qc_fused_segment_f32(void* re, void* im, void* ops_i, void* ops_f
                                     void* ftab, void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t,
                                     int64_t naxes, int64_t axes_packed, int64_t M, int64_t vb, int64_t ne,
                                     void* stream) {
-  return launch_fused<float>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes,
-                             axes_packed, M, vb, ne, stream);
+  return launch_fused<float, float>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes,
+                                    axes_packed, M, vb, ne, stream);
 }
 
 extern "C" int qc_fused_segment_f64(void* re, void* im, void* ops_i, void* ops_f, void* groups, int64_t ngroups,
                                     void* ftab, void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t,
                                     int64_t naxes, int64_t axes_packed, int64_t M, int64_t vb, int64_t ne,
                                     void* stream) {
-  return launch_fused<double>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes,
-                              axes_packed, M, vb, ne, stream);
+  return launch_fused<double, double>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes,
+                                      axes_packed, M, vb, ne, stream);
+}
+
+// bf16 planes, f32 ops_f and ftab (the op records in the compute type).
+extern "C" int qc_fused_segment_bf16(void* re, void* im, void* ops_i, void* ops_f, void* groups, int64_t ngroups,
+                                     void* ftab, void* ptab, int64_t nperm, int64_t nops, int64_t n, int64_t t,
+                                     int64_t naxes, int64_t axes_packed, int64_t M, int64_t vb, int64_t ne,
+                                     void* stream) {
+  return launch_fused<__nv_bfloat16, float>(re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t,
+                                            naxes, axes_packed, M, vb, ne, stream);
 }
 
 extern "C" const char* qc_error_string(int err) {

@@ -44,7 +44,8 @@
 //   * Vectors.  A thread moves V contiguous columns (16 bytes) per step when
 //     every run of moved columns fills a 32-byte sector (ops/oracle.py,
 //     walk_vector), so a warp moves 512 bytes of a row per step; below it,
-//     one column a thread.
+//     one column a thread.  At bf16 ("complex32", the _bf16 entry points,
+//     2-byte elements) 16 bytes are 8 columns, from control 4 up.
 //     Runs shorter than a 128-byte line still cost whole sectors and lines,
 //     so the walk's share of its bound falls below control 5 (f32); see
 //     PERF.md.
@@ -259,6 +260,11 @@ extern "C" int qc_oracle_cycle_f64(void* re, void* im, void* sched, void* segs, 
   return cycle<double>(re, im, sched, segs, scratch, S, log_rows, log_rest, c_phys, vec, stream);
 }
 
+extern "C" int qc_oracle_cycle_bf16(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
+                                    int64_t log_rows, int64_t log_rest, int64_t c_phys, int64_t vec, void* stream) {
+  return cycle<uint16_t>(re, im, sched, segs, scratch, S, log_rows, log_rest, c_phys, vec, stream);
+}
+
 // sched: int32 (nmasks, 3, 2^log_rows); segs: int32 (nmasks, S, SEG_STRIDE).
 extern "C" int qc_oracle_cycle_masked_f32(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
                                           int64_t nmasks, int64_t log_rows, int64_t log_rest, int64_t pos_a,
@@ -271,4 +277,11 @@ extern "C" int qc_oracle_cycle_masked_f64(void* re, void* im, void* sched, void*
                                           int64_t pos_b, int64_t vec, void* stream) {
   return cycle_masked<double>(re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec,
                               stream);
+}
+
+extern "C" int qc_oracle_cycle_masked_bf16(void* re, void* im, void* sched, void* segs, void* scratch, int64_t S,
+                                           int64_t nmasks, int64_t log_rows, int64_t log_rest, int64_t pos_a,
+                                           int64_t pos_b, int64_t vec, void* stream) {
+  return cycle_masked<uint16_t>(re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec,
+                                stream);
 }

@@ -25,7 +25,8 @@
 // threads take neighbouring columns, so a warp reads and writes 32
 // consecutive elements of one row.  (16-byte vectors per thread measured no
 // faster on the H100.)  The TPU kernel's DMA slabs, banks and 8-row strips
-// do not carry over.
+// do not carry over.  bf16 ("complex32") planes move as 2-byte elements
+// (qc_oracle_ladder_bf16): the gather is exact at any element width.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,4 +119,11 @@ extern "C" int qc_oracle_ladder_f64(void* in_re, void* in_im, void* out_re, void
                                     int64_t log_rows, int64_t log_rest, void* stream) {
   return launch_ladder<double>(in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows,
                                log_rest, stream);
+}
+
+extern "C" int qc_oracle_ladder_bf16(void* in_re, void* in_im, void* out_re, void* out_im,
+                                     void* combo, int64_t K, int64_t controls_packed, int64_t C,
+                                     int64_t log_rows, int64_t log_rest, void* stream) {
+  return launch_ladder<uint16_t>(in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows,
+                                 log_rest, stream);
 }

@@ -18,7 +18,8 @@
 // a full pad copy of the input when R or Cc is ragged, this one reads the
 // input once whatever its shape.  All offsets are 64-bit.  The tiles of one
 // plane are flattened onto grid.x (tall or wide views exceed grid.y's
-// 65535), the batch is on grid.z.
+// 65535), the batch is on grid.z.  bf16 ("complex32") planes move as 2-byte
+// elements (qc_transpose_bf16), exactly.
 
 #include <cstdint>
 
@@ -81,4 +82,9 @@ extern "C" int qc_transpose_f32(const void* x, void* out, int64_t B, int64_t R, 
 extern "C" int qc_transpose_f64(const void* x, void* out, int64_t B, int64_t R, int64_t Cc, int64_t extra_rows,
                                 void* stream) {
   return launch<double>(x, out, B, R, Cc, extra_rows, stream);
+}
+
+extern "C" int qc_transpose_bf16(const void* x, void* out, int64_t B, int64_t R, int64_t Cc, int64_t extra_rows,
+                                 void* stream) {
+  return launch<uint16_t>(x, out, B, R, Cc, extra_rows, stream);
 }

@@ -34,6 +34,12 @@ kernel does, as the 2M - 1 masked exchange stages of a Benes network
 (``ops/benes.py``); the CUDA kernel gathers each work block through the
 inverse permutation in shared memory.  Both compute the same function.
 
+bfloat16 planes ("complex32") take the kernel's bf16 instance: each tile is
+widened to float32, every op computes in float32, and each amplitude is
+rounded to bf16 once per pass, at the store, as the JAX kernel does; its
+tables are those of a float32 segment.  The plain version computes the same
+in complex64 and rounds once.
+
 The TPU-only op kinds ``lanemat``/``rowmat``/``xtable`` (MXU rewrites of the
 same math) are not ported.
 """
@@ -60,13 +66,14 @@ from quantumcomputer_tpu_torch.ops.benes import benes_route
 from quantumcomputer_tpu_torch.sim import statevec as sv
 
 LOW_BITS = 7  # targets below this bit always lie inside a tile
-# Tile size per plane dtype: 2^bits amplitudes x 2 planes = 32 KB of shared memory.
-TILE_BITS = {torch.float32: 12, torch.float64: 11}
+# Tile size per plane dtype: 2^bits amplitudes x 2 planes = 32 KB of shared
+# memory in the compute dtype (a bf16 tile is computed as a float32 one).
+TILE_BITS = {torch.float32: 12, torch.float64: 11, torch.bfloat16: 12}
 # The kernel's register groups: a thread holds 2^GROUP_BITS amplitudes of a
-# tile, the low VEC_BITS index bits (16 bytes of a plane) plus
+# tile, the low VEC_BITS index bits (16 bytes of a compute-dtype plane) plus
 # GROUP_BITS - VEC_BITS more, and applies every op of a group to them.
-VEC_BITS = {torch.float32: 2, torch.float64: 1}
-GROUP_BITS = {torch.float32: 4, torch.float64: 3}
+VEC_BITS = {torch.float32: 2, torch.float64: 1, torch.bfloat16: 2}
+GROUP_BITS = {torch.float32: 4, torch.float64: 3, torch.bfloat16: 4}
 
 #: Oracle ops in one segment, as in the JAX package (its bound on the VMEM of
 #: the Benes mask tables); it groups the Shor circuit's oracles two to a segment.
@@ -304,11 +311,12 @@ def apply_camodc_benes(z: torch.Tensor, c: int, C: int, A: int, M: int) -> torch
 
 def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
     """The segment's unitary applied op by op with plain torch ops; returns
-    a new planar tensor (the kernel's spec)."""
+    a new planar tensor of the state's dtype (the kernel's spec).  bf16
+    planes compute in complex64 and round to bf16 once, at the end."""
     z = sv.to_complex(planar)
     for op in ops:
         z = _apply_op(z, op, M)
-    return torch.stack([z.real, z.imag])
+    return torch.stack([z.real, z.imag]).to(planar.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -388,8 +396,8 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
     fields of idx: F_base (the tile base, formed in the kernel once per
     tile), F_axes (the axis bits) and F_low (the low bits, slot bits zero),
     both in ftab, and one factor w_s per slot bit s, in the op's ops_f
-    record; all in the plane dtype, re/im interleaved, so no amplitude
-    needs a transcendental.  A camodc op's record holds its control's
+    record; all in the compute dtype (float32 for bf16 planes), re/im
+    interleaved, so no amplitude needs a transcendental.  A camodc op's record holds its control's
     tile-local position (-1 when the control is a tile-base bit) and the
     offset of its inverse permutation in camodc_tables; the tile holds at
     least the low M bits."""
@@ -462,7 +470,7 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
                 ops_f[k, : len(vals)] = vals
     ftab = np.concatenate(tables) if tables else np.ones(1, np.complex128)
     ftab = np.stack([ftab.real, ftab.imag], axis=1).reshape(-1)
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return t, high, vb, ne, ops_i, ops_f.astype(np_dtype), grp, ftab.astype(np_dtype)
 
 
@@ -485,7 +493,7 @@ def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, dev
 def _check_planar(planar: torch.Tensor) -> int:
     n = sv.num_qubits(planar)
     if planar.dtype not in TILE_BITS:
-        raise TypeError(f"planar state must be float32 or float64, got {planar.dtype}")
+        raise TypeError(f"planar state must be float32, float64 or bfloat16, got {planar.dtype}")
     if not planar.is_contiguous():
         raise ValueError("planar state must be contiguous")
     return n
@@ -508,8 +516,7 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
     t, high, vb, ne, ops_i, ops_f, groups, ftab, ptab = _descriptor(
         tuple(ops), tuple(axes), n, M, planar.dtype, planar.device
     )
-    lib = _build.load()
-    fn = lib.qc_fused_segment_f32 if planar.dtype == torch.float32 else lib.qc_fused_segment_f64
+    fn = _build.entry("qc_fused_segment", planar.dtype)
     packed = sum(a << (8 * i) for i, a in enumerate(high))
     n_perm = sum(op[0] == "camodc" for op in ops)
     with torch.cuda.device(planar.device):

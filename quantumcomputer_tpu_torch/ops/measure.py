@@ -12,7 +12,8 @@ two-level inverse-CDF replaces a full-state cumulative scan:
 
 The result is the smallest index whose cumulative probability reaches
 r * total, falling through to the last index.  The draw is scaled by the
-total, as in the JAX package.
+total, as in the JAX package.  bf16 ("complex32") states sum in float32,
+block sums, scans and draws alike (``statevec.compute_dtype``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from quantumcomputer_tpu_torch.sim import statevec as sv
 LANE = 128
 BLOCK_ROWS = 64
 MAX_BLOCKS = 1024
-# The hierarchical path serves f32 states of at least this many amplitudes.
+# The hierarchical path serves f32 and bf16 states of at least this many amplitudes.
 HIERARCHICAL_MIN_DIM = 1 << 16
 
 #: Kernel launches made by block_sums (CUDA tensors only).
@@ -53,7 +54,8 @@ def _nblocks_block(planar: torch.Tensor) -> tuple:
 
 
 def block_sums_plain(planar: torch.Tensor) -> torch.Tensor:
-    """Per-block sums of |amp|^2, shape (nblocks,), in the plane dtype."""
+    """Per-block sums of |amp|^2, shape (nblocks,), in the compute dtype
+    (float32 for bf16 planes)."""
     nblocks, block = _nblocks_block(planar)
     return sv.probabilities(planar).view(nblocks, block).sum(dim=1)
 
@@ -67,11 +69,10 @@ def block_sums(planar: torch.Tensor) -> torch.Tensor:
         return block_sums_plain(planar)
     if planar.device.type != "cuda":
         raise ValueError(f"no block-sum path for device {planar.device}")
-    if planar.dtype not in (torch.float32, torch.float64) or not planar.is_contiguous():
-        raise TypeError("block sums need a contiguous float32 or float64 planar state")
-    out = torch.empty(nblocks, dtype=planar.dtype, device=planar.device)
-    lib = _build.load()
-    fn = lib.qc_block_sums_f32 if planar.dtype == torch.float32 else lib.qc_block_sums_f64
+    if planar.dtype not in _build.SUFFIX or not planar.is_contiguous():
+        raise TypeError("block sums need a contiguous float32, float64 or bfloat16 planar state")
+    out = torch.empty(nblocks, dtype=sv.compute_dtype(planar.dtype), device=planar.device)
+    fn = _build.entry("qc_block_sums", planar.dtype)
     with torch.cuda.device(planar.device):
         err = fn(
             planar[0].data_ptr(), planar[1].data_ptr(), out.data_ptr(), nblocks, block,
@@ -112,7 +113,8 @@ def sample_index_flat(planar: torch.Tensor, r: float) -> int:
 
 def sample_index(planar: torch.Tensor, r: float, plain: bool = False) -> int:
     """The engine's sampler switch (JAX engine._sample_index_planes): f32
-    states of at least 2^16 amplitudes sample hierarchically, the rest flat."""
-    if planar.dtype == torch.float32 and planar.shape[-1] >= HIERARCHICAL_MIN_DIM:
+    and bf16 states of at least 2^16 amplitudes sample hierarchically, the
+    rest flat."""
+    if planar.dtype in (torch.float32, torch.bfloat16) and planar.shape[-1] >= HIERARCHICAL_MIN_DIM:
         return sample_index_planes(planar, r, plain)
     return sample_index_flat(planar, r)

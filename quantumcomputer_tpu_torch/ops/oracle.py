@@ -22,7 +22,10 @@ x[j, col] <- x[ginv[j], col].  Four CUDA kernels carry it:
 
 Each wrapper takes the plain version (``ops/gates.py``) for a CPU tensor,
 launches its kernel for a CUDA tensor at every size, and raises for any
-other device.  ``LAUNCHES`` counts kernel launches per kernel.
+other device.  ``LAUNCHES`` counts kernel launches per kernel.  The ladder
+and both walks also take bf16 ("complex32") planes, as 2-byte elements
+(exact: they only move data); the row gather, which no dispatcher picks,
+has no bf16 instance yet and raises on a bf16 CUDA tensor.
 
 The eligibility predicates keep the JAX package's thresholds unchanged
 (they come from the TPU's DMA slab sizes), so the engine plans the same
@@ -51,7 +54,7 @@ MIN_REST = 1024
 MIN_PERM_SLAB_BYTES = 32768
 MAX_LADDER_K = 8  # 2^K combo-table entries
 
-_PLANE_DTYPES = (torch.float32, torch.float64)
+_PLANE_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +258,7 @@ def _geometry(planar: torch.Tensor, C: int, M: int, bits) -> tuple:
     """(log_rows, log_rest) of a valid oracle call, or raise."""
     n = sv.num_qubits(planar)
     if planar.dtype not in _PLANE_DTYPES:
-        raise TypeError(f"planar state must be float32 or float64, got {planar.dtype}")
+        raise TypeError(f"planar state must be float32, float64 or bfloat16, got {planar.dtype}")
     if not planar.is_contiguous():
         raise ValueError("planar state must be contiguous")
     if not 0 <= M <= n:
@@ -303,9 +306,8 @@ def apply_camodc_high_planar(planar: torch.Tensor, out: torch.Tensor, C: int, at
     planes = (planar[0], planar[1], out[0], out[1])
     if any(p.data_ptr() % 16 for p in planes):
         raise ValueError("the row-gather kernel needs 16-byte aligned planes")
+    fn = _build.entry("qc_oracle_gather", planar.dtype)
     ginv = _ginv(C, int(atox) % C, M, planar.device)
-    lib = _build.load()
-    fn = lib.qc_oracle_gather_f32 if planar.dtype == torch.float32 else lib.qc_oracle_gather_f64
     with torch.cuda.device(planar.device):
         err = fn(*(p.data_ptr() for p in planes), ginv.data_ptr(), log_rows, log_rest, c_phys, _stream(planar))
     _build.check(err, "oracle gather")
@@ -328,8 +330,7 @@ def apply_camodc_ladder_high_planar(
         return tops.apply_camodc_ladder_high_planes_(out.copy_(planar), C, A_list, controls, M)
     combo = _combo(C, tuple(int(A) for A in A_list), planar.device)
     packed = sum(int(c) << (8 * k) for k, c in enumerate(controls))
-    lib = _build.load()
-    fn = lib.qc_oracle_ladder_f32 if planar.dtype == torch.float32 else lib.qc_oracle_ladder_f64
+    fn = _build.entry("qc_oracle_ladder", planar.dtype)
     with torch.cuda.device(planar.device):
         err = fn(
             planar[0].data_ptr(), planar[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
@@ -370,15 +371,12 @@ def _walk(planar: torch.Tensor, C: int, A_list: tuple, controls: tuple, M: int, 
     S = walk_segment_count(1 << log_rows, active, nmasks, vec)
     segs = _segments(C, A_list, M, S, planar.device)
     scratch = torch.empty(2 * S * 2 * nmasks * active, dtype=planar.dtype, device=planar.device)
-    lib = _build.load()
-    f64 = planar.dtype == torch.float64
+    fn = _build.entry(f"qc_oracle_{kernel}", planar.dtype)
     ptrs = (planar[0].data_ptr(), planar[1].data_ptr(), sched.data_ptr(), segs.data_ptr(), scratch.data_ptr(), S)
     with torch.cuda.device(planar.device):
         if kernel == "cycle":
-            fn = lib.qc_oracle_cycle_f64 if f64 else lib.qc_oracle_cycle_f32
             err = fn(*ptrs, log_rows, log_rest, controls[0], vec, _stream(planar))
         else:
-            fn = lib.qc_oracle_cycle_masked_f64 if f64 else lib.qc_oracle_cycle_masked_f32
             pos_b = controls[1] if len(controls) == 2 else -1
             err = fn(*ptrs, nmasks, log_rows, log_rest, controls[0], pos_b, vec, _stream(planar))
     _build.check(err, f"oracle {kernel}")

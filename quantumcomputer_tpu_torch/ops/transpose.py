@@ -22,7 +22,7 @@ from quantumcomputer_tpu_torch.ops import _build
 LAUNCHES = 0
 
 BLOCK = 128
-_DTYPES = (torch.float32, torch.float64)
+_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
 
 def padded_shape(R: int, Cc: int, extra_rows: int = 0) -> tuple:
@@ -34,7 +34,7 @@ def _check(x: torch.Tensor, extra_rows: int) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (B, R, C), got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"x must be float32 or float64, got {x.dtype}")
+        raise TypeError(f"x must be float32, float64 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if extra_rows < 0:
@@ -67,8 +67,7 @@ def tiled_transpose_padded(x: torch.Tensor, extra_rows: int = 0) -> torch.Tensor
     B, R, Cc = x.shape
     rows, pitch = padded_shape(R, Cc, extra_rows)
     out = torch.empty((B, rows, pitch), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    fn = lib.qc_transpose_f32 if x.dtype == torch.float32 else lib.qc_transpose_f64
+    fn = _build.entry("qc_transpose", x.dtype)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), B, R, Cc, extra_rows, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "transpose")

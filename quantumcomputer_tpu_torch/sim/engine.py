@@ -30,6 +30,13 @@ backend, standard layout, on the CUDA device when one is present);
 amplitudes after <label>`` after each gate or segment whose state holds a
 non-finite amplitude, with the JAX package's labels.
 
+dtype="complex32" (bf16 planes, computed in float32 and rounded once a
+pass, ``sim/statevec.py``) needs the ``cuda`` backend, as the JAX package's
+needs pallas: every kernel of the cuda path has a bf16 instance, and the
+standard layout's gather oracle and the per-gate path of a gate with no op
+form move or widen bf16 in torch.  ``backend="auto"`` resolves to ``cuda``
+for it, and on a host with no CUDA device the engine raises.
+
 Layouts: ``standard`` (the reference's bit convention) and ``m_high`` (the
 work register in the top physical bits; ``models/shor_circuit.
 shor_circuit_mhigh`` builds its circuit, ``logical_index`` maps measured
@@ -343,6 +350,11 @@ def apply_circuit_fused_(
     return cur
 
 
+def is_complex32(dtype) -> bool:
+    """True for the bf16-storage dtype token ("complex32" / "c32")."""
+    return isinstance(dtype, str) and dtype in (sv.COMPLEX32, "c32")
+
+
 def resolve_backend(backend: str) -> str:
     if backend == "auto":
         return "cuda" if torch.cuda.is_available() else "torch"
@@ -355,7 +367,8 @@ class StateVectorEngine:
     """Executes circuits on a (2, 2^n) planar state resident on `device`.
 
     States are planar real tensors (plane 0 = Re, plane 1 = Im); float32
-    planes for complex64, float64 for complex128.  `fuse` (cuda backend):
+    planes for complex64, float64 for complex128, bfloat16 for "complex32"
+    (cuda backend only; backend="auto" picks it).  `fuse` (cuda backend):
     plan the circuit into fused segments and oracle ladders (True), or run
     it gate by gate, each gate through its kernel (False).  `oracle`:
     "gather", or "benes" for the standard layout's oracles inside the fused
@@ -379,6 +392,12 @@ class StateVectorEngine:
     ):
         if layout not in ("standard", "m_high"):
             raise ValueError(f"unknown layout {layout!r}")
+        if is_complex32(dtype):
+            # bf16 storage: no complex dtype exists at this width, so it runs
+            # only on the planar kernel path (the JAX engine's pallas rule).
+            if backend == "torch" or strict_reference:
+                raise ValueError("dtype='complex32' requires backend='cuda'")
+            backend = "cuda"
         self.backend = resolve_backend("torch" if strict_reference and backend == "auto" else backend)
         if strict_reference and (self.backend != "torch" or layout != "standard"):
             # Reference bug-compatibility (qc_shor.c:340-351, 654): the
@@ -402,7 +421,7 @@ class StateVectorEngine:
             raise ValueError(f"backend='cuda' runs on a CUDA device, not {self.device}")
         self.register = register
         self.real_dtype = sv.real_dtype_of(dtype)
-        self.dtype = torch.complex64 if self.real_dtype == torch.float32 else torch.complex128
+        self.dtype = {torch.float32: torch.complex64, torch.float64: torch.complex128}.get(self.real_dtype, sv.COMPLEX32)
         self.layout = layout
         self.fuse = fuse
         # In the m_high layout the counting register is the low physical
@@ -480,12 +499,12 @@ class StateVectorEngine:
         """run(), also returning the norm trace (Report §IV.A / FIG. 2) on
         the execution path itself: one norm per fused segment and per single
         gate of the plan with fusion on the cuda backend, one per gate
-        otherwise.  Each norm is sum re^2 + im^2 in the plane dtype; they
-        stay on the device until the run ends and come back as one 1-d CPU
-        tensor.  CONSUMES a caller-supplied `state`, like run()."""
+        otherwise.  Each norm is sum re^2 + im^2 in the compute dtype
+        (float32 for bf16 planes); they stay on the device until the run
+        ends and come back as one 1-d CPU tensor.  CONSUMES a caller-supplied `state`, like run()."""
         norms: list = []
         out = self._run(circuit, state, norms)
-        return out, (torch.stack(norms).cpu() if norms else torch.zeros(0, dtype=self.real_dtype))
+        return out, (torch.stack(norms).cpu() if norms else torch.zeros(0, dtype=sv.compute_dtype(self.real_dtype)))
 
     def run_norm(self, circuit: Circuit) -> float:
         """Reset -> circuit -> norm (probability conservation check)."""

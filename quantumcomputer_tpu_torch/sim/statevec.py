@@ -6,6 +6,13 @@ complex128.  The kernels read and write the two planes as separate
 contiguous arrays, so the layout is the JAX package's planar layout
 (``quantumcomputer_tpu/sim/statevec.py``) and states carry across between
 the two packages as numpy arrays (``quantumcomputer_tpu_torch.interop``).
+
+bfloat16 planes are the storage-only "complex32" mode, as in the JAX
+package: no complex dtype exists at that width (``torch.complex32`` is a
+pair of float16, whose smallest normal, 6.1e-5, lies above a uniform
+amplitude at n = 31).  Kernels widen bf16 to float32, compute there and
+round to bf16 once, at the store; probabilities, norms and draws of a bf16
+state are float32 (``compute_dtype``).
 """
 
 from __future__ import annotations
@@ -13,12 +20,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+#: The engine's dtype token of the bf16-storage mode.
+COMPLEX32 = "complex32"
+
 _REAL_OF = {
     torch.complex64: torch.float32,
     torch.complex128: torch.float64,
     "complex64": torch.float32,
     "complex128": torch.float64,
+    COMPLEX32: torch.bfloat16,
+    "c32": torch.bfloat16,
 }
+
+# Elements per chunk of a bf16 reduction: bounds its float32 temporaries.
+_CHUNK = 1 << 26
 
 
 def real_dtype_of(cdtype) -> torch.dtype:
@@ -27,6 +42,12 @@ def real_dtype_of(cdtype) -> torch.dtype:
         return _REAL_OF[cdtype]
     except (KeyError, TypeError):
         raise ValueError(f"not a supported complex dtype: {cdtype!r}") from None
+
+
+def compute_dtype(real_dtype: torch.dtype) -> torch.dtype:
+    """The dtype arithmetic, sums and draws run in: float32 for bf16
+    planes, the plane dtype otherwise."""
+    return torch.float32 if real_dtype == torch.bfloat16 else real_dtype
 
 
 def num_qubits(planar: torch.Tensor) -> int:
@@ -52,20 +73,27 @@ def zero_planar(n: int, dtype=torch.float32, device="cpu") -> torch.Tensor:
 
 
 def to_complex(planar: torch.Tensor) -> torch.Tensor:
-    """(2, dim) planes -> (dim,) complex tensor (a copy)."""
-    return torch.complex(planar[0], planar[1])
+    """(2, dim) planes -> (dim,) complex tensor (a copy); bf16 planes widen
+    to complex64."""
+    cdt = compute_dtype(planar.dtype)
+    return torch.complex(planar[0].to(cdt), planar[1].to(cdt))
 
 
 def probabilities(planar: torch.Tensor) -> torch.Tensor:
+    """|amp|^2 per amplitude, in compute_dtype (float32 for bf16 planes)."""
+    planar = planar.to(compute_dtype(planar.dtype))
     return planar[0] * planar[0] + planar[1] * planar[1]
 
 
 def norm(planar: torch.Tensor) -> torch.Tensor:
-    """Sum of |amp|^2 as a 0-d tensor on the state's device."""
-    return torch.sum(planar[0] * planar[0]) + torch.sum(planar[1] * planar[1])
+    """Sum of |amp|^2 as a 0-d tensor on the state's device, accumulated in
+    compute_dtype (a bf16 state in float32 chunks of _CHUNK elements)."""
+    if planar.dtype != torch.bfloat16:
+        return torch.sum(planar[0] * planar[0]) + torch.sum(planar[1] * planar[1])
+    return sum(torch.sum(c.float().square()) for c in planar.reshape(-1).split(_CHUNK))
 
 
 def to_numpy_complex(planar: torch.Tensor) -> np.ndarray:
-    """Host-side complex copy of a planar state."""
-    host = planar.detach().cpu().numpy()
+    """Host-side complex copy of a planar state (complex64 for bf16)."""
+    host = planar.detach().to(compute_dtype(planar.dtype)).cpu().numpy()
     return host[0] + 1j * host[1]

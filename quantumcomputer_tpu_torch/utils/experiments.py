@@ -169,8 +169,9 @@ def fig3_scaling(
 def main(argv=None) -> int:
     """CLI: `python -m quantumcomputer_tpu_torch.utils.experiments [--runs N]`
     runs the scripted TABLE I check on the default backend (cuda when a card
-    is present) and exits nonzero on failure; 2 for a flag whose path is not
-    ported yet."""
+    is present) and exits nonzero on failure.  --dtype complex32 runs it on
+    the complex32 engine (the cuda backend; exit 2 on a host with no CUDA
+    device); --qv, whose path is not ported yet, exits 2."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Scripted TABLE I omega-distribution check")
@@ -192,11 +193,16 @@ def main(argv=None) -> int:
         help="also run the Quantum Volume protocol at width M (pass/fail vs 2/3)",
     )
     args = ap.parse_args(argv)
-    missing = "--dtype complex32" if args.dtype == "complex32" else ("--qv" if args.qv else None)
-    if missing:
-        print(f"Error: {missing} is not yet ported to {PACKAGE}.", file=sys.stderr)
+    if args.qv:
+        print(f"Error: --qv is not yet ported to {PACKAGE}.", file=sys.stderr)
         return 2
-    res = table1_experiment(runs=args.runs, seed=args.seed, min_p=args.min_p)
+    engine = None
+    if args.dtype == "complex32":
+        if not torch.cuda.is_available():
+            print("Error: --dtype complex32 needs a CUDA device, and none is available.", file=sys.stderr)
+            return 2
+        engine = StateVectorEngine(Register(L=3, M=4), dtype="complex32", backend="cuda")
+    res = table1_experiment(runs=args.runs, seed=args.seed, min_p=args.min_p, engine=engine)
     print(res)
     if args.fig3:
         rows_L, rows_M = fig3_scaling()

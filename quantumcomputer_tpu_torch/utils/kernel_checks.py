@@ -6,13 +6,18 @@ compare against it and the card's machine has no JAX.  ``chip_smoke.py``
 runs them as one phase (``run_all``); cases that another phase of the smoke
 already runs at the same shapes are not repeated here.  The smoke's other
 phases build their inputs with this module's helpers (``random_planar``,
-``random_circuit``, ``compare_plan``).
+``random_circuit``, ``plan_states``).
 
 Every input is made from a numpy seed.  Data movement (oracles, transpose,
 chunk gathers, probes, the stride permutation) must be exact; the fused
 segment is held to 3e-5 (float32) / 1e-12 (float64) and the block sums to
-1e-6, the tolerances of the CPU suite.  Each check raises KernelCheckFailure
-on the first disagreement and returns one line per case for the log.
+1e-6, the tolerances of the CPU suite.  At bf16 ("complex32") the kernel
+and its plain version both compute in float32 and round once, so they may
+differ only where the two float32 results straddle a bf16 rounding
+boundary: the fused segment is held to one bf16 ulp per pass
+(``bf16_ulps``; a later pass would spread an ulp of its input).  Each
+check raises KernelCheckFailure on the first disagreement and returns one
+line per case for the log.
 """
 
 from __future__ import annotations
@@ -31,6 +36,13 @@ from quantumcomputer_tpu_torch.scripts import exact_err
 DTYPES = (torch.float32, torch.float64)
 FUSED_TOL = {torch.float32: 3e-5, torch.float64: 1e-12}
 BLOCK_SUMS_TOL = 1e-6
+# bf16: one ulp of the plain result, taken at magnitudes of at least
+# BF16_ULP_FLOOR.  Below it the two float32 results (each within a few
+# float32 ulps of the exact value, at most 3e-5 apart on unit-variance
+# states: FUSED_TOL) may straddle several bf16 boundaries; one ulp at the
+# floor, 2^-15 = 3.05e-5, covers that difference.
+BF16_ULP_TOL = 1.0
+BF16_ULP_FLOOR = 2.0 ** -8
 
 
 class KernelCheckFailure(AssertionError):
@@ -77,20 +89,43 @@ def random_circuit(rng, n: int, count: int) -> tuple:
     return tuple(gates)
 
 
-def compare_plan(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> Tuple[float, int, int]:
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
+    """(max |got - want| in bf16 ulps of |want|, the ulp taken at magnitudes
+    of at least BF16_ULP_FLOOR; the share of elements that differ)."""
+    g, w = got.float(), want.float()
+    _, exp = torch.frexp(w.abs().clamp_min(BF16_ULP_FLOOR))  # |w| in [2^(exp-1), 2^exp)
+    ulps = (g - w).abs() / torch.ldexp(torch.ones_like(w), exp - 8)
+    return float(ulps.max()), float((g != w).float().mean())
+
+
+def plan_states(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> tuple:
     """Run a circuit's fused plan on copies of `planar` through the kernel
-    (in place) and through plain_segment: (max abs difference of the final
-    planes, fused-segment launches, segments)."""
+    (in place) and through plain_segment: ([(kernel state, plain state)],
+    fused-segment launches, segments).  One pair, the final states, for
+    float32 / float64; one pair per segment for bf16, each segment's plain
+    version applied to the kernel's state before it (a pass is where bf16
+    rounds)."""
     n = int(planar.shape[1]).bit_length() - 1
     plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[planar.dtype], fuse_oracle=fuse_oracle)
     _check(all(s[0] == "fused" for s in plan), f"unexpected single gates in plan {plan}")
+    per_pass = planar.dtype == torch.bfloat16
     want, got = planar.clone(), planar.clone()
+    pairs = []
     before = fused.LAUNCHES
     for _, ops, axes in plan:
-        want = fused.plain_segment(want, ops, M)
+        want = fused.plain_segment(got if per_pass else want, ops, M)
         fused.apply_fused(got, ops, axes, M)
+        if per_pass:
+            pairs.append((got.clone(), want))
     torch.cuda.synchronize()
-    return float((got - want).abs().max()), fused.LAUNCHES - before, len(plan)
+    return pairs or [(got, want)], fused.LAUNCHES - before, len(plan)
+
+
+def compare_plan(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> Tuple[float, int, int]:
+    """plan_states on float32 / float64 planes, compared: (max abs
+    difference of the final planes, fused-segment launches, segments)."""
+    ((got, want),), launched, segments = plan_states(planar, circuit, M, fuse_oracle)
+    return float((got - want).abs().max()), launched, segments
 
 
 def fused_random_circuit(device) -> List[str]:

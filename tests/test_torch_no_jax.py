@@ -2,8 +2,9 @@
 validation layer (profiling, experiments, debug), its probe kernels and
 scripts, the Benes router and the card-only kernel checks, runs a 7-qubit
 circuit, a norm trace, a few TABLE I shots, a tiny semiclassical attempt
-and the Benes oracle path (plain segments, strict_reference, dd64,
-nan_checks), and checks that no jax module was loaded.
+(also at complex32), the Benes oracle path (plain segments,
+strict_reference, dd64, nan_checks) and a complex32 plan on bf16 planes,
+and checks that no jax or ml_dtypes module was loaded.
 chip_smoke.py is imported too (without running it), since it must run where
 jax is absent."""
 
@@ -46,7 +47,13 @@ strict = q.StateVectorEngine(q.Register(L=3, M=4), strict_reference=True)
 assert abs(strict.norm(strict.run(circuit)) - 1.0) < 1e-6
 assert q.algorithms.shor.shors_algorithm(15, 3, 4, forced_trial_int=7, seed=0, dtype="dd64").factors == (5, 3)
 assert callable(kernel_checks.run_all)
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+import torch
+c32 = semiclassical.run_semiclassical(15, 7, 3, 4, [0.1, 0.6, 0.3], dtype="complex32")
+assert len(c32.bits) == 3
+bf16 = tengine.apply_circuit_fused_(q.sim.statevec.initial_planar(7, torch.bfloat16), circuit, 4,
+                                    tengine.plan_circuit(circuit, 4, 7, torch.bfloat16, "cpu"))
+assert bf16.dtype == torch.bfloat16 and abs(float(q.sim.statevec.norm(bf16)) - 1.0) < 5e-3
+loaded = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules
 print("ok")

@@ -162,9 +162,10 @@ def test_argument_checks_match_jax():
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="rs must hold"):
         sc.run_semiclassical(15, 7, 4, 4, np.zeros(3, np.float32))
-    for kw in ({"dtype": "complex32"}, {"checkpoint_dir": "ck"}):
-        with pytest.raises(ValueError, match="not yet ported"):
-            sc.run_semiclassical(15, 7, 4, 4, np.zeros(4, np.float32), **kw)
+    with pytest.raises(ValueError, match="not yet ported"):
+        sc.run_semiclassical(15, 7, 4, 4, np.zeros(4, np.float32), checkpoint_dir="ck")
+    c32 = sc.run_semiclassical(15, 7, 4, 4, np.full(4, 0.5, np.float32), dtype="complex32")  # ported
+    assert len(c32.bits) == 4 and all(0.0 < p <= 1.0 + 1e-6 for p in c32.branch_probs)
     rs = np.full(4, 0.5)
     dd, c128 = (sc.run_semiclassical(15, 7, 4, 4, rs, dtype=d) for d in ("dd64", torch.complex128))
     assert (dd.bits, dd.branch_probs) == (c128.bits, c128.branch_probs)  # dd64 runs complex128

@@ -99,31 +99,40 @@ def test_missing_M_is_an_argparse_error():
     assert e.value.code == 2
 
 
+NEEDS_A_CARD = "Error: --backend cuda needs a CUDA device, and none is available."
+
+
 @pytest.mark.parametrize(
-    "extra,flag",
+    "extra,line",
     [
-        (["--semiclassical", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
-        (["--devices", "2"], "--devices > 1"),
-        (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
-        (["--dtype", "complex32"], "--dtype complex32"),
+        (["--semiclassical", "--checkpoint-dir", "ck"], "Error: --checkpoint-dir is not yet ported to quantumcomputer_tpu_torch."),
+        (["--devices", "2"], "Error: --devices > 1 is not yet ported to quantumcomputer_tpu_torch."),
+        (["--checkpoint-dir", "ck"], "Error: --checkpoint-dir is not yet ported to quantumcomputer_tpu_torch."),
+        # Ported: the full register at complex32 runs on the cuda backend only,
+        # so a host with no card exits 2 and never runs it on the CPU.
+        (["--dtype", "complex32"], NEEDS_A_CARD),
     ],
 )
-def test_unported_flags_exit_2(extra, flag, capsys):
+def test_unported_flags_exit_2(extra, line, capsys):
     assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7"] + extra) == 2
-    err = capsys.readouterr().err
-    assert err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
+    assert capsys.readouterr().err.strip() == line
 
 
 @pytest.mark.parametrize(
     "extra,flag",
     [
         (["--devices", "2"], "--devices > 1"),
-        (["--dtype", "complex32"], "--dtype complex32"),
+        (["--dtype", "complex32"], None),  # ported: runs on the CPU here
     ],
 )
 def test_unported_semiclassical_flags_exit_2(extra, flag, capsys):
-    assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--semiclassical"] + extra) == 2
-    assert capsys.readouterr().err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
+    rc = cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--semiclassical", "--seed", "0"] + extra)
+    captured = capsys.readouterr()
+    if flag is None:
+        assert rc == 0 and " --- Factors of 15 found: (5, 3)." in captured.out
+        return
+    assert rc == 2
+    assert captured.err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
 
 
 @pytest.mark.parametrize(
