@@ -18,8 +18,14 @@ Phases, each of which must pass:
      == 0: they only move data); the fused kernel's camodc op (--oracle
      benes) at n = 20, M = 4, 6, 8, 13, one op and two, the control a
      tile-base bit, an exposed axis or a low bit, exactly against its plain
-     Benes version, and mixed with H gates within the tolerance above; then
-     the card-only cases of the port's tests
+     Benes version, and mixed with H gates within the tolerance above; the
+     matrix groups of float32 and bf16 segments (lanemat and rowmat with
+     real and complex tables, rowmat + xtable, all three in one segment,
+     row stages at M = 8, a lanemat beside exposed axes) at n = 20 and
+     seeded random circuits at n = 14 and 16, each launching the matrix
+     instance (fused_matmul.cu), float32 within 3e-5 and bf16 within one ulp
+     a pass (kernel_checks.bf16_within for grouped passes); then the
+     card-only cases of the port's tests
      (quantumcomputer_tpu_torch/utils/kernel_checks.py);
   3. factor 15 through the CLI (-C 15 -L 3 -M 4 -a 7), through the fused
      kernel, then again with --layout m_high, through the cycle kernel, with
@@ -34,11 +40,16 @@ Phases, each of which must pass:
      beside it.  Then the same circuit in the m_high layout
      (shor_circuit_mhigh): norm, the torch backend's m_high state and the
      standard-layout state mapped physical -> logical, each within
+     ||d||_2 <= 1e-4; its segments grouped and in the butterfly form in
+     turns (grouped, butterfly, butterfly, grouped), the two states within
      ||d||_2 <= 1e-4; once more with the memory budget forced below two
      states, where it must pair oracles in place (cycle_masked) and launch
      no ladder.  Every fused segment of both plans (6 standard, 4 m_high)
      held against its plain version within 3e-5 on unit-variance components
-     and timed beside it and its bound; the ladder, the cycle walk at every
+     and timed beside it and its bound, then the segments of the grouping
+     planner's m_high plan that group (the float32 matrix instance), each
+     also in its butterfly form and beside one torch.matmul per matrix
+     product; the ladder, the cycle walk at every
      control the m_high plan walks (0-10) and the pair (13, 14) held exactly
      against their plain versions and timed beside them, their bounds and
      their library calls; the flagship with oracle="benes": no single
@@ -68,7 +79,7 @@ Phases, each of which must pass:
   8. the m_high row-gather oracle (apply_camodc_high_planar) at n = 28 in the
      flagship geometry (C = 8191, A = 3, M = 13): controls 14 (the JAX
      kernel's pure blocks), 3 (mixed) and 0 (below the vector width), in
-     float32 and float64, each exactly equal to its plain version and timed
+     float32, float64 and bf16, each exactly equal to its plain version and timed
      beside it and beside the in-place cycle walk on the same gate;
   9. the probe scripts at M = 28 (a 1 GiB plane, W = 16384):
      scripts.prof_chunkgather (copy at identity and 1024-aligned starts,
@@ -91,6 +102,8 @@ Phases, each of which must pass:
      exactly): the n = 28 flagship in the standard layout, m_high and
      oracle="benes", each in turns with complex64, norm within 5e-3 of 1,
      ||psi_c32 - psi_c64||_2 <= 6e-3, benes equal to the gather exactly;
+     the m_high flagship's matrix groups launched, and its segments timed
+     grouped and in the butterfly form in turns;
      m_high below two states (cycle_masked) equal to the two-state plan
      exactly; every bf16 segment and oracle
      kernel of those plans timed beside its bound; 8187 at n = 30 in both
@@ -109,14 +122,21 @@ and its plain version's, bound_ms and bound_by (the larger of its bytes over
 the time of one PyTorch call computing the same function (named in
 "library"), or null with the reason there.  fused_segment's ms, plain_ms and
 bound are those of segment 0 of the standard plan (a 5-H segment); its
-"segments" list holds every n = 28 segment of both plans, and
+"segments" list holds every n = 28 segment of both plans that runs without
+matrix groups, and
 "segments_mean_ms" / "segments_mean_plain_ms" their means.  camodc's
 numbers are those of the first oracle segment of the benes flagship (a
 pair), launches those of the benes n = 30 run; its "segments" list holds
 every oracle segment, "flagship_ms" / "flagship_gather_ms" the two runs of
 each flagship.  The bf16 instances have entries of their own ("<name>_bf16",
 launches from the complex32 main paths, max_ulps beside max_abs_err for the
-fused segment).  Any failure exits non-zero without that line.  Imports
+fused segment).  fused_matmul / fused_matmul_bf16 (the matrix groups)
+take their numbers from the m_high iQFT segment (rowmat + xtable +
+lanemat), their bound the larger of the bytes and the tensor-core products
+(3xTF32 at 495 TFLOP/s, two bf16 products at 989 TFLOP/s), "segments" every
+grouped segment with its butterfly form's time, "flagship_ms" /
+"flagship_butterfly_ms" the m_high flagship in both forms.  Any failure
+exits non-zero without that line.  Imports
 nothing of JAX.
 """
 
@@ -195,6 +215,11 @@ WALK_CONTROLS = tuple(range(11))  # the controls the m_high flagship plan walks 
 # its operations over these.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# Dense tensor-core rates (the same datasheet): TF32 and bf16.  A matrix
+# group's product has depth LANE_K (lanemat) or ROW_K (rowmat).
+TF32_TC_FLOPS = 495e12
+BF16_TC_FLOPS = 989e12
+LANE_K, ROW_K = 128, 64
 # Floating-point operations per amplitude of each fused op kind: a 2x2
 # complex matrix on a pair is 4 complex multiplies and 2 adds (28 / 2); an
 # iQFT butterfly 8 / 2, and its phase one complex multiply on half.
@@ -270,6 +295,75 @@ def op_kind_cases(rng, n: int):
             4,
         ),
     ]
+
+
+def matrix_cases(rng, n: int) -> list:
+    """(name, gates, M) of the fused kernel's matrix groups at n qubits
+    (float32 and bf16 segments group them): each kind real and complex, the
+    iQFT row stages' rowmat + xtable, all three kinds in one segment (the
+    m_high iQFT), row stages at M >= 7 (no xtable) and a lanemat beside
+    exposed axes."""
+    from quantumcomputer_tpu_torch.models import circuit as cir
+    from quantumcomputer_tpu_torch.utils.kernel_checks import random_unitary
+
+    return [
+        ("lanemat real", tuple(cir.H(q) for q in range(7)), 0),
+        ("lanemat complex", (cir.U1Q(1, random_unitary(rng, 2)), cir.CPHASE(5, 2, 0.7), cir.U2Q(6, 3, random_unitary(rng, 4))), 0),
+        ("rowmat real", tuple(cir.H(q) for q in range(7, 13)), 0),
+        ("rowmat complex", (cir.U1Q(8, random_unitary(rng, 2)), cir.CPHASE(12, 9, 0.4), cir.U2Q(11, 7, random_unitary(rng, 4))), 0),
+        ("rowmat + xtable", tuple(cir.IQFT_STAGE(l) for l in range(12, 6, -1)), 0),
+        ("all three", tuple(cir.IQFT_STAGE(l) for l in range(12, -1, -1)), 0),
+        ("row stages M=8", tuple(cir.IQFT_STAGE(l) for l in range(12, 7, -1)) + (cir.H(3), cir.H(4)), 8),
+        ("lanemat beside axes", (cir.H(0), cir.H(1), cir.H(n - 1), cir.CPHASE(n - 2, 3, 0.5), cir.H(n - 3)), 0),
+    ]
+
+
+@contextlib.contextmanager
+def grouping(dtypes):
+    """fused.GROUP_DTYPES set to `dtypes` for the block: the matrix groups
+    of both instances are checked and timed whichever plane dtypes the
+    planner groups on the main path."""
+    from quantumcomputer_tpu_torch.ops import fused
+
+    saved = fused.GROUP_DTYPES
+    fused.GROUP_DTYPES = tuple(dtypes)
+    try:
+        yield
+    finally:
+        fused.GROUP_DTYPES = saved
+
+
+def phase_matrix_kernels(report: dict, n: int = KERNEL_N) -> None:
+    """The fused kernel's matrix groups against their plain versions: each
+    of matrix_cases at n = 20 on unit-variance states, then seeded random
+    circuits at n = 14 and 16 (M 0, 3, 8), float32 (3e-5) and bf16 (one
+    ulp a pass, kernel_checks.bf16_within for grouped passes); each case
+    must launch the matrix instance."""
+    import numpy as np
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.utils.kernel_checks import plan_states, random_circuit, random_planar
+
+    main_path = fused.GROUP_DTYPES
+    with grouping((torch.float32, torch.bfloat16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            phase_launches = fused.MATMUL_LAUNCHES
+            rng = np.random.default_rng(25)
+            cases = [(name, gates, M, n) for name, gates, M in matrix_cases(rng, n)]
+            cases += [(f"random M={M}", random_circuit(rng, k, 30), M, k) for k in (14, 16) for M in (0, 3, 8)]
+            for name, gates, M, k in cases:
+                before = fused.MATMUL_LAUNCHES
+                pairs = plan_states(random_planar(rng, k, dtype, DEVICE, normalize=False), gates, M)[0]
+                launched = fused.MATMUL_LAUNCHES - before
+                err, text = fused_err(report, key("fused_matmul", dtype), pairs)
+                log(f"kernel fused_matmul {name:19s} {dname(dtype)} n={k} M={M}: {text} (tol {TOL[dname(dtype)]:.0e}), "
+                    f"{launched} matrix launch(es)")
+                check(launched > 0, f"fused_matmul {name} {dname(dtype)}: no segment with a matrix group launched")
+                check(err <= TOL[dname(dtype)], f"fused_matmul {name} {dname(dtype)} n={k}: {err} > {TOL[dname(dtype)]}")
+            if dtype not in main_path:  # off the main path (fused.GROUP_DTYPES): its launches are this phase's
+                entry = report[key("fused_matmul", dtype)]
+                entry["launches"], entry["launches_from"] = fused.MATMUL_LAUNCHES - phase_launches, "the kernel phase"
 
 
 def camodc_cases(n: int) -> list:
@@ -405,22 +499,32 @@ def key(kernel: str, dtype) -> str:
 
 def fused_err(report: dict, entry: str, pairs) -> tuple:
     """(err, text) of fused-segment results against their plain versions
-    (kernel_checks.plan_states' pairs): max abs for float32 / float64; for
-    bf16 the max in bf16 ulps over the passes (with the largest share of
-    elements that differ; the max abs goes to the report too)."""
+    (kernel_checks.plan_states' triples: kernel, plain, the segment's matrix
+    products): max abs for float32 / float64; for bf16 the max in
+    bf16 ulps over the passes (with the largest share of elements that
+    differ; the max abs goes to the report too), a grouped pass that
+    kernel_checks.bf16_within accepts (activation straddles) counted as one
+    ulp."""
     import torch
 
-    from quantumcomputer_tpu_torch.utils.kernel_checks import bf16_ulps
+    from quantumcomputer_tpu_torch.utils.kernel_checks import bf16_ulps, bf16_within
 
-    abs_err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
+    abs_err = max(float((g.double() - w.double()).abs().max()) for g, w, _ in pairs)
     report[entry]["max_abs_err"] = max(report[entry]["max_abs_err"], abs_err)
     if pairs[0][0].dtype != torch.bfloat16:
         return abs_err, f"max abs {abs_err:.3e}"
-    stats = [bf16_ulps(g, w) for g, w in pairs]
+    stats = [bf16_ulps(g, w) for g, w, _ in pairs]
     ulps, share = max(u for u, _ in stats), max(f for _, f in stats)
+    held = max(min(u, 1.0) if grouped and bf16_within(g, w, grouped) else u for (u, _), (g, w, grouped) in zip(stats, pairs))
     report[entry]["max_ulps"] = max(report[entry].get("max_ulps", 0.0), ulps)
-    return ulps, (f"max {ulps:.3f} bf16 ulps over {len(pairs)} pass(es), up to {share:.3e} of elements differ, "
-                  f"max abs {abs_err:.3e}")
+    # The grouped passes' distance in units of the straddle rule's norm bound, 2 (R + 1) 2^-8 ||w||.
+    norm_share = max((float(torch.linalg.vector_norm(g.double() - w.double()))
+                      / (2 * (grouped + 1) * 2.0 ** -8 * float(torch.linalg.vector_norm(w.double())))
+                      for g, w, grouped in pairs if grouped), default=0.0)
+    straddle = (f" (grouped passes held by the straddle rule: {held:.3f}; norm {norm_share:.3f} of its bound)"
+                if held != ulps else "")
+    return held, (f"max {ulps:.3f} bf16 ulps over {len(pairs)} pass(es){straddle}, up to {share:.3e} of elements "
+                  f"differ, max abs {abs_err:.3e}")
 
 
 def phase_kernels(report: dict, n: int = KERNEL_N) -> None:
@@ -453,8 +557,6 @@ def phase_kernels(report: dict, n: int = KERNEL_N) -> None:
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
         rng = np.random.default_rng(22)
         for kernel, site, controls, n_case, M in ORACLE_CASES:
-            if kernel == "oracle_gather" and dtype == torch.bfloat16:
-                continue  # off the path, no bf16 instance yet (ROADMAP)
             C, a = oracle_modulus(M)
             A_list = tuple(pow(a, 1 << k, C) for k in range(len(controls)))
             err = oracle_err(site, random_planar(rng, n_case, dtype, DEVICE), C, A_list, controls, M)
@@ -596,6 +698,7 @@ def reset_launches() -> None:
 
     fused.LAUNCHES = 0
     fused.CAMODC_LAUNCHES = 0
+    fused.MATMUL_LAUNCHES = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
     for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES):
@@ -607,7 +710,8 @@ def launches() -> dict:
     from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, transpose
 
     return {
-        "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "block_sums": measure.LAUNCHES,
+        "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "matmul": fused.MATMUL_LAUNCHES,
+        "block_sums": measure.LAUNCHES,
         **oracle.LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
         **{f"probe_{k}": v for k, v in probes.LAUNCHES.items()},
@@ -669,7 +773,7 @@ def phase_flagship(report: dict) -> None:
     entry = report["fused_segment"]
     first = standard[0]
     entry.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"])
-    entry["segments"] = standard + timed
+    entry["segments"] = [s for s in standard + timed if "groups" not in s]  # the grouped ones: fused_matmul
     entry["segments_mean_ms"] = sum(s["ms"] for s in entry["segments"]) / len(entry["segments"])
     entry["segments_mean_plain_ms"] = sum(s["plain_ms"] for s in entry["segments"]) / len(entry["segments"])
     log(
@@ -796,39 +900,140 @@ def time_camodc_segments(report: dict, planar, plan, M: int) -> None:
     entry["segments_sum_ms"] = sum(r["ms"] for r in rows)
 
 
+def matrix_bound(nbytes: float, gops, planes) -> tuple:
+    """(bound_ms, bound_by) of a grouped segment: its bytes over the HBM
+    rate, or its tensor-core operations: each real product (2 for a real
+    table, 4 for a complex one, 2 K flops an output amplitude, K = 128 for a
+    lanemat, 64 for a rowmat) as three TF32 products at 495 TFLOP/s for
+    float32 planes, two bf16 products at 989 TFLOP/s for bf16."""
+    import torch
+
+    amps = nbytes / 4 / (2 if planes == torch.bfloat16 else 4)  # read + write of 2 planes
+    flops = sum((2 if op[2] else 4) * 2 * (LANE_K if op[0] == "lanemat" else ROW_K) for op in gops if op[0] != "xtable")
+    if planes == torch.bfloat16:
+        by_ops = 2 * flops * amps / BF16_TC_FLOPS * 1e3
+    else:
+        by_ops = 3 * flops * amps / TF32_TC_FLOPS * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def library_matmul_ms(planar, gops, tables) -> float:
+    """The library yardstick of a grouped segment: torch.matmul of the
+    complex64 state's (2^(n-7), 128) view by each lanemat's table and of each
+    rowmat's V by the (2^(n-13), 64, 128) view, out of place, summed over
+    the segment's products (xtables not counted); the port never calls it."""
+    import numpy as np
+    import torch
+
+    z = torch.complex(planar[0].float(), planar[1].float())
+    total = 0.0
+    for op in gops:
+        if op[0] == "xtable":
+            continue
+        tab = torch.from_numpy(np.array(tables[op[1]])).to(DEVICE)
+        w = torch.complex(tab[0], tab[1])
+        if op[0] == "lanemat":
+            total += time_ms(lambda: torch.matmul(z.view(-1, 128), w), reps=3)
+        else:
+            v = w.T.contiguous()
+            total += time_ms(lambda: torch.matmul(v, z.view(-1, 64, 128)), reps=3)
+    del z
+    torch.cuda.empty_cache()
+    return total
+
+
 def time_segments(report: dict, planar, segments, M: int, layout: str) -> list:
     """Each fused segment of a plan at the flagship size: held against its
     plain version, then kernel and plain version timed beside its bound.
-    Returns one record per segment (layout, index, ops, ms, plain_ms,
-    bound_ms, bound_by)."""
+    A segment that apply_fused runs with matrix groups is also run in its
+    butterfly form (fused.apply_segment of its ops as planned), held against
+    the ungrouped plain version and timed beside its own bound, and its
+    library call timed (library_matmul_ms).  Returns one record per segment
+    (layout, index, ops, ms, plain_ms, bound_ms, bound_by; a grouped one
+    also groups, butterfly_ms, butterfly_bound_ms, library_ms)."""
     from collections import Counter
 
     from quantumcomputer_tpu_torch.ops import fused
     from quantumcomputer_tpu_torch.sim import statevec as sv
 
-    entry = key("fused_segment", planar.dtype)
     tol = TOL[dname(planar.dtype)]
     n = sv.num_qubits(planar)
+    nbytes = 2 * planar.numel() * planar.element_size()
     timed = []
     for i, (_, ops, axes) in enumerate(segments):
+        gops, tables = fused.segment_ops(ops, M, planar.dtype, n)
+        grouped = any(op[0] in fused.MATRIX_KINDS for op in gops)
+        products = sum(op[0] in ("lanemat", "rowmat") for op in gops)
+        entry = key("fused_matmul" if grouped else "fused_segment", planar.dtype)
         want = fused.plain_segment(planar, ops, M)
-        err, text = fused_err(report, entry, [(fused.apply_fused(planar.clone(), ops, axes, M), want)])
+        err, text = fused_err(report, entry, [(fused.apply_fused(planar.clone(), ops, axes, M), want, products)])
         del want
         check(err <= tol, f"{layout} flagship segment {i} {dname(planar.dtype)}: {err} > {tol}")
         k_ms = time_ms(lambda: fused.apply_fused(planar, ops, axes, M), reps=10)
         p_ms = time_ms(lambda: fused.plain_segment(planar, ops, M), reps=3)
-        b_ms, by = bound(2 * planar.numel() * planar.element_size(), segment_flops(ops, M, n))
+        b_ms, by = matrix_bound(nbytes, gops, planar.dtype) if grouped else bound(nbytes, segment_flops(ops, M, n))
         kinds = dict(Counter(op[0] for op in ops))
-        timed.append({
-            "layout": layout, "index": i, "ops": kinds, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-        })
-        t, high = fused.tile_geometry(n, axes, fused.TILE_BITS[planar.dtype])
+        rec = {"layout": layout, "index": i, "ops": kinds, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by}
+        t, high = fused.tile_geometry(n, axes, fused.segment_tile_bits(gops, M, fused.TILE_BITS[planar.dtype], axes))
         log(
-            f"kernel {entry} {layout} n={n} segment {i} ({kinds}, targets {[op[1] for op in ops]}, t={t}, "
-            f"axes {high}): {text}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({by}), {b_ms / k_ms:.1%} of bound"
+            f"kernel {entry} {layout} n={n} segment {i} ({kinds} as {[op[0] for op in gops] if grouped else 'butterflies'}, "
+            f"targets {[op[1] for op in ops]}, t={t}, axes {high}): {text}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
         )
+        if grouped:
+            want = fused.plain_ops(planar, ops, M)
+            err, text = fused_err(report, key("fused_segment", planar.dtype),
+                                  [(fused.apply_segment(planar.clone(), ops, axes, M), want, 0)])
+            del want
+            check(err <= tol, f"{layout} flagship segment {i} butterfly form {dname(planar.dtype)}: {err} > {tol}")
+            bf_ms = time_ms(lambda: fused.apply_segment(planar, ops, axes, M), reps=10)
+            bf_bound, bf_by = bound(nbytes, segment_flops(ops, M, n))
+            lib_ms = library_matmul_ms(planar, gops, tables)
+            rec.update(groups=[op[0] for op in gops], butterfly_ms=bf_ms, butterfly_bound_ms=bf_bound, library_ms=lib_ms)
+            log(
+                f"  segment {i} butterfly form: {text}; kernel {bf_ms:.4f} ms, bound {bf_bound:.4f} ms ({bf_by}), "
+                f"{bf_bound / bf_ms:.1%} of bound; grouped / butterfly {k_ms / bf_ms:.3f}; library (torch.matmul) "
+                f"{lib_ms:.4f} ms"
+            )
+        timed.append(rec)
     return timed
+
+
+def fill_matmul_entry(report: dict, planes, records) -> None:
+    """The fused_matmul entry of `planes` from time_segments' grouped
+    records: the numbers of the one with the most matrix groups (the m_high
+    iQFT segment), and the list of all of them."""
+    grouped = [r for r in records if "groups" in r]
+    check(bool(grouped), f"no segment of the flagship plans ran matrix groups at {dname(planes)}")
+    first = max(grouped, key=lambda r: len(r["groups"]))
+    entry = report[key("fused_matmul", planes)]
+    entry.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    entry["segments"] = grouped
+
+
+def time_flagship_forms(reg, circuit, dtype) -> dict:
+    """The m_high flagship through the cuda engine with its float32 / bf16
+    segments grouped and in the butterfly form (fused.GROUP_DTYPES set for
+    the run), in turns grouped, butterfly, butterfly, grouped; each form's
+    final state, with MATMUL_LAUNCHES > 0 grouped and 0 in the butterfly
+    form.  Returns {"grouped": [ms], "butterfly": [ms], "states": {...}}."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.sim.engine import StateVectorEngine
+
+    out = {"grouped": [], "butterfly": [], "states": {}}
+    for form in ("grouped", "butterfly", "butterfly", "grouped"):
+        with grouping((torch.float32, torch.bfloat16) if form == "grouped" else ()):
+            eng = StateVectorEngine(reg, dtype, backend=KERNEL_BACKEND, device=DEVICE, layout="m_high")
+            out[form].append(time_ms(lambda: eng.run(circuit), reps=3))
+            if form not in out["states"]:
+                reset_launches()
+                out["states"][form] = eng.run(circuit)
+                launched = fused.MATMUL_LAUNCHES
+                check((launched > 0) == (form == "grouped"), f"the {form} m_high flagship made {launched} matrix launches")
+    return out
 
 
 def phase_flagship_mhigh(report: dict, standard_state) -> list:
@@ -838,6 +1043,7 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
     from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, plan_circuit
+    from quantumcomputer_tpu_torch.utils.kernel_checks import segment_products
 
     C, a, L, M = FLAGSHIP
     n = L + M
@@ -853,6 +1059,13 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
     log(f"flagship m_high n={n} backend={KERNEL_BACKEND}: {cuda_ms:.3f} ms, norm {norm:.9f}, launches {counts}")
     check(abs(norm - 1.0) <= FLAGSHIP_TOL, f"m_high flagship norm {norm}")
     check(counts["ladder"] > 0 and counts["cycle"] > 0, "the m_high flagship launched no ladder or no cycle kernel")
+    forms = time_flagship_forms(reg, circuit, torch.complex64)
+    dist = float(torch.linalg.vector_norm(forms["states"]["grouped"] - forms["states"]["butterfly"]))
+    del forms["states"]
+    report["fused_matmul"].update(flagship_ms=forms["grouped"], flagship_butterfly_ms=forms["butterfly"])
+    log(f"flagship m_high n={n} complex64: segments grouped {forms['grouped']} ms, butterfly form {forms['butterfly']} ms "
+        f"(turns grouped, butterfly, butterfly, grouped); ||grouped - butterfly||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
+    check(dist <= FLAGSHIP_TOL, f"m_high flagship grouped vs butterfly distance {dist}")
 
     plain_eng = StateVectorEngine(reg, torch.complex64, backend="torch", device=DEVICE, layout="m_high")
     plain_ms = time_ms(lambda: plain_eng.run(circuit), reps=1)
@@ -893,9 +1106,16 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
 
     # Each fused segment of the m_high plan (low physical bits, M = 0), then
     # each oracle kernel at n = 28 on the call sites of the flagship's plans.
+    # The float32 main path keeps the butterfly form (fused.GROUP_DTYPES); the
+    # matrix instance is timed on the segments of the grouping planner's plan
+    # that group.
     planar = unit_planar(n, torch.float32, 29)
     plan = plan_circuit(circuit, 0, n, torch.float32, DEVICE)
     timed = time_segments(report, planar, [s for s in plan if s[0] == "fused"], 0, "m_high")
+    with grouping((torch.float32, torch.bfloat16)):
+        plan = plan_circuit(circuit, 0, n, torch.float32, DEVICE)
+        grouped = [s for s in plan if s[0] == "fused" and segment_products(s[1], 0, torch.float32, n)]
+        fill_matmul_entry(report, torch.float32, time_segments(report, planar, grouped, 0, "m_high grouped"))
     time_mhigh_oracles(report, planar, C, a, M, tuple(range(11, 15)), WALK_CONTROLS)
     return timed
 
@@ -988,6 +1208,9 @@ def phase_factor(report: dict, planes) -> None:
     counts = launches()
     for k in ("ladder", "cycle"):
         report[key(k, planes)]["launches"] = counts[k]
+    if planes in fused.GROUP_DTYPES:
+        report[key("fused_matmul", planes)]["launches"] = counts["matmul"]
+        check(counts["matmul"] > 0, f"the m_high main path at {dname(planes)} launched no matrix group")
     log(
         f"factor m_high n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; launches {counts}"
@@ -1378,10 +1601,10 @@ def phase_gather_oracle(report: dict) -> None:
 
     C, a, L, M = FLAGSHIP
     n = L + M
-    entry = report["oracle_gather"]
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        entry = report[key("oracle_gather", dtype)]
         gen = torch.Generator(device=DEVICE).manual_seed(40)
-        x = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=dtype)
+        x = torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32).to(dtype)
         out = torch.empty_like(x)
         for c in GATHER_CONTROLS:
             before = oracle.LAUNCHES["gather"]
@@ -1398,18 +1621,19 @@ def phase_gather_oracle(report: dict) -> None:
             walk = x.clone()
             w_ms = time_ms(lambda: oracle.apply_camodc_high_cycle_planar(walk, C, a, c, M), reps=5)
             del walk
-            if dtype == torch.float32 and c == GATHER_CONTROLS[0]:
+            if dtype != torch.float64 and c == GATHER_CONTROLS[0]:
                 entry["ms"], entry["plain_ms"] = k_ms, p_ms
                 entry["library_ms"], entry["library"] = time_library_row_gather(x, C, (a,), (c,), M)
                 set_bound(entry, 2 * x.numel() * x.element_size())  # every element read, every element written
             gbs = 2 * x.numel() * x.element_size() / (k_ms * 1e6)
             log(
-                f"kernel oracle_gather {dname(dtype)} n={n} M={M} control {c}: max abs {err:.3e} (tol 0); kernel {k_ms:.4f} ms "
-                f"({gbs:.1f} GB/s 1R+1W), plain {p_ms:.4f} ms, cycle walk {w_ms:.4f} ms"
+                f"kernel {entry['name']} {dname(dtype)} n={n} M={M} control {c}: max abs {err:.3e} (tol 0); kernel "
+                f"{k_ms:.4f} ms ({gbs:.1f} GB/s 1R+1W), plain {p_ms:.4f} ms, cycle walk {w_ms:.4f} ms"
             )
         del x, out
         torch.cuda.empty_cache()
-    check(entry["launches"] == 2 * len(GATHER_CONTROLS), f"oracle_gather launches {entry['launches']}")
+    check(report["oracle_gather"]["launches"] == 2 * len(GATHER_CONTROLS), f"oracle_gather launches {report['oracle_gather']}")
+    check(report["oracle_gather_bf16"]["launches"] == len(GATHER_CONTROLS), f"oracle_gather_bf16 {report['oracle_gather_bf16']}")
 
 
 def phase_probes(report: dict) -> None:
@@ -1577,6 +1801,8 @@ def phase_flagship_c32(report: dict) -> None:
             f"{C32_NORM_TOL:.0e}); ||c32 - c64||_2 = {dist:.4e} (tol {C32_DIST_TOL:.0e}); launches {counts}"
         )
         check(s32.dtype == torch.bfloat16, f"the complex32 {name} state is {s32.dtype}")
+        if name == "m_high":
+            check(counts["matmul"] > 0, "the complex32 m_high flagship launched no matrix group")
         check(abs(norm - 1.0) <= C32_NORM_TOL, f"complex32 {name} flagship norm {norm}")
         check(dist <= C32_DIST_TOL, f"complex32 {name} flagship distance to complex64 {dist}")
         report["fused_segment_bf16"].setdefault("flagship", {})[name] = dict(
@@ -1585,6 +1811,14 @@ def phase_flagship_c32(report: dict) -> None:
         states[name], engines[name] = s32, (e32, circuit)
     check(torch.equal(states["benes"], states["standard"]), "the complex32 benes state differs from the gather's")
     log("flagship complex32: the benes state equals the gather state exactly")
+    forms = time_flagship_forms(reg, engines["m_high"][1], "complex32")
+    dist = float(torch.linalg.vector_norm(forms["states"]["grouped"].float() - forms["states"]["butterfly"].float()))
+    del forms["states"]
+    report["fused_matmul_bf16"].update(flagship_ms=forms["grouped"], flagship_butterfly_ms=forms["butterfly"])
+    log(f"flagship m_high n={n} complex32: segments grouped {forms['grouped']} ms, butterfly form {forms['butterfly']} "
+        f"ms (turns grouped, butterfly, butterfly, grouped); ||grouped - butterfly||_2 = {dist:.3e} (tol "
+        f"{C32_DIST_TOL:.0e})")
+    check(dist <= C32_DIST_TOL, f"complex32 m_high flagship grouped vs butterfly distance {dist}")
 
     entry = report["block_sums_bf16"]
     state = states["standard"]
@@ -1631,14 +1865,15 @@ def phase_flagship_c32(report: dict) -> None:
     planar = unit_planar(n, torch.bfloat16, 28)
     timed = time_segments(report, planar, [s for s in standard_plan if s[0] == "fused"], M, "standard")
     timed += time_segments(report, planar, [s for s in mhigh_plan if s[0] == "fused"], 0, "m_high")
+    fill_matmul_entry(report, torch.bfloat16, timed)
     entry = report["fused_segment_bf16"]
     first = timed[0]
     entry.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"])
-    entry["segments"] = timed
-    entry["segments_mean_ms"] = sum(t["ms"] for t in timed) / len(timed)
-    entry["segments_mean_plain_ms"] = sum(t["plain_ms"] for t in timed) / len(timed)
+    entry["segments"] = [t for t in timed if "groups" not in t]  # the grouped ones: fused_matmul_bf16
+    entry["segments_mean_ms"] = sum(t["ms"] for t in entry["segments"]) / len(entry["segments"])
+    entry["segments_mean_plain_ms"] = sum(t["plain_ms"] for t in entry["segments"]) / len(entry["segments"])
     log(f"kernel fused_segment_bf16 n={n}: standard segment 0 {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f}); "
-        f"the {len(timed)} segments of both plans: mean {entry['segments_mean_ms']:.4f} ms")
+        f"the {len(entry['segments'])} segments of both plans without matrix groups: mean {entry['segments_mean_ms']:.4f} ms")
     time_camodc_segments(report, planar.clone(), benes_plan, M)
     singles = [entry[1] for entry in mhigh_plan if entry[0] == "single"]
     ladder = next(g.qubits for g in singles if g.name == "camodc_ladder_high")
@@ -1679,7 +1914,7 @@ def phase_cli_c32() -> None:
             log(f"  | {line}")
         log(f"cli n=31 complex32 m_high --seed {seed}: exit {rc}, {wall:.3f} s, launches {counts}")
         check(rc in (0, 3), f"the n=31 CLI returned {rc}")
-        for k in ("fused_segment", "block_sums", "ladder", "cycle"):
+        for k in ("fused_segment", "matmul", "block_sums", "ladder", "cycle"):
             check(counts[k] > 0, f"the n=31 complex32 CLI run launched no {k} kernel")
         if rc == 0:
             check(" --- Factors of 8189 found: (431, 19)." in buf.getvalue(), "the n=31 CLI did not factor 8189")
@@ -1734,6 +1969,8 @@ def new_report() -> dict:
     kernel's bf16 lines."""
     no_call = "null: no single PyTorch call "
     camodc_library = "torch.index_select of each camodc op's control-1 half along the work register, summed (out of place)"
+    matmul_library = ("torch.matmul of the complex64 state's (2^(n-7), 128) view by each lanemat table and of each "
+                      "rowmat's V by its (2^(n-13), 64, 128) view, summed (out of place)")
     rows = (
         ("fused_segment", "fused_segment.cu", "pallas_fused.py:1002", no_call + "applies a segment of gates"),
         ("camodc", "fused_segment.cu", "pallas_fused.py:967", camodc_library),
@@ -1758,6 +1995,10 @@ def new_report() -> dict:
         ("cycle_masked_bf16", "oracle_cycle.cu", "pallas_oracle.py:431-449", None),
         ("transpose_bf16", "transpose.cu", "pallas_transpose.py:36", None),
         ("chunk_gather_bf16", "chunk_gather.cu", "pallas_chunkgather.py:211-239", None),
+        # The matrix groups (both instances) and the row gather at bf16.
+        ("fused_matmul", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
+        ("fused_matmul_bf16", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
+        ("oracle_gather_bf16", "oracle_gather.cu", "pallas_oracle.py:47", None),
     )
     return {
         name: {
@@ -1791,6 +2032,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     phase_build()
     phase_kernels(report)
+    phase_matrix_kernels(report)
     phase_camodc_kernels(report)
     phase_kernel_checks()
     phase_cli()

@@ -106,12 +106,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     kernels = (
         # re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes, axes_packed, M, vb, ne, stream
         ("qc_fused_segment", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p]),
+        # the same, then mtab (the matrix groups' tables), stream
+        ("qc_fused_matmul", ("f32", "bf16"), [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p, p]),
         # re, im, out, nblocks, block, stream
         ("qc_block_sums", ("f32", "f64", "bf16"), [p, p, p, i64, i64, p]),
         # in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows, log_rest, stream
         ("qc_oracle_ladder", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, p]),
         # in_re, in_im, out_re, out_im, ginv, log_rows, log_rest, c_phys, stream
-        ("qc_oracle_gather", ("f32", "f64"), [p, p, p, p, p, i64, i64, i64, p]),
+        ("qc_oracle_gather", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, p]),
         # re, im, sched, segs, scratch, S, log_rows, log_rest, c_phys, vec, stream
         ("qc_oracle_cycle", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, p]),
         # re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec, stream

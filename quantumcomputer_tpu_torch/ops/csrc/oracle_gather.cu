@@ -19,10 +19,10 @@
 //   * one block per (output row j, chunk of columns); the block loads
 //     ginv[j] itself (the TPU kernel's scalar prefetch);
 //   * 16-byte vectors along the contiguous columns (float4 for f32, double2
-//     for f64), neighbouring threads on neighbouring vectors, ITEMS vectors
+//     for f64, eight 2-byte elements for bf16), neighbouring threads on neighbouring vectors, ITEMS vectors
 //     in flight per thread before any store;
 //   * with the control bit at or above the vector width (c >= 2 for f32,
-//     c >= 1 for f64) all elements of a vector share one control value, so
+//     c >= 1 for f64, c >= 3 for bf16) all elements of a vector share one control value, so
 //     one vector load from one source row;
 //   * below that, the elements of a vector alternate between the two rows:
 //     each is loaded alone from its own row and the vector is stored whole.
@@ -55,6 +55,13 @@ template <>
 struct Vec<double> {
   using type = double2;
   static constexpr int N = 2;
+};
+// bf16 planes ("complex32") move as raw 2-byte elements: the gather never
+// converts, so it is exact.
+template <>
+struct Vec<uint16_t> {
+  using type = uint4;
+  static constexpr int N = 8;
 };
 
 template <typename T, bool SPLIT>
@@ -140,4 +147,10 @@ extern "C" int qc_oracle_gather_f32(void* in_re, void* in_im, void* out_re, void
 extern "C" int qc_oracle_gather_f64(void* in_re, void* in_im, void* out_re, void* out_im, void* ginv,
                                     int64_t log_rows, int64_t log_rest, int64_t c_phys, void* stream) {
   return launch_gather<double>(in_re, in_im, out_re, out_im, ginv, log_rows, log_rest, c_phys, stream);
+}
+
+// bf16 planes (the TPU kernel at bf16 storage), moved as uint16_t.
+extern "C" int qc_oracle_gather_bf16(void* in_re, void* in_im, void* out_re, void* out_im, void* ginv,
+                                     int64_t log_rows, int64_t log_rest, int64_t c_phys, void* stream) {
+  return launch_gather<uint16_t>(in_re, in_im, out_re, out_im, ginv, log_rows, log_rest, c_phys, stream);
 }

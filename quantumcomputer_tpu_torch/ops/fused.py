@@ -40,8 +40,20 @@ rounded to bf16 once per pass, at the store, as the JAX kernel does; its
 tables are those of a float32 segment.  The plain version computes the same
 in complex64 and rounds once.
 
-The TPU-only op kinds ``lanemat``/``rowmat``/``xtable`` (MXU rewrites of the
-same math) are not ported.
+Matrix groups.  As the JAX kernel does, apply_fused rewrites a bf16 segment
+(``GROUP_DTYPES``: the JAX kernel also groups at float32, where the port
+measured the butterfly form faster; states of at least 2^13 amplitudes) with
+``matmul_group_ops``: a chain of ops on the lane bits 0-6 becomes one
+128 x 128 product (``lanemat``), a chain on the row bits 7-12 one 64 x 64
+product on each 64-row x 128-lane group (``rowmat``), and the iQFT row
+stages' lane-cross phases one (64, 128) phase table (``xtable``).  The
+kernel runs the products on the tensor cores (``csrc/fused_matmul.cu``:
+3xTF32 at float32; at bf16 the activations rounded to bf16 against a hi +
+lo bf16 split of the table, as the JAX kernel's MXU dots).  A segment with
+a matrix group takes a 2^13-amplitude tile, and one with a rowmat or
+xtable holds all of bits 0-12 in it: the planner (``group=True``) cuts a
+run where that would not hold.  ``apply_segment`` and ``plain_ops`` take an
+explicit op list, grouped or not.
 """
 
 from __future__ import annotations
@@ -79,16 +91,32 @@ GROUP_BITS = {torch.float32: 4, torch.float64: 3, torch.bfloat16: 4}
 #: the Benes mask tables); it groups the Shor circuit's oracles two to a segment.
 MAX_CAMODC_PER_SEGMENT = 2
 
-#: Kernel launches made by apply_fused (CUDA tensors only), and those of
-#: them whose segment holds a camodc op.
+#: Kernel launches made by apply_fused / apply_segment (CUDA tensors only),
+#: those of them whose segment holds a camodc op, and those whose segment
+#: holds a matrix group (lanemat, rowmat or xtable).
 LAUNCHES = 0
 CAMODC_LAUNCHES = 0
+MATMUL_LAUNCHES = 0
 
-_KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4, "camodc": 5}
+#: Plane dtypes whose segments apply_fused groups into matrix products.
+#: The JAX kernel groups at float32 and bf16.  The port groups at bf16 only:
+#: the complex64 m_high flagship (n = 28) took 38.72 / 38.82 ms with its
+#: float32 segments grouped against 22.65 / 22.72 ms in the butterfly form
+#: (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.time_flagship_forms, PERF.md
+#: section 6), so float32 keeps the butterfly form.
+GROUP_DTYPES = (torch.bfloat16,)
+#: Index bits of a tile that holds whole 64-row x 128-lane groups; a
+#: segment with a matrix group takes this tile.
+ROW_TILE_BITS = 13
+MATRIX_KINDS = ("lanemat", "rowmat", "xtable")
+
+_KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4, "camodc": 5, "lanemat": 6, "rowmat": 7, "xtable": 8}
 # Op record: kind, q1, q2, slot of q1, slot of q2 (-1: not a group slot),
 # then an iQFT op's F_axes and F_low offsets in ftab (-1: none) and 1 when
 # it has a phase.  A camodc op's: kind, control, M, the control's tile-local
 # position (-1: a tile-base bit), -1, its table's offset in ptab, -1, -1.
+# A matrix op's: kind, -1, -1, -1, -1, its table's byte offset in mtab, 1
+# when the table is real, -1.
 _OPI_STRIDE = 8
 _OPF_STRIDE = 32
 _GRP_STRIDE = 8  # op_begin, op_end, then the group's extra slot positions
@@ -188,14 +216,287 @@ def compose_ops(ops) -> tuple:
     return tuple(o for o in out if o is not None)
 
 
-def segment_tile_bits(ops, M: int, tile_bits: int) -> int:
-    """A segment's tile budget: tile_bits, or max(tile_bits, M) when it holds
-    a camodc op, whose tile must hold whole 2^M-element work blocks."""
-    return max(tile_bits, M) if any(op[0] == "camodc" for op in ops) else tile_bits
+# ---------------------------------------------------------------------------
+# Matrix groups: the JAX package's matmul_group_ops (pallas_fused.py:187-410),
+# copied as it is.
+
+LANE = 128
+LANEMAT_MIN = 2  # lane-class ops per segment before they fuse to one matrix product
+ROWMAT_MIN = 2
+_SQRT1_2 = 1.0 / np.sqrt(2.0)
+_H2 = np.array([[_SQRT1_2, _SQRT1_2], [_SQRT1_2, -_SQRT1_2]])
+
+
+def _expand_1q(u: np.ndarray, bit: int, nbits: int) -> np.ndarray:
+    """u acting on `bit` of an nbits-wide index as a dense 2^nbits matrix."""
+    hi = np.eye(1 << (nbits - 1 - bit), dtype=np.complex128)
+    lo = np.eye(1 << bit, dtype=np.complex128)
+    return np.kron(hi, np.kron(u, lo))
+
+
+def _expand_2q(u4: np.ndarray, b_hi: int, b_lo: int, nbits: int) -> np.ndarray:
+    """u4 (basis 2*bit(b_hi)+bit(b_lo)) acting on two bits of an nbits-wide
+    index as a dense 2^nbits matrix."""
+    dim = 1 << nbits
+    w = np.zeros((dim, dim), np.complex128)
+    i = np.arange(dim)
+    i_hi = (i >> b_hi) & 1
+    i_lo = (i >> b_lo) & 1
+    base = i & ~((1 << b_hi) | (1 << b_lo))
+    for j_hi in (0, 1):
+        for j_lo in (0, 1):
+            j = base | (j_hi << b_hi) | (j_lo << b_lo)
+            w[i, j] = u4[2 * i_hi + i_lo, 2 * j_hi + j_lo]
+    return w
+
+
+def _op_matrix_4x4(op: tuple):
+    """(q_hi, q_lo, 4x4 complex) of a u2q op, or None."""
+    if op[0] != "u2q":
+        return None
+    v = op[3]
+    m = np.array(v[:16], np.float64).reshape(4, 4) + 1j * np.array(v[16:], np.float64).reshape(4, 4)
+    return op[1], op[2], m
+
+
+def _lane_op_matrix(op: tuple, M: int) -> Optional[np.ndarray]:
+    """128x128 matrix of an op supported entirely on the lane bits [0, 7),
+    or None.  Composition order is preserved, so non-commuting lane ops
+    (e.g. iQFT stages) chain exactly."""
+    m2 = _op_matrix_2x2(op)
+    if m2 is not None:
+        return _expand_1q(m2, op[1], 7) if op[1] <= 6 else None
+    if op[0] == "diag2" and op[1] <= 6 and op[2] <= 6:
+        v = op[3]
+        d = np.array(v[:4]) + 1j * np.array(v[4:])
+        lane = np.arange(LANE)
+        return np.diag(d[2 * ((lane >> op[1]) & 1) + ((lane >> op[2]) & 1)])
+    if op[0] == "u2q" and op[1] <= 6:
+        q_hi, q_lo, m4 = _op_matrix_4x4(op)
+        return _expand_2q(m4, q_hi, q_lo, 7)
+    if op[0] == "iqft" and op[1] <= 6:
+        # H(l) then the closed-form ladder diagonal down to M: the whole
+        # stage lives on lane bits (the 2^(l+1)-point no-swap inverse QFT block).
+        l = op[1]
+        h = _expand_1q(_H2, l, 7)
+        lane = np.arange(LANE)
+        mask = (1 << l) - (1 << M) if l > M else 0
+        theta = np.pi * (lane & mask) / float(1 << l)
+        phase = np.where(((lane >> l) & 1) == 1, np.exp(1j * theta), 1.0)
+        return np.diag(phase) @ h
+    return None
+
+
+def _row_op_matrix(op: tuple, M: int) -> Optional[np.ndarray]:
+    """64x64 matrix of an op supported entirely on row bits [7, 13)."""
+    m2 = _op_matrix_2x2(op)
+    if m2 is not None:
+        return _expand_1q(m2, op[1] - 7, 6) if 7 <= op[1] <= 12 else None
+    if op[0] == "diag2" and 7 <= op[2] and op[1] <= 12:
+        v = op[3]
+        d = np.array(v[:4]) + 1j * np.array(v[4:])
+        r = np.arange(64)
+        return np.diag(d[2 * ((r >> (op[1] - 7)) & 1) + ((r >> (op[2] - 7)) & 1)])
+    if op[0] == "u2q" and 7 <= op[2] and op[1] <= 12:
+        q_hi, q_lo, m4 = _op_matrix_4x4(op)
+        return _expand_2q(m4, q_hi - 7, q_lo - 7, 6)
+    if op[0] == "iqft" and 7 <= op[1] <= 12 and M >= 7:
+        l = op[1]
+        h = _expand_1q(_H2, l - 7, 6)
+        r = np.arange(64)
+        mask = ((1 << l) - (1 << M)) >> 7
+        theta = np.pi * (r & mask) / float(1 << (l - 7))
+        phase = np.where(((r >> (l - 7)) & 1) == 1, np.exp(1j * theta), 1.0)
+        return np.diag(phase) @ h
+    return None
+
+
+def _is_diagonal_op(op: tuple) -> bool:
+    return op[0] in ("diag1", "diag2")
+
+
+def _is_neutral(op: tuple) -> bool:
+    """Ops on bits >= 13 only: commute with both lane and row chains, so
+    they pass through a pending group without flushing it."""
+    if op[0] in ("u1q", "diag1"):
+        return op[1] >= 13
+    if op[0] == "diag2":
+        return op[2] >= 13
+    if op[0] == "u2q":
+        return op[2] >= 13  # q_hi > q_lo, so both qubits are axis-class
+    return False
+
+
+def _row_stage_parts(op: tuple, M: int):
+    """Split an iQFT row stage (7 <= l <= 12, M < 7) into a 64x64 row
+    operator (H(l) + the ROW part of the ladder diagonal) plus the
+    lane-cross residual angles theta(row6, lane): the stage's phase on
+    bit_l==1 elements factorizes exp(i(theta_row + theta_lane)), and the
+    lane part commutes with every other row/lane-diagonal op, so ALL
+    stages' residuals combine into one (64, 128) phase table."""
+    l = op[1]
+    h = _expand_1q(_H2, l - 7, 6)
+    r = np.arange(64)
+    rowmask = ((1 << l) - (1 << M)) >> 7
+    th_row = np.pi * (r & rowmask) / float(1 << (l - 7))
+    gate = ((r >> (l - 7)) & 1) == 1
+    w = np.diag(np.where(gate, np.exp(1j * th_row), 1.0)) @ h
+    lanemask = ((1 << l) - (1 << M)) & (LANE - 1)
+    lane = np.arange(LANE)
+    th_lane = np.pi * (lane & lanemask) / float(1 << l)
+    theta = np.where(gate[:, None], th_lane[None, :], 0.0)  # (64, 128)
+    return w, theta
+
+
+def matmul_group_ops(ops, M: int):
+    """Rewrite a segment's lane-supported (bits < 7) and row-supported
+    (bits 7..12) op chains into single matrix products.
+
+    Ops on disjoint bit classes commute, so the lane chain composes (in
+    order) into ONE 128x128 operator on the lane index and the row chain
+    into ONE 64x64 operator per 64-row group; this includes the iQFT's
+    lane-stage suffix and lane-local controlled phases.  iQFT row stages
+    (whose ladder reaches into the lanes) split into a row operator + a
+    lane-cross residual; all residuals in a chain combine into ONE
+    (64, 128) phase-table multiply.  Returns (ops', matrices) with
+    matrices[i] the float32 table of table index i: ("lanemat" | "rowmat",
+    i, real_only) holds (2, n, n) re/im of W^T (the product is x @ W^T,
+    rows: V @ x with V = table^T), ("xtable", i) holds (2, 64, 128) cos/sin."""
+    out: list = []
+    mats: list = []
+    lane: list = []  # (op, matrix)
+    rows: list = []
+    xtheta = np.zeros((64, LANE))  # accumulated lane-cross residual angles
+    has_xtheta = False
+    xtheta_bits: set = set()  # row qubits the residual is conditioned on
+
+    def emit_rows():
+        nonlocal has_xtheta, xtheta
+        _emit(rows, 64, ROWMAT_MIN)
+        rows.clear()
+        if has_xtheta:
+            tab = np.stack([np.cos(xtheta), np.sin(xtheta)]).astype(np.float32)
+            out.append(("xtable", len(mats)))
+            mats.append(tab)
+            xtheta = np.zeros((64, LANE))
+            has_xtheta = False
+        xtheta_bits.clear()
+
+    def _emit(group, size, min_ops):
+        if not group:
+            return
+        has_iqft = any(op[0] == "iqft" for op, _ in group)
+        if len(group) < min_ops and not has_iqft:
+            out.extend(op for op, _ in group)
+            return
+        w = np.eye(size, dtype=np.complex128)
+        for _, wg in group:
+            w = wg @ w
+        wt = w.T  # the product is out = x @ W^T
+        real_only = bool(np.all(np.abs(wt.imag) < 1e-300))
+        tab = np.stack([wt.real, wt.imag]).astype(np.float32)
+        out.append(("lanemat" if size == LANE else "rowmat", len(mats), real_only))
+        mats.append(tab)
+
+    def flush():
+        emit_rows()
+        _emit(lane, LANE, LANEMAT_MIN)
+        lane.clear()
+
+    for op in ops:
+        wl = _lane_op_matrix(op, M)
+        if wl is not None:
+            # A pending lane-cross residual is diagonal in the lanes; a
+            # dense lane op does not commute with it: flush rows first.
+            if has_xtheta and not _is_diagonal_op(op):
+                emit_rows()
+            lane.append((op, wl))
+            continue
+        wr = _row_op_matrix(op, M)
+        if wr is not None:
+            # A dense row op on a bit the pending residual is conditioned
+            # on cannot be reordered past it: flush first.
+            op_bits = (op[1], op[2]) if op[0] == "u2q" else (op[1],)
+            if not _is_diagonal_op(op) and any(q in xtheta_bits for q in op_bits):
+                emit_rows()
+            rows.append((op, wr))
+            continue
+        if op[0] == "iqft" and 7 <= op[1] <= 12 and M < 7:
+            # The residual is lane-diagonal: it must not be reordered past a
+            # pending DENSE lane chain that precedes it: flush lanes first.
+            if any(not _is_diagonal_op(o) for o, _ in lane):
+                _emit(lane, LANE, LANEMAT_MIN)
+                lane.clear()
+            if op[1] in xtheta_bits:  # repeated stage on the same bit
+                emit_rows()
+            w, theta = _row_stage_parts(op, M)
+            rows.append((op, w))
+            xtheta = xtheta + theta
+            has_xtheta = True
+            xtheta_bits.add(op[1])
+            continue
+        if _is_neutral(op):
+            out.append(op)
+            continue
+        flush()
+        out.append(op)
+    flush()
+    return tuple(out), mats
+
+
+def _low_class(op: tuple) -> bool:
+    """True for an op that matmul_group_ops may take into a lane or row
+    chain: every bit it touches lies below ROW_TILE_BITS."""
+    if op[0] in ("u1q", "diag1", "iqft"):
+        return op[1] < ROW_TILE_BITS
+    if op[0] in ("diag2", "u2q"):
+        return op[1] < ROW_TILE_BITS  # q_hi > q_lo
+    return False
+
+
+@lru_cache(maxsize=256)
+def group_ops(ops: tuple, M: int) -> Tuple[tuple, tuple]:
+    """matmul_group_ops of a segment, cached: (ops', tables), the tables
+    read-only float32 arrays."""
+    if not any(_low_class(op) for op in ops):
+        return tuple(ops), ()
+    gops, mats = matmul_group_ops(tuple(ops), M)
+    for m in mats:
+        m.flags.writeable = False
+    return gops, tuple(mats)
+
+
+def groups(dtype: torch.dtype, n: int) -> bool:
+    """Whether apply_fused groups the segments of an n-qubit state of plane
+    dtype `dtype`: planes of a dtype in GROUP_DTYPES (bf16) of at least
+    2^ROW_TILE_BITS amplitudes; the JAX kernel, which runs from n = 13 on,
+    groups its float32 and bf16 segments."""
+    return dtype in GROUP_DTYPES and n >= ROW_TILE_BITS
+
+
+def _has_rows(ops) -> bool:
+    return any(op[0] in ("rowmat", "xtable") for op in ops)
+
+
+def segment_tile_bits(ops, M: int, tile_bits: int, axes=()) -> int:
+    """A segment's tile budget: tile_bits; max(tile_bits, M) when it holds a
+    camodc op, whose tile must hold whole 2^M-element work blocks; and
+    ROW_TILE_BITS when it holds a matrix group, or when its exposed axes do
+    not fit tile_bits (a run of a grouping plan that keeps bits 0-12 in its
+    tile)."""
+    bits = max(tile_bits, M) if any(op[0] == "camodc" for op in ops) else tile_bits
+    if any(op[0] in MATRIX_KINDS for op in ops) or len(axes) > bits - LOW_BITS:
+        bits = max(bits, ROW_TILE_BITS)
+    return bits
 
 
 def plan_circuit(
-    circuit: Circuit, n: int, M: int, tile_bits: int = TILE_BITS[torch.float32], fuse_oracle: bool = False
+    circuit: Circuit,
+    n: int,
+    M: int,
+    tile_bits: int = TILE_BITS[torch.float32],
+    fuse_oracle: bool = False,
+    group: bool = False,
 ):
     """Segment a circuit into fused runs and single gates.
 
@@ -205,18 +506,33 @@ def plan_circuit(
     one tile whole and need no axes.  With fuse_oracle the controlled
     modular multiplies become camodc ops (gate_to_op), at most
     MAX_CAMODC_PER_SEGMENT to a run; a run that holds one keeps its low
-    max(LOW_BITS, M) bits in the tile, within max(tile_bits, M) tile bits."""
+    max(LOW_BITS, M) bits in the tile, within max(tile_bits, M) tile bits.
+
+    With group (the segments of a plane dtype that apply_fused groups,
+    ``groups``) a run may also hold any targets below ROW_TILE_BITS, in a
+    tile of bits 0-12; and a run closes where its matrix groups would need
+    a tile it cannot have: a rowmat or xtable beside an exposed axis at or
+    above ROW_TILE_BITS, or any matrix group beside a camodc op."""
     low = LOW_BITS if n > tile_bits else n
     perm_low = max(LOW_BITS, M)
+    group = group and n >= ROW_TILE_BITS
     segments: List[tuple] = []
     run: List[tuple] = []
     axes: List[int] = []
     n_camodc = 0
 
-    def fits(axes, camodc: bool) -> bool:
-        if not camodc:
-            return len(axes) <= tile_bits - LOW_BITS
-        return n <= tile_bits or perm_low + sum(a >= perm_low for a in axes) <= max(tile_bits, M)
+    def fits(axes, camodc: bool, ops) -> bool:
+        row_tile = group and all(a < ROW_TILE_BITS for a in axes)
+        if camodc:
+            ok = n <= tile_bits or perm_low + sum(a >= perm_low for a in axes) <= max(tile_bits, M) or row_tile
+        else:
+            ok = len(axes) <= tile_bits - LOW_BITS or row_tile
+        if not ok or not group or (row_tile and not camodc) or not any(_low_class(op) for op in ops):
+            return ok
+        gops = group_ops(tuple(compose_ops(tuple(ops))), M)[0]
+        if camodc:
+            return not any(op[0] in MATRIX_KINDS for op in gops)
+        return not _has_rows(gops)
 
     def flush():
         nonlocal run, axes, n_camodc
@@ -232,7 +548,7 @@ def plan_circuit(
             continue
         camodc = op[0] == "camodc"
         need = [q for q in _op_targets(op) if q >= low and q not in axes]
-        if (camodc and n_camodc >= MAX_CAMODC_PER_SEGMENT) or not fits(axes + need, camodc or n_camodc > 0):
+        if (camodc and n_camodc >= MAX_CAMODC_PER_SEGMENT) or not fits(axes + need, camodc or n_camodc > 0, run + [op]):
             flush()
             need = [q for q in _op_targets(op) if q >= low]
         run.append(op)
@@ -264,6 +580,42 @@ def tile_geometry(n: int, axes, tile_bits: int) -> Tuple[int, Tuple[int, ...]]:
 
 # ---------------------------------------------------------------------------
 # Plain version: the same segment, op by op, with the torch gate ops.
+
+
+def _matrix_planes(xr, xi, tab, real: bool, bf16: bool, rows: bool):
+    """(yr, yi) of one lanemat (x @ T, T = table) or rowmat (V @ x on each
+    64-row group, V = table^T) on float32 planes viewed as (-1, 128) /
+    (-1, 64, 128).  At bf16 as the JAX kernel's MXU dots: the activations
+    rounded to bf16, each product the sum of two float32-accumulated
+    products against the table's bf16 hi and lo parts."""
+    t = torch.tensor(np.asarray(tab), device=xr.device)
+    if bf16:
+        hi = t.to(torch.bfloat16)
+        parts = (hi.float(), (t - hi.float()).to(torch.bfloat16).float())
+        xr, xi = xr.to(torch.bfloat16).float(), xi.to(torch.bfloat16).float()
+    else:
+        parts = (t,)
+
+    def dot(x, reim: int):
+        if rows:
+            return sum(torch.matmul(p[reim].T, x) for p in parts)
+        return sum(x @ p[reim] for p in parts)
+
+    if real:
+        return dot(xr, 0), dot(xi, 0)
+    return dot(xr, 0) - dot(xi, 1), dot(xr, 1) + dot(xi, 0)
+
+
+def _apply_matrix_op(z: torch.Tensor, op: tuple, tab, bf16: bool) -> torch.Tensor:
+    """A lanemat, rowmat or xtable op on a flat complex64 state (at least
+    2^13 amplitudes), from its float32 table."""
+    if op[0] == "xtable":
+        x = z.view(-1, 64, LANE)
+        t = torch.tensor(np.asarray(tab), device=z.device)
+        return (x * torch.complex(t[0], t[1])).reshape(-1)
+    shape = (-1, 64, LANE) if op[0] == "rowmat" else (-1, LANE)
+    yr, yi = _matrix_planes(z.real.reshape(shape), z.imag.reshape(shape), tab, op[2], bf16, op[0] == "rowmat")
+    return torch.complex(yr, yi).reshape(-1)
 
 
 def _apply_op(z: torch.Tensor, op: tuple, M: int) -> torch.Tensor:
@@ -309,14 +661,30 @@ def apply_camodc_benes(z: torch.Tensor, c: int, C: int, A: int, M: int) -> torch
     return torch.stack([x[:, 0], x1], dim=1).reshape(-1)
 
 
-def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
-    """The segment's unitary applied op by op with plain torch ops; returns
-    a new planar tensor of the state's dtype (the kernel's spec).  bf16
-    planes compute in complex64 and round to bf16 once, at the end."""
+def plain_ops(planar: torch.Tensor, ops: tuple, M: int, tables=()) -> torch.Tensor:
+    """An explicit op list, grouped (matrix ops index `tables`) or not,
+    applied op by op with plain torch ops; returns a new planar tensor of
+    the state's dtype (the kernel's spec).  bf16 planes compute in complex64
+    and round to bf16 once, at the end; their lanemat and rowmat products
+    follow the JAX kernel's bf16 numerics (_matrix_planes)."""
     z = sv.to_complex(planar)
+    bf16 = planar.dtype == torch.bfloat16
     for op in ops:
-        z = _apply_op(z, op, M)
+        z = _apply_matrix_op(z, op, tables[op[1]], bf16) if op[0] in MATRIX_KINDS else _apply_op(z, op, M)
     return torch.stack([z.real, z.imag]).to(planar.dtype)
+
+
+def segment_ops(ops: tuple, M: int, dtype: torch.dtype, n: int) -> Tuple[tuple, tuple]:
+    """(ops, tables) as apply_fused applies a segment: group_ops when the
+    plane dtype and size group (``groups``), else the ops as they are."""
+    return group_ops(tuple(ops), M) if groups(dtype, n) else (tuple(ops), ())
+
+
+def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
+    """The plain version of apply_fused: the segment grouped as apply_fused
+    groups it (segment_ops), through plain_ops."""
+    gops, tables = segment_ops(ops, M, planar.dtype, sv.num_qubits(planar))
+    return plain_ops(planar, gops, M, tables)
 
 
 # ---------------------------------------------------------------------------
@@ -359,10 +727,11 @@ def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
     group lies in its 2^ne-amplitude slots, the low vb bits plus at most
     ne - vb more tile bits.  Returns (op_begin, op_end, extra positions
     ascending, padded with unused tile bits to ne - vb).  A camodc op, which
-    permutes whole work blocks, is a group of its own."""
+    permutes whole work blocks, and a matrix op, which reads the whole tile,
+    are groups of their own."""
     groups, cur, begin = [], set(), 0
     for i, op in enumerate(ops):
-        if op[0] == "camodc":
+        if op[0] == "camodc" or op[0] in MATRIX_KINDS:
             if i > begin:
                 groups.append((begin, i, cur))
             groups.append((i, i + 1, set()))
@@ -384,9 +753,11 @@ def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
     return out
 
 
-def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype):
+def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, tables=()):
     """The kernel's view of one segment, as numpy arrays: (t, high, vb, ne,
-    ops_i, ops_f, groups, ftab).
+    ops_i, ops_f, groups, ftab).  A grouped segment's matrix ops index
+    `tables` (group_ops); their records hold each table's byte offset in
+    matrix_tables' buffer.
 
     A tile holds the low t index bits plus the exposed axes `high`; a thread
     holds 2^ne of its amplitudes (the low vb bits plus ne - vb group bits).
@@ -400,8 +771,11 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
     interleaved, so no amplitude needs a transcendental.  A camodc op's record holds its control's
     tile-local position (-1 when the control is a tile-base bit) and the
     offset of its inverse permutation in camodc_tables; the tile holds at
-    least the low M bits."""
-    t, high = tile_geometry(n, axes, segment_tile_bits(ops, M, TILE_BITS[dtype]))
+    least the low M bits.  A segment with a matrix group has a tile of
+    ROW_TILE_BITS bits with the lane bits 0-6 in it, and all of bits 0-12
+    when it holds a rowmat or xtable; one with a matrix group and a camodc op
+    has no kernel instance."""
+    t, high = tile_geometry(n, axes, segment_tile_bits(ops, M, TILE_BITS[dtype], axes))
     tb = t + len(high)
     if any(op[0] == "camodc" for op in ops) and t < M:
         raise ValueError(f"a camodc segment needs the low M={M} bits in its tile, got t={t}")
@@ -410,6 +784,14 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
         vb, ne = 0, tb
     if ne < 1:
         raise ValueError(f"a {n}-qubit state has no tile bits")
+    matrix = [op for op in ops if op[0] in MATRIX_KINDS]
+    if matrix:
+        if dtype == torch.float64 or any(op[0] == "camodc" for op in ops):
+            raise ValueError(f"no kernel instance applies matrix groups to {dtype} planes beside camodc ops")
+        if tb != ROW_TILE_BITS or t < (ROW_TILE_BITS if _has_rows(ops) else LOW_BITS):
+            raise ValueError(f"the matrix groups of a segment need bits 0-12 (rowmat, xtable) or 0-6 (lanemat) "
+                             f"in a {ROW_TILE_BITS}-bit tile, got t={t}, axes {high}")
+    offsets = np.concatenate([[0], np.cumsum([np.asarray(tab).nbytes for tab in tables])]).astype(np.int64)
 
     def local(q: int) -> int:
         if q < t:
@@ -425,12 +807,12 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
     ops_i = np.full((len(ops), _OPI_STRIDE), -1, np.int32)
     ops_f = np.zeros((len(ops), _OPF_STRIDE), np.float64)
     grp = np.zeros((len(groups), _GRP_STRIDE), np.int32)
-    tables: list = []
+    ftabs: list = []
     size = 0
 
     def table(values) -> int:
         nonlocal size
-        tables.append(values)
+        ftabs.append(values)
         size += len(values)
         return size - len(values)
 
@@ -447,6 +829,10 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
                     raise ValueError(f"camodc control {c} must be a bit of the L register [{M}, {n})")
                 ops_i[k, :6] = _KIND["camodc"], c, M, local(c) if (c < t or c in high) else -1, -1, n_perm << M
                 n_perm += 1
+                continue
+            if op[0] in MATRIX_KINDS:
+                ops_i[k, 0], ops_i[k, 5] = _KIND[op[0]], offsets[op[1]]
+                ops_i[k, 6] = int(op[0] != "xtable" and op[2])
                 continue
             qs = (op[1], op[2]) if op[0] in ("diag2", "u2q") else (op[1],)
             ops_i[k, 0] = _KIND[op[0]]
@@ -468,7 +854,7 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype)
             else:
                 vals = op[-1]
                 ops_f[k, : len(vals)] = vals
-    ftab = np.concatenate(tables) if tables else np.ones(1, np.complex128)
+    ftab = np.concatenate(ftabs) if ftabs else np.ones(1, np.complex128)
     ftab = np.stack([ftab.real, ftab.imag], axis=1).reshape(-1)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return t, high, vb, ne, ops_i, ops_f.astype(np_dtype), grp, ftab.astype(np_dtype)
@@ -482,12 +868,40 @@ def camodc_tables(ops: tuple, M: int) -> np.ndarray:
     return np.concatenate(tabs).astype(np.int16) if tabs else np.zeros(1, np.int16)
 
 
-@lru_cache(maxsize=256)
-def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, device: torch.device):
-    """host_descriptor and camodc_tables with their arrays on the device."""
-    t, high, vb, ne, *arrays = host_descriptor(ops, axes, n, M, dtype)
-    arrays.append(camodc_tables(ops, M))
+def matrix_tables(ops: tuple, tables, dtype: torch.dtype) -> np.ndarray:
+    """mtab: the tables of a grouped segment's matrix ops as the kernel reads
+    them, one byte buffer in table order (host_descriptor's offsets; one
+    zero byte when there are none).  float32 tables as they are; at bf16 the
+    lanemat / rowmat tables as (2 hi/lo, 2 re/im, n, n) bf16, hi the table
+    rounded to nearest and lo its remainder rounded, as the JAX package
+    stages them (pallas_fused.py:1114-1119): the same bytes a table."""
+    if not tables:
+        return np.zeros(1, np.uint8)
+    products = {op[1] for op in ops if op[0] in ("lanemat", "rowmat")}
+    out = []
+    for i, tab in enumerate(tables):
+        t = torch.tensor(np.asarray(tab, np.float32))
+        if dtype == torch.bfloat16 and i in products:
+            hi = t.to(torch.bfloat16)
+            t = torch.stack([hi, (t - hi.float()).to(torch.bfloat16)])
+        out.append(t.reshape(-1).view(torch.uint8).numpy())
+    return np.concatenate(out)
+
+
+def _device_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, device, tables=()):
+    """host_descriptor, camodc_tables and matrix_tables with their arrays on
+    the device."""
+    t, high, vb, ne, *arrays = host_descriptor(ops, axes, n, M, dtype, tables)
+    arrays += [camodc_tables(ops, M), matrix_tables(ops, tables, dtype)]
     return (t, high, vb, ne, *(torch.from_numpy(a).to(device) for a in arrays))
+
+
+@lru_cache(maxsize=256)
+def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, device: torch.device, group: bool):
+    """(ops as applied, _device_descriptor) of a segment, grouped when
+    `group`, cached per segment."""
+    gops, tables = group_ops(ops, M) if group else (ops, ())
+    return gops, _device_descriptor(gops, axes, n, M, dtype, device, tables)
 
 
 def _check_planar(planar: torch.Tensor) -> int:
@@ -499,34 +913,68 @@ def _check_planar(planar: torch.Tensor) -> int:
     return n
 
 
+def _launch(planar: torch.Tensor, ops: tuple, n: int, M: int, desc) -> torch.Tensor:
+    """One kernel launch of a segment (ops as applied) on a CUDA planar
+    state, in place: the matrix instance (qc_fused_matmul) when the segment
+    holds a matrix group, else qc_fused_segment."""
+    global LAUNCHES, CAMODC_LAUNCHES, MATMUL_LAUNCHES
+    t, high, vb, ne, ops_i, ops_f, grp, ftab, ptab, mtab = desc
+    matrix = any(op[0] in MATRIX_KINDS for op in ops)
+    fn = _build.entry("qc_fused_matmul" if matrix else "qc_fused_segment", planar.dtype)
+    packed = sum(a << (8 * i) for i, a in enumerate(high))
+    n_perm = sum(op[0] == "camodc" for op in ops)
+    args = [
+        planar[0].data_ptr(), planar[1].data_ptr(), ops_i.data_ptr(), ops_f.data_ptr(),
+        grp.data_ptr(), grp.shape[0], ftab.data_ptr(), ptab.data_ptr(), n_perm, len(ops), n, t,
+        len(high), packed, M, vb, ne,
+    ]
+    if matrix:
+        args.append(mtab.data_ptr())
+    with torch.cuda.device(planar.device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "fused_matmul" if matrix else "fused_segment")
+    LAUNCHES += 1
+    CAMODC_LAUNCHES += bool(n_perm)
+    MATMUL_LAUNCHES += matrix
+    return planar
+
+
+def _device_kind(planar: torch.Tensor) -> str:
+    if planar.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused-segment path for device {planar.device}")
+    return planar.device.type
+
+
+def apply_segment(planar: torch.Tensor, ops: tuple, axes: tuple, M: int, tables=()) -> torch.Tensor:
+    """An explicit op list, grouped (its matrix ops index `tables`) or not,
+    as one fused pass IN PLACE: the kernel for a CUDA tensor, plain_ops for
+    a CPU tensor.  apply_fused groups and calls this; a segment passed here
+    ungrouped runs in its butterfly form (no matrix group)."""
+    n = _check_planar(planar)
+    if _device_kind(planar) == "cpu":
+        return planar.copy_(plain_ops(planar, ops, M, tables))
+    if not ops:
+        return planar
+    ops, axes = tuple(ops), tuple(axes)
+    if tables:
+        desc = _device_descriptor(ops, axes, n, M, planar.dtype, planar.device, tables)
+    else:
+        desc = _descriptor(ops, axes, n, M, planar.dtype, planar.device, False)[1]
+    return _launch(planar, ops, n, M, desc)
+
+
 def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.Tensor:
     """Apply one fused segment to a (2, 2^n) planar state IN PLACE (the
-    counterpart of the JAX kernel's input/output aliasing) and return it.
+    counterpart of the JAX kernel's input/output aliasing) and return it,
+    grouped into matrix products where the plane dtype and size group
+    (``groups``), as the JAX apply_fused groups (pallas_fused.py:1103).
 
     A CUDA tensor goes through the kernel; a CPU tensor through
     plain_segment.  Any other device raises."""
-    global LAUNCHES, CAMODC_LAUNCHES
     n = _check_planar(planar)
-    if planar.device.type == "cpu":
+    if _device_kind(planar) == "cpu":
         return planar.copy_(plain_segment(planar, ops, M))
-    if planar.device.type != "cuda":
-        raise ValueError(f"no fused-segment path for device {planar.device}")
     if not ops:
         return planar
-    t, high, vb, ne, ops_i, ops_f, groups, ftab, ptab = _descriptor(
-        tuple(ops), tuple(axes), n, M, planar.dtype, planar.device
-    )
-    fn = _build.entry("qc_fused_segment", planar.dtype)
-    packed = sum(a << (8 * i) for i, a in enumerate(high))
-    n_perm = sum(op[0] == "camodc" for op in ops)
-    with torch.cuda.device(planar.device):
-        err = fn(
-            planar[0].data_ptr(), planar[1].data_ptr(), ops_i.data_ptr(), ops_f.data_ptr(),
-            groups.data_ptr(), groups.shape[0], ftab.data_ptr(), ptab.data_ptr(), n_perm, len(ops), n, t,
-            len(high), packed, M, vb, ne, torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "fused_segment")
-    LAUNCHES += 1
-    if n_perm:
-        CAMODC_LAUNCHES += 1
-    return planar
+    gops, desc = _descriptor(tuple(ops), tuple(axes), n, M, planar.dtype, planar.device, groups(planar.dtype, n))
+    return _launch(planar, gops, n, M, desc)

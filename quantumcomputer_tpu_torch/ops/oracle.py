@@ -22,10 +22,9 @@ x[j, col] <- x[ginv[j], col].  Four CUDA kernels carry it:
 
 Each wrapper takes the plain version (``ops/gates.py``) for a CPU tensor,
 launches its kernel for a CUDA tensor at every size, and raises for any
-other device.  ``LAUNCHES`` counts kernel launches per kernel.  The ladder
-and both walks also take bf16 ("complex32") planes, as 2-byte elements
-(exact: they only move data); the row gather, which no dispatcher picks,
-has no bf16 instance yet and raises on a bf16 CUDA tensor.
+other device.  ``LAUNCHES`` counts kernel launches per kernel.  The ladder,
+both walks and the row gather (which no dispatcher picks) also take bf16
+("complex32") planes, as 2-byte elements (exact: they only move data).
 
 The eligibility predicates keep the JAX package's thresholds unchanged
 (they come from the TPU's DMA slab sizes), so the engine plans the same

@@ -305,10 +305,14 @@ def plan_circuit(
     """The cuda backend's plan of a circuit on an n-qubit state of plane
     dtype `real_dtype` on `device`: fuse_oracles, then fused segments and
     single gates; with fuse_oracle (``oracle="benes"``) the standard
-    layout's oracles join the fused segments as camodc ops."""
+    layout's oracles join the fused segments as camodc ops.  The segments of
+    a plane dtype that apply_fused groups into matrix products are planned
+    for them (``fused.groups``)."""
     itemsize = torch.empty((), dtype=real_dtype).element_size()
     circuit = fuse_oracles(circuit, M, n, itemsize, two_state_programs_fit(n, real_dtype, device))
-    return fused.plan_circuit(circuit, n, M, fused.TILE_BITS[real_dtype], fuse_oracle=fuse_oracle)
+    return fused.plan_circuit(
+        circuit, n, M, fused.TILE_BITS[real_dtype], fuse_oracle=fuse_oracle, group=fused.groups(real_dtype, n)
+    )
 
 
 def apply_circuit_fused_(

@@ -15,7 +15,9 @@ segment is held to 3e-5 (float32) / 1e-12 (float64) and the block sums to
 and its plain version both compute in float32 and round once, so they may
 differ only where the two float32 results straddle a bf16 rounding
 boundary: the fused segment is held to one bf16 ulp per pass
-(``bf16_ulps``; a later pass would spread an ulp of its input).  Each
+(``bf16_ulps``; a later pass would spread an ulp of its input), and a pass
+with matrix groups, which also rounds its products' activations, to
+``bf16_within``.  Each
 check raises KernelCheckFailure on the first disagreement and returns one
 line per case for the log.
 """
@@ -43,6 +45,19 @@ BLOCK_SUMS_TOL = 1e-6
 # floor, 2^-15 = 3.05e-5, covers that difference.
 BF16_ULP_TOL = 1.0
 BF16_ULP_FLOOR = 2.0 ** -8
+# A segment with matrix groups also rounds the activations of each of its
+# lanemat / rowmat products to bf16 (as the JAX kernel's MXU dots do).  Where
+# the two float32 activations straddle a bf16 boundary, one activation
+# differs by a bf16 ulp and moves the outputs of its row or column by up to
+# |W| ulp(x) <= ulp(x): more than an ulp of a small output, and a later
+# product of the pass spreads it further (on deep random segments a third of
+# the elements end an ulp apart).  Each side's roundings move the state by
+# at most BF16_UNIT (the unit roundoff) of its norm, and every op of a pass
+# keeps the norm, so a pass with R products is held within
+# 2 (R + 1) BF16_UNIT of the norm, and every element within BF16_STRADDLE_REL
+# of the largest magnitude (one bf16 ulp there).
+BF16_UNIT = 2.0 ** -8
+BF16_STRADDLE_REL = 2.0 ** -7
 
 
 class KernelCheckFailure(AssertionError):
@@ -98,15 +113,39 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float]:
     return float(ulps.max()), float((g != w).float().mean())
 
 
+def bf16_within(got: torch.Tensor, want: torch.Tensor, products: int) -> bool:
+    """bf16 results held to one ulp (bf16_ulps); a pass with `products`
+    matrix products (lanemat / rowmat, segment_products) either so or
+    within 2 (products + 1) BF16_UNIT of the norm and BF16_STRADDLE_REL of
+    the largest magnitude (one ulp of it) everywhere."""
+    g, w = got.double(), want.double()
+    if bf16_ulps(g, w)[0] <= BF16_ULP_TOL:
+        return True
+    if not products:
+        return False
+    d = g - w
+    return (float(torch.linalg.vector_norm(d)) <= 2 * (products + 1) * BF16_UNIT * float(torch.linalg.vector_norm(w))
+            and float(d.abs().max()) <= BF16_STRADDLE_REL * float(w.abs().max()))
+
+
+def segment_products(ops, M: int, dtype, n: int) -> int:
+    """The matrix products (lanemat, rowmat) apply_fused runs the segment
+    with: 0 when it runs no matrix group."""
+    return sum(op[0] in ("lanemat", "rowmat") for op in fused.segment_ops(ops, M, dtype, n)[0])
+
+
 def plan_states(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> tuple:
     """Run a circuit's fused plan on copies of `planar` through the kernel
     (in place) and through plain_segment: ([(kernel state, plain state)],
-    fused-segment launches, segments).  One pair, the final states, for
+    fused-segment launches, segments), each pair with a third element, the
+    segment's matrix products (segment_products).  One pair, the final states, for
     float32 / float64; one pair per segment for bf16, each segment's plain
     version applied to the kernel's state before it (a pass is where bf16
     rounds)."""
     n = int(planar.shape[1]).bit_length() - 1
-    plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[planar.dtype], fuse_oracle=fuse_oracle)
+    plan = fused.plan_circuit(
+        circuit, n, M, fused.TILE_BITS[planar.dtype], fuse_oracle=fuse_oracle, group=fused.groups(planar.dtype, n)
+    )
     _check(all(s[0] == "fused" for s in plan), f"unexpected single gates in plan {plan}")
     per_pass = planar.dtype == torch.bfloat16
     want, got = planar.clone(), planar.clone()
@@ -116,15 +155,15 @@ def plan_states(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False
         want = fused.plain_segment(got if per_pass else want, ops, M)
         fused.apply_fused(got, ops, axes, M)
         if per_pass:
-            pairs.append((got.clone(), want))
+            pairs.append((got.clone(), want, segment_products(ops, M, planar.dtype, n)))
     torch.cuda.synchronize()
-    return pairs or [(got, want)], fused.LAUNCHES - before, len(plan)
+    return pairs or [(got, want, 0)], fused.LAUNCHES - before, len(plan)
 
 
 def compare_plan(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> Tuple[float, int, int]:
     """plan_states on float32 / float64 planes, compared: (max abs
     difference of the final planes, fused-segment launches, segments)."""
-    ((got, want),), launched, segments = plan_states(planar, circuit, M, fuse_oracle)
+    ((got, want, _),), launched, segments = plan_states(planar, circuit, M, fuse_oracle)
     return float((got - want).abs().max()), launched, segments
 
 

@@ -244,12 +244,49 @@ def _insert_zero(x, p):
     return ((x >> p) << (p + 1)) | (x & ((1 << p) - 1))
 
 
-def _emulate_kernel(psi, ops, axes, n, M, dtype):
+def _tf32(x):
+    """float32 values rounded to TF32 as cvt.rna does: 10 mantissa bits,
+    ties away from zero."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+
+
+def _product_3xtf32(a, b):
+    """a @ b as the kernel's 3xTF32 mma: each float32 operand split into
+    TF32 hi + lo, hi*hi + hi*lo + lo*hi (products and sums in float64)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(np.asarray(a, np.float32) - ah.astype(np.float32)), _tf32(np.asarray(b, np.float32) - bh.astype(np.float32))
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _emulate_matrix(tile, rec, mtab):
+    """One matrix op (record rec) on a 2^13-element tile, from the table in
+    mtab at the record's byte offset: the float32 planes through 3xTF32."""
+    kind, off, real = int(rec[0]), int(rec[5]), bool(rec[6])
+    k = 64 if kind == 7 else 128
+    count = 2 * 64 * 128 if kind == 8 else 2 * k * k
+    tab = mtab[off: off + 4 * count].view(np.float32).reshape((2, 64, 128) if kind == 8 else (2, k, k))
+    if kind == 8:
+        return tile * (tab[0].astype(np.float64) + 1j * tab[1].astype(np.float64)).reshape(-1)
+    xr, xi = tile.real.astype(np.float32), tile.imag.astype(np.float32)
+    if kind == 6:
+        prod = lambda x, w: _product_3xtf32(x.reshape(-1, 128), w).reshape(-1)  # noqa: E731  X W
+    else:
+        prod = lambda x, w: _product_3xtf32(w.T, x.reshape(64, 128)).reshape(-1)  # noqa: E731  V X, V = table^T
+    yr, yi = prod(xr, tab[0]), prod(xi, tab[0])
+    if not real:
+        yr, yi = yr - prod(xi, tab[1]), yi + prod(xr, tab[1])
+    return yr + 1j * yi
+
+
+def _emulate_kernel(psi, ops, axes, n, M, dtype, tables=()):
     """The CUDA kernel's arithmetic on a complex128 state, tile by tile and
     register group by group, from host_descriptor's arrays (the tables in
-    the plane dtype, products in complex128)."""
-    t, high, vb, ne, ops_i, ops_f, grp, ftab = fused.host_descriptor(ops, axes, n, M, dtype)
+    the plane dtype, products in complex128; a grouped segment's matrix ops
+    through _emulate_matrix, from matrix_tables' bytes)."""
+    t, high, vb, ne, ops_i, ops_f, grp, ftab = fused.host_descriptor(ops, axes, n, M, dtype, tables)
     ptab = fused.camodc_tables(ops, M).astype(np.int64)
+    mtab = fused.matrix_tables(ops, tables, dtype)
     ft = ftab[0::2].astype(np.float64) + 1j * ftab[1::2].astype(np.float64)
     of = ops_f.astype(np.float64)
     k, s = len(high), 1 / math.sqrt(2)
@@ -267,6 +304,9 @@ def _emulate_kernel(psi, ops, axes, n, M, dtype):
             continue  # no op changes this tile: the kernel skips it
         tile = out[gidx]
         for b, e, *extra in grp:
+            if ops_i[b, 0] >= 6:  # a matrix op: its own group, over the whole tile
+                tile = _emulate_matrix(tile, ops_i[b], mtab)
+                continue
             if ops_i[b, 0] == 5:  # camodc: its own group, a gather of each work block
                 _, cq, m, cpos, _, off, _, _ = (int(v) for v in ops_i[b])
                 on = (j >> cpos) & 1 if cpos >= 0 else np.full(len(j), (base >> cq) & 1)
@@ -363,6 +403,39 @@ def test_kernel_emulation_matches_plain_segment(dtype, n, M):
         want = fused.plain_segment(want, ops, M)
         got = _emulate_kernel(got, ops, axes, n, M, dtype)
     np.testing.assert_allclose(got, want[0].numpy() + 1j * want[1].numpy(), atol=ATOL64 if dtype == torch.float64 else ATOL32)
+
+
+MATRIX_EMULATION = [
+    ("m_high H layer", 14, 0, tuple(cir.H(q) for q in range(14))),
+    ("m_high iQFT", 14, 0, tuple(cir.IQFT_STAGE(l) for l in range(13, -1, -1))),
+    ("row stages M=8", 15, 8, tuple(cir.IQFT_STAGE(l) for l in range(14, 7, -1)) + (cir.H(2), cir.CPHASE(6, 1, 0.4))),
+    ("random", 14, 3, None),
+    ("lanemat beside axes", 16, 0, (cir.H(0), cir.RZ(1, 0.3), cir.H(15), cir.CPHASE(14, 3, 0.5), cir.H(13), cir.H(2))),
+]
+
+
+@pytest.mark.parametrize("case", MATRIX_EMULATION, ids=[c[0] for c in MATRIX_EMULATION])
+def test_matrix_group_emulation_matches_plain_segment(case):
+    """The kernel's matrix groups (lanemat, rowmat, xtable), emulated from
+    host_descriptor's records and matrix_tables with the 3xTF32 split of
+    its float32 mma, equal the grouped plain version (plain_ops of group_ops)
+    within 3e-5, segment by segment of the grouping planner's plan."""
+    name, n, M, circuit = case
+    rng = np.random.default_rng(n * 11 + M)
+    circuit = _random_circuit(rng, n, 30) if circuit is None else circuit
+    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    psi = (psi / np.linalg.norm(psi)).astype(np.complex64).astype(np.complex128)
+    plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[torch.float32], group=True)
+    grouped = 0
+    for _, ops, axes in plan:
+        planes = torch.from_numpy(np.stack([psi.real, psi.imag]).astype(np.float32))
+        gops, tables = fused.group_ops(ops, M)
+        want = fused.plain_ops(planes, gops, M, tables)
+        grouped += any(op[0] in fused.MATRIX_KINDS for op in gops)
+        got = _emulate_kernel(psi, gops, axes, n, M, torch.float32, tables)
+        np.testing.assert_allclose(got, want[0].numpy() + 1j * want[1].numpy(), atol=ATOL32)
+        psi = want[0].numpy().astype(np.float64) + 1j * want[1].numpy()
+    assert grouped
 
 
 CAMODC_EMULATION = [
