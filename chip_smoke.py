@@ -6,7 +6,8 @@
 Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
      quantumcomputer_tpu_torch/ops/csrc (one nvcc per source, sm_90a) and
-     print the build time;
+     print the build time, every kernel's ptxas registers and spills, and
+     a line for the two matrix instances (fused_matmul.cu);
   2. hold each kernel against its plain PyTorch version on the card: every
      fused-segment op kind on seeded n = 20 states of unit-variance
      components in float32 (max abs <= 3e-5) and float64 (<= 1e-12), and
@@ -467,13 +468,21 @@ def phase_build() -> float:
     _build.load()
     seconds = time.perf_counter() - t0
     log(f"build: kernels ready in {seconds:.3f} s ({_build.library_path()})")
-    entry = ""
+    entry, matrix = "", {}
     with open(_build.build_log_path()) as f:
         for line in f:
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line.strip()
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas: {entry}: {line.strip()}")
+                # The matrix instances (fused_segment_kernel<S, float, 2, 4, PERM false, MAT true>).
+                if "fused_segment_kernel" in entry and "Lb0ELb1E" in entry:
+                    matrix.setdefault("bf16" if "bfloat16" in entry else "f32", []).append(line.strip())
+            elif "wgmma" in line:
+                log(f"  ptxas: {entry}: {line.strip()}")
+    check(set(matrix) == {"f32", "bf16"}, f"no ptxas report of both matrix instances: {sorted(matrix)}")
+    for dtype, lines in sorted(matrix.items()):
+        log(f"ptxas matrix instance {dtype} (fused_matmul.cu): {'; '.join(lines)}")
     return seconds
 
 

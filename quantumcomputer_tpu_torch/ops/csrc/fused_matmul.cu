@@ -1,26 +1,54 @@
 // Fused gate segment with matrix groups, for Hopper (sm_90a): the instances
-// of fused_segment.cuh's kernel that run the lanemat / rowmat / xtable ops
-// (the TPU kernel's MXU branches, pallas_fused.py:911-966, built by
-// matmul_group_ops, pallas_fused.py:315-410) on the tensor cores beside the
-// register groups of the other ops.  A source of its own: these instances
-// compile in parallel with fused_segment.cu's, and the instances without
-// matrix groups keep their code generation.
+// (MAT) of fused_segment.cuh's kernel that run the lanemat / rowmat / xtable
+// ops beside the register groups of the other ops.  Replaces the TPU
+// kernel's MXU branches, quantumcomputer_tpu/ops/pallas_fused.py:911-966
+// (_fused_kernel, with mxu_dot at :594-609; the grouping, matmul_group_ops,
+// at :315-410).  A source of its own: these instances compile in parallel
+// with fused_segment.cu's, and the instances without matrix groups keep
+// their code generation.
 //
 // What bounds it: bytes (one read and one write of the state, 1.282 ms for
 // a 2 GiB complex64 state at 3.35 TB/s, 0.641 ms at bf16) or the tensor
 // cores: at float32 each real product is three TF32 products (3xTF32) at
-// 495 TFLOP/s, 128 (lanemat) or 64 (rowmat) multiply-adds an amplitude, so a
-// complex 128 x 128 lanemat alone needs 1.67 ms over 2^28 amplitudes, more
-// than the bytes; at bf16 two bf16 products at 989 TFLOP/s.  A matrix
-// segment's tile is 2^13 amplitudes (64 KB at float32, two ring slots fill
-// 128 KB: one block an SM of 256 threads, up to 255 registers a thread).
-// mma.sync, not wgmma, and tables read through L1 rather than staged: the
-// first port, correct and simple (PERF.md has its times).
+// 495 TFLOP/s, 128 (lanemat) or 64 (rowmat) multiply-adds an amplitude, so
+// the m_high iQFT segment (complex rowmat + xtable + lanemat) needs 2.50 ms
+// over 2^28 amplitudes, more than its bytes; at bf16 two bf16 products at
+// 989 TFLOP/s, 0.83 ms.  That is about 10 us (f32) or 3.4 us (bf16) of
+// tensor-core time for one 2^13-amplitude tile on one SM.
 //
-// Entry points: those of fused_segment.cu with mtab (the tables, byte
-// offsets in the op records) before the stream; float32 and bf16 planes
-// only (float64 segments never group), the main register form (vb = 2,
-// ne = 4), no camodc op, a 13-bit tile with t >= 7.
+// Design (fused_segment.cuh, "Matrix groups", has the details):
+//   * wgmma.mma_async m64n64k8 .tf32 / m64n64k16 .bf16: the tile's 64 rows
+//     are one wgmma M; warpgroup wg computes its 64 of the 128 output lanes
+//     of a lanemat, and its 64 lanes of a rowmat computed transposed
+//     (Y^T = X^T V^T), so each warpgroup reads the activations once an op
+//     (half the tile for a rowmat) and converts each element once.
+//   * Tables prepared once a segment on the host (ops/fused.py,
+//     matrix_tables): TF32 hi / lo pre-split at f32, bf16 hi / lo at bf16,
+//     K-major in the descriptor's core-matrix layout, K permuted to match
+//     16-byte activation loads, in 16 KB chunks; the xtable in the order
+//     each thread applies it.  They stream through a ring of four 16 KB
+//     stages in shared memory by bulk asynchronous copies (cp.async.bulk,
+//     mbarrier completion) that one thread issues two chunks ahead of the
+//     products.
+//   * Each k-step's products are asynchronous; the next k-step's activation
+//     conversion overlaps them.  The accumulators go back into the tile once
+//     an op, and an xtable right after a rowmat is applied to the rowmat's
+//     accumulators before that store (one tile pass and one sync fewer).
+//
+// Shared memory (227 KB a block, one block of 256 threads an SM): f32, the
+// two-slot tile ring (2 x 64 KB); bf16, the 32 KB staging slot and the
+// 64 KB f32 work tile; then the op records, the table ring and its
+// mbarriers.  Up to 6 (f32) or 8 (bf16) 16 KB table stages fit; the ring
+// takes 4 (MAT_STAGES): 3 and 4 measured within 1% of each other, all that
+// fit 3-4% slower, and every thread's 16-byte cp.async in place of the one
+// bulk copy 3-6% slower (PERF.md).  Table bytes read from L2 a tile: the iQFT segment's 224 KB at
+// bf16 (rowmat 32, xtable 64, lanemat 128) and 384 KB at f32 (64, 64, 256);
+// the tables stay in L2.
+//
+// Entry points: those of fused_segment.cu with mtab (the packed tables)
+// before the stream; float32 and bf16 planes only (float64 segments never group),
+// the main register form (vb = 2, ne = 4), no camodc op, a 13-bit tile with
+// t >= 7.
 
 #include "fused_segment.cuh"
 

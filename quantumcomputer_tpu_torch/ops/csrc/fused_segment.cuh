@@ -83,8 +83,9 @@
 // kind, q1, q2, slot of q1, slot of q2, then for an iQFT op the ftab offsets
 // of F_axes and F_low and 1 when it has a phase; for a camodc op kind,
 // control, M, the control's tile-local position or -1 for a tile-base bit,
-// -1, its offset in ptab; for a matrix op its table's byte offset in mtab
-// and 1 for a real table, at [5] and [6]), ops_f (coefficients in the plane dtype,
+// -1, its offset in ptab; for a matrix op its table's chunks in mtab, their
+// byte offset, 1 for a real table and 1 when a rowmat applies the xtable
+// after it (on both records), at [4] to [7]), ops_f (coefficients in the plane dtype,
 // OPF_STRIDE per op; an iQFT op's slot factors), groups (GRP_STRIDE:
 // op_begin, op_end, extra slot positions; a camodc op is a group of its
 // own, and so is a matrix op), ftab (complex tables, re/im interleaved),
@@ -588,43 +589,189 @@ __device__ __forceinline__ bool tile_active(const int* s_opi, int nops, int64_t 
 
 // ---------------------------------------------------------------------------
 // Matrix groups: the TPU kernel's lanemat / rowmat / xtable branches
-// (pallas_fused.py:911-966) on the tensor cores, with mma.sync.  A matrix
-// segment's tile is 2^13 amplitudes, viewed a plane at a time as X, 64 rows
-// of 128 lanes (element j: row j >> 7, lane j & 127, at swz<VB>(j)); the lane
-// bits 0-6 are always low tile bits, and a segment with a rowmat or xtable
-// has t = 13, so its rows are the index bits 7-12 (ops/fused.py checks both).
+// (pallas_fused.py:911-966) on Hopper's warpgroup tensor-core products
+// (wgmma), for the MAT instances (fused_matmul.cu).  A matrix segment's tile
+// is 2^13 amplitudes, viewed a plane at a time as X, 64 rows of 128 lanes
+// (element j: row j >> 7, lane j & 127, at swz<VB>(j), VB = 2); the lane bits
+// 0-6 are always low tile bits, and a segment with a rowmat or xtable has
+// t = 13, so its rows are the index bits 7-12 (ops/fused.py checks both).
 //
-//   lanemat  Y = X W, K = 128: W[k][n] = tab[k * 128 + n] (the table holds
-//            W^T of the JAX package's operator, so x @ table).
-//   rowmat   Y = V X, K = 64: V[m][k] = tab[k * 64 + m].
-//   xtable   Y = X * (cos + i sin), elementwise, tab[j] and tab[8192 + j].
+//   lanemat  Y = X W (M = 64 rows, N = 128 lanes, K = 128 lanes), W[k][n] =
+//            tab[k][n] (the table holds W^T of the JAX package's operator).
+//   rowmat   Y = V X with V[m][k] = tab[k][m], computed transposed:
+//            Y^T = X^T V^T (M = 128 lanes, N = 64 rows, K = 64 rows), so
+//            that V^T[k][n] = tab[k][n] is the shared-memory operand.
+//   xtable   Y = X * (cos + i sin), elementwise, a (64, 128) phase table.
 //
 // A real table (the H chains) takes two real products a plane pair, a
-// complex one four: Yr = Xr Wr - Xi Wi, Yi = Xr Wi + Xi Wr.  Warp w computes
-// output lanes [16 w, 16 w + 16) of all 64 rows, 4 x 2 fragments of 16 x 8,
-// so the 8 warps read each lanemat table element once between them (each
-// reads all of V for a rowmat: 64 x 64, from L1); the tile is overwritten
-// only after every warp has read it (one sync).  Tables are read through
-// __ldg: every block reads the same few tables, which stay in L1 and L2, and
-// the tile leaves no shared memory for them.
+// complex one four: Yr = Xr Wr - Xi Wi, Yi = Xr Wi + Xi Wr (the minus as the
+// product's scale -1).  float32 planes: 3xTF32, each operand x = hi + lo
+// rounded to TF32 (cvt.rna), hi*hi + hi*lo + lo*hi with float32
+// accumulation (wgmma m64n64k8 .tf32), about float32 accuracy, as the TPU
+// kernel's Precision.HIGHEST.  bf16 planes: as the TPU kernel's MXU dots at
+// bf16 storage, the f32 work tile's activations rounded to bf16 and two
+// products against the table's bf16 hi and lo parts (wgmma m64n64k16 .bf16,
+// float32 accumulation).
 //
-// float32 planes: 3xTF32.  Each operand x = hi + lo, both rounded to TF32
-// (cvt.rna), and the product is hi*hi + hi*lo + lo*hi with float32
-// accumulation (mma.m16n8k8.tf32): about float32 accuracy, as the TPU
-// kernel's Precision.HIGHEST; one TF32 product (2^-11) would miss 3e-5.
-// bf16 planes: as the TPU kernel's MXU dots at bf16 storage, the f32 work
-// tile's activations rounded to bf16 and two products against the table's
-// bf16 hi and lo parts (mma.m16n8k16.bf16, float32 accumulation); the
-// tables arrive so split ((2 hi/lo, 2 re/im, K, K) bf16), xtables as float32.
+// Warpgroup wg (threads 128 wg ...) computes output lanes [64 wg, 64 wg + 64)
+// of a lanemat (its half of N; it reads all 64 x 128 activations once) and
+// lanes [64 wg, 64 wg + 64) of a rowmat (its half of M; it reads only its
+// half of the tile).  The activations are the register operand: each
+// element is loaded once an op by 16-byte (lanemat) or 8-byte (rowmat)
+// shared loads, converted once (TF32 hi / lo, or rounded to bf16), and fed
+// to the products; the K order of the products is permuted (the host
+// permutes the table's K to match) so that a 16-byte load of 4 consecutive
+// lanes feeds one bf16 or two TF32 k-steps, and a rowmat's M index g / g + 8
+// of a warp's 16 is lane 2g / 2g + 1, so one 8-byte load feeds both.  A
+// rowmat's output rows (and its bf16 K rows) run in "rowmat order", row
+// n ^ ((n >> 1) & 1) for index n: the four threads c of a quad, which read
+// or write one row each, then take rows of both parities, which the tile's
+// swizzle puts on different banks (2-way conflicts, not 4-way).
 //
-// Fragment layouts (PTX ISA, mma.sync.m16n8k8 .tf32 and .m16n8k16 .bf16),
-// with lane = 4 g + c: A (16 x K) register r holds row g + 8 (r & 1); B
-// (K x 8) column g; C (16 x 8) register r row g + 8 (r >> 1), column
-// 2 c + (r & 1).  tf32: A columns c + 4 (r >> 1), B rows c + 4 r.  bf16 (two
-// elements a register, the lower index in the low half): A columns
-// 2 c + 8 (r >> 1) + {0, 1}, B rows 2 c + 8 r + {0, 1}.
+// Tables: prepared once a segment on the host (ops/fused.py,
+// matrix_tables) in the form the products read: TF32 hi / lo pre-split at
+// float32, bf16 hi / lo at bf16, K permuted as above, in the no-swizzle
+// K-major core-matrix layout of the wgmma shared-memory descriptor (8 rows
+// of 16 bytes a core matrix; LBO 128 bytes between the two K halves of a
+// k-step, SBO 256 bytes between groups of 8 columns of N), cut into
+// MAT_CHUNK-byte chunks in op order: one chunk holds 1, 2 or 4 k-steps of
+// every part (re hi, re lo, im hi, im lo).  An xtable's four chunks hold
+// its cos / sin in the order each thread consumes them.  The chunk stream
+// (the same for every tile) passes through a ring of MAT_STAGES chunks in
+// shared memory: thread 0 issues each chunk as one bulk asynchronous copy
+// (cp.async.bulk, completion on the stage's full mbarrier) as soon as every
+// warp has released the stage's previous chunk (its empty mbarrier), so
+// the copies of the next chunks overlap the products of this one.
+//
+// Each k-step's products are issued asynchronously and committed as one
+// group; the next k-step's activations are converted while they run
+// (wgmma.wait_group 1), and a chunk is released once its last group is done.
+// The epilogue writes each op's accumulators into the work tile once, with
+// 8-byte stores, after a block-wide sync; an xtable that directly follows a
+// rowmat (the iQFT segment's rowmat + xtable + lanemat) is applied to the
+// rowmat's float32 accumulators before that store (the same arithmetic in
+// the same order as its own pass: xr pc - xi ps, xr ps + xi pc).
+//
+// Accumulator layout (PTX ISA, wgmma .m64nNk*, f32 D): thread lane = 4 g + c
+// of warp w of the warpgroup holds d[4 j + r] at M index 16 w + g + 8 (r >> 1),
+// N index 8 j + 2 c + (r & 1).  The register A fragment (as mma.sync's):
+// .tf32 a0..a3 at (M, K) = (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4);
+// .bf16 (two values a register, the lower K in the low half) at (g, 2c..),
+// (g + 8, 2c..), (g, 2c + 8..), (g + 8, 2c + 8..).
 
-constexpr int MAT_TILE = 8192;
+constexpr int MAT_CHUNK = 16384;    // bytes of a table chunk, one stage of the ring
+// Stages of the table ring.  Up to 6 (f32) or 8 (bf16) fit beside the
+// tiles; 3 and 4 measured within 1% of each other, all that fit 3-4% slower
+// (PERF.md).
+constexpr int MAT_STAGES = 4;
+constexpr int MAT_WARPS = THREADS / 32;
+constexpr long long MAT_WAIT_CYCLES = 20000000000LL;  // a wait this long is a fault: trap, do not hang
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try(bar, parity)) {
+    if (clock64() - start > MAT_WAIT_CYCLES) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// The table ring.  Chunk q of the block's stream (chunk q % per_tile of
+// mtab) lands in stage q % MAT_STAGES: thread 0 copies it as one 16 KB
+// cp.async.bulk, and full[s] at bar + 8 s counts that thread's arrival and
+// the chunk's bytes.  empty[s] at bar + 8 (MAT_STAGES + s) counts
+// MAT_WARPS, one a warp once it has done with the chunk (256 arrivals on
+// one word a chunk would be 256 atomics).
+struct MatPipe {
+  const unsigned char* src;  // mtab
+  uint32_t ring;             // shared address of stage 0
+  uint32_t bar;
+  int per_tile;    // chunks a tile consumes
+  int64_t total;   // chunks this block consumes
+  int64_t issued;  // chunks issued
+  // Stages and phase parities advance with the counters, without divisions:
+  int iss_s, iss_src, acq_s, rel_s;  // next stage to fill, its source chunk in mtab, next to acquire, to release
+  uint32_t iss_par, acq_par;          // the empty phase to wait for before a refill; the full phase to wait for
+  bool refill;                        // the stage to fill has held a chunk before
+};
+
+__device__ __forceinline__ void advance(int& s, uint32_t& par, int n) {
+  if (++s == n) {
+    s = 0;
+    par ^= 1;
+  }
+}
+
+// Start the copies of the next chunk of the stream into its stage, once
+// every warp has released the chunk the stage held.
+__device__ __forceinline__ void mat_issue(MatPipe& p) {
+  if (p.issued >= p.total) return;
+  const int s = p.iss_s;
+  const unsigned char* src = p.src + (size_t)p.iss_src * MAT_CHUNK;
+  if (threadIdx.x == 0) {
+    if (p.refill) mbar_wait(p.bar + 8 * (MAT_STAGES + s), p.iss_par);
+    mbar_expect_tx(p.bar + 8 * s, MAT_CHUNK);
+    bulk_copy(p.ring + s * MAT_CHUNK, src, MAT_CHUNK, p.bar + 8 * s);
+  }
+  __syncwarp();
+  ++p.issued;
+  if (++p.iss_src == p.per_tile) p.iss_src = 0;
+  if (++p.iss_s == MAT_STAGES) {
+    p.iss_s = 0;
+    if (p.refill) p.iss_par ^= 1;
+    p.refill = true;
+  }
+}
+
+// The next chunk of the stream, once it has landed: its shared address.
+// Each acquire first issues one more chunk, so MAT_STAGES - 2 run ahead: the
+// stage it fills held the chunk two before this one, which this thread
+// has released (it holds one chunk besides the one it acquires).
+__device__ __forceinline__ uint32_t mat_acquire(MatPipe& p) {
+  mat_issue(p);
+  const int s = p.acq_s;
+  mbar_wait(p.bar + 8 * s, p.acq_par);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the copies, to the products' reads
+  advance(p.acq_s, p.acq_par, MAT_STAGES);
+  return p.ring + s * MAT_CHUNK;
+}
+
+// This warp is done with the oldest chunk it holds (every thread calls it).
+__device__ __forceinline__ void mat_release(MatPipe& p) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(p.bar + 8 * (MAT_STAGES + p.rel_s));
+  if (++p.rel_s == MAT_STAGES) p.rel_s = 0;
+}
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -632,286 +779,331 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// An operand fragment of N registers in two parts: TF32 hi and lo of
-// float32 values, or a bf16 table's hi and lo.
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// -f: the sign bit of every element flipped (SIGN: 0x80000000 for a TF32
-// register, 0x80008000 for a pair of bf16), exact.
-template <uint32_t SIGN, int N>
-__device__ __forceinline__ Frag<N> negated(const Frag<N>& f) {
-  Frag<N> r;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    r.hi[i] = f.hi[i] ^ SIGN;
-    r.lo[i] = f.lo[i] ^ SIGN;
-  }
-  return r;
-}
-
-// 3xTF32: d += a b with lo * lo dropped (the small terms first).
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// bf16: d += a (b.hi + b.lo), a the activations; or (a.hi + a.lo) b, a the table.
-__device__ __forceinline__ void mma2(float (&d)[4], const uint32_t (&a)[4], const Frag<2>& b) {
-  mma_bf16(d, a, b.lo);
-  mma_bf16(d, a, b.hi);
-}
-__device__ __forceinline__ void mma2(float (&d)[4], const Frag<4>& a, const uint32_t (&b)[2]) {
-  mma_bf16(d, a.lo, b);
-  mma_bf16(d, a.hi, b);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Table elements (k, i) and (k + 1, i) of a bf16 table part with K columns.
-template <int K>
-__device__ __forceinline__ uint32_t table_pair(const uint16_t* __restrict__ t, int k, int i) {
-  return (uint32_t)__ldg(t + k * K + i) | ((uint32_t)__ldg(t + (k + 1) * K + i) << 16);
+// A shared-memory descriptor of one part of a k-step: no swizzle, K-major,
+// LBO 128 bytes (the second 16 bytes of K), SBO 256 bytes (the next 8 of N).
+__device__ __forceinline__ uint64_t mat_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
 }
 
-template <int VB>
-__device__ __forceinline__ float tile_at(const float* p, int row, int col) {
-  return p[swz<VB>((row << 7) | col)];
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Write a warp's output fragments (rows 16 mt + ..., lanes n0 + 8 nt + ...).
-template <int VB>
-__device__ __forceinline__ void store_frags(float* sre, float* sim, const float (&yr)[4][2][4],
-                                            const float (&yi)[4][2][4], int g, int c, int n0) {
+// Keep the compiler from moving accumulator accesses across the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define QC_D32                                                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, " \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define QC_D32_ARGS(d)                                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),   \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),    \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64 f32) += SA * a b: a from registers, b through its descriptor.
+template <int SA>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " QC_D32 ", {%32, %33, %34, %35}, %36, p, %37, 1;\n}\n"
+      : QC_D32_ARGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SA), "r"(1));
+}
+
+template <int SA>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " QC_D32 ", {%32, %33, %34, %35}, %36, p, %37, 1, 0;\n}\n"
+      : QC_D32_ARGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(SA), "r"(1));
+}
+
+#undef QC_D32
+#undef QC_D32_ARGS
+
+// One plane's activations of a k-step, converted: TF32 hi and lo, or bf16.
+template <bool BF>
+struct AFrag {
+  uint32_t hi[4], lo[4];
+};
+template <>
+struct AFrag<true> {
+  uint32_t hi[4];
+};
+
+__device__ __forceinline__ AFrag<false> convert_tf32(float v0, float v1, float v2, float v3) {
+  AFrag<false> f;
+  const float v[4] = {v0, v1, v2, v3};
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = to_tf32(v[i]);
+    f.lo[i] = to_tf32(v[i] - __uint_as_float(f.hi[i]));
+  }
+  return f;
+}
+
+// bf16: (v0, v1) and (v2, v3) are the two K values of a register pair; the
+// register order is a0 = (v0, v1) of row g, a1 of row g + 8, ...: callers
+// pass the 8 values in register order.
+__device__ __forceinline__ AFrag<true> convert_bf16(float a0, float a1, float b0, float b1, float c0, float c1,
+                                                    float e0, float e1) {
+  AFrag<true> f;
+  f.hi[0] = pack_bf16(a0, a1);
+  f.hi[1] = pack_bf16(b0, b1);
+  f.hi[2] = pack_bf16(c0, c1);
+  f.hi[3] = pack_bf16(e0, e1);
+  return f;
+}
+
+// A use of a fragment's registers that the compiler cannot drop: a k-step's
+// fragments are read by its asynchronous products until their group is done
+// (reading or writing them earlier is undefined), so each step's fragments
+// are kept live until after the next step's wgmma.wait_group, and the next
+// step's conversion cannot take their registers.
+template <bool BF>
+__device__ __forceinline__ void keep(const AFrag<BF>& f) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int p = swz<VB>(((16 * mt + g + 8 * (r >> 1)) << 7) | (n0 + 8 * nt + 2 * c + (r & 1)));
-        sre[p] = yr[mt][nt][r];
-        sim[p] = yi[mt][nt][r];
-      }
-    }
+  for (int i = 0; i < 4; ++i) {
+    asm volatile("" ::"r"(f.hi[i]));
+    if constexpr (!BF) asm volatile("" ::"r"(f.lo[i]));
   }
 }
 
-// One lanemat (ROW false) or rowmat (ROW true) on float32 planes, 3xTF32.
-template <int VB, bool ROW>
-__device__ __forceinline__ void matmul_tf32(float* sre, float* sim, const float* __restrict__ t0, bool real) {
+// d += SA * a (b_hi + b_lo): 3xTF32 (lo * lo dropped, small terms first) or two bf16 products.
+template <int SA>
+__device__ __forceinline__ void mat_prod(float (&d)[32], const AFrag<false>& a, uint64_t b_hi, uint64_t b_lo) {
+  wgmma_tf32<SA>(d, a.lo, b_hi);
+  wgmma_tf32<SA>(d, a.hi, b_lo);
+  wgmma_tf32<SA>(d, a.hi, b_hi);
+}
+template <int SA>
+__device__ __forceinline__ void mat_prod(float (&d)[32], const AFrag<true>& a, uint64_t b_hi, uint64_t b_lo) {
+  wgmma_bf16<SA>(d, a.hi, b_lo);
+  wgmma_bf16<SA>(d, a.hi, b_hi);
+}
+
+__device__ __forceinline__ float* tile_ptr(float* p, int row, int lane) { return p + swz<2>((row << 7) | lane); }
+
+// The xtable chunk q's values of this thread: (cos, sin) of its 8 elements
+// i = 4 jj + e, at row 16 q + 8 jj + 2 c + ((e ^ c) & 1) (the rowmat's
+// output order), lane 64 wg + 16 w + 2 g + (e >> 1).
+__device__ __forceinline__ void xtable_values(MatPipe& p, float (&x)[16]) {
+  const uint32_t chunk = mat_acquire(p);
+  const float4* src = reinterpret_cast<const float4*>(
+      __cvta_shared_to_generic(chunk + 16 * ((threadIdx.x >> 7) * 4 * 128 + (threadIdx.x & 127))));
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float4 f = src[v * 128];
+    x[4 * v] = f.x;
+    x[4 * v + 1] = f.y;
+    x[4 * v + 2] = f.z;
+    x[4 * v + 3] = f.w;
+  }
+  mat_release(p);
+}
+
+// One lanemat (ROW false) or rowmat (ROW true) on the f32 work tile (sre,
+// sim), its table chunks from the ring; with `fuse_x` (a rowmat) the
+// following xtable's four chunks applied before the store.  S: the storage
+// type, which fixes the products' precision.
+template <typename S, bool ROW, bool REAL>
+__device__ __forceinline__ void mat_product(float* sre, float* sim, MatPipe& p, bool fuse_x) {
+  constexpr bool BF = sizeof(S) == 2;
   constexpr int K = ROW ? 64 : 128;
-  const float* __restrict__ t1 = t0 + K * K;
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3, n0 = 16 * (threadIdx.x >> 5);
-  float yr[4][2][4] = {}, yi[4][2][4] = {};
-  for (int k0 = 0; k0 < K; k0 += 8) {
+  constexpr int N = ROW ? 64 : 128;  // columns of B in a chunk
+  constexpr int PARTS = REAL ? 2 : 4;
+  constexpr int PART_BYTES = N * 32;  // one k-step (32 bytes of K) of one part
+  constexpr int STEP_BYTES = PARTS * PART_BYTES;
+  constexpr int KPC = MAT_CHUNK / STEP_BYTES;  // k-steps a chunk
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, g = (tid & 31) >> 2, c = tid & 3;
+  const int r0 = 16 * w + g;              // lanemat: this thread's rows r0, r0 + 8
+  const int lr = 64 * wg + 16 * w + 2 * g;  // rowmat: its lanes lr, lr + 1 (M indices g, g + 8)
+  float yr[32], yi[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) yr[i] = yi[i] = 0.f;
+  uint32_t chunk = 0;
+  // Two k-steps an iteration (one group of 16 K indices at TF32, two at
+  // bf16), each with fragments of its own: step h's are kept live (keep)
+  // until the products of the step after it are issued and its own are done.
+  AFrag<BF> ar[2] = {}, ai[2] = {};
+#pragma unroll 1
+  for (int it = 0; it < K / (BF ? 32 : 16); ++it) {
+    // This iteration's activations, each loaded once: per k-step, the
+    // register values of each plane in fragment order (4 at TF32, 8 at bf16).
+    float xr[2][8], xi[2][8];
     if constexpr (!ROW) {
-      Frag<2> wr[2], wi[2];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int grp = 0; grp < (BF ? 2 : 1); ++grp) {
+        const int lane = 16 * (BF ? 2 * it + grp : it) + 4 * c;
+        const float4 p0 = *reinterpret_cast<const float4*>(tile_ptr(sre, r0, lane));
+        const float4 p1 = *reinterpret_cast<const float4*>(tile_ptr(sre, r0 + 8, lane));
+        const float4 q0 = *reinterpret_cast<const float4*>(tile_ptr(sim, r0, lane));
+        const float4 q1 = *reinterpret_cast<const float4*>(tile_ptr(sim, r0 + 8, lane));
+        if constexpr (BF) {  // step grp: K 2c, 2c + 1 <- lanes 4c, 4c + 1; K 2c + 8, 2c + 9 <- 4c + 2, 4c + 3
+          const float vr[8] = {p0.x, p0.y, p1.x, p1.y, p0.z, p0.w, p1.z, p1.w};
+          const float vi[8] = {q0.x, q0.y, q1.x, q1.y, q0.z, q0.w, q1.z, q1.w};
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int at = (k0 + c + 4 * r) * 128 + n0 + 8 * nt + g;
-          split_tf32(__ldg(t0 + at), wr[nt].hi[r], wr[nt].lo[r]);
-          if (!real) split_tf32(__ldg(t1 + at), wi[nt].hi[r], wi[nt].lo[r]);
-        }
-      }
+          for (int i = 0; i < 8; ++i) xr[grp][i] = vr[i], xi[grp][i] = vi[i];
+        } else {  // step h: K c <- lane 4c + 2h, K c + 4 <- lane 4c + 2h + 1
+          const float vr[2][4] = {{p0.x, p1.x, p0.y, p1.y}, {p0.z, p1.z, p0.w, p1.w}};
+          const float vi[2][4] = {{q0.x, q1.x, q0.y, q1.y}, {q0.z, q1.z, q0.w, q1.w}};
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        Frag<4> ar, ai;
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = 16 * mt + g + 8 * (r & 1), col = k0 + c + 4 * (r >> 1);
-          split_tf32(tile_at<VB>(sre, row, col), ar.hi[r], ar.lo[r]);
-          split_tf32(tile_at<VB>(sim, row, col), ai.hi[r], ai.lo[r]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma3(yr[mt][nt], ar, wr[nt]);
-          mma3(yi[mt][nt], ai, wr[nt]);
-          if (!real) {
-            mma3(yr[mt][nt], ai, negated<0x80000000u>(wi[nt]));
-            mma3(yi[mt][nt], ar, wi[nt]);
-          }
+            for (int i = 0; i < 4; ++i) xr[h][i] = vr[h][i], xi[h][i] = vi[h][i];
         }
       }
     } else {
-      Frag<2> xr[2], xi[2];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (BF) {  // step h: K 2c + {0, 1, 8, 9} <- rows 16 (2 it + h) + rowmat order of the same
+          float2 fr[4], fi[4];
+          const int o = c & 1;  // odd c takes its row pairs swapped (rowmat order)
+          const int rows[4] = {2 * c + o, 2 * c + 1 - o, 2 * c + 8 + o, 2 * c + 9 - o};
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int k = k0 + c + 4 * r, n = n0 + 8 * nt + g;
-          split_tf32(tile_at<VB>(sre, k, n), xr[nt].hi[r], xr[nt].lo[r]);
-          split_tf32(tile_at<VB>(sim, k, n), xi[nt].hi[r], xi[nt].lo[r]);
+          for (int i = 0; i < 4; ++i) {
+            fr[i] = *reinterpret_cast<const float2*>(tile_ptr(sre, 16 * (2 * it + h) + rows[i], lr));
+            fi[i] = *reinterpret_cast<const float2*>(tile_ptr(sim, 16 * (2 * it + h) + rows[i], lr));
+          }
+          const float vr[8] = {fr[0].x, fr[1].x, fr[0].y, fr[1].y, fr[2].x, fr[3].x, fr[2].y, fr[3].y};
+          const float vi[8] = {fi[0].x, fi[1].x, fi[0].y, fi[1].y, fi[2].x, fi[3].x, fi[2].y, fi[3].y};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) xr[h][i] = vr[i], xi[h][i] = vi[i];
+        } else {  // step h: K c, c + 4 <- rows 16 it + 8 h + c, + 4
+          const int row = 16 * it + 8 * h + c;
+          const float2 fa = *reinterpret_cast<const float2*>(tile_ptr(sre, row, lr));
+          const float2 fb = *reinterpret_cast<const float2*>(tile_ptr(sre, row + 4, lr));
+          const float2 ga = *reinterpret_cast<const float2*>(tile_ptr(sim, row, lr));
+          const float2 gb = *reinterpret_cast<const float2*>(tile_ptr(sim, row + 4, lr));
+          xr[h][0] = fa.x, xr[h][1] = fa.y, xr[h][2] = fb.x, xr[h][3] = fb.y;
+          xi[h][0] = ga.x, xi[h][1] = ga.y, xi[h][2] = gb.x, xi[h][3] = gb.y;
         }
       }
+    }
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        Frag<4> vr, vi;
+    for (int h = 0; h < 2; ++h) {
+      const int step = 2 * it + h;
+      const bool first = step % KPC == 0;
+      if (first) chunk = mat_acquire(p);
+      if constexpr (BF) {
+        ar[h] = convert_bf16(xr[h][0], xr[h][1], xr[h][2], xr[h][3], xr[h][4], xr[h][5], xr[h][6], xr[h][7]);
+        ai[h] = convert_bf16(xi[h][0], xi[h][1], xi[h][2], xi[h][3], xi[h][4], xi[h][5], xi[h][6], xi[h][7]);
+      } else {
+        ar[h] = convert_tf32(xr[h][0], xr[h][1], xr[h][2], xr[h][3]);
+        ai[h] = convert_tf32(xi[h][0], xi[h][1], xi[h][2], xi[h][3]);
+      }
+      const uint32_t base = chunk + (step % KPC) * STEP_BYTES + (ROW ? 0 : wg * (PART_BYTES / 2));
+      const uint64_t re_hi = mat_desc(base), re_lo = mat_desc(base + PART_BYTES);
+      fence_acc(yr);
+      fence_acc(yi);
+      wgmma_fence();
+      mat_prod<1>(yr, ar[h], re_hi, re_lo);
+      mat_prod<1>(yi, ai[h], re_hi, re_lo);
+      if constexpr (!REAL) {
+        const uint64_t im_hi = mat_desc(base + 2 * PART_BYTES), im_lo = mat_desc(base + 3 * PART_BYTES);
+        mat_prod<-1>(yr, ai[h], im_hi, im_lo);
+        mat_prod<1>(yi, ar[h], im_hi, im_lo);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous k-step's products are done
+      fence_acc(yr);
+      fence_acc(yi);
+      keep(ar[h ^ 1]);  // ... so its fragments may now be overwritten
+      keep(ai[h ^ 1]);
+      if (first && step > 0) mat_release(p);  // ... and with them the chunk before this one
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(yr);
+  fence_acc(yi);
+  keep(ar[1]);
+  keep(ai[1]);
+  mat_release(p);
+  if constexpr (ROW) {
+    if (fuse_x) {  // the xtable after this rowmat, on the accumulators: d[4 j + e], j = 2 q + jj
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int at = (k0 + c + 4 * (r >> 1)) * 64 + 16 * mt + g + 8 * (r & 1);
-          split_tf32(__ldg(t0 + at), vr.hi[r], vr.lo[r]);
-          if (!real) split_tf32(__ldg(t1 + at), vi.hi[r], vi.lo[r]);
-        }
+      for (int q = 0; q < 4; ++q) {
+        float x[16];
+        xtable_values(p, x);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma3(yr[mt][nt], vr, xr[nt]);
-          mma3(yi[mt][nt], vr, xi[nt]);
-          if (!real) {
-            mma3(yr[mt][nt], negated<0x80000000u>(vi), xi[nt]);
-            mma3(yi[mt][nt], vi, xr[nt]);
-          }
-        }
+        for (int i = 0; i < 8; ++i) cmul(yr[8 * q + i], yi[8 * q + i], x[2 * i], x[2 * i + 1]);
       }
     }
   }
-  __syncthreads();  // every warp has read the tile
-  store_frags<VB>(sre, sim, yr, yi, g, c, n0);
-}
-
-// One lanemat or rowmat on the f32 work tile of bf16 planes: activations
-// rounded to bf16, the table as bf16 hi + lo (parts at t, t + KK (im),
-// t + 2 KK (lo re), t + 3 KK (lo im)).
-template <int VB, bool ROW>
-__device__ __forceinline__ void matmul_bf16(float* sre, float* sim, const uint16_t* __restrict__ t, bool real) {
-  constexpr int K = ROW ? 64 : 128, KK = K * K;
-  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3, n0 = 16 * (threadIdx.x >> 5);
-  float yr[4][2][4] = {}, yi[4][2][4] = {};
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    if constexpr (!ROW) {
-      Frag<2> wr[2], wi[2];
+  __syncthreads();  // every thread has read the tile
+  if constexpr (!ROW) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int k = k0 + 2 * c + 8 * r, n = n0 + 8 * nt + g;
-          wr[nt].hi[r] = table_pair<K>(t, k, n);
-          wr[nt].lo[r] = table_pair<K>(t + 2 * KK, k, n);
-          if (!real) {
-            wi[nt].hi[r] = table_pair<K>(t + KK, k, n);
-            wi[nt].lo[r] = table_pair<K>(t + 3 * KK, k, n);
-          }
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        uint32_t ar[4], ai[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = 16 * mt + g + 8 * (r & 1), col = k0 + 2 * c + 8 * (r >> 1);
-          ar[r] = pack_bf16(tile_at<VB>(sre, row, col), tile_at<VB>(sre, row, col + 1));
-          ai[r] = pack_bf16(tile_at<VB>(sim, row, col), tile_at<VB>(sim, row, col + 1));
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma2(yr[mt][nt], ar, wr[nt]);
-          mma2(yi[mt][nt], ai, wr[nt]);
-          if (!real) {
-            mma2(yr[mt][nt], ai, negated<0x80008000u>(wi[nt]));
-            mma2(yi[mt][nt], ar, wi[nt]);
-          }
-        }
-      }
-    } else {
-      uint32_t xr[2][2], xi[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int k = k0 + 2 * c + 8 * r, n = n0 + 8 * nt + g;
-          xr[nt][r] = pack_bf16(tile_at<VB>(sre, k, n), tile_at<VB>(sre, k + 1, n));
-          xi[nt][r] = pack_bf16(tile_at<VB>(sim, k, n), tile_at<VB>(sim, k + 1, n));
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        Frag<4> vr, vi;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int m = 16 * mt + g + 8 * (r & 1), k = k0 + 2 * c + 8 * (r >> 1);
-          vr.hi[r] = table_pair<K>(t, k, m);
-          vr.lo[r] = table_pair<K>(t + 2 * KK, k, m);
-          if (!real) {
-            vi.hi[r] = table_pair<K>(t + KK, k, m);
-            vi.lo[r] = table_pair<K>(t + 3 * KK, k, m);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma2(yr[mt][nt], vr, xr[nt]);
-          mma2(yi[mt][nt], vr, xi[nt]);
-          if (!real) {
-            mma2(yr[mt][nt], negated<0x80008000u>(vi), xi[nt]);
-            mma2(yi[mt][nt], vi, xr[nt]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp has read the tile
-  store_frags<VB>(sre, sim, yr, yi, g, c, n0);
-}
-
-// One matrix op (record rec: kind, ..., its table's byte offset in mtab at
-// [5], 1 for a real table at [6]) on the f32 tile (sre, sim).  S: the
-// storage type, which fixes the products' precision.
-template <typename S, int VB>
-__device__ __forceinline__ void run_matrix(float* sre, float* sim, const int* rec,
-                                           const unsigned char* __restrict__ mtab) {
-  const unsigned char* tab = mtab + rec[5];
-  const bool real = rec[6] > 0;
-  if (rec[0] == OP_XTABLE) {
-    const float* __restrict__ x = reinterpret_cast<const float*>(tab);
-    for (int j = threadIdx.x; j < MAT_TILE; j += THREADS) {
-      const int p = swz<VB>(j);
-      float xr = sre[p], xi = sim[p];
-      cmul(xr, xi, __ldg(x + j), __ldg(x + MAT_TILE + j));
-      sre[p] = xr;
-      sim[p] = xi;
-    }
-  } else if constexpr (sizeof(S) == 2) {
-    const uint16_t* t = reinterpret_cast<const uint16_t*>(tab);
-    if (rec[0] == OP_ROWMAT) {
-      matmul_bf16<VB, true>(sre, sim, t, real);
-    } else {
-      matmul_bf16<VB, false>(sre, sim, t, real);
+    for (int j = 0; j < 8; ++j) {
+      const int lane = 64 * wg + 8 * j + 2 * c;
+      *reinterpret_cast<float2*>(tile_ptr(sre, r0, lane)) = make_float2(yr[4 * j], yr[4 * j + 1]);
+      *reinterpret_cast<float2*>(tile_ptr(sre, r0 + 8, lane)) = make_float2(yr[4 * j + 2], yr[4 * j + 3]);
+      *reinterpret_cast<float2*>(tile_ptr(sim, r0, lane)) = make_float2(yi[4 * j], yi[4 * j + 1]);
+      *reinterpret_cast<float2*>(tile_ptr(sim, r0 + 8, lane)) = make_float2(yi[4 * j + 2], yi[4 * j + 3]);
     }
   } else {
-    const float* t = reinterpret_cast<const float*>(tab);
-    if (rec[0] == OP_ROWMAT) {
-      matmul_tf32<VB, true>(sre, sim, t, real);
-    } else {
-      matmul_tf32<VB, false>(sre, sim, t, real);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row0 = 8 * j + 2 * c + (c & 1), row1 = row0 ^ 1;  // N 8j + 2c, 8j + 2c + 1 in rowmat order
+      *reinterpret_cast<float2*>(tile_ptr(sre, row0, lr)) = make_float2(yr[4 * j], yr[4 * j + 2]);
+      *reinterpret_cast<float2*>(tile_ptr(sre, row1, lr)) = make_float2(yr[4 * j + 1], yr[4 * j + 3]);
+      *reinterpret_cast<float2*>(tile_ptr(sim, row0, lr)) = make_float2(yi[4 * j], yi[4 * j + 2]);
+      *reinterpret_cast<float2*>(tile_ptr(sim, row1, lr)) = make_float2(yi[4 * j + 1], yi[4 * j + 3]);
     }
+  }
+}
+
+// An xtable that does not follow a rowmat: its own pass over the tile, each
+// thread on the elements whose phases it holds (xtable_values).
+__device__ __forceinline__ void xtable_pass(float* sre, float* sim, MatPipe& p) {
+  const int tid = threadIdx.x, wg = tid >> 7, w = (tid >> 5) & 3, g = (tid & 31) >> 2, c = tid & 3;
+#pragma unroll 1
+  for (int q = 0; q < 4; ++q) {
+    float x[16];
+    xtable_values(p, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 16 * q + 8 * (i >> 2) + 2 * c + ((i ^ c) & 1), lane = 64 * wg + 16 * w + 2 * g + ((i >> 1) & 1);
+      float* pr = tile_ptr(sre, row, lane);
+      float* pi = tile_ptr(sim, row, lane);
+      float xr = *pr, xi = *pi;
+      cmul(xr, xi, x[2 * i], x[2 * i + 1]);
+      *pr = xr;
+      *pi = xi;
+    }
+  }
+}
+
+// One matrix op (record rec: kind, -1, -1, -1, its chunks, its table's byte
+// offset in mtab, 1 for a real table, 1 when a rowmat applies the xtable
+// after it) on the f32 tile (sre, sim).
+template <typename S>
+__device__ __forceinline__ void run_matrix(float* sre, float* sim, const int* rec, MatPipe& p) {
+  const bool real = rec[6] > 0, fused = rec[7] > 0;
+  if (rec[0] == OP_XTABLE) {
+    if (!fused) xtable_pass(sre, sim, p);  // else the rowmat before it applied it
+  } else if (rec[0] == OP_ROWMAT) {
+    if (real) {
+      mat_product<S, true, true>(sre, sim, p, fused);
+    } else {
+      mat_product<S, true, false>(sre, sim, p, fused);
+    }
+  } else if (real) {
+    mat_product<S, false, true>(sre, sim, p, false);
+  } else {
+    mat_product<S, false, false>(sre, sim, p, false);
   }
 }
 
@@ -926,8 +1118,9 @@ __host__ __device__ __forceinline__ size_t ring_bytes(int tile, bool ring) {
 // PERM: the instance for segments with camodc ops; run_camodc's registers
 // would otherwise cost every segment spills.  MAT: the instance for segments
 // with matrix groups (fused_matmul.cu), one block an SM: its 2^13-amplitude
-// tile fills the shared memory, and its fragments take more than 128
-// registers.  S: the storage type, T: the compute type; S = bf16 with T =
+// tile and the table ring (MAT_STAGES chunks after the op records) fill the
+// shared memory, and its accumulators take more than 128 registers.  S: the
+// storage type, T: the compute type; S = bf16 with T =
 // float stages each tile and widens it into a work tile (see the header),
 // S = T computes in the ring slot itself.
 template <typename S, typename T, int VB, int NE, bool PERM, bool MAT>
@@ -960,7 +1153,30 @@ fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restri
     }
     axoff[c] = off;
   }
+  MatPipe pipe{};
+  if constexpr (MAT) {
+    // The table ring after the op records (128-byte aligned), then its mbarriers.
+    const size_t head = ((size_t)(reinterpret_cast<unsigned char*>(s_opi + OPI_STRIDE * nops) - smem) + 127) & ~(size_t)127;
+    pipe.ring = smem_u32(smem + head);
+    pipe.bar = pipe.ring + MAT_STAGES * MAT_CHUNK;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < MAT_STAGES; ++s) {
+        mbar_init(pipe.bar + 8 * s, 1);
+        mbar_init(pipe.bar + 8 * (MAT_STAGES + s), MAT_WARPS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
   __syncthreads();
+  if constexpr (MAT) {
+    for (int o = 0; o < nops; ++o) {
+      if (s_opi[OPI_STRIDE * o] >= OP_LANEMAT) pipe.per_tile += s_opi[OPI_STRIDE * o + 4];
+    }
+    const int64_t mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;  // tiles of this block
+    pipe.total = mine * pipe.per_tile;
+    pipe.src = mtab;
+    for (int c = 0; c < MAT_STAGES - 2; ++c) mat_issue(pipe);
+  }
 
   // The ring: with `ring`, tile i of this block lands in slot i % 2 while
   // tile i - 1 is computed; without, each tile lands in slot 0 once the one
@@ -1021,7 +1237,7 @@ fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restri
         if constexpr (MAT) {
           const int* first = s_opi + OPI_STRIDE * __ldg(grp);
           if (first[0] >= OP_LANEMAT) {  // a group of its own
-            run_matrix<S, VB>(sre, sim, first, mtab);
+            run_matrix<S>(sre, sim, first, pipe);
             __syncthreads();
             continue;
           }
@@ -1059,15 +1275,17 @@ int launch(S* re, S* im, const void* ops_i, const void* ops_f, const void* group
   const bool ring = !WIDEN && 2 * slot <= MAX_RING_BYTES;
   // The ring, the work tile (WIDEN), then per op: F_base (2 T), the first 8
   // coefficients, the int record.
-  const size_t smem = ring_bytes<S>(tile, ring) + (WIDEN ? 2 * sizeof(T) * (size_t)tile : 0) +
+  size_t smem = ring_bytes<S>(tile, ring) + (WIDEN ? 2 * sizeof(T) * (size_t)tile : 0) +
                       10 * sizeof(T) * (size_t)(nops + 1) + OPI_STRIDE * sizeof(int) * (size_t)nops;
   auto kern = fused_segment_kernel<S, T, VB, NE, PERM, MAT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   int per_sm = 0, dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  // The table ring (128-byte aligned) and its mbarriers after the op records.
+  if (MAT) smem = ((smem + 127) & ~(size_t)127) + (size_t)MAT_STAGES * (MAT_CHUNK + 16);
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess) return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem)) != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
   int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
   // A block walks tiles tau = blockIdx.x + i * grid.  With an even grid every

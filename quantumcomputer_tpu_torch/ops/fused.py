@@ -47,9 +47,12 @@ measured the butterfly form faster; states of at least 2^13 amplitudes) with
 128 x 128 product (``lanemat``), a chain on the row bits 7-12 one 64 x 64
 product on each 64-row x 128-lane group (``rowmat``), and the iQFT row
 stages' lane-cross phases one (64, 128) phase table (``xtable``).  The
-kernel runs the products on the tensor cores (``csrc/fused_matmul.cu``:
-3xTF32 at float32; at bf16 the activations rounded to bf16 against a hi +
-lo bf16 split of the table, as the JAX kernel's MXU dots).  A segment with
+kernel runs the products on the tensor cores (``csrc/fused_matmul.cu``,
+wgmma: 3xTF32 at float32; at bf16 the activations rounded to bf16 against a
+hi + lo bf16 split of the table, as the JAX kernel's MXU dots), its tables
+packed once a segment by ``matrix_tables`` (pre-split, in the products'
+shared-memory layout, 16 KB chunks) and streamed through a shared-memory
+ring; an xtable right after a rowmat rides in the rowmat's store.  A segment with
 a matrix group takes a 2^13-amplitude tile, and one with a rowmat or
 xtable holds all of bits 0-12 in it: the planner (``group=True``) cuts a
 run where that would not hold.  ``apply_segment`` and ``plain_ops`` take an
@@ -100,10 +103,12 @@ MATMUL_LAUNCHES = 0
 
 #: Plane dtypes whose segments apply_fused groups into matrix products.
 #: The JAX kernel groups at float32 and bf16.  The port groups at bf16 only:
-#: the complex64 m_high flagship (n = 28) took 38.72 / 38.82 ms with its
-#: float32 segments grouped against 22.65 / 22.72 ms in the butterfly form
-#: (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.time_flagship_forms, PERF.md
-#: section 6), so float32 keeps the butterfly form.
+#: with the wgmma instance the complex64 m_high flagship (n = 28) took
+#: 25.61 / 25.60 ms with its float32 segments grouped against 22.18 / 22.25 ms
+#: in the butterfly form (NVIDIA H100 80GB HBM3, 700 W;
+#: chip_smoke.time_flagship_forms, PERF.md section 6), so float32 keeps
+#: the butterfly form; complex32 grouped took 15.92 / 15.83 ms against
+#: 16.63 / 16.62.
 GROUP_DTYPES = (torch.bfloat16,)
 #: Index bits of a tile that holds whole 64-row x 128-lane groups; a
 #: segment with a matrix group takes this tile.
@@ -115,8 +120,9 @@ _KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4, "camodc": 5, "la
 # then an iQFT op's F_axes and F_low offsets in ftab (-1: none) and 1 when
 # it has a phase.  A camodc op's: kind, control, M, the control's tile-local
 # position (-1: a tile-base bit), -1, its table's offset in ptab, -1, -1.
-# A matrix op's: kind, -1, -1, -1, -1, its table's byte offset in mtab, 1
-# when the table is real, -1.
+# A matrix op's: kind, -1, -1, -1, its table's MAT_CHUNK-byte chunks in
+# mtab, their byte offset, 1 when the table is real, and 1 on a rowmat and
+# the xtable right after it, which the rowmat applies before its store.
 _OPI_STRIDE = 8
 _OPF_STRIDE = 32
 _GRP_STRIDE = 8  # op_begin, op_end, then the group's extra slot positions
@@ -756,8 +762,9 @@ def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
 def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, tables=()):
     """The kernel's view of one segment, as numpy arrays: (t, high, vb, ne,
     ops_i, ops_f, groups, ftab).  A grouped segment's matrix ops index
-    `tables` (group_ops); their records hold each table's byte offset in
-    matrix_tables' buffer.
+    `tables` (group_ops); their records hold each table's chunks and
+    their byte offset in matrix_tables' buffer, and mark a rowmat and the
+    xtable right after it, which the kernel applies in the rowmat's store.
 
     A tile holds the low t index bits plus the exposed axes `high`; a thread
     holds 2^ne of its amplitudes (the low vb bits plus ne - vb group bits).
@@ -791,7 +798,8 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype,
         if tb != ROW_TILE_BITS or t < (ROW_TILE_BITS if _has_rows(ops) else LOW_BITS):
             raise ValueError(f"the matrix groups of a segment need bits 0-12 (rowmat, xtable) or 0-6 (lanemat) "
                              f"in a {ROW_TILE_BITS}-bit tile, got t={t}, axes {high}")
-    offsets = np.concatenate([[0], np.cumsum([np.asarray(tab).nbytes for tab in tables])]).astype(np.int64)
+    chunks = [table_chunks(op, dtype) if op[0] in MATRIX_KINDS else 0 for op in ops]
+    offsets = MAT_CHUNK * np.concatenate([[0], np.cumsum(chunks)]).astype(np.int64)
 
     def local(q: int) -> int:
         if q < t:
@@ -831,8 +839,11 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype,
                 n_perm += 1
                 continue
             if op[0] in MATRIX_KINDS:
-                ops_i[k, 0], ops_i[k, 5] = _KIND[op[0]], offsets[op[1]]
+                ops_i[k, 0], ops_i[k, 4], ops_i[k, 5] = _KIND[op[0]], chunks[k], offsets[k]
                 ops_i[k, 6] = int(op[0] != "xtable" and op[2])
+                fused_x = op[0] == "rowmat" and k + 1 < len(ops) and ops[k + 1][0] == "xtable"
+                fused_x = fused_x or (op[0] == "xtable" and k > 0 and ops[k - 1][0] == "rowmat")
+                ops_i[k, 7] = int(fused_x)
                 continue
             qs = (op[1], op[2]) if op[0] in ("diag2", "u2q") else (op[1],)
             ops_i[k, 0] = _KIND[op[0]]
@@ -868,24 +879,122 @@ def camodc_tables(ops: tuple, M: int) -> np.ndarray:
     return np.concatenate(tabs).astype(np.int16) if tabs else np.zeros(1, np.int16)
 
 
+# The matrix groups' tables as the kernel consumes them (csrc/fused_matmul.cu,
+# fused_segment.cuh "Matrix groups"): each lanemat / rowmat table is the
+# product's shared-memory operand B[k][n] = tab[re/im][k][n] (lanemat:
+# K = N = 128 lanes; rowmat, computed transposed: K = N = 64 rows), its
+# parts re hi, re lo (then im hi, im lo for a complex table), for each
+# k-step of 32 bytes of K (8 TF32 or 16 bf16 values) in the wgmma
+# descriptor's no-swizzle K-major layout: core matrices of 8 columns of N x
+# 16 bytes of K, the two K halves 128 bytes apart, groups of 8 columns 256
+# bytes apart.  The k-steps run over K in the order of ``mat_k_order``, and
+# a rowmat's N (its output rows) in ``rowmat_order``.
+# Everything is cut into MAT_CHUNK-byte chunks in op order, one stage of the
+# kernel's table ring each.
+
+#: Bytes of a table chunk (one stage of the kernel's ring).
+MAT_CHUNK = 16 << 10
+
+
+def tf32_round(x) -> np.ndarray:
+    """float32 values rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as the card's cvt.rna.tf32.f32 rounds; float32 result."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split(x) -> Tuple[np.ndarray, np.ndarray]:
+    """(hi, lo): hi = x rounded to TF32, lo = x - hi (exact in float32)
+    rounded to TF32: the kernel's 3xTF32 operands."""
+    x = np.asarray(x, np.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def rowmat_order(n: int = 64) -> np.ndarray:
+    """The rows of a rowmat's outputs (its N index n is row n ^ ((n >> 1) &
+    1)): the four threads of a quad then store rows of both parities, which
+    the tile's swizzle spreads over the banks."""
+    k = np.arange(n)
+    return k ^ ((k >> 1) & 1)
+
+
+def mat_k_order(kind: str, dtype: torch.dtype) -> np.ndarray:
+    """order[k]: the activation index (lane of a lanemat, row of a rowmat)
+    of the products' k-th K index.  A rowmat takes its rows in rowmat order
+    at bf16 (rowmat_order) and in order at TF32.  A lanemat's
+    16-lane group p is one bf16 k-step or two TF32 k-steps, read as one
+    16-byte load of 4 lanes a thread (c = 0..3): at bf16 K 2c, 2c + 1,
+    2c + 8, 2c + 9 of step p are lanes 16p + 4c + 0..3; at TF32 K c and
+    c + 4 of step 2p + h are lanes 16p + 4c + 2h and 16p + 4c + 2h + 1."""
+    if kind == "rowmat":
+        return rowmat_order() if dtype == torch.bfloat16 else np.arange(64)
+    k = np.arange(LANE)
+    if dtype == torch.bfloat16:
+        kk = k % 16
+        return 16 * (k // 16) + 4 * ((kk % 8) // 2) + 2 * (kk // 8) + kk % 2
+    step, kk = k // 8, k % 8
+    return 16 * (step // 2) + 4 * (kk % 4) + 2 * (step % 2) + kk // 4
+
+
+def table_chunks(op: tuple, dtype: torch.dtype) -> int:
+    """The MAT_CHUNK-byte chunks of a matrix op's packed table: its parts
+    (2 real, 4 complex) of an (n, n) table at 4 bytes (TF32 hi / lo) or 2
+    (bf16 hi / lo) an entry; an xtable's (2, 64, 128) float32."""
+    if op[0] == "xtable":
+        return 2 * 64 * LANE * 4 // MAT_CHUNK
+    size = LANE if op[0] == "lanemat" else 64
+    return (2 if op[2] else 4) * size * size * (2 if dtype == torch.bfloat16 else 4) // MAT_CHUNK
+
+
+def _pack_product(tab, kind: str, real: bool, dtype: torch.dtype) -> np.ndarray:
+    """A lanemat or rowmat table (2 re/im, K, K) float32 packed for the
+    kernel (see above): hi / lo parts, K in mat_k_order, the core-matrix
+    layout; bytes."""
+    t = torch.tensor(np.array(tab, np.float32)[:1 if real else 2])
+    if dtype == torch.bfloat16:
+        hi = t.to(torch.bfloat16)
+        lo = (t - hi.float()).to(torch.bfloat16)
+        parts = [x.view(torch.int16).numpy() for x in (hi, lo)]
+    else:
+        parts = list(tf32_split(t.numpy()))
+    per16 = 16 // parts[0].itemsize  # K values in 16 bytes
+    b = np.stack(parts, axis=1).reshape(-1, *t.shape[1:])  # (re hi, re lo, im hi, im lo)
+    b = b[:, mat_k_order(kind, dtype), :]
+    if kind == "rowmat":
+        b = b[:, :, rowmat_order()]
+    P, K, N = b.shape
+    b = b.reshape(P, K // (2 * per16), 2, per16, N // 8, 8)  # (part, step, half, e, group, col)
+    return np.ascontiguousarray(b.transpose(1, 0, 4, 2, 5, 3)).reshape(-1).view(np.uint8)
+
+
+def _pack_xtable(tab) -> np.ndarray:
+    """An xtable (2 cos/sin, 64, 128) float32 as four chunks, in the order
+    each thread applies it: chunk q, warpgroup wg, float4 v, thread t (warp
+    w, lane 4 g + c) holds (cos, sin) of its elements 2v and 2v + 1, element
+    i = 4 jj + e at row 16 q + 8 jj + 2 c + ((e ^ c) & 1) (rowmat order) and
+    lane 64 wg + 16 w + 2 g + (e >> 1); bytes."""
+    q, wg, v, t, f = np.indices((4, 2, 4, 128, 4))
+    i = 2 * v + (f >> 1)
+    row = 16 * q + 8 * (i >> 2) + 2 * (t & 3) + ((i ^ t) & 1)
+    lane = 64 * wg + 16 * (t >> 5) + 2 * ((t & 31) >> 2) + ((i >> 1) & 1)
+    return np.asarray(tab, np.float32)[f & 1, row, lane].reshape(-1).view(np.uint8)
+
+
 def matrix_tables(ops: tuple, tables, dtype: torch.dtype) -> np.ndarray:
-    """mtab: the tables of a grouped segment's matrix ops as the kernel reads
-    them, one byte buffer in table order (host_descriptor's offsets; one
-    zero byte when there are none).  float32 tables as they are; at bf16 the
-    lanemat / rowmat tables as (2 hi/lo, 2 re/im, n, n) bf16, hi the table
-    rounded to nearest and lo its remainder rounded, as the JAX package
-    stages them (pallas_fused.py:1114-1119): the same bytes a table."""
-    if not tables:
-        return np.zeros(1, np.uint8)
-    products = {op[1] for op in ops if op[0] in ("lanemat", "rowmat")}
-    out = []
-    for i, tab in enumerate(tables):
-        t = torch.tensor(np.asarray(tab, np.float32))
-        if dtype == torch.bfloat16 and i in products:
-            hi = t.to(torch.bfloat16)
-            t = torch.stack([hi, (t - hi.float()).to(torch.bfloat16)])
-        out.append(t.reshape(-1).view(torch.uint8).numpy())
-    return np.concatenate(out)
+    """mtab: the tables of a grouped segment's matrix ops packed as the
+    kernel consumes them, one byte buffer of MAT_CHUNK-byte chunks in op
+    order (host_descriptor's offsets; one zero byte when there are none).
+    float32: each lanemat / rowmat table's TF32 hi / lo split (tf32_split);
+    bf16: hi the table rounded to nearest and lo its remainder rounded, as
+    the JAX package stages them (pallas_fused.py:1114-1119): the same
+    values in another order.  An xtable's float32 cos / sin either way."""
+    out = [
+        _pack_xtable(tables[op[1]]) if op[0] == "xtable" else _pack_product(tables[op[1]], op[0], op[2], dtype)
+        for op in ops
+        if op[0] in MATRIX_KINDS
+    ]
+    return np.concatenate(out) if out else np.zeros(1, np.uint8)
 
 
 def _device_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, device, tables=()):

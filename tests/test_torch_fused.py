@@ -22,6 +22,7 @@ from quantumcomputer_tpu.sim import reference as ref
 from quantumcomputer_tpu_torch import interop
 from quantumcomputer_tpu_torch.models import circuit as cir
 from quantumcomputer_tpu_torch.ops import _build, fused
+from tests.torch_matmul_spec import tf32_parts, unpack_product, unpack_xtable
 
 ATOL32 = 3e-5  # tests/test_pallas_fused.py ATOL
 ATOL64 = 1e-12
@@ -244,38 +245,29 @@ def _insert_zero(x, p):
     return ((x >> p) << (p + 1)) | (x & ((1 << p) - 1))
 
 
-def _tf32(x):
-    """float32 values rounded to TF32 as cvt.rna does: 10 mantissa bits,
-    ties away from zero."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
-
-
-def _product_3xtf32(a, b):
-    """a @ b as the kernel's 3xTF32 mma: each float32 operand split into
-    TF32 hi + lo, hi*hi + hi*lo + lo*hi (products and sums in float64)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(np.asarray(a, np.float32) - ah.astype(np.float32)), _tf32(np.asarray(b, np.float32) - bh.astype(np.float32))
-    return ah @ bh + ah @ bl + al @ bh
-
-
 def _emulate_matrix(tile, rec, mtab):
-    """One matrix op (record rec) on a 2^13-element tile, from the table in
-    mtab at the record's byte offset: the float32 planes through 3xTF32."""
-    kind, off, real = int(rec[0]), int(rec[5]), bool(rec[6])
-    k = 64 if kind == 7 else 128
-    count = 2 * 64 * 128 if kind == 8 else 2 * k * k
-    tab = mtab[off: off + 4 * count].view(np.float32).reshape((2, 64, 128) if kind == 8 else (2, k, k))
+    """One matrix op (record rec) on a 2^13-element tile, from its packed
+    table in mtab (the record's chunks at its byte offset; the layout undone
+    by tests/torch_matmul_spec's unpackers): the float32 planes through
+    3xTF32, the activations split as the kernel splits them and the table's
+    TF32 hi / lo parts as packed, hi*hi + hi*lo + lo*hi."""
+    kind, chunks, off, real = int(rec[0]), int(rec[4]), int(rec[5]), bool(rec[6])
+    buf = mtab[off: off + chunks * fused.MAT_CHUNK]
     if kind == 8:
+        tab = unpack_xtable(buf)
         return tile * (tab[0].astype(np.float64) + 1j * tab[1].astype(np.float64)).reshape(-1)
+    parts = unpack_product(buf, "rowmat" if kind == 7 else "lanemat", real, bf16=False).astype(np.float64)
     xr, xi = tile.real.astype(np.float32), tile.imag.astype(np.float32)
-    if kind == 6:
-        prod = lambda x, w: _product_3xtf32(x.reshape(-1, 128), w).reshape(-1)  # noqa: E731  X W
-    else:
-        prod = lambda x, w: _product_3xtf32(w.T, x.reshape(64, 128)).reshape(-1)  # noqa: E731  V X, V = table^T
-    yr, yi = prod(xr, tab[0]), prod(xi, tab[0])
+
+    def prod(x, p):  # X B (lanemat) or (X^T B)^T (rowmat), B = parts p (hi), p + 1 (lo)
+        x = x.reshape(-1, 128) if kind == 6 else x.reshape(64, 128).T
+        hi, lo = (v.astype(np.float64) for v in tf32_parts(x))
+        y = hi @ parts[p] + hi @ parts[p + 1] + lo @ parts[p]
+        return (y if kind == 6 else y.T).reshape(-1)
+
+    yr, yi = prod(xr, 0), prod(xi, 0)
     if not real:
-        yr, yi = yr - prod(xi, tab[1]), yi + prod(xr, tab[1])
+        yr, yi = yr - prod(xi, 2), yi + prod(xr, 2)
     return yr + 1j * yi
 
 

@@ -158,9 +158,9 @@ def test_planner_cuts_where_a_matrix_group_needs_its_tile(name, gates, M, want):
 
 def test_many_lanemats_in_one_segment():
     """The JAX package splits a segment whose tables pass 10 MB of VMEM
-    (pallas_fused.py:1040-1064).  The port's kernel reads its tables from
-    device memory through L1/L2, not shared memory, so it keeps the segment
-    whole: 81 repeats of [H(1), H(2), CZ(13, 2)] give 81 lanemats (10.1 MiB
+    (pallas_fused.py:1040-1064).  The port's kernel streams its tables
+    through a ring of 16 KB chunks in shared memory, so no table budget
+    splits a segment: 81 repeats of [H(1), H(2), CZ(13, 2)] give 81 lanemats (10.1 MiB
     of tables) in one pass, held against the gates one by one in complex128."""
     n, M = 14, 0
     gates = (cir.H(1), cir.H(2), cir.CZ(13, 2)) * 81
