@@ -7,7 +7,8 @@ Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
      quantumcomputer_tpu_torch/ops/csrc (one nvcc per source, sm_90a) and
      print the build time, every kernel's ptxas registers and spills, and
-     a line for the two matrix instances (fused_matmul.cu);
+     a line for the two matrix instances (fused_matmul.cu) and one for the
+     three camodc permutation instances (camodc_permute.cu);
   2. hold each kernel against its plain PyTorch version on the card: every
      fused-segment op kind on seeded n = 20 states of unit-variance
      components in float32 (max abs <= 3e-5) and float64 (<= 1e-12), and
@@ -16,10 +17,12 @@ Phases, each of which must pass:
      m_high oracle kernels (ladder, cycle, cycle_masked, the row gather) in
      float32 and float64 at the shapes their call sites take, and the walk
      with its segment count forced to 1, 2, 3, 7 and 16, exactly (max abs
-     == 0: they only move data); the fused kernel's camodc op (--oracle
-     benes) at n = 20, M = 4, 6, 8, 13, one op and two, the control a
-     tile-base bit, an exposed axis or a low bit, exactly against its plain
-     Benes version, and mixed with H gates within the tolerance above; the
+     == 0: they only move data); the camodc op (--oracle benes) at n = 20,
+     M = 4, 6, 8, 13, one op and two, the control a tile-base bit, an
+     exposed axis or a low bit, exactly against its plain Benes version and
+     (camodc ops alone, which must launch the camodc permutation,
+     camodc_permute.cu) its plain case-table gather, and mixed with H gates
+     (the fused kernel's camodc op) within the tolerance above; the
      matrix groups of float32 and bf16 segments (lanemat and rowmat with
      real and complex tables, rowmat + xtable, all three in one segment,
      row stages at M = 8, a lanemat beside exposed axes) at n = 20 and
@@ -54,13 +57,16 @@ Phases, each of which must pass:
      control the m_high plan walks (0-10) and the pair (13, 14) held exactly
      against their plain versions and timed beside them, their bounds and
      their library calls; the flagship with oracle="benes": no single
-     oracle gate in its plan, norm, within ||d||_2 <= 1e-4 of the gather
-     engine's state, both runs timed in turns, and every segment with a
-     camodc op held exactly against its plain version and timed beside it,
-     its bound (the bytes of the tiles it changes) and its library call;
+     oracle gate in its plan, every oracle segment launched as the camodc
+     permutation, norm, within ||d||_2 <= 1e-4 of the gather engine's
+     state, both runs timed in turns, and every oracle segment held exactly
+     against its plain version and timed beside it, its bound (the bytes of
+     the work blocks it changes) and its library call; the first one also
+     on float64 planes;
   5. the main paths: factor 8187 = 2729 x 3 end to end at n = 30 with
      shors_algorithm(backend="cuda"), in the standard layout, in the m_high
-     layout and with oracle="benes" (no gather oracle may run); every
+     layout and with oracle="benes" (no gather oracle may run, and every
+     camodc segment launches the camodc permutation); every
      kernel's launch counter is reset just before each and read just after,
      and each kernel of that path must have launched;
   6. the semiclassical engine's kernels, transpose and chunk_gather (its four
@@ -125,11 +131,12 @@ the time of one PyTorch call computing the same function (named in
 bound are those of segment 0 of the standard plan (a 5-H segment); its
 "segments" list holds every n = 28 segment of both plans that runs without
 matrix groups, and
-"segments_mean_ms" / "segments_mean_plain_ms" their means.  camodc's
-numbers are those of the first oracle segment of the benes flagship (a
-pair), launches those of the benes n = 30 run; its "segments" list holds
-every oracle segment, "flagship_ms" / "flagship_gather_ms" the two runs of
-each flagship.  The bf16 instances have entries of their own ("<name>_bf16",
+"segments_mean_ms" / "segments_mean_plain_ms" their means.  camodc (the
+camodc permutation, camodc_permute.cu) takes its numbers from the first
+oracle segment of the benes flagship (a pair), its launches from the benes
+n = 30 run; its "segments" list holds every oracle segment,
+"f64_segments" the first one on float64 planes, "flagship_ms" /
+"flagship_gather_ms" the two runs of each flagship.  The bf16 instances have entries of their own ("<name>_bf16",
 launches from the complex32 main paths, max_ulps beside max_abs_err for the
 fused segment).  fused_matmul / fused_matmul_bf16 (the matrix groups)
 take their numbers from the m_high iQFT segment (rowmat + xtable +
@@ -468,7 +475,7 @@ def phase_build() -> float:
     _build.load()
     seconds = time.perf_counter() - t0
     log(f"build: kernels ready in {seconds:.3f} s ({_build.library_path()})")
-    entry, matrix = "", {}
+    entry, matrix, permute = "", {}, {}
     with open(_build.build_log_path()) as f:
         for line in f:
             if "Compiling entry function" in line:
@@ -478,11 +485,18 @@ def phase_build() -> float:
                 # The matrix instances (fused_segment_kernel<S, float, 2, 4, PERM false, MAT true>).
                 if "fused_segment_kernel" in entry and "Lb0ELb1E" in entry:
                     matrix.setdefault("bf16" if "bfloat16" in entry else "f32", []).append(line.strip())
+                # The camodc permutation's instances (camodc_permute_kernel<element bytes>).
+                for nbytes, dtype in (("2", "bf16"), ("4", "f32"), ("8", "f64")):
+                    if f"camodc_permute_kernelILi{nbytes}E" in entry:
+                        permute.setdefault(dtype, []).append(line.strip())
             elif "wgmma" in line:
                 log(f"  ptxas: {entry}: {line.strip()}")
     check(set(matrix) == {"f32", "bf16"}, f"no ptxas report of both matrix instances: {sorted(matrix)}")
     for dtype, lines in sorted(matrix.items()):
         log(f"ptxas matrix instance {dtype} (fused_matmul.cu): {'; '.join(lines)}")
+    check(set(permute) == {"f32", "f64", "bf16"}, f"no ptxas report of the three permutation instances: {sorted(permute)}")
+    for dtype, lines in sorted(permute.items()):
+        log(f"ptxas camodc permutation {dtype} (camodc_permute.cu): {'; '.join(lines)}")
     return seconds
 
 
@@ -577,10 +591,14 @@ def phase_kernels(report: dict, n: int = KERNEL_N) -> None:
 
 
 def phase_camodc_kernels(report: dict, n: int = KERNEL_N) -> None:
-    """The fused kernel's camodc op (--oracle benes) against its plain Benes
-    version at n = 20 on states of unit-variance components, float32 and
-    float64: exactly where the segment only moves data, within TOL mixed
-    with H gates."""
+    """The camodc op (--oracle benes) at n = 20 on states of unit-variance
+    components, float32, float64 and bf16: each segment against its plain
+    Benes version (kernel_checks.plan_states; a segment of camodc ops alone
+    also against the plain case-table gather, plain_permute), exactly where
+    the segment only moves data, within TOL mixed with H gates.  A case of
+    camodc ops alone must launch the camodc permutation
+    (fused.PERMUTE_LAUNCHES), a mixed one the fused kernel's camodc op
+    (fused.CAMODC_LAUNCHES counts both)."""
     import numpy as np
     import torch
 
@@ -590,13 +608,17 @@ def phase_camodc_kernels(report: dict, n: int = KERNEL_N) -> None:
     for dtype in (torch.float32, torch.float64, torch.bfloat16):
         rng = np.random.default_rng(24)
         for name, gates, M, exact in camodc_cases(n):
-            before = fused.CAMODC_LAUNCHES
+            before, permute = fused.CAMODC_LAUNCHES, fused.PERMUTE_LAUNCHES
             pairs = plan_states(random_planar(rng, n, dtype, DEVICE, normalize=False), gates, M, fuse_oracle=True)[0]
             err, text = fused_err(report, key("camodc" if exact else "fused_segment", dtype), pairs)
             tol = 0.0 if exact else TOL[dname(dtype)]
+            permuted = fused.PERMUTE_LAUNCHES - permute
             log(f"kernel camodc {name:20s} {dname(dtype)} n={n}: {text} (tol {tol:.0e}), "
-                f"{fused.CAMODC_LAUNCHES - before} camodc segment(s)")
+                f"{fused.CAMODC_LAUNCHES - before} camodc segment(s), {permuted} through the permutation")
             check(fused.CAMODC_LAUNCHES > before, f"camodc {name} {dname(dtype)}: no segment with a camodc op launched")
+            alone = all(g.name == "camodc" for g in gates)
+            check(permuted > 0 if alone else permuted == 0,
+                  f"camodc {name} {dname(dtype)}: {permuted} launches of the permutation (camodc ops alone: {alone})")
             check(err <= tol, f"camodc {name} {dname(dtype)}: {err} > {tol}")
 
 
@@ -707,6 +729,7 @@ def reset_launches() -> None:
 
     fused.LAUNCHES = 0
     fused.CAMODC_LAUNCHES = 0
+    fused.PERMUTE_LAUNCHES = 0
     fused.MATMUL_LAUNCHES = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
@@ -719,7 +742,8 @@ def launches() -> dict:
     from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, transpose
 
     return {
-        "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "matmul": fused.MATMUL_LAUNCHES,
+        "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "permute": fused.PERMUTE_LAUNCHES,
+        "matmul": fused.MATMUL_LAUNCHES,
         "block_sums": measure.LAUNCHES,
         **oracle.LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
@@ -793,26 +817,20 @@ def phase_flagship(report: dict) -> None:
     )
 
 
-def changed_share(ops, axes, n: int, M: int, dtype) -> float:
-    """The share of a segment's tiles that its ops change: 1 - 2^-k for k
-    distinct tile-base controls when every op is a camodc op on one (the
-    kernel skips the other tiles), else 1."""
-    from quantumcomputer_tpu_torch.ops import fused
-
-    t, high = fused.tile_geometry(n, axes, fused.segment_tile_bits(ops, M, fused.TILE_BITS[dtype]))
-    if any(op[0] != "camodc" or op[1] < t or op[1] in high for op in ops):
-        return 1.0
+def changed_share(ops) -> float:
+    """The share of the work blocks a segment of camodc ops alone changes
+    (those whose controls are not all 0; the camodc permutation reads and
+    writes no other): 1 - 2^-k for k distinct controls."""
     return 1.0 - 0.5 ** len({op[1] for op in ops})
 
 
 def phase_flagship_benes(report: dict, gather_state) -> None:
     """The flagship with oracle="benes" (standard layout, complex64): its
-    plan holds no single oracle gate; norm, and the state against the
-    gather engine's; both whole runs timed in turns; then every segment
-    that holds a camodc op held exactly against its plain version and timed
-    beside it, its bound (the bytes of the tiles it changes, read and
-    written once) and its library call (torch.index_select of each op's
-    control-1 half, summed)."""
+    plan holds no single oracle gate and its run launches every camodc
+    segment as the camodc permutation; norm, and the state against the
+    gather engine's; both whole runs timed in turns; then every oracle
+    segment timed (time_camodc_segments), and the first one again on
+    float64 planes."""
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit
@@ -830,7 +848,11 @@ def phase_flagship_benes(report: dict, gather_state) -> None:
     for name in ("gather", "benes", "benes", "gather"):
         eng = gather if name == "gather" else benes
         runs[name].append(time_ms(lambda: eng.run(circuit), reps=3))
+    reset_launches()
     state = benes.run(circuit)
+    counts = launches()
+    check(counts["permute"] == counts["camodc"] > 0,
+          f"the benes flagship's camodc segments did not all launch the camodc permutation: {counts}")
     norm = float(torch.sum(state * state))
     dist = float(torch.linalg.vector_norm(state - gather_state))
     del state
@@ -844,7 +866,9 @@ def phase_flagship_benes(report: dict, gather_state) -> None:
     check(abs(norm - 1.0) <= FLAGSHIP_TOL, f"benes flagship norm {norm}")
     check(dist <= FLAGSHIP_TOL, f"benes vs gather flagship distance {dist}")
 
-    time_camodc_segments(report, unit_planar(n, torch.float32, 30), plan, M)
+    fill_camodc_entry(entry, time_camodc_segments(entry, unit_planar(n, torch.float32, 30), plan, M))
+    first = next(s for s in plan if s[0] == "fused" and any(op[0] == "camodc" for op in s[1]))
+    entry["f64_segments"] = time_camodc_segments(entry, unit_planar(n, torch.float64, 31), [first], M)
 
 
 def unit_planar(n: int, dtype, seed: int):
@@ -855,35 +879,34 @@ def unit_planar(n: int, dtype, seed: int):
     return torch.randn((2, 1 << n), generator=gen, device=DEVICE, dtype=torch.float32).to(dtype)
 
 
-def time_camodc_segments(report: dict, planar, plan, M: int) -> None:
-    """Every segment of a benes plan that holds a camodc op, on `planar`:
-    held exactly against its plain version and timed beside it, its bound
-    (the bytes of the tiles it changes, read and written once) and its
-    library call (torch.index_select of each op's control-1 half, summed);
-    the first one's numbers and the list go to the report entry of the
-    planes' dtype."""
+def time_camodc_segments(entry: dict, planar, plan, M: int) -> list:
+    """Every segment of a benes plan that holds a camodc op (each launches
+    the camodc permutation), on `planar`: held exactly against its plain
+    version (plain_permute) and timed beside it, its bound (the bytes of
+    the work blocks it changes, read and written once) and its library call
+    (torch.index_select of each op's control-1 half, summed); returns one
+    row a segment, the largest error into `entry`."""
     import torch
 
     from quantumcomputer_tpu_torch.ops import fused
     from quantumcomputer_tpu_torch.ops import gates as tops
-    from quantumcomputer_tpu_torch.sim import statevec as sv
 
-    entry = report[key("camodc", planar.dtype)]
-    n = sv.num_qubits(planar)
     state_bytes = planar.numel() * planar.element_size()
     rows = []
     for i, (kind, ops, axes) in enumerate(plan):
         if kind != "fused" or not any(op[0] == "camodc" for op in ops):
             continue
-        want = fused.plain_segment(planar, ops, M)
+        want = fused.plain_permute(planar, ops, M)
+        before = fused.PERMUTE_LAUNCHES
         err = exact_err(fused.apply_fused(planar.clone(), ops, axes, M), want)
         del want
         torch.cuda.synchronize()
+        check(fused.PERMUTE_LAUNCHES == before + 1, f"benes flagship segment {i} did not launch the camodc permutation")
         check(err == 0.0, f"benes flagship segment {i} {dname(planar.dtype)}: {err} != 0")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         k_ms = time_ms(lambda: fused.apply_fused(planar, ops, axes, M), reps=10)
-        p_ms = time_ms(lambda: fused.plain_segment(planar, ops, M), reps=2)
-        share = changed_share(ops, axes, n, M, planar.dtype)
+        p_ms = time_ms(lambda: fused.plain_permute(planar, ops, M), reps=2)
+        share = changed_share(ops)
         b_ms, by = bound(2 * share * state_bytes)
         lib_ms = 0.0
         for op in (op for op in ops if op[0] == "camodc"):
@@ -892,21 +915,28 @@ def time_camodc_segments(report: dict, planar, plan, M: int) -> None:
             lib_ms += time_ms(lambda: torch.index_select(half, -1, ginv), reps=5)
             del half, ginv
         rows.append({
-            "index": i, "controls": [op[1] for op in ops], "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": by, "library_ms": lib_ms, "changed_share": share,
+            "index": i, "controls": [op[1] for op in ops], "dtype": dname(planar.dtype), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms, "changed_share": share,
         })
         log(
-            f"kernel {entry['name']} flagship segment {i} (controls {[op[1] for op in ops]}, changed share {share}): "
-            f"max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
+            f"kernel {entry['name']} flagship segment {i} {dname(planar.dtype)} (controls {[op[1] for op in ops]}, "
+            f"changed share {share}): max abs {err:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
         )
     del planar
     torch.cuda.empty_cache()
-    first = rows[0]
-    entry.update({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return rows
+
+
+def fill_camodc_entry(entry: dict, rows: list) -> None:
+    """A camodc entry's numbers: the first oracle segment's, and every one."""
+    entry.update({k: rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     entry["segments"] = rows
     entry["segments_mean_ms"] = sum(r["ms"] for r in rows) / len(rows)
     entry["segments_sum_ms"] = sum(r["ms"] for r in rows)
+    log(f"kernel {entry['name']}: {len(rows)} oracle segments, {entry['segments_sum_ms']:.4f} ms in all; pairs "
+        f"{sum(r['bound_ms'] for r in rows if len(r['controls']) == 2) / sum(r['ms'] for r in rows if len(r['controls']) == 2):.1%} "
+        f"of their bound, each below its index_select sum: {all(r['ms'] < r['library_ms'] for r in rows)}")
 
 
 def matrix_bound(nbytes: float, gops, planes) -> tuple:
@@ -1251,15 +1281,16 @@ def phase_factor(report: dict, planes) -> None:
         counts = launches()
     finally:
         tops.apply_c_amodc_planes_ = gather_oracle
-    report[key("camodc", planes)]["launches"] = counts["camodc"]
+    report[key("camodc", planes)]["launches"] = counts["permute"]
     log(
         f"factor oracle=benes n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; launches {counts}, "
         f"gather oracle calls {len(gathers)}"
     )
     check(result.factors == (2729, 3), f"benes factors {result.factors} != (2729, 3)")
-    for k in ("fused_segment", "camodc", "block_sums"):
+    for k in ("fused_segment", "permute", "block_sums"):
         check(counts[k] > 0, f"the benes main path launched no {k} kernel")
+    check(counts["permute"] == counts["camodc"], f"a camodc segment of the benes main path missed the permutation: {counts}")
     check(not gathers, f"the benes main path ran {len(gathers)} gather oracles")
 
 
@@ -1810,6 +1841,9 @@ def phase_flagship_c32(report: dict) -> None:
             f"{C32_NORM_TOL:.0e}); ||c32 - c64||_2 = {dist:.4e} (tol {C32_DIST_TOL:.0e}); launches {counts}"
         )
         check(s32.dtype == torch.bfloat16, f"the complex32 {name} state is {s32.dtype}")
+        if name == "benes":
+            check(counts["permute"] == counts["camodc"] > 0,
+                  f"the complex32 benes flagship's camodc segments did not all launch the camodc permutation: {counts}")
         if name == "m_high":
             check(counts["matmul"] > 0, "the complex32 m_high flagship launched no matrix group")
         check(abs(norm - 1.0) <= C32_NORM_TOL, f"complex32 {name} flagship norm {norm}")
@@ -1883,7 +1917,8 @@ def phase_flagship_c32(report: dict) -> None:
     entry["segments_mean_plain_ms"] = sum(t["plain_ms"] for t in entry["segments"]) / len(entry["segments"])
     log(f"kernel fused_segment_bf16 n={n}: standard segment 0 {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f}); "
         f"the {len(entry['segments'])} segments of both plans without matrix groups: mean {entry['segments_mean_ms']:.4f} ms")
-    time_camodc_segments(report, planar.clone(), benes_plan, M)
+    entry = report["camodc_bf16"]
+    fill_camodc_entry(entry, time_camodc_segments(entry, planar.clone(), benes_plan, M))
     singles = [entry[1] for entry in mhigh_plan if entry[0] == "single"]
     ladder = next(g.qubits for g in singles if g.name == "camodc_ladder_high")
     walks = tuple(g.qubits[0] for g in singles if g.name == "camodc_high")
@@ -1982,7 +2017,7 @@ def new_report() -> dict:
                       "rowmat's V by its (2^(n-13), 64, 128) view, summed (out of place)")
     rows = (
         ("fused_segment", "fused_segment.cu", "pallas_fused.py:1002", no_call + "applies a segment of gates"),
-        ("camodc", "fused_segment.cu", "pallas_fused.py:967", camodc_library),
+        ("camodc", "camodc_permute.cu", "pallas_fused.py:967", camodc_library),
         ("block_sums", "block_sums.cu", "pallas_measure.py:66", None),
         ("ladder", "oracle_ladder.cu", "pallas_oracle.py:101", None),
         ("cycle", "oracle_cycle.cu", "pallas_oracle.py:274", None),
@@ -1997,7 +2032,7 @@ def new_report() -> dict:
         ("probe_rowroll", "probes.cu", "scripts/prof_rowperm.py:186", None),
         # The bf16 instances, on the complex32 paths.
         ("fused_segment_bf16", "fused_segment.cu", "pallas_fused.py:1010-1025", no_call + "applies a segment of gates"),
-        ("camodc_bf16", "fused_segment.cu", "pallas_fused.py:1089-1091", camodc_library),
+        ("camodc_bf16", "camodc_permute.cu", "pallas_fused.py:1089-1091", camodc_library),
         ("block_sums_bf16", "block_sums.cu", "pallas_measure.py:60-63", None),
         ("ladder_bf16", "oracle_ladder.cu", "pallas_oracle.py:147-163", None),
         ("cycle_bf16", "oracle_cycle.cu", "pallas_oracle.py:389-392", None),

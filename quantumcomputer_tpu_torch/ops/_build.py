@@ -108,6 +108,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("qc_fused_segment", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p]),
         # the same, then mtab (the matrix groups' tables), stream
         ("qc_fused_matmul", ("f32", "bf16"), [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p, p]),
+        # re, im, cases, ntab, n, M, k, positions, stream
+        ("qc_camodc_permute", ("f32", "f64", "bf16"), [p, p, p, i64, i64, i64, i64, i64, p]),
         # re, im, out, nblocks, block, stream
         ("qc_block_sums", ("f32", "f64", "bf16"), [p, p, p, i64, i64, p]),
         # in_re, in_im, out_re, out_im, combo, K, controls_packed, C, log_rows, log_rest, stream

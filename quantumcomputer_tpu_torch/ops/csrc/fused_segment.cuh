@@ -10,15 +10,13 @@
 //   iqft  H(l), then exp(i*pi*(i & (2^l - 2^M)) / 2^l) on the bit-l == 1 half
 //   u2q   dense 4x4 on two qubits
 //   camodc  where control bit c is 1, the work register [0, M) permuted
-//         f -> A*f mod C: the branch camodc_k of the TPU kernel
-//         (pallas_fused.py:967-997), there 2M - 1 masked exchange stages
-//         because TPU lanes cannot gather.  Here it is a shared-memory
-//         gather by the inverse permutation (run_camodc): one read and one
-//         write of shared memory per moved element, against 2M - 1 of each
-//         for the stages.  Its segment's tile holds whole 2^M-element work
-//         blocks (t >= M, at most 2^13 amplitudes; one ring slot when two do
-//         not fit MAX_RING_BYTES), and a tile on which every op is a camodc
-//         whose tile-base control bit is 0 is neither loaded nor stored.
+//         f -> A*f mod C (the TPU kernel's camodc_k branch,
+//         pallas_fused.py:967-997), in segments that mix it with other ops:
+//         each work block gathered through the inverse permutation in
+//         shared memory (run_camodc, the PERM instances; a segment of camodc
+//         ops alone runs in camodc_permute.cu).  Its tile holds whole
+//         2^M-element work blocks (t >= M, at most 2^13 amplitudes; one ring
+//         slot when two do not fit MAX_RING_BYTES).
 //   lanemat, rowmat, xtable  the matrix groups of float32 and bf16 segments
 //         (ops/fused.py, matmul_group_ops): a chain of ops on bits 0-6 as
 //         one 128 x 128 product, on bits 7-12 as one 64 x 64 product, the
@@ -99,6 +97,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -577,16 +577,6 @@ __device__ __forceinline__ void run_camodc(T* sre, T* sim, const int* rec, const
   }
 }
 
-// False when every op of the segment is a camodc whose control is a tile-base
-// bit that is 0 in this tile: then no op changes the tile.
-__device__ __forceinline__ bool tile_active(const int* s_opi, int nops, int64_t tbase) {
-  for (int o = 0; o < nops; ++o) {
-    const int* r = s_opi + OPI_STRIDE * o;
-    if (r[0] != OP_CAMODC || r[3] >= 0 || ((tbase >> r[1]) & 1)) return true;
-  }
-  return false;
-}
-
 // ---------------------------------------------------------------------------
 // Matrix groups: the TPU kernel's lanemat / rowmat / xtable branches
 // (pallas_fused.py:911-966) on Hopper's warpgroup tensor-core products
@@ -665,47 +655,6 @@ constexpr int MAT_CHUNK = 16384;    // bytes of a table chunk, one stage of the 
 // (PERF.md).
 constexpr int MAT_STAGES = 4;
 constexpr int MAT_WARPS = THREADS / 32;
-constexpr long long MAT_WAIT_CYCLES = 20000000000LL;  // a wait this long is a fault: trap, do not hang
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try(bar, parity)) {
-    if (clock64() - start > MAT_WAIT_CYCLES) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-
 // The table ring.  Chunk q of the block's stream (chunk q % per_tile of
 // mtab) lands in stage q % MAT_STAGES: thread 0 copies it as one 16 KB
 // cp.async.bulk, and full[s] at bar + 8 s counts that thread's arrival and
@@ -1115,7 +1064,7 @@ __host__ __device__ __forceinline__ size_t ring_bytes(int tile, bool ring) {
 
 // Two blocks an SM: 128 registers a thread hold a group's 2^NE amplitudes
 // without spills (a cap of 80, for three blocks, spilled and ran slower).
-// PERM: the instance for segments with camodc ops; run_camodc's registers
+// PERM: the instance for segments that mix camodc ops with others; run_camodc's registers
 // would otherwise cost every segment spills.  MAT: the instance for segments
 // with matrix groups (fused_matmul.cu), one block an SM: its 2^13-amplitude
 // tile and the table ring (MAT_STAGES chunks after the op records) fill the
@@ -1182,11 +1131,11 @@ fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restri
   // tile i - 1 is computed; without, each tile lands in slot 0 once the one
   // before it is stored.  WIDEN has one slot and no ring: the next tile lands
   // in it once this one is widened into the work tile, while this one is
-  // computed.  A tile no op changes is neither loaded nor stored.
+  // computed.
   const bool early = ring || WIDEN;  // the next tile's copy starts before this tile's ops
   const int64_t step = gridDim.x;
   int64_t tau = blockIdx.x;
-  bool act = tau < tiles && (!PERM || tile_active(s_opi, nops, tile_base(tau, g)));
+  bool act = tau < tiles;
   if (act) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(tau, g), axoff, g, vec);
   cp_async_commit();
   int b = 0;
@@ -1218,7 +1167,7 @@ fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restri
     }
     T* sim = sre + tile;
     const int64_t nxt = tau + step;
-    const bool nact = nxt < tiles && (!PERM || tile_active(s_opi, nops, tile_base(nxt, g)));
+    const bool nact = nxt < tiles;
     const int nb = ring ? b ^ 1 : b;
     if (early) {
       if (nact) load_tile<S, SB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
@@ -1287,11 +1236,7 @@ int launch(S* re, S* im, const void* ops_i, const void* ops_f, const void* group
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem)) != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-  int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
-  // A block walks tiles tau = blockIdx.x + i * grid.  With an even grid every
-  // tile a block sees has the same low tile-base bits, so when the skipped
-  // tiles are those of low controls whole blocks would idle: keep it odd.
-  if (PERM && grid > 1 && grid % 2 == 0) --grid;
+  const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
   kern<<<(unsigned int)grid, THREADS, smem, (cudaStream_t)stream>>>(
       re, im, (const int*)ops_i, (const T*)ops_f, (const int*)groups, ngroups, (const T*)ftab, (const short*)ptab,
       (const unsigned char*)mtab, nops, g, M, tiles, vec, ring);

@@ -29,16 +29,23 @@ Op descriptors (hashable tuples, as in the JAX package):
 
 A camodc op permutes whole 2^M-element work blocks, so its segment's tile
 holds at least the low M bits: its tile budget is max(TILE_BITS, M) bits,
-at most 2^13 amplitudes.  The plain version applies the op as the JAX
-kernel does, as the 2M - 1 masked exchange stages of a Benes network
-(``ops/benes.py``); the CUDA kernel gathers each work block through the
-inverse permutation in shared memory.  Both compute the same function.
+at most 2^13 amplitudes.  plain_segment applies the op as the JAX kernel
+does, as the 2M - 1 masked exchange stages of a Benes network
+(``ops/benes.py``).  A segment whose every op is a camodc op is one
+permutation of each work block, chosen by the block's control bits: the
+router (``kernel_body``) sends it to a kernel of its own
+(``csrc/camodc_permute.cu``), one gather a moved element through "case
+tables" composed once a segment (``permute_descriptor``), whose plain
+version is ``plain_permute``; a segment that mixes camodc ops with other
+ops gathers each work block through the inverse permutation inside the
+fused kernel.  All compute the same function.
 
 bfloat16 planes ("complex32") take the kernel's bf16 instance: each tile is
 widened to float32, every op computes in float32, and each amplitude is
 rounded to bf16 once per pass, at the store, as the JAX kernel does; its
 tables are those of a float32 segment.  The plain version computes the same
-in complex64 and rounds once.
+in complex64 and rounds once.  The camodc permutation moves bf16 elements
+as they are.
 
 Matrix groups.  As the JAX kernel does, apply_fused rewrites a bf16 segment
 (``GROUP_DTYPES``: the JAX kernel also groups at float32, where the port
@@ -95,10 +102,12 @@ GROUP_BITS = {torch.float32: 4, torch.float64: 3, torch.bfloat16: 4}
 MAX_CAMODC_PER_SEGMENT = 2
 
 #: Kernel launches made by apply_fused / apply_segment (CUDA tensors only),
-#: those of them whose segment holds a camodc op, and those whose segment
-#: holds a matrix group (lanemat, rowmat or xtable).
+#: those of them whose segment holds a camodc op (either kernel), those of
+#: the camodc permutation kernel (every op a camodc op, ``kernel_body``), and
+#: those whose segment holds a matrix group (lanemat, rowmat or xtable).
 LAUNCHES = 0
 CAMODC_LAUNCHES = 0
+PERMUTE_LAUNCHES = 0
 MATMUL_LAUNCHES = 0
 
 #: Plane dtypes whose segments apply_fused groups into matrix products.
@@ -693,6 +702,24 @@ def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
     return plain_ops(planar, gops, M, tables)
 
 
+def plain_permute(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
+    """The plain version of the camodc permutation kernel: each plane's
+    2^M-element work blocks gathered through the segment's case tables
+    (permute_descriptor), a block's case from its control bits (blocks
+    whose controls are all 0 are copied as they are); a new planar tensor
+    of the state's dtype.  Equal to plain_segment on the same segment."""
+    positions, _, _, tables = permute_descriptor(tuple(ops), sv.num_qubits(planar), M)
+    blocks = planar.reshape(2, -1, 1 << M)
+    b = torch.arange(blocks.shape[1], device=planar.device)
+    case = sum(((b >> p) & 1) << j for j, p in enumerate(positions))
+    tabs = torch.from_numpy(tables[:, : 1 << M].astype(np.int64)).to(planar.device)
+    out = blocks.clone()
+    for m in range(1, len(tables) + 1):
+        sel = torch.nonzero(case == m).squeeze(1)
+        out[:, sel] = torch.index_select(torch.index_select(blocks, 1, sel), 2, tabs[m - 1])
+    return out.view_as(planar)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper.
 
@@ -879,6 +906,37 @@ def camodc_tables(ops: tuple, M: int) -> np.ndarray:
     return np.concatenate(tabs).astype(np.int16) if tabs else np.zeros(1, np.int16)
 
 
+def permute_descriptor(ops: tuple, n: int, M: int) -> Tuple[tuple, int, int, np.ndarray]:
+    """The camodc permutation kernel's view of a segment whose every op is a
+    camodc op: (positions, log_q, items, tables).
+
+    positions: the k distinct controls' bits in the work-block index
+    (control - M), ascending.  The d-th changed work block (one whose
+    controls are not all 0) has case m = (d >> log_q) + 1, log_q =
+    n - M - k, and its index is d's low log_q bits with bit j of m inserted
+    at positions[j], in ascending order; items = 2 (2^k - 1) 2^log_q, one a
+    plane of each changed block.  tables: (2^k - 1, 2^M rounded up to 8)
+    uint16, row m - 1 the composition, in op order, of the inverse tables
+    (gates.modmul_inverse_permutation) of the ops whose control is bit j of
+    m set: out[f] = in[g1[g2[f]]] for ops 1 then 2; the padding is 0."""
+    controls = sorted({op[1] for op in ops})
+    if not controls or any(op[0] != "camodc" for op in ops):
+        raise ValueError(f"the camodc permutation takes camodc ops only, got {ops}")
+    if not all(M <= c < n for c in controls):
+        raise ValueError(f"camodc controls {controls} must be bits of the L register [{M}, {n})")
+    k = len(controls)
+    inverse = [tops.modmul_inverse_permutation(op[2], op[3], M) for op in ops]
+    tables = np.zeros(((1 << k) - 1, -(-(1 << M) // 8) * 8), np.uint16)
+    for m in range(1, 1 << k):
+        h = np.arange(1 << M)
+        for op, g in zip(ops, inverse):
+            if (m >> controls.index(op[1])) & 1:
+                h = h[g]
+        tables[m - 1, : 1 << M] = h
+    log_q = n - M - k
+    return tuple(c - M for c in controls), log_q, 2 * (((1 << k) - 1) << log_q), tables
+
+
 # The matrix groups' tables as the kernel consumes them (csrc/fused_matmul.cu,
 # fused_segment.cuh "Matrix groups"): each lanemat / rowmat table is the
 # product's shared-memory operand B[k][n] = tab[re/im][k][n] (lanemat:
@@ -1013,6 +1071,53 @@ def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, dev
     return gops, _device_descriptor(gops, axes, n, M, dtype, device, tables)
 
 
+@lru_cache(maxsize=256)
+def _permute_tables(ops: tuple, n: int, M: int, device: torch.device):
+    """(positions, case tables on the device) of a camodc-only segment,
+    cached per segment."""
+    positions, _, _, tables = permute_descriptor(ops, n, M)
+    return positions, torch.from_numpy(tables.view(np.int16)).to(device)
+
+
+def kernel_body(ops, M: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The router: the kernel a segment (ops as applied) launches, by its
+    shape.  "matmul" when it holds a matrix group (csrc/fused_matmul.cu);
+    "permute" when every op is a camodc op on at most
+    MAX_CAMODC_PER_SEGMENT distinct controls, both planes are 16-byte
+    aligned (`aligned`) and a work block holds at least 16 bytes of a plane
+    (csrc/camodc_permute.cu); else "segment" (csrc/fused_segment.cu)."""
+    if any(op[0] in MATRIX_KINDS for op in ops):
+        return "matmul"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if (ops and all(op[0] == "camodc" for op in ops) and len({op[1] for op in ops}) <= MAX_CAMODC_PER_SEGMENT
+            and aligned and (itemsize << M) >= 16):
+        return "permute"
+    return "segment"
+
+
+def _aligned(planar: torch.Tensor) -> bool:
+    return planar[0].data_ptr() % 16 == 0 and planar[1].data_ptr() % 16 == 0
+
+
+def _permute(planar: torch.Tensor, ops: tuple, n: int, M: int) -> torch.Tensor:
+    """A segment that kernel_body sends to "permute", in place: one launch
+    of qc_camodc_permute for a CUDA tensor, plain_permute for a CPU one."""
+    global LAUNCHES, CAMODC_LAUNCHES, PERMUTE_LAUNCHES
+    if planar.device.type == "cpu":
+        return planar.copy_(plain_permute(planar, ops, M))
+    positions, cases = _permute_tables(ops, n, M, planar.device)
+    fn = _build.entry("qc_camodc_permute", planar.dtype)
+    packed = sum(p << (8 * j) for j, p in enumerate(positions))
+    with torch.cuda.device(planar.device):
+        err = fn(planar[0].data_ptr(), planar[1].data_ptr(), cases.data_ptr(), cases.shape[0], n, M, len(positions),
+                 packed, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "camodc_permute")
+    LAUNCHES += 1
+    CAMODC_LAUNCHES += 1
+    PERMUTE_LAUNCHES += 1
+    return planar
+
+
 def _check_planar(planar: torch.Tensor) -> int:
     n = sv.num_qubits(planar)
     if planar.dtype not in TILE_BITS:
@@ -1024,11 +1129,11 @@ def _check_planar(planar: torch.Tensor) -> int:
 
 def _launch(planar: torch.Tensor, ops: tuple, n: int, M: int, desc) -> torch.Tensor:
     """One kernel launch of a segment (ops as applied) on a CUDA planar
-    state, in place: the matrix instance (qc_fused_matmul) when the segment
-    holds a matrix group, else qc_fused_segment."""
+    state, in place: the matrix instance (qc_fused_matmul) when kernel_body
+    says "matmul", else qc_fused_segment."""
     global LAUNCHES, CAMODC_LAUNCHES, MATMUL_LAUNCHES
     t, high, vb, ne, ops_i, ops_f, grp, ftab, ptab, mtab = desc
-    matrix = any(op[0] in MATRIX_KINDS for op in ops)
+    matrix = kernel_body(ops, M, planar.dtype, _aligned(planar)) == "matmul"
     fn = _build.entry("qc_fused_matmul" if matrix else "qc_fused_segment", planar.dtype)
     packed = sum(a << (8 * i) for i, a in enumerate(high))
     n_perm = sum(op[0] == "camodc" for op in ops)
@@ -1056,15 +1161,18 @@ def _device_kind(planar: torch.Tensor) -> str:
 
 def apply_segment(planar: torch.Tensor, ops: tuple, axes: tuple, M: int, tables=()) -> torch.Tensor:
     """An explicit op list, grouped (its matrix ops index `tables`) or not,
-    as one fused pass IN PLACE: the kernel for a CUDA tensor, plain_ops for
-    a CPU tensor.  apply_fused groups and calls this; a segment passed here
-    ungrouped runs in its butterfly form (no matrix group)."""
+    as one fused pass IN PLACE: the kernel that kernel_body picks for a
+    CUDA tensor, its plain version (plain_permute, else plain_ops) for a CPU
+    tensor.  A segment passed here ungrouped runs in its butterfly form (no
+    matrix group)."""
     n = _check_planar(planar)
-    if _device_kind(planar) == "cpu":
-        return planar.copy_(plain_ops(planar, ops, M, tables))
-    if not ops:
-        return planar
     ops, axes = tuple(ops), tuple(axes)
+    if _device_kind(planar) == "cuda" and not ops:
+        return planar
+    if kernel_body(ops, M, planar.dtype, _aligned(planar)) == "permute":
+        return _permute(planar, ops, n, M)
+    if planar.device.type == "cpu":
+        return planar.copy_(plain_ops(planar, ops, M, tables))
     if tables:
         desc = _device_descriptor(ops, axes, n, M, planar.dtype, planar.device, tables)
     else:
@@ -1078,12 +1186,16 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
     grouped into matrix products where the plane dtype and size group
     (``groups``), as the JAX apply_fused groups (pallas_fused.py:1103).
 
-    A CUDA tensor goes through the kernel; a CPU tensor through
-    plain_segment.  Any other device raises."""
+    A CUDA tensor goes through the kernel that kernel_body picks; a CPU
+    tensor through that kernel's plain version (plain_permute, else
+    plain_segment).  Any other device raises."""
     n = _check_planar(planar)
-    if _device_kind(planar) == "cpu":
-        return planar.copy_(plain_segment(planar, ops, M))
-    if not ops:
+    ops = tuple(ops)
+    if _device_kind(planar) == "cuda" and not ops:
         return planar
-    gops, desc = _descriptor(tuple(ops), tuple(axes), n, M, planar.dtype, planar.device, groups(planar.dtype, n))
+    if kernel_body(ops, M, planar.dtype, _aligned(planar)) == "permute":
+        return _permute(planar, ops, n, M)
+    if planar.device.type == "cpu":
+        return planar.copy_(plain_segment(planar, ops, M))
+    gops, desc = _descriptor(ops, tuple(axes), n, M, planar.dtype, planar.device, groups(planar.dtype, n))
     return _launch(planar, gops, n, M, desc)

@@ -136,7 +136,9 @@ def segment_products(ops, M: int, dtype, n: int) -> int:
 
 def plan_states(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False) -> tuple:
     """Run a circuit's fused plan on copies of `planar` through the kernel
-    (in place) and through plain_segment: ([(kernel state, plain state)],
+    (in place) and through plain_segment (a segment the router sends to the
+    camodc permutation also through plain_permute, which must equal it
+    exactly): ([(kernel state, plain state)],
     fused-segment launches, segments), each pair with a third element, the
     segment's matrix products (segment_products).  One pair, the final states, for
     float32 / float64; one pair per segment for bf16, each segment's plain
@@ -152,7 +154,10 @@ def plan_states(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = False
     pairs = []
     before = fused.LAUNCHES
     for _, ops, axes in plan:
-        want = fused.plain_segment(got if per_pass else want, ops, M)
+        src = got if per_pass else want
+        want = fused.plain_segment(src, ops, M)
+        if fused.kernel_body(ops, M, planar.dtype, aligned=True) == "permute":
+            _check(torch.equal(fused.plain_permute(src, ops, M), want), f"plain_permute differs from plain_segment on {ops}")
         fused.apply_fused(got, ops, axes, M)
         if per_pass:
             pairs.append((got.clone(), want, segment_products(ops, M, planar.dtype, n)))
@@ -355,6 +360,60 @@ def probe_kernels(device) -> List[str]:
     return out
 
 
+def _camodc_segment(planar: torch.Tensor, gates, M: int) -> Tuple[int, int]:
+    """The one fused segment of a camodc circuit, run in place on `planar`
+    and held exactly against plain_segment and plain_permute: (its
+    camodc-segment launches, its launches of the camodc permutation)."""
+    n = int(planar.shape[1]).bit_length() - 1
+    ((kind, ops, axes),) = fused.plan_circuit(gates, n, M, fused.TILE_BITS[planar.dtype], fuse_oracle=True)
+    want = fused.plain_segment(planar, ops, M)
+    _check(torch.equal(fused.plain_permute(planar, ops, M), want), f"plain_permute differs from plain_segment on {ops}")
+    camodc, permute = fused.CAMODC_LAUNCHES, fused.PERMUTE_LAUNCHES
+    fused.apply_fused(planar, ops, axes, M)
+    torch.cuda.synchronize()
+    _check(torch.equal(planar, want), f"camodc segment {ops} {_name(planar.dtype)} differs")
+    return fused.CAMODC_LAUNCHES - camodc, fused.PERMUTE_LAUNCHES - permute
+
+
+def camodc_router_shapes(device) -> List[str]:
+    """Camodc-only segments that the router (fused.kernel_body) must send to
+    the fused kernel's camodc op, not the camodc permutation: planes that
+    are not 16-byte aligned (a state one element into its buffer), at
+    float32, float64 and bf16, and bf16 work blocks of 8 bytes (M = 2)."""
+    out = []
+    for dtype in DTYPES + (torch.bfloat16,):
+        n, M, gates = 16, 8, (cir.CAMODC(251, 13, 9), cir.CAMODC(251, 15, 15))
+        psi = random_planar(np.random.default_rng(12), n, dtype, device).reshape(-1)
+        buf = torch.empty(psi.numel() + 1, dtype=dtype, device=device)
+        planar = buf[1:].view(2, -1)
+        planar.copy_(psi.view(2, -1))
+        _check(planar.data_ptr() % 16 != 0, "the offset planes are aligned")
+        launched = _camodc_segment(planar, gates, M)
+        _check(launched == (1, 0), f"unaligned {_name(dtype)}: (camodc, permute) launches {launched} != (1, 0)")
+        out.append(f"camodc unaligned planes n={n} M={M} {_name(dtype)}: fused kernel, exact")
+    n, M, gates = 10, 2, (cir.CAMODC(3, 2, 5), cir.CAMODC(3, 2, 9))
+    launched = _camodc_segment(random_planar(np.random.default_rng(13), n, torch.bfloat16, device), gates, M)
+    _check(launched == (1, 0), f"tiny bf16 work blocks: (camodc, permute) launches {launched} != (1, 0)")
+    out.append(f"camodc 8-byte bf16 work blocks n={n} M={M}: fused kernel, exact")
+    return out
+
+
+def camodc_few_changed_blocks(device) -> List[str]:
+    """The camodc permutation with fewer items (planes of changed work
+    blocks) than the card has streaming multiprocessors, so the grid is cut
+    to the items: n = 16, M = 13 (8 work blocks), one op, a pair and a pair
+    on one control, at float32, float64 and bf16."""
+    C, M, n = 8191, 13, 16
+    out = []
+    for dtype in DTYPES + (torch.bfloat16,):
+        for gates in ((cir.CAMODC(C, 3, 13),), (cir.CAMODC(C, 3, 13), cir.CAMODC(C, 9, 15)),
+                      (cir.CAMODC(C, 3, 14), cir.CAMODC(C, 9, 14))):
+            launched = _camodc_segment(random_planar(np.random.default_rng(14), n, dtype, device), gates, M)
+            _check(launched == (1, 1), f"few blocks {_name(dtype)}: (camodc, permute) launches {launched} != (1, 1)")
+        out.append(f"camodc permutation n={n} M={M}, 4-6 changed blocks, {_name(dtype)}: exact")
+    return out
+
+
 CHECKS: List[Callable[[torch.device], List[str]]] = [
     fused_random_circuit,
     fused_split_angle,
@@ -365,6 +424,8 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     chunk_gather_narrow,
     stride_permute_m22,
     probe_kernels,
+    camodc_router_shapes,
+    camodc_few_changed_blocks,
 ]
 
 

@@ -292,8 +292,6 @@ def _emulate_kernel(psi, ops, axes, n, M, dtype, tables=()):
         hi = base | (np.zeros(1 << k, np.int64) + sum(((c >> a) & 1) << q for a, q in enumerate(high)))
         j = np.arange(1 << tb)
         gidx = hi[j >> t] | (j & ((1 << t) - 1))
-        if all(r[0] == 5 and r[3] < 0 and not (base >> r[1]) & 1 for r in ops_i):
-            continue  # no op changes this tile: the kernel skips it
         tile = out[gidx]
         for b, e, *extra in grp:
             if ops_i[b, 0] >= 6:  # a matrix op: its own group, over the whole tile
@@ -442,30 +440,86 @@ CAMODC_EMULATION = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def _emulate_permute(psi, ops, n, M):
+    """The camodc permutation kernel (csrc/camodc_permute.cu) on a complex
+    state, from permute_descriptor: item by item, the changed work block and
+    its case found as the kernel finds them (case m = (d >> log_q) + 1, the
+    bits of m inserted at the control positions into d's low log_q bits),
+    each plane of the block gathered through case table m - 1.  Asserts that
+    the items reach every block whose controls are not all 0, once a plane."""
+    positions, log_q, items, tables = fused.permute_descriptor(ops, n, M)
+    out = psi.copy()
+    reached = []
+    for item in range(items):
+        d, plane = item >> 1, item & 1
+        m = (d >> log_q) + 1
+        block = d & ((1 << log_q) - 1)
+        for j, p in enumerate(positions):
+            block = ((block >> p) << (p + 1)) | (((m >> j) & 1) << p) | (block & ((1 << p) - 1))
+        assert m == sum(((block >> p) & 1) << j for j, p in enumerate(positions))
+        reached.append((block, plane))
+        rows = slice(block << M, (block + 1) << M)
+        src = (psi.imag if plane else psi.real)[rows][tables[m - 1, : 1 << M].astype(np.int64)]
+        if plane:
+            out.imag[rows] = src
+        else:
+            out.real[rows] = src
+    blocks = np.arange(1 << (n - M))
+    changed = [b for b in blocks if any((b >> p) & 1 for p in positions)]
+    assert sorted(reached) == [(b, pl) for b in changed for pl in (0, 1)]
+    return out
+
+
+def _jax_camodc_state(planes, circuit, n, M, dtype):
+    """The JAX kernel (interpret mode) on the circuit's fused plan, planes of
+    `dtype` (float32, float64 or bfloat16), as a complex128 state."""
+    jdtype = {torch.float32: jnp.float32, torch.float64: jnp.float64, torch.bfloat16: jnp.bfloat16}[dtype]
+    jgates = tuple(jcir.Gate(g.name, g.qubits, g.params, g.meta, g.matrix) for g in circuit)
+    re, im = jnp.asarray(planes[0], jdtype), jnp.asarray(planes[1], jdtype)
+    for _, ops, axes in pf.plan_circuit(jgates, n, M, fuse_oracle=True):
+        re, im = pf.apply_fused(re, im, ops, axes, n, M)
+    return np.asarray(re, np.float64) + 1j * np.asarray(im, np.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("case", CAMODC_EMULATION, ids=[c[0] for c in CAMODC_EMULATION])
 def test_camodc_kernel_emulation_matches_plain_segment(dtype, case):
-    """The kernel's camodc op (a gather of each work block through the
-    inverse permutation, tiles with every control 0 skipped), emulated from
-    host_descriptor and camodc_tables, equals the plain Benes stages:
-    exactly where the segment only moves data."""
+    """Each segment of the plan, emulated as the kernel that kernel_body
+    picks for it runs it (the camodc permutation through its descriptor, or
+    the fused kernel's gather of each work block through the inverse
+    permutation), equals the plain Benes stages (plain_segment) on the same
+    input: exactly where the segment only moves data.  There the plain
+    case-table gather (plain_permute) equals both, and, where the JAX
+    kernel's layout takes the state (n >= 14), so does the JAX kernel in
+    interpret mode on the whole circuit, at float32, float64 and bf16
+    planes."""
     name, n, M, circuit = case
     rng = np.random.default_rng(n * 3 + M)
-    psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
-    if dtype == torch.float32:
-        psi = psi.astype(np.complex64).astype(np.complex128)  # values the f32 planes hold exactly
+    planes = torch.from_numpy(rng.standard_normal((2, 1 << n))).to(dtype)  # values the planes hold exactly
     plan = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[dtype], fuse_oracle=True)
     assert all(s[0] == "fused" for s in plan) and any(op[0] == "camodc" for s in plan for op in s[1])
-    want = interop.state_from_numpy(np.stack([psi.real, psi.imag])).to(dtype)
-    got = psi
+    moves_only = all(op[0] == "camodc" for s in plan for op in s[1])
+    state = planes
     for _, ops, axes in plan:
-        want = fused.plain_segment(want, ops, M)
-        got = _emulate_kernel(got, ops, axes, n, M, dtype)
-    want = want[0].numpy() + 1j * want[1].numpy()
-    if name == "mixed with H":
-        np.testing.assert_allclose(got, want, atol=ATOL64 if dtype == torch.float64 else ATOL32)
-    else:
-        np.testing.assert_array_equal(got, want)
+        psi = state[0].double().numpy() + 1j * state[1].double().numpy()
+        want = fused.plain_segment(state, ops, M)
+        if fused.kernel_body(ops, M, dtype, aligned=True) == "permute":
+            got = _emulate_permute(psi, ops, n, M)
+            assert torch.equal(fused.plain_permute(state, ops, M), want)
+        else:
+            got = _emulate_kernel(psi, ops, axes, n, M, dtype)
+        state = want
+        want = want[0].double().numpy() + 1j * want[1].double().numpy()
+        if moves_only:
+            np.testing.assert_array_equal(got, want)
+        elif dtype == torch.bfloat16:  # the kernel rounds once a pass, as plain_segment does
+            rounded = torch.from_numpy(np.stack([got.real, got.imag])).to(torch.bfloat16).double().numpy()
+            np.testing.assert_allclose(rounded[0] + 1j * rounded[1], want, rtol=2.0 ** -8, atol=2.0 ** -16)
+        else:
+            np.testing.assert_allclose(got, want, atol=ATOL64 if dtype == torch.float64 else ATOL32)
+    if moves_only and n >= 14:
+        final = state[0].double().numpy() + 1j * state[1].double().numpy()
+        np.testing.assert_array_equal(final, _jax_camodc_state(planes.float().numpy() if dtype == torch.bfloat16 else planes.numpy(), circuit, n, M, dtype))
 
 
 def test_register_groups_of_the_flagship_segments():
