@@ -7,8 +7,9 @@ Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
      quantumcomputer_tpu_torch/ops/csrc (one nvcc per source, sm_90a) and
      print the build time, every kernel's ptxas registers and spills, and
-     a line for the two matrix instances (fused_matmul.cu) and one for the
-     three camodc permutation instances (camodc_permute.cu);
+     a line for the two matrix instances (fused_matmul.cu), one for the
+     three camodc permutation instances (camodc_permute.cu), one for the
+     fused kernel's bf16 direct instance and one for the mxuroll probe;
   2. hold each kernel against its plain PyTorch version on the card: every
      fused-segment op kind on seeded n = 20 states of unit-variance
      components in float32 (max abs <= 3e-5) and float64 (<= 1e-12), and
@@ -107,13 +108,18 @@ Phases, each of which must pass:
      version: the fused segment within one bf16 ulp per pass, the block sums
      within 1e-6, the camodc op, oracles, transpose and chunk gathers
      exactly): the n = 28 flagship in the standard layout, m_high and
-     oracle="benes", each in turns with complex64, norm within 5e-3 of 1,
+     oracle="benes", each in turns with complex64 (the complex32 engine
+     built with no device, which must sit on the card and launch the fused
+     kernel), norm within 5e-3 of 1,
      ||psi_c32 - psi_c64||_2 <= 6e-3, benes equal to the gather exactly;
      the m_high flagship's matrix groups launched, and its segments timed
      grouped and in the butterfly form in turns;
      m_high below two states (cycle_masked) equal to the two-state plan
      exactly; every bf16 segment and oracle
-     kernel of those plans timed beside its bound; 8187 at n = 30 in both
+     kernel of those plans timed beside its bound, each bf16 segment
+     without matrix groups also beside the float32 instance's time for the
+     same ops and axes, and the benes plan's six H and iQFT segments held
+     and summed at both; 8187 at n = 30 in both
      layouts and with benes; the CLI on 15 and the n = 31 demo
      (-C 8189 -L 18 -M 13 -a 2 --dtype complex32 --layout m_high, seeds in
      turn until it factors, about 75% an attempt); the M = 28 semiclassical
@@ -475,7 +481,7 @@ def phase_build() -> float:
     _build.load()
     seconds = time.perf_counter() - t0
     log(f"build: kernels ready in {seconds:.3f} s ({_build.library_path()})")
-    entry, matrix, permute = "", {}, {}
+    entry, matrix, permute, direct, mxuroll = "", {}, {}, [], []
     with open(_build.build_log_path()) as f:
         for line in f:
             if "Compiling entry function" in line:
@@ -489,6 +495,11 @@ def phase_build() -> float:
                 for nbytes, dtype in (("2", "bf16"), ("4", "f32"), ("8", "f64")):
                     if f"camodc_permute_kernelILi{nbytes}E" in entry:
                         permute.setdefault(dtype, []).append(line.strip())
+                # fused_segment_kernel<bf16, float, VB 2, NE 5, PERM false, MAT false>.
+                if "fused_segment_kernelI13__nv_bfloat16fLi2ELi5ELb0ELb0E" in entry:
+                    direct.append(line.strip())
+                if "mxuroll_kernel" in entry:
+                    mxuroll.append(line.strip())
             elif "wgmma" in line:
                 log(f"  ptxas: {entry}: {line.strip()}")
     check(set(matrix) == {"f32", "bf16"}, f"no ptxas report of both matrix instances: {sorted(matrix)}")
@@ -497,6 +508,10 @@ def phase_build() -> float:
     check(set(permute) == {"f32", "f64", "bf16"}, f"no ptxas report of the three permutation instances: {sorted(permute)}")
     for dtype, lines in sorted(permute.items()):
         log(f"ptxas camodc permutation {dtype} (camodc_permute.cu): {'; '.join(lines)}")
+    for name, lines in (("fused bf16 direct instance (fused_segment.cu, 2^5 amplitudes a thread)", direct),
+                        ("probe mxuroll (probes.cu)", mxuroll)):
+        check(bool(lines), f"no ptxas report of the {name}")
+        log(f"ptxas {name}: {'; '.join(lines)}")
     return seconds
 
 
@@ -982,9 +997,12 @@ def library_matmul_ms(planar, gops, tables) -> float:
     return total
 
 
-def time_segments(report: dict, planar, segments, M: int, layout: str) -> list:
+def time_segments(report: dict, planar, segments, M: int, layout: str, beside=None) -> list:
     """Each fused segment of a plan at the flagship size: held against its
-    plain version, then kernel and plain version timed beside its bound.
+    plain version, then kernel and plain version timed beside its bound;
+    with `beside` (float32 planes of the same size), a segment that runs
+    without matrix groups also timed through the float32 instance, the
+    same ops and axes, as f32_ms.
     A segment that apply_fused runs with matrix groups is also run in its
     butterfly form (fused.apply_segment of its ops as planned), held against
     the ungrouped plain version and timed beside its own bound, and its
@@ -1015,10 +1033,14 @@ def time_segments(report: dict, planar, segments, M: int, layout: str) -> list:
         kinds = dict(Counter(op[0] for op in ops))
         rec = {"layout": layout, "index": i, "ops": kinds, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by}
         t, high = fused.tile_geometry(n, axes, fused.segment_tile_bits(gops, M, fused.TILE_BITS[planar.dtype], axes))
+        f32 = ""
+        if beside is not None and not grouped:
+            rec["f32_ms"] = time_ms(lambda: fused.apply_fused(beside, ops, axes, M), reps=10)
+            f32 = f"; float32 instance {rec['f32_ms']:.4f} ms ({dname(planar.dtype)} / float32 {k_ms / rec['f32_ms']:.3f})"
         log(
             f"kernel {entry} {layout} n={n} segment {i} ({kinds} as {[op[0] for op in gops] if grouped else 'butterflies'}, "
             f"targets {[op[1] for op in ops]}, t={t}, axes {high}): {text}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound"
+            f"bound {b_ms:.4f} ms ({by}), {b_ms / k_ms:.1%} of bound{f32}"
         )
         if grouped:
             want = fused.plain_ops(planar, ops, M)
@@ -1822,9 +1844,11 @@ def phase_flagship_c32(report: dict) -> None:
     for name, layout, oracle_kind in (("standard", "standard", "gather"), ("m_high", "m_high", "gather"),
                                       ("benes", "standard", "benes")):
         circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
-        kw = dict(device=DEVICE, layout=layout, oracle=oracle_kind)
-        e64 = StateVectorEngine(reg, torch.complex64, backend=KERNEL_BACKEND, **kw)
-        e32 = StateVectorEngine(reg, "complex32", **kw)
+        kw = dict(layout=layout, oracle=oracle_kind)
+        e64 = StateVectorEngine(reg, torch.complex64, backend=KERNEL_BACKEND, device=DEVICE, **kw)
+        e32 = StateVectorEngine(reg, "complex32", **kw)  # no device: complex32 must place itself on the card
+        check((e32.backend, e32.device.type) == ("cuda", "cuda"),
+              f"a complex32 engine built with no device sits on {e32.device} (backend {e32.backend}), not the card")
         runs[name] = {"c64": [], "c32": []}
         for which in ("c64", "c32", "c32", "c64"):
             eng = e32 if which == "c32" else e64
@@ -1840,7 +1864,9 @@ def phase_flagship_c32(report: dict) -> None:
             f"(turns c64, c32, c32, c64); {len(e32._plan(circuit))} plan entries; norm {norm:.9f} (tol "
             f"{C32_NORM_TOL:.0e}); ||c32 - c64||_2 = {dist:.4e} (tol {C32_DIST_TOL:.0e}); launches {counts}"
         )
-        check(s32.dtype == torch.bfloat16, f"the complex32 {name} state is {s32.dtype}")
+        check(s32.dtype == torch.bfloat16 and s32.device.type == "cuda", f"the complex32 {name} state is {s32.dtype} "
+              f"on {s32.device}")
+        check(counts["fused_segment"] > 0, f"the complex32 {name} flagship launched no fused-segment kernel")
         if name == "benes":
             check(counts["permute"] == counts["camodc"] > 0,
                   f"the complex32 benes flagship's camodc segments did not all launch the camodc permutation: {counts}")
@@ -1906,17 +1932,31 @@ def phase_flagship_c32(report: dict) -> None:
     torch.cuda.empty_cache()
 
     planar = unit_planar(n, torch.bfloat16, 28)
-    timed = time_segments(report, planar, [s for s in standard_plan if s[0] == "fused"], M, "standard")
-    timed += time_segments(report, planar, [s for s in mhigh_plan if s[0] == "fused"], 0, "m_high")
+    planar32 = unit_planar(n, torch.float32, 29)
+    timed = time_segments(report, planar, [s for s in standard_plan if s[0] == "fused"], M, "standard", planar32)
+    timed += time_segments(report, planar, [s for s in mhigh_plan if s[0] == "fused"], 0, "m_high", planar32)
     fill_matmul_entry(report, torch.bfloat16, timed)
     entry = report["fused_segment_bf16"]
     first = timed[0]
-    entry.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"])
+    entry.update(ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                 f32_ms=first["f32_ms"])
     entry["segments"] = [t for t in timed if "groups" not in t]  # the grouped ones: fused_matmul_bf16
     entry["segments_mean_ms"] = sum(t["ms"] for t in entry["segments"]) / len(entry["segments"])
     entry["segments_mean_plain_ms"] = sum(t["plain_ms"] for t in entry["segments"]) / len(entry["segments"])
-    log(f"kernel fused_segment_bf16 n={n}: standard segment 0 {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f}); "
-        f"the {len(entry['segments'])} segments of both plans without matrix groups: mean {entry['segments_mean_ms']:.4f} ms")
+    log(f"kernel fused_segment_bf16 n={n}: standard segment 0 {entry['ms']:.4f} ms (bound {entry['bound_ms']:.4f}, "
+        f"{entry['bound_ms'] / entry['ms']:.1%}; the float32 instance {entry['f32_ms']:.4f} ms); the "
+        f"{len(entry['segments'])} segments of both plans without matrix groups: mean {entry['segments_mean_ms']:.4f} ms")
+    # The benes plan's H and iQFT segments (every segment without a camodc op), at both dtypes.
+    rows = time_segments(report, planar, [s for s in benes_plan if s[0] == "fused"
+                                          and not any(op[0] == "camodc" for op in s[1])], M, "benes", planar32)
+    check(len(rows) == 6 and all("f32_ms" in r for r in rows),
+          f"the complex32 benes plan's H and iQFT segments are not six segments without matrix groups: {rows}")
+    entry["benes_butterfly_segments"] = rows
+    entry["benes_butterfly_sum_ms"] = sum(r["ms"] for r in rows)
+    entry["benes_butterfly_sum_f32_ms"] = sum(r["f32_ms"] for r in rows)
+    log(f"kernel fused_segment_bf16 benes flagship n={n}: its {len(rows)} H and iQFT segments {entry['benes_butterfly_sum_ms']:.4f} "
+        f"ms at bf16, {entry['benes_butterfly_sum_f32_ms']:.4f} ms through the float32 instance")
+    del planar32
     entry = report["camodc_bf16"]
     fill_camodc_entry(entry, time_camodc_segments(entry, planar.clone(), benes_plan, M))
     singles = [entry[1] for entry in mhigh_plan if entry[0] == "single"]

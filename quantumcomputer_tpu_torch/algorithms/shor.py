@@ -188,11 +188,14 @@ def shors_algorithm(
 
     dtype="dd64", the JAX package's double-float parity mode, runs
     complex128, which the card has natively.  dtype="complex32" (bf16
-    planes, float32 draws) runs the full-register engine on the cuda
-    backend only: backend="torch" is overridden with the JAX package's
-    warning, and a host with no CUDA device raises the engine's error.  oracle="benes" runs the
-    oracles inside the fused segments on the cuda backend; on the torch
-    backend it logs the JAX package's warning and runs the gather.
+    planes, float32 draws) runs the full-register engine on the kernel path
+    only: backend="torch" is overridden to "auto", as the JAX package
+    overrides xla with pallas, and the engine runs on the card when there is
+    one, else on the CPU through the kernels' plain versions (an explicit
+    backend="cuda" with no CUDA device raises the engine's error).  oracle="benes" runs the
+    oracles inside the fused segments on the cuda backend (complex32 on the
+    CPU included); on the torch backend it logs the JAX package's warning
+    and runs the gather.
     strict_reference=True builds a StateVectorEngine(strict_reference=True),
     on the CUDA device when one is present (and refuses an engine built
     without it).
@@ -227,14 +230,14 @@ def shors_algorithm(
     else:
         if strict_reference and backend == "auto":
             backend = "torch"
-        if is_complex32(dtype):
-            if backend == "torch":
-                log.warning(
-                    "complex32 requires the cuda planar path (no 32-bit complex dtype exists); "
-                    "overriding backend='torch' -> 'cuda'"
-                )
-            backend = "cuda"  # bf16 storage exists only on the kernel path
-        if oracle == "benes" and resolve_backend(backend) == "torch":
+        if is_complex32(dtype) and backend == "torch":
+            log.warning(
+                "complex32 requires the planar kernel path (no 32-bit complex dtype exists); "
+                "overriding backend='torch' -> 'auto' (the card when there is one, else the "
+                "kernels' plain versions on the CPU)"
+            )
+            backend = "auto"
+        if oracle == "benes" and not is_complex32(dtype) and resolve_backend(backend) == "torch":
             log.warning(
                 "oracle='benes' requires the single-chip cuda backend; "
                 "falling back to the gather oracle (mesh=none, backend=torch)"

@@ -8,12 +8,14 @@ cuda backend and on the CPU otherwise.  ``--dtype dd64`` runs complex128,
 which the card has natively; ``--strict-reference`` forces the torch
 backend, as the JAX package forces xla, and runs its plain ops on the CUDA
 device when one is present.  ``--dtype complex32`` (bf16 planes computed
-in float32) forces the cuda backend for the full register, as the JAX
-package forces pallas; the semiclassical engine runs it on the card or the
-CPU like any dtype.  Flags whose path is not ported yet (``--devices > 1``,
-``--checkpoint-dir``) exit 2 with a message that says so; the cuda backend
-on a host with no CUDA device (``--backend cuda``, or a full-register
-``--dtype complex32``) exits 2 as well, and never runs on the CPU.
+in float32) runs the full register on the cuda backend's kernel path, as
+the JAX package forces pallas: on the card when there is one, else on the
+CPU through the kernels' plain versions (the JAX package's interpret mode);
+the semiclassical engine runs it on the card or the CPU like any dtype.
+Flags whose path is not ported yet (``--devices > 1``,
+``--checkpoint-dir``) exit 2 with a message that says so; ``--backend
+cuda`` on a host with no CUDA device exits 2 as well, and never runs on the
+CPU.
 """
 
 from __future__ import annotations
@@ -169,8 +171,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"Error: {missing} is not yet ported to {PACKAGE}.", file=sys.stderr)
         return 2
     backend = args.backend
-    if args.dtype == "complex32" and not args.semiclassical:
-        backend = "cuda"  # no 32-bit complex dtype: bf16 planes run on the kernel path only
     if args.strict_reference:
         backend = "torch"  # plain torch ops for exact comparison runs, as the JAX package forces xla
     if backend == "cuda" and not torch.cuda.is_available():

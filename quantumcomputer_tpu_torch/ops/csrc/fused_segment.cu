@@ -18,12 +18,16 @@ int dispatch(int64_t vb, int64_t ne, void* re, void* im, const void* ops_i, cons
   S* i = (S*)im;
   const int ng = (int)ngroups, no = (int)nops, m = (int)M;
   constexpr int VB_MAIN = sizeof(T) == 4 ? 2 : 1;
-  constexpr int NE_MAIN = sizeof(T) == 4 ? 4 : 3;
+  // The direct bf16 form holds 2^5 amplitudes a thread (fused.group_bits).
+  constexpr int NE_MAIN = sizeof(T) == 4 ? (is_direct<S, T, PERM, false> ? 5 : 4) : 3;
   if (vb == VB_MAIN && ne == NE_MAIN) return launch<S, T, VB_MAIN, NE_MAIN, PERM, false>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, nullptr, no, g, m, tiles, stream);
   if (vb == 0 && ne == 1) return launch<S, T, 0, 1, PERM, false>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, nullptr, no, g, m, tiles, stream);
   if (vb == 0 && ne == 2) return launch<S, T, 0, 2, PERM, false>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, nullptr, no, g, m, tiles, stream);
   if constexpr (NE_MAIN > 3) {
     if (vb == 0 && ne == 3) return launch<S, T, 0, 3, PERM, false>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, nullptr, no, g, m, tiles, stream);
+  }
+  if constexpr (NE_MAIN > 4) {
+    if (vb == 0 && ne == 4) return launch<S, T, 0, 4, PERM, false>(r, i, ops_i, ops_f, groups, ng, ftab, ptab, nullptr, no, g, m, tiles, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -69,13 +69,26 @@
 // bf16 storage ("complex32", qc_fused_segment_bf16; the TPU kernel's
 // store_bf16 instance, pallas_fused.py:1010-1025): the planes are bf16 in
 // device memory and every op computes in f32, rounded to bf16 once per
-// pass, at the store, as the TPU kernel does.  cp.async cannot convert, so a
-// tile arrives by 16-byte cp.async into a bf16 staging slot and is widened
-// once into an f32 work tile before the first register group; the staging
-// slot is then free, and the next tile's copy overlaps this tile's ops from
-// that one slot (16 KB staging + 32 KB work, against the f32 ring's 64 KB).
-// The other design, synchronous 16-byte loads widened in registers, would
-// cost no staging slot but leave each tile's load exposed behind its ops.
+// pass, at the store, as the TPU kernel does.  At half the bytes a pass the
+// chain of a tile, not the bytes, bounds it, so its chain is designed for
+// bf16 bytes (the "direct" form, DIRECT below):
+//   * no widening or store pass: a tile arrives by 16-byte cp.async into a
+//     bf16 staging slot; the first register group reads its amplitudes
+//     straight from that slot and widens them in registers, the last one
+//     rounds them to bf16 in registers and stores them to device memory
+//     itself (8 bytes a chunk, the warp's lanes on the tile's contiguous
+//     low bits: ops/fused.py pads groups with high bits).  Only groups in
+//     between go through an f32 work tile.
+//   * fewer groups: 128 threads a block, each holding 2^5 amplitudes (three
+//     extra slots a group, so five butterfly targets take two groups, not
+//     three), three blocks an SM; a group boundary (a work-tile round trip
+//     and a block barrier) costs about as much as the tile's copies.
+//   * a ring of WIDEN_STAGES staging slots: the next tile's copy is in
+//     flight across this tile's whole chain.
+// The instances with camodc ops (PERM) or matrix groups (MAT), whose ops
+// read the whole tile, keep 2^4 amplitudes a thread and one staging slot,
+// widened once into the work tile before the first group and stored from
+// it after the last.
 //
 // The op list arrives as device arrays: ops_i (int32 records of OPI_STRIDE:
 // kind, q1, q2, slot of q1, slot of q2, then for an iQFT op the ftab offsets
@@ -116,10 +129,21 @@ constexpr int OPF_STRIDE = 32;  // a 4x4 complex matrix: 16 re, then 16 im
 constexpr int GRP_STRIDE = 8;
 constexpr int MAX_AXES = 8;
 constexpr int THREADS = 256;
+// The direct bf16 form: 128 threads a block, each holding 2^5 amplitudes of a
+// 2^12-amplitude tile (three blocks an SM).
+constexpr int DIRECT_THREADS = 128;
+// The instances that take the direct form: bf16 storage (S) computed in f32
+// (T), in a segment with no camodc op (PERM) and no matrix group (MAT).
+template <typename S, typename T, bool PERM, bool MAT>
+constexpr bool is_direct = !std::is_same<S, T>::value && !PERM && !MAT;
 constexpr int MAX_PERM_TILE_BITS = 13;  // a camodc segment's tile (M <= 13) and a matrix segment's
 // The ring holds two tiles (one computed, one arriving) when they fit these
 // bytes, else one; only camodc segments' larger tiles take one.
 constexpr size_t MAX_RING_BYTES = size_t(128) << 10;
+// bf16 staging slots of the direct form: tile i + 1 is in flight while tile
+// i is computed (2 x 16 KB beside the 32 KB work tile at 2^12 amplitudes;
+// three slots measured within 1%, at 2^4 amplitudes a thread).
+constexpr int WIDEN_STAGES = 2;
 
 struct Geom {
   int t;               // low contiguous index bits of a tile
@@ -174,13 +198,13 @@ __device__ __forceinline__ void cp_async_wait_group() { asm volatile("cp.async.w
 // Start the copy of tile tau into (sre, sim), element j at swz<VB>(j):
 // 16-byte chunks of 2^VB elements when `vec`, else one element per copy
 // (synchronous for 2-byte elements, which cp.async cannot copy).
-template <typename T, int VB>
+template <typename T, int VB, int NT = THREADS>
 __device__ __forceinline__ void load_tile(T* sre, T* sim, const T* re, const T* im, int64_t tbase,
                                           const int64_t* axoff, const Geom& g, bool vec) {
   const int tb = g.t + g.k;
   if (vec) {
     const int rbits = g.t - VB;  // chunks per row: 2^rbits
-    for (int q = threadIdx.x; q < (1 << (tb - VB)); q += THREADS) {
+    for (int q = threadIdx.x; q < (1 << (tb - VB)); q += NT) {
       const int64_t idx = tbase | axoff[q >> rbits] | ((int64_t)(q & ((1 << rbits) - 1)) << VB);
       const int p = swz<VB>(q << VB);
       cp_async16(sre + p, re + idx);
@@ -188,7 +212,7 @@ __device__ __forceinline__ void load_tile(T* sre, T* sim, const T* re, const T* 
     }
   } else {
     const int low_mask = (1 << g.t) - 1;
-    for (int j = threadIdx.x; j < (1 << tb); j += THREADS) {
+    for (int j = threadIdx.x; j < (1 << tb); j += NT) {
       const int64_t idx = tbase | axoff[j >> g.t] | (j & low_mask);
       const int p = swz<VB>(j);
       if constexpr (sizeof(T) >= 4) {
@@ -286,6 +310,7 @@ __device__ __forceinline__ void with_slot(int s, F&& f) {
     case 1: if constexpr (NE > 1) f(std::integral_constant<int, 1>{}); break;
     case 2: if constexpr (NE > 2) f(std::integral_constant<int, 2>{}); break;
     case 3: if constexpr (NE > 3) f(std::integral_constant<int, 3>{}); break;
+    case 4: if constexpr (NE > 4) f(std::integral_constant<int, 4>{}); break;
     default: break;
   }
 }
@@ -298,21 +323,25 @@ __device__ __forceinline__ void cmul(T& xr, T& xi, T pr, T pi) {
 }
 
 // An op's record as a thread holds it, loaded from the block's shared copy
-// with 16-byte loads: the int fields and the first 8 coefficients (a 2x2
-// matrix, a diagonal, or an iQFT op's slot factors).  Fields are read only
-// at compile-time offsets, so the record stays in registers.
-template <typename T>
+// with 16-byte loads: the int fields and the first NC coefficients (a 2x2
+// matrix, a diagonal, or an iQFT op's slot factors, two a slot: 12 for 2^5
+// amplitudes a thread, else 8).  Fields are read only at compile-time
+// offsets, so the record stays in registers.
+template <int NE>
+__host__ __device__ constexpr int op_coefs() { return NE > 4 ? 12 : 8; }
+
+template <typename T, int NC = 8>
 struct OpRec {
   int4 a, b;  // kind, q1, q2, s1 | s2, off_axes, off_low, has_phase
-  T c[8];
+  T c[NC];
 };
 
-template <typename T>
-__device__ __forceinline__ void load_op(OpRec<T>& r, const int* oi, const T* of) {
+template <typename T, int NC>
+__device__ __forceinline__ void load_op(OpRec<T, NC>& r, const int* oi, const T* of) {
   r.a = reinterpret_cast<const int4*>(oi)[0];
   r.b = reinterpret_cast<const int4*>(oi)[1];
 #pragma unroll
-  for (int v = 0; v < 8 * (int)sizeof(T) / 16; ++v) {
+  for (int v = 0; v < NC * (int)sizeof(T) / 16; ++v) {
     const Chunk<T> q = reinterpret_cast<const Chunk<T>*>(of)[v];
     if constexpr (sizeof(T) == 4) {
       r.c[4 * v] = q.x; r.c[4 * v + 1] = q.y; r.c[4 * v + 2] = q.z; r.c[4 * v + 3] = q.w;
@@ -328,7 +357,7 @@ __host__ __device__ constexpr int top_bit(int x) { return x > 1 ? 1 + top_bit(x 
 // One op on a thread's 2^NE register amplitudes.  j0: tile-local index of
 // amplitude 0 (slot bits zero); gidx0: its global index.
 template <typename T, int NE>
-__device__ __forceinline__ void apply_op(T (&xr)[1 << NE], T (&xi)[1 << NE], const OpRec<T>& r,
+__device__ __forceinline__ void apply_op(T (&xr)[1 << NE], T (&xi)[1 << NE], const OpRec<T, op_coefs<NE>()>& r,
                                          const T* __restrict__ of, const T* __restrict__ ftab,
                                          const T* fbase, int j0, int64_t gidx0, const Geom& g) {
   constexpr int E = 1 << NE;
@@ -492,15 +521,53 @@ __device__ __forceinline__ void smem_put(T* dst, const T* src) {
   }
 }
 
-// One register group over the tile in (sre, sim): each thread takes
-// subcubes of 2^NE amplitudes, applies the group's ops, and puts them back.
+// The direct bf16 form's reads and writes of a register chunk: from the bf16
+// staging slot (element j at swz<3>(j)), widened in registers, and to device
+// memory, rounded once to the nearest bf16 (ties to even): 8 bytes a chunk
+// with `vec`, else element by element.
+template <typename T, int VB>
+__device__ __forceinline__ void stage_get(const __nv_bfloat16* src, int j, T* dst) {
+  if constexpr (VB == 2) {  // 4 consecutive elements, contiguous in an 8-element chunk
+    const uint2 v = *reinterpret_cast<const uint2*>(src + swz<3>(j));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    dst[0] = a.x; dst[1] = a.y; dst[2] = b.x; dst[3] = b.y;
+  } else {
+#pragma unroll
+    for (int v = 0; v < (1 << VB); ++v) dst[v] = __bfloat162float(src[swz<3>(j + v)]);
+  }
+}
+
+template <typename T, int VB>
+__device__ __forceinline__ void global_put(__nv_bfloat16* dst, int64_t idx, const T* src, bool vec) {
+  if (VB == 2 && vec) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(src[0], src[1]), b = __floats2bfloat162_rn(src[2], src[3]);
+    uint2 v;
+    v.x = *reinterpret_cast<const unsigned*>(&a);
+    v.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(dst + idx) = v;
+  } else {
+#pragma unroll
+    for (int v = 0; v < (1 << VB); ++v) dst[idx + v] = __float2bfloat16_rn(src[v]);
+  }
+}
+
+// One register group over the tile: each of NT threads takes subcubes of
+// 2^NE amplitudes, applies the group's ops, and puts them back.  They come
+// from the work tile (wre, wim; element j at swz<VB>(j)), or (IN_STAGE, the
+// direct bf16 form's first group) from the bf16 staging slot (sst, ist),
+// and go back to the work tile, or (OUT_GLOBAL, its last group) to device
+// memory (re, im) in place.  A thread reads and writes only its own
+// amplitudes, so a group's reads and writes need no barrier between them.
 // s_opi, s_opc: the block's shared copy of the op records; ops_f: the full
 // coefficient records (u2q reads its 4x4 matrix there).
-template <typename T, int VB, int NE>
-__device__ __forceinline__ void run_group(T* sre, T* sim, const int* __restrict__ grp, const int* s_opi,
+template <typename T, int VB, int NE, bool IN_STAGE = false, bool OUT_GLOBAL = false, int NT = THREADS>
+__device__ __forceinline__ void run_group(T* wre, T* wim, const int* __restrict__ grp, const int* s_opi,
                                           const T* s_opc, const T* __restrict__ ops_f, const T* __restrict__ ftab,
-                                          const T* fbase, int64_t tbase, const int64_t* axoff, const Geom& g) {
-  constexpr int NX = NE - VB;  // extra slots beyond the vector bits
+                                          const T* fbase, int64_t tbase, const int64_t* axoff, const Geom& g,
+                                          const __nv_bfloat16* sst = nullptr, const __nv_bfloat16* ist = nullptr,
+                                          __nv_bfloat16* re = nullptr, __nv_bfloat16* im = nullptr, bool vec = false) {
+  constexpr int NX = NE - VB;
   constexpr int NC = 1 << NX;
   const int ob = __ldg(grp), oe = __ldg(grp + 1);
   int pos[NX > 0 ? NX : 1];
@@ -516,28 +583,39 @@ __device__ __forceinline__ void run_group(T* sre, T* sim, const int* __restrict_
   }
   const int nsub = 1 << (g.t + g.k - NE);
   const int low_mask = (1 << g.t) - 1;
-  for (int sub = threadIdx.x; sub < nsub; sub += THREADS) {
+  for (int sub = threadIdx.x; sub < nsub; sub += NT) {
     int j0 = sub << VB;
 #pragma unroll
     for (int x = 0; x < NX; ++x) j0 = (int)insert_zero(j0, pos[x]);
     T xr[1 << NE], xi[1 << NE];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int p = swz<VB>(j0 | xoff[c]);
-      smem_get<T, VB>(sre + p, xr + (c << VB));
-      smem_get<T, VB>(sim + p, xi + (c << VB));
+      const int j = j0 | xoff[c];
+      if constexpr (IN_STAGE) {
+        stage_get<T, VB>(sst, j, xr + (c << VB));
+        stage_get<T, VB>(ist, j, xi + (c << VB));
+      } else {
+        smem_get<T, VB>(wre + swz<VB>(j), xr + (c << VB));
+        smem_get<T, VB>(wim + swz<VB>(j), xi + (c << VB));
+      }
     }
     const int64_t gidx0 = tbase | axoff[j0 >> g.t] | (j0 & low_mask);
     for (int o = ob; o < oe; ++o) {
-      OpRec<T> rec;
-      load_op(rec, s_opi + OPI_STRIDE * o, s_opc + 8 * o);
+      OpRec<T, op_coefs<NE>()> rec;
+      load_op(rec, s_opi + OPI_STRIDE * o, s_opc + op_coefs<NE>() * o);
       apply_op<T, NE>(xr, xi, rec, ops_f + OPF_STRIDE * o, ftab, fbase + 2 * o, j0, gidx0, g);
     }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int p = swz<VB>(j0 | xoff[c]);
-      smem_put<T, VB>(sre + p, xr + (c << VB));
-      smem_put<T, VB>(sim + p, xi + (c << VB));
+      const int j = j0 | xoff[c];
+      if constexpr (OUT_GLOBAL) {
+        const int64_t idx = tbase | axoff[j >> g.t] | (j & low_mask);
+        global_put<T, VB>(re, idx, xr + (c << VB), vec);
+        global_put<T, VB>(im, idx, xi + (c << VB), vec);
+      } else {
+        smem_put<T, VB>(wre + swz<VB>(j), xr + (c << VB));
+        smem_put<T, VB>(wim + swz<VB>(j), xi + (c << VB));
+      }
     }
   }
 }
@@ -1056,45 +1134,74 @@ __device__ __forceinline__ void run_matrix(float* sre, float* sim, const int* re
   }
 }
 
-// Bytes of the ring (staging slots) of a tile of `tile` elements of S.
+// F_base of each iQFT op with tile-base bits, for the tile at tbase: (re,
+// im) at fbase[2 * o], written by NT threads.
+template <typename T, int NT>
+__device__ __forceinline__ void fill_fbase(T* fbase, const int* __restrict__ ops_i, int nops, int64_t tbase, int M) {
+  for (int o = threadIdx.x; o < nops; o += NT) {
+    const int* oi = ops_i + OPI_STRIDE * o;
+    if (__ldg(oi) == OP_IQFT && __ldg(oi + 7) > 0) {
+      const int l = __ldg(oi + 1);
+      const int64_t mask = (int64_t(1) << l) - (int64_t(1) << M);
+      double sn, cs;  // exact: (tbase & mask) < 2^31 and a power-of-two divisor
+      sincospi((double)(tbase & mask) / (double)(int64_t(1) << l), &sn, &cs);
+      fbase[2 * o] = (T)cs;
+      fbase[2 * o + 1] = (T)sn;
+    }
+  }
+}
+
+// Bytes of the ring of `slots` staging slots of a tile of `tile` elements of S.
 template <typename S>
-__host__ __device__ __forceinline__ size_t ring_bytes(int tile, bool ring) {
-  return ((ring ? 2 : 1) * 2 * sizeof(S) * (size_t)tile + 15) & ~(size_t)15;
+__host__ __device__ __forceinline__ size_t ring_bytes(int tile, int slots) {
+  return (slots * 2 * sizeof(S) * (size_t)tile + 15) & ~(size_t)15;
+}
+
+// The instance's staging slots: WIDEN_STAGES in the direct bf16 form, else
+// two (a ring) or one.
+template <typename S, typename T, bool PERM, bool MAT>
+__host__ __device__ __forceinline__ int ring_slots(bool ring) {
+  return is_direct<S, T, PERM, MAT> ? WIDEN_STAGES : (ring ? 2 : 1);
 }
 
 // Two blocks an SM: 128 registers a thread hold a group's 2^NE amplitudes
-// without spills (a cap of 80, for three blocks, spilled and ran slower).
+// without spills (a cap of 80, for three blocks, spilled and ran slower);
+// the direct bf16 form: three blocks of DIRECT_THREADS, 168 registers a
+// thread for its 2^5 amplitudes.
 // PERM: the instance for segments that mix camodc ops with others; run_camodc's registers
 // would otherwise cost every segment spills.  MAT: the instance for segments
 // with matrix groups (fused_matmul.cu), one block an SM: its 2^13-amplitude
 // tile and the table ring (MAT_STAGES chunks after the op records) fill the
 // shared memory, and its accumulators take more than 128 registers.  S: the
-// storage type, T: the compute type; S = bf16 with T =
-// float stages each tile and widens it into a work tile (see the header),
-// S = T computes in the ring slot itself.
+// storage type, T: the compute type; S = bf16 with T = float takes the
+// direct form (DIRECT: a staging ring, widened and rounded in registers),
+// or with PERM or MAT stages each tile and widens it into a work tile (see
+// the header); S = T computes in the ring slot itself.
 template <typename S, typename T, int VB, int NE, bool PERM, bool MAT>
-__global__ void __launch_bounds__(THREADS, MAT ? 1 : 2)
+__global__ void __launch_bounds__(is_direct<S, T, PERM, MAT> ? DIRECT_THREADS : THREADS,
+                                  is_direct<S, T, PERM, MAT> ? 3 : (MAT ? 1 : 2))
 fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restrict__ ops_i,
                      const T* __restrict__ ops_f, const int* __restrict__ groups, int ngroups,
                      const T* __restrict__ ftab, const short* __restrict__ ptab,
                      const unsigned char* __restrict__ mtab, int nops, Geom g, int M, int64_t tiles, bool vec,
                      bool ring) {
   constexpr bool WIDEN = !std::is_same<S, T>::value;
+  constexpr bool DIRECT = is_direct<S, T, PERM, MAT>;
   constexpr int SB = WIDEN ? 3 : VB;  // the staging slot's swizzle: 16-byte chunks of S
+  constexpr int NT = DIRECT ? DIRECT_THREADS : THREADS;
+  constexpr int OPC = op_coefs<NE>();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t axoff[1 << MAX_AXES];  // axoff[c]: the axis bits of row c, any tile
   const int tile = 1 << (g.t + g.k);
   S* bufs = reinterpret_cast<S*>(smem);     // ring slot b: re at bufs + 2*b*tile, im after it
   // The tile the ops run on: the ring slot itself, or (WIDEN) the f32 work tile after the ring.
-  T* work = reinterpret_cast<T*>(smem + ring_bytes<S>(tile, ring));
+  T* work = reinterpret_cast<T*>(smem + ring_bytes<S>(tile, ring_slots<S, T, PERM, MAT>(ring)));
   T* fbase = work + (WIDEN ? 2 * tile : 0);  // F_base of each op for the current tile (re, im)
-  T* s_opc = fbase + 2 * ((nops + 1) & ~1); // each op's first 8 coefficients (16-byte aligned)
-  int* s_opi = reinterpret_cast<int*>(s_opc + 8 * nops);  // each op's int record
-  for (int i = threadIdx.x; i < 8 * nops; i += THREADS) {
-    s_opc[i] = ops_f[OPF_STRIDE * (i / 8) + i % 8];
-    s_opi[i] = ops_i[i];
-  }
-  for (int c = threadIdx.x; c < (1 << g.k); c += THREADS) {
+  T* s_opc = fbase + 2 * ((nops + 1) & ~1); // each op's first OPC coefficients (16-byte aligned)
+  int* s_opi = reinterpret_cast<int*>(s_opc + OPC * nops);  // each op's int record
+  for (int i = threadIdx.x; i < OPC * nops; i += NT) s_opc[i] = ops_f[OPF_STRIDE * (i / OPC) + i % OPC];
+  for (int i = threadIdx.x; i < OPI_STRIDE * nops; i += NT) s_opi[i] = ops_i[i];
+  for (int c = threadIdx.x; c < (1 << g.k); c += NT) {
     int64_t off = 0;
 #pragma unroll
     for (int a = 0; a < MAX_AXES; ++a) {
@@ -1127,87 +1234,121 @@ fused_segment_kernel(S* __restrict__ re, S* __restrict__ im, const int* __restri
     for (int c = 0; c < MAT_STAGES - 2; ++c) mat_issue(pipe);
   }
 
-  // The ring: with `ring`, tile i of this block lands in slot i % 2 while
-  // tile i - 1 is computed; without, each tile lands in slot 0 once the one
-  // before it is stored.  WIDEN has one slot and no ring: the next tile lands
-  // in it once this one is widened into the work tile, while this one is
-  // computed.
-  const bool early = ring || WIDEN;  // the next tile's copy starts before this tile's ops
-  const int64_t step = gridDim.x;
-  int64_t tau = blockIdx.x;
-  bool act = tau < tiles;
-  if (act) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(tau, g), axoff, g, vec);
-  cp_async_commit();
-  int b = 0;
-  for (; tau < tiles; tau += step) {
-    cp_async_wait_group<0>();  // this tile's copies are done
-    const int64_t tbase = tile_base(tau, g);
-    for (int o = threadIdx.x; act && o < nops; o += THREADS) {
-      const int* oi = ops_i + OPI_STRIDE * o;
-      if (__ldg(oi) == OP_IQFT && __ldg(oi + 7) > 0) {
-        const int l = __ldg(oi + 1);
-        const int64_t mask = (int64_t(1) << l) - (int64_t(1) << M);
-        double sn, cs;  // exact: (tbase & mask) < 2^31 and a power-of-two divisor
-        sincospi((double)(tbase & mask) / (double)(int64_t(1) << l), &sn, &cs);
-        fbase[2 * o] = (T)cs;
-        fbase[2 * o + 1] = (T)sn;
-      }
-    }
-    __syncthreads();  // the tile and fbase are ready; the slot stored last iteration is free
-    T* sre;
-    if constexpr (WIDEN) {
-      if (act) {
-        widen_tile<SB, VB>(bufs, work, tile);
-        widen_tile<SB, VB>(bufs + tile, work + tile, tile);
-      }
-      __syncthreads();  // the work tile is ready; the staging slot is free
-      sre = work;
-    } else {
-      sre = bufs + 2 * b * tile;
-    }
-    T* sim = sre + tile;
-    const int64_t nxt = tau + step;
-    const bool nact = nxt < tiles;
-    const int nb = ring ? b ^ 1 : b;
-    if (early) {
-      if (nact) load_tile<S, SB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
+  if constexpr (DIRECT) {
+    // Tile i of this block lands in slot i % WIDEN_STAGES; tiles i + 1 ..
+    // i + WIDEN_STAGES - 1 are in flight while tile i is computed.  The slot
+    // refilled at the top of an iteration held the tile before, whose last
+    // reads ended before that iteration's closing barrier.
+    constexpr int NS = WIDEN_STAGES;
+    const int64_t step = gridDim.x;
+#pragma unroll
+    for (int s = 0; s < NS - 1; ++s) {
+      const int64_t tt = blockIdx.x + s * step;
+      if (tt < tiles) load_tile<S, SB, NT>(bufs + 2 * s * tile, bufs + (2 * s + 1) * tile, re, im, tile_base(tt, g), axoff, g, vec);
       cp_async_commit();
     }
-    if (act) {
+    int b = 0;
+    for (int64_t tau = blockIdx.x; tau < tiles; tau += step) {
+      const int64_t ahead = tau + (NS - 1) * step;
+      const int sa = b == 0 ? NS - 1 : b - 1;
+      if (ahead < tiles) load_tile<S, SB, NT>(bufs + 2 * sa * tile, bufs + (2 * sa + 1) * tile, re, im, tile_base(ahead, g), axoff, g, vec);
+      cp_async_commit();
+      cp_async_wait_group<NS - 1>();  // this tile's copies are done
+      const int64_t tbase = tile_base(tau, g);
+      fill_fbase<T, NT>(fbase, ops_i, nops, tbase, M);
+      __syncthreads();  // the tile and fbase are ready
+      const S* sst = bufs + 2 * b * tile;
+      const S* ist = sst + tile;
+      T* wim = work + tile;
       for (int gi = 0; gi < ngroups; ++gi) {
         const int* grp = groups + GRP_STRIDE * gi;
-        if constexpr (PERM) {
-          const int* first = s_opi + OPI_STRIDE * __ldg(grp);
-          if (first[0] == OP_CAMODC) {  // a group of its own; it ends in a sync
-            run_camodc<T, VB>(sre, sim, first, ptab, M, tbase, g);
-            continue;
-          }
+        const bool first = gi == 0, last = gi == ngroups - 1;
+        if (first && last) {
+          run_group<T, VB, NE, true, true, NT>(work, wim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g, sst, ist, re, im, vec);
+        } else if (first) {
+          run_group<T, VB, NE, true, false, NT>(work, wim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g, sst, ist, re, im, vec);
+        } else if (last) {
+          run_group<T, VB, NE, false, true, NT>(work, wim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g, sst, ist, re, im, vec);
+        } else {
+          run_group<T, VB, NE, false, false, NT>(work, wim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g, sst, ist, re, im, vec);
         }
-        if constexpr (MAT) {
-          const int* first = s_opi + OPI_STRIDE * __ldg(grp);
-          if (first[0] >= OP_LANEMAT) {  // a group of its own
-            run_matrix<S>(sre, sim, first, pipe);
-            __syncthreads();
-            continue;
-          }
-        }
-        run_group<T, VB, NE>(sre, sim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g);
-        __syncthreads();
+        __syncthreads();  // the work tile, or (last) the slot and fbase, are free
       }
+      b = b + 1 == NS ? 0 : b + 1;
+    }
+  } else {
+    // The ring: with `ring`, tile i of this block lands in slot i % 2 while
+    // tile i - 1 is computed; without, each tile lands in slot 0 once the one
+    // before it is stored.  WIDEN has one slot and no ring: the next tile lands
+    // in it once this one is widened into the work tile, while this one is
+    // computed.
+    const bool early = ring || WIDEN;  // the next tile's copy starts before this tile's ops
+    const int64_t step = gridDim.x;
+    int64_t tau = blockIdx.x;
+    bool act = tau < tiles;
+    if (act) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(tau, g), axoff, g, vec);
+    cp_async_commit();
+    int b = 0;
+    for (; tau < tiles; tau += step) {
+      cp_async_wait_group<0>();  // this tile's copies are done
+      const int64_t tbase = tile_base(tau, g);
+      if (act) fill_fbase<T, THREADS>(fbase, ops_i, nops, tbase, M);
+      __syncthreads();  // the tile and fbase are ready; the slot stored last iteration is free
+      T* sre;
       if constexpr (WIDEN) {
-        store_tile_bf16<VB>(sre, sim, re, im, tbase, axoff, g, vec);
+        if (act) {
+          widen_tile<SB, VB>(bufs, work, tile);
+          widen_tile<SB, VB>(bufs + tile, work + tile, tile);
+        }
+        __syncthreads();  // the work tile is ready; the staging slot is free
+        sre = work;
       } else {
-        store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+        sre = bufs + 2 * b * tile;
       }
+      T* sim = sre + tile;
+      const int64_t nxt = tau + step;
+      const bool nact = nxt < tiles;
+      const int nb = ring ? b ^ 1 : b;
+      if (early) {
+        if (nact) load_tile<S, SB>(bufs + 2 * nb * tile, bufs + (2 * nb + 1) * tile, re, im, tile_base(nxt, g), axoff, g, vec);
+        cp_async_commit();
+      }
+      if (act) {
+        for (int gi = 0; gi < ngroups; ++gi) {
+          const int* grp = groups + GRP_STRIDE * gi;
+          if constexpr (PERM) {
+            const int* first = s_opi + OPI_STRIDE * __ldg(grp);
+            if (first[0] == OP_CAMODC) {  // a group of its own; it ends in a sync
+              run_camodc<T, VB>(sre, sim, first, ptab, M, tbase, g);
+              continue;
+            }
+          }
+          if constexpr (MAT) {
+            const int* first = s_opi + OPI_STRIDE * __ldg(grp);
+            if (first[0] >= OP_LANEMAT) {  // a group of its own
+              run_matrix<S>(sre, sim, first, pipe);
+              __syncthreads();
+              continue;
+            }
+          }
+          run_group<T, VB, NE>(sre, sim, grp, s_opi, s_opc, ops_f, ftab, fbase, tbase, axoff, g);
+          __syncthreads();
+        }
+        if constexpr (WIDEN) {
+          store_tile_bf16<VB>(sre, sim, re, im, tbase, axoff, g, vec);
+        } else {
+          store_tile<T, VB>(sre, sim, re, im, tbase, axoff, g, vec);
+        }
+      }
+      __syncthreads();  // before fbase and this slot are reused
+      if (!early) {
+        if (nact) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(nxt, g), axoff, g, vec);
+        cp_async_commit();
+      }
+      b = nb;
+      act = nact;
     }
-    __syncthreads();  // before fbase and this slot are reused
-    if (!early) {
-      if (nact) load_tile<S, SB>(bufs, bufs + tile, re, im, tile_base(nxt, g), axoff, g, vec);
-      cp_async_commit();
-    }
-    b = nb;
-    act = nact;
-  }
+}
 }
 
 template <typename S, typename T, int VB, int NE, bool PERM, bool MAT>
@@ -1224,8 +1365,9 @@ int launch(S* re, S* im, const void* ops_i, const void* ops_f, const void* group
   const bool ring = !WIDEN && 2 * slot <= MAX_RING_BYTES;
   // The ring, the work tile (WIDEN), then per op: F_base (2 T), the first 8
   // coefficients, the int record.
-  size_t smem = ring_bytes<S>(tile, ring) + (WIDEN ? 2 * sizeof(T) * (size_t)tile : 0) +
-                      10 * sizeof(T) * (size_t)(nops + 1) + OPI_STRIDE * sizeof(int) * (size_t)nops;
+  constexpr int NT = is_direct<S, T, PERM, MAT> ? DIRECT_THREADS : THREADS;
+  size_t smem = ring_bytes<S>(tile, ring_slots<S, T, PERM, MAT>(ring)) + (WIDEN ? 2 * sizeof(T) * (size_t)tile : 0) +
+                      (2 + op_coefs<NE>()) * sizeof(T) * (size_t)(nops + 1) + OPI_STRIDE * sizeof(int) * (size_t)nops;
   auto kern = fused_segment_kernel<S, T, VB, NE, PERM, MAT>;
   cudaError_t err;
   int per_sm = 0, dev = 0, sms = 0;
@@ -1233,11 +1375,11 @@ int launch(S* re, S* im, const void* ops_i, const void* ops_f, const void* group
   // The table ring (128-byte aligned) and its mbarriers after the op records.
   if (MAT) smem = ((smem + 127) & ~(size_t)127) + (size_t)MAT_STAGES * (MAT_CHUNK + 16);
   if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) != cudaSuccess) return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem)) != cudaSuccess) return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem)) != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
   const int64_t grid = tiles < (int64_t)sms * per_sm ? tiles : (int64_t)sms * per_sm;
-  kern<<<(unsigned int)grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kern<<<(unsigned int)grid, NT, smem, (cudaStream_t)stream>>>(
       re, im, (const int*)ops_i, (const T*)ops_f, (const int*)groups, ngroups, (const T*)ftab, (const short*)ptab,
       (const unsigned char*)mtab, nops, g, M, tiles, vec, ring);
   return (int)cudaGetLastError();

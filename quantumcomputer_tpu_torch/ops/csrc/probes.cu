@@ -23,15 +23,26 @@
 //     16-byte aligned window [s - s mod 4, s + 1024 + 4) of its tile in
 //     shared memory with float4 loads, then writes the tile shifted by
 //     s mod 4 with float4 stores.
-//   * mxuroll: the lane rotation done by the matrix unit.  The block stages
-//     the 9 whole 128-float rows that hold its 8 output rows, then rotates
-//     every row by r = s mod 128 as a tensor-core product with the 0/1
-//     permutation matrix P[k][q] = (k - r) mod 128 == q, using
-//     mma.sync.m8n8k4 in float64 on values widened from float32: one term
-//     of each sum is 1 * x and the rest 0 * y, so the product is exact for
-//     finite inputs and narrows back to the same float32 (TF32 would drop
-//     mantissa bits).  P is generated in registers; each 8-wide output
-//     column block needs only the 3 k-steps that hold its nonzeros.
+//   * mxuroll: the lane rotation done by the matrix unit.  Output row p of
+//     a chunk is x row p + row0 rotated by r = s mod 128, except that lanes
+//     k < r come from the row after it: out row p = X'_p P, with X'_p[k] =
+//     x[row0 + p + (k < r)][k] and the 0/1 permutation matrix P[k][q] =
+//     (k - r) mod 128 == q, a tensor-core product (mma.sync.m16n8k8 in
+//     float64 on values widened from float32: one term of each sum is 1 * x
+//     and the rest 0 * y, so the product is exact for finite inputs and
+//     narrows back to the same float32; TF32 would drop mantissa bits).
+//     One block walks MX_ROWS = 128 output rows (16 tiles) of a chunk: it
+//     stages those rows and the one after them (when r > 0) once, no row
+//     twice, by one 512-byte cp.async.bulk a row into padded shared rows
+//     (pitch 132 floats: the 8 rows of a fragment on distinct banks), with
+//     an mbarrier a 16-row step, all issued at the start, so every copy of
+//     the block is in flight before the first product.  A step is 16
+//     output rows: each warp takes two 8-column blocks, each two k-steps of
+//     8 (the 16 source lanes that hold its nonzeros), with P generated in
+//     registers; the row after a step is the next step's first, already
+//     staged.  Each thread swaps half of its results with its neighbour
+//     (one shuffle) and writes 4 consecutive floats of one row with a
+//     16-byte streaming store, straight from registers.
 //   * dynroll, rowroll: one warp per 128-float row, each lane reading
 //     x[(l + c) & 127] for its 4 lanes; a warp's loads cover the row once.
 //
@@ -40,13 +51,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int TILE = 1024;      // floats of one chunk tile: one float4 per thread
 constexpr int LANE = 128;
 constexpr int TILE_ROWS = TILE / LANE;  // 8 output rows per tile
-constexpr int STAGE_ROWS = 16;          // two 8-row mma groups; rows >= 9 stay zero
+constexpr int MX_ROWS = 128;            // mxuroll: output rows of a block (16 tiles)
+constexpr int MX_STEP = 16;             // output rows of one m16 product step
+constexpr int MX_PITCH = LANE + 4;      // staged row pitch, floats
+constexpr int MX_BARS = MX_ROWS / MX_STEP;
+constexpr size_t MX_SMEM = (size_t)(MX_ROWS + 1) * MX_PITCH * sizeof(float) + MX_BARS * sizeof(uint64_t);
 
 __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo, int64_t hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -80,64 +97,85 @@ roll2_kernel(const float* __restrict__ x, const int32_t* __restrict__ starts, fl
   __stcs(reinterpret_cast<float4*>(out + i * W + t0 + threadIdx.x * 4), make_float4(st[0], st[1], st[2], st[3]));
 }
 
-__device__ __forceinline__ void mma_f64_m8n8k4(double& d0, double& d1, double a, double b) {
+// d (16 x 8) += a (16 x 8) b (8 x 8), float64.  Fragments (as .tf32's
+// m16n8k8): a0..a3 at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); b0, b1 at
+// (t, g), (t + 4, g); d0..d3 at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1),
+// for lane = 4 g + t.
+__device__ __forceinline__ void mma_f64_m16n8k8(double (&d)[4], const double (&a)[4], const double (&b)[2]) {
   asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-      : "+d"(d0), "+d"(d1)
-      : "d"(a), "d"(b));
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
+// Block (i, y): chunk i's output rows [128 y, 128 y + rows) (see the header).
 __global__ void __launch_bounds__(THREADS)
 mxuroll_kernel(const float* __restrict__ x, const int32_t* __restrict__ starts, float* __restrict__ out,
                int64_t dim, int64_t W) {
-  __shared__ float4 stage4[STAGE_ROWS * LANE / 4];
-  __shared__ float rot[STAGE_ROWS][LANE];
-  float(*stage)[LANE] = reinterpret_cast<float(*)[LANE]>(stage4);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* stage = reinterpret_cast<float*>(smem);  // staged row k at stage + k * MX_PITCH
+  const uint32_t bars = smem_u32(smem + (size_t)(MX_ROWS + 1) * MX_PITCH * sizeof(float));
   const int64_t i = blockIdx.x;
   const int64_t s = clamp64(starts[i], 0, dim - W);
   const int r = (int)(s & (LANE - 1));
-  const int64_t row0 = (s >> 7) + (int64_t)blockIdx.y * TILE_ROWS;  // first staged row of x
+  const int64_t orow0 = (int64_t)blockIdx.y * MX_ROWS;  // the block's first output row in the chunk
+  const int rows = (int)(W / LANE - orow0 < MX_ROWS ? W / LANE - orow0 : MX_ROWS);  // a multiple of 8
+  const int nsteps = (rows + MX_STEP - 1) / MX_STEP;
+  const int staged = rows + (r > 0);  // the row after the last is read only for lanes k < r
+  const float* src = x + ((s >> 7) + orow0) * LANE;
 
-  // Stage rows row0 .. row0 + 8 (the 8 output rows need one more); the
-  // second mma group's rows 9..15 are zero.
-  for (int v = threadIdx.x; v < STAGE_ROWS * LANE / 4; v += THREADS) {
-    const int k = v / (LANE / 4);
-    const int64_t at = (row0 + k) * LANE + 4 * (int64_t)(v % (LANE / 4));
-    stage4[v] = (k <= TILE_ROWS && at < dim) ? *reinterpret_cast<const float4*>(x + at)
-                                             : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  __syncthreads();
-
-  // rot = stage @ P, 8 rows x 8 columns per mma tile: warp w takes row group
-  // w & 1 and column blocks 4*(w >> 1) .. +3.  Fragments of m8n8k4 (f64):
-  // A[lane >> 2][lane & 3], B[lane & 3][lane >> 2], D[lane >> 2][2*(lane & 3) + {0,1}].
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int arow = (warp & 1) * 8 + (lane >> 2);
-  for (int nt = (warp >> 1) * 4; nt < (warp >> 1) * 4 + 4; ++nt) {
-    const int q0 = nt * 8;
-    const int kbase = ((q0 + r) & (LANE - 1)) & ~3;
-    double d0 = 0.0, d1 = 0.0;
-#pragma unroll
-    for (int ks = 0; ks < 3; ++ks) {
-      const int k = ((kbase + 4 * ks) & (LANE - 1)) + (lane & 3);
-      const double a = (double)stage[arow][k];
-      const double b = ((k - r) & (LANE - 1)) == q0 + (lane >> 2) ? 1.0 : 0.0;
-      mma_f64_m8n8k4(d0, d1, a, b);
+  // Step j's barrier counts the bytes of staged rows [16 j, 16 j + 16), the
+  // last step's also the row after them.
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < nsteps; ++j) mbar_init(bars + 8 * j, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int j = 0; j < nsteps; ++j) {
+      const int hi = j == nsteps - 1 ? staged : MX_STEP * (j + 1);
+      mbar_expect_tx(bars + 8 * j, (uint32_t)(hi - MX_STEP * j) * LANE * sizeof(float));
     }
-    rot[arow][q0 + 2 * (lane & 3)] = (float)d0;
-    rot[arow][q0 + 2 * (lane & 3) + 1] = (float)d1;
   }
   __syncthreads();
+  if (threadIdx.x < 32) {
+    for (int k = threadIdx.x; k < staged; k += 32) {
+      const int j = k / MX_STEP < nsteps ? k / MX_STEP : nsteps - 1;
+      bulk_copy(smem_u32(stage + k * MX_PITCH), src + (int64_t)k * LANE, LANE * sizeof(float), bars + 8 * j);
+    }
+  }
 
-  // out row p, lane q: rot[p][q] = x row p at lane (q + r) mod 128, which is
-  // element s + 128 p + q while q < 128 - r; past that it lies one row on.
-  const int p = threadIdx.x / (LANE / 4);
-  const int q = (threadIdx.x % (LANE / 4)) * 4;
-  float o[4];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const bool odd = t & 1;
+  float* dst = out + i * W + orow0 * LANE;
+  for (int j = 0; j < nsteps; ++j) {
+    mbar_wait(bars + 8 * j, 0);
+    if (j + 1 < nsteps) mbar_wait(bars + 8 * (j + 1), 0);  // its first row is this step's row 16
+    const float* st = stage + MX_STEP * j * MX_PITCH;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) o[e] = q + e < LANE - r ? rot[p][q + e] : rot[p + 1][q + e];
-  __stcs(reinterpret_cast<float4*>(out + i * W + (int64_t)blockIdx.y * TILE + threadIdx.x * 4),
-         make_float4(o[0], o[1], o[2], o[3]));
+    for (int h = 0; h < 2; ++h) {
+      const int q0 = 16 * w + 8 * h;  // this 8-column block
+      const int k0 = ((q0 + r) & (LANE - 1)) & ~7;  // its nonzeros lie in k-steps k0, k0 + 8
+      double d[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int ka = ((k0 + 8 * ks) & (LANE - 1)) + t, kb = ka + 4;
+        const int ra = g + (ka < r), rb = g + (kb < r);  // lanes below r: the next row
+        const double a[4] = {st[ra * MX_PITCH + ka], st[(ra + 8) * MX_PITCH + ka], st[rb * MX_PITCH + kb],
+                             st[(rb + 8) * MX_PITCH + kb]};
+        const double b[2] = {((ka - r) & (LANE - 1)) == q0 + g ? 1.0 : 0.0,
+                             ((kb - r) & (LANE - 1)) == q0 + g ? 1.0 : 0.0};
+        mma_f64_m16n8k8(d, a, b);
+      }
+      // Even t keeps row g, columns 2t, 2t + 1, and takes 2t + 2, 2t + 3 from
+      // its neighbour; odd t keeps row g + 8, columns 2t, 2t + 1, and takes 2t - 2, 2t - 1.
+      const float x0 = (float)(odd ? d[0] : d[2]), x1 = (float)(odd ? d[1] : d[3]);
+      const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1), y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+      const int p = MX_STEP * j + g + (odd ? 8 : 0);
+      const int q = q0 + 2 * t - (odd ? 2 : 0);
+      const float4 v = odd ? make_float4(y0, y1, (float)d[2], (float)d[3])
+                           : make_float4((float)d[0], (float)d[1], y0, y1);
+      if (p < rows) __stcs(reinterpret_cast<float4*>(dst + (int64_t)p * LANE + q), v);
+    }
+  }
 }
 
 template <bool PER_ROW>
@@ -171,6 +209,17 @@ int launch_chunk(K kernel, const void* x, const void* starts, void* out, int64_t
   return (int)cudaGetLastError();
 }
 
+// mxuroll: one block a 128-row group of a chunk, its staged rows in dynamic shared memory.
+int launch_mxuroll(const void* x, const void* starts, void* out, int64_t dim, int64_t nc, int64_t W, void* stream) {
+  if (!chunk_args_ok(dim, nc, W)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(mxuroll_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MX_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned int)nc, (unsigned int)((W / LANE + MX_ROWS - 1) / MX_ROWS));
+  mxuroll_kernel<<<grid, THREADS, MX_SMEM, (cudaStream_t)stream>>>((const float*)x, (const int32_t*)starts,
+                                                                  (float*)out, dim, W);
+  return (int)cudaGetLastError();
+}
+
 template <bool PER_ROW>
 int launch_roll(const void* x, const void* shifts, void* out, int64_t B, void* stream) {
   if (B < 1 || B > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -191,7 +240,7 @@ extern "C" int qc_probe_roll2(void* x, void* starts, void* out, int64_t dim, int
 }
 
 extern "C" int qc_probe_mxuroll(void* x, void* starts, void* out, int64_t dim, int64_t nc, int64_t W, void* stream) {
-  return launch_chunk(mxuroll_kernel, x, starts, out, dim, nc, W, stream);
+  return launch_mxuroll(x, starts, out, dim, nc, W, stream);
 }
 
 // Roll probes: x, out float[B][8][128]; shifts int32[B] (dynroll) or

@@ -40,10 +40,11 @@ version is ``plain_permute``; a segment that mixes camodc ops with other
 ops gathers each work block through the inverse permutation inside the
 fused kernel.  All compute the same function.
 
-bfloat16 planes ("complex32") take the kernel's bf16 instance: each tile is
-widened to float32, every op computes in float32, and each amplitude is
-rounded to bf16 once per pass, at the store, as the JAX kernel does; its
-tables are those of a float32 segment.  The plain version computes the same
+bfloat16 planes ("complex32") take the kernel's bf16 instance: every op
+computes in float32 and each amplitude is rounded to bf16 once per pass,
+at the store, as the JAX kernel does; its tables are those of a float32
+segment, its register groups hold 2^5 amplitudes a thread (2^4 in a
+segment with a camodc or matrix op).  The plain version computes the same
 in complex64 and rounds once.  The camodc permutation moves bf16 elements
 as they are.
 
@@ -91,11 +92,10 @@ LOW_BITS = 7  # targets below this bit always lie inside a tile
 # Tile size per plane dtype: 2^bits amplitudes x 2 planes = 32 KB of shared
 # memory in the compute dtype (a bf16 tile is computed as a float32 one).
 TILE_BITS = {torch.float32: 12, torch.float64: 11, torch.bfloat16: 12}
-# The kernel's register groups: a thread holds 2^GROUP_BITS amplitudes of a
-# tile, the low VEC_BITS index bits (16 bytes of a compute-dtype plane) plus
-# GROUP_BITS - VEC_BITS more, and applies every op of a group to them.
+# The kernel's register groups: a thread holds 2^group_bits(...) amplitudes
+# of a tile, the low VEC_BITS index bits (16 bytes of a compute-dtype plane)
+# plus the rest, and applies every op of a group to them.
 VEC_BITS = {torch.float32: 2, torch.float64: 1, torch.bfloat16: 2}
-GROUP_BITS = {torch.float32: 4, torch.float64: 3, torch.bfloat16: 4}
 
 #: Oracle ops in one segment, as in the JAX package (its bound on the VMEM of
 #: the Benes mask tables); it groups the Shor circuit's oracles two to a segment.
@@ -493,6 +493,19 @@ def _has_rows(ops) -> bool:
     return any(op[0] in ("rowmat", "xtable") for op in ops)
 
 
+def group_bits(dtype: torch.dtype, ops) -> int:
+    """log2 of the amplitudes a kernel thread holds in a register group of
+    this segment: 2^5 in the bf16 instance's direct form (128 threads a
+    block, csrc/fused_segment.cuh's is_direct), which takes every bf16
+    segment without a camodc or matrix op; 2^4 at float32 and in the other
+    bf16 instances; 2^3 at float64."""
+    if dtype == torch.float64:
+        return 3
+    if dtype == torch.bfloat16 and not any(op[0] == "camodc" or op[0] in MATRIX_KINDS for op in ops):
+        return 5
+    return 4
+
+
 def segment_tile_bits(ops, M: int, tile_bits: int, axes=()) -> int:
     """A segment's tile budget: tile_bits; max(tile_bits, M) when it holds a
     camodc op, whose tile must hold whole 2^M-element work blocks; and
@@ -759,9 +772,10 @@ def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
     """Cut a segment's ops into register groups, in order: every target of a
     group lies in its 2^ne-amplitude slots, the low vb bits plus at most
     ne - vb more tile bits.  Returns (op_begin, op_end, extra positions
-    ascending, padded with unused tile bits to ne - vb).  A camodc op, which
-    permutes whole work blocks, and a matrix op, which reads the whole tile,
-    are groups of their own."""
+    ascending, padded with the highest unused tile bits to ne - vb, so
+    that the threads of a warp take the low tile bits, where the tile is
+    contiguous).  A camodc op, which permutes whole work blocks, and a
+    matrix op, which reads the whole tile, are groups of their own."""
     groups, cur, begin = [], set(), 0
     for i, op in enumerate(ops):
         if op[0] == "camodc" or op[0] in MATRIX_KINDS:
@@ -779,7 +793,7 @@ def _group_ops(ops, local, t: int, tb: int, vb: int, ne: int) -> list:
         groups.append((begin, len(ops), cur))
     out = []
     for b, e, extra in groups:
-        pad = (p for p in range(vb, tb) if p not in extra)
+        pad = (p for p in range(tb - 1, vb - 1, -1) if p not in extra)
         while len(extra) < ne - vb:
             extra = extra | {next(pad)}
         out.append((b, e, tuple(sorted(extra))))
@@ -813,7 +827,7 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype,
     tb = t + len(high)
     if any(op[0] == "camodc" for op in ops) and t < M:
         raise ValueError(f"a camodc segment needs the low M={M} bits in its tile, got t={t}")
-    vb, ne = VEC_BITS[dtype], GROUP_BITS[dtype]
+    vb, ne = VEC_BITS[dtype], group_bits(dtype, ops)
     if t < vb or tb < ne:
         vb, ne = 0, tb
     if ne < 1:

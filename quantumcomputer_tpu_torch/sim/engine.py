@@ -35,7 +35,11 @@ pass, ``sim/statevec.py``) needs the ``cuda`` backend, as the JAX package's
 needs pallas: every kernel of the cuda path has a bf16 instance, and the
 standard layout's gather oracle and the per-gate path of a gate with no op
 form move or widen bf16 in torch.  ``backend="auto"`` resolves to ``cuda``
-for it, and on a host with no CUDA device the engine raises.
+for it and places it as complex64 is placed: on the CUDA device when one is
+present, else on the CPU, where every kernel wrapper takes its plain version
+on the CPU planes (rounding once a pass, as the kernel does; the JAX
+package's interpret mode off the TPU).  An explicit ``backend="cuda"`` with
+no CUDA device raises.
 
 Layouts: ``standard`` (the reference's bit convention) and ``m_high`` (the
 work register in the top physical bits; ``models/shor_circuit.
@@ -372,7 +376,8 @@ class StateVectorEngine:
 
     States are planar real tensors (plane 0 = Re, plane 1 = Im); float32
     planes for complex64, float64 for complex128, bfloat16 for "complex32"
-    (cuda backend only; backend="auto" picks it).  `fuse` (cuda backend):
+    (cuda backend only; backend="auto" picks it, on the CPU when no CUDA
+    device is present).  `fuse` (cuda backend):
     plan the circuit into fused segments and oracle ladders (True), or run
     it gate by gate, each gate through its kernel (False).  `oracle`:
     "gather", or "benes" for the standard layout's oracles inside the fused
@@ -396,11 +401,16 @@ class StateVectorEngine:
     ):
         if layout not in ("standard", "m_high"):
             raise ValueError(f"unknown layout {layout!r}")
+        c32_off_card = False
         if is_complex32(dtype):
             # bf16 storage: no complex dtype exists at this width, so it runs
             # only on the planar kernel path (the JAX engine's pallas rule).
+            # "auto" places it as it places complex64: on the card when there
+            # is one, else on the CPU, where every kernel wrapper takes its
+            # plain version (the JAX package's interpret mode off the TPU).
             if backend == "torch" or strict_reference:
-                raise ValueError("dtype='complex32' requires backend='cuda'")
+                raise ValueError("dtype='complex32' requires backend='cuda' or 'auto'")
+            c32_off_card = backend == "auto" and resolve_backend("auto") == "torch"
             backend = "cuda"
         self.backend = resolve_backend("torch" if strict_reference and backend == "auto" else backend)
         if strict_reference and (self.backend != "torch" or layout != "standard"):
@@ -416,12 +426,12 @@ class StateVectorEngine:
         if device is None:
             # strict_reference picks the plain ops, not the host: like the
             # JAX package's forced xla, it runs on the card when there is one.
-            on_card = self.backend == "cuda" or (strict_reference and torch.cuda.is_available())
+            on_card = (self.backend == "cuda" and not c32_off_card) or (strict_reference and torch.cuda.is_available())
             device = "cuda" if on_card else "cpu"
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise ValueError("no CUDA device is available")
-        if self.backend == "cuda" and self.device.type != "cuda":
+        if self.backend == "cuda" and self.device.type != "cuda" and not c32_off_card:
             raise ValueError(f"backend='cuda' runs on a CUDA device, not {self.device}")
         self.register = register
         self.real_dtype = sv.real_dtype_of(dtype)

@@ -173,7 +173,10 @@ def compare_plan(planar: torch.Tensor, circuit, M: int, fuse_oracle: bool = Fals
 
 
 def fused_random_circuit(device) -> List[str]:
-    """A random 40-gate circuit at n = 18, M = 4: one launch per segment."""
+    """A random 40-gate circuit at n = 18, M = 4: one launch per segment.
+    At bf16 its ungrouped plan (the butterfly instance, apply_segment),
+    each pass within one ulp of its plain version, on aligned planes and on
+    planes one element into their buffer (element-wise copies)."""
     out = []
     for dtype in DTYPES:
         rng = np.random.default_rng(9)
@@ -182,6 +185,26 @@ def fused_random_circuit(device) -> List[str]:
         _check(launched == segments, f"fused n=18: {launched} launches for {segments} segments")
         _check(err <= FUSED_TOL[dtype], f"fused n=18 {_name(dtype)}: {err} > {FUSED_TOL[dtype]}")
         out.append(f"fused_segment random n=18 M=4 {_name(dtype)}: max abs {err:.3e}, {launched} launches")
+    for offset in (0, 1):
+        rng = np.random.default_rng(9)
+        circuit = random_circuit(rng, 18, 40)
+        psi = random_planar(rng, 18, torch.bfloat16, device).reshape(-1)
+        buf = torch.empty(psi.numel() + offset, dtype=torch.bfloat16, device=device)
+        got = buf[offset:].view(2, -1)
+        got.copy_(psi.view(2, -1))
+        _check((got.data_ptr() % 16 != 0) == bool(offset), f"planes at offset {offset}: data_ptr {got.data_ptr()}")
+        plan = fused.plan_circuit(circuit, 18, 4, fused.TILE_BITS[torch.bfloat16])
+        worst, before = 0.0, fused.LAUNCHES
+        for _, ops, axes in plan:
+            want = fused.plain_ops(got, ops, 4)
+            fused.apply_segment(got, ops, axes, 4)
+            worst = max(worst, bf16_ulps(got, want)[0])
+        torch.cuda.synchronize()
+        launched = fused.LAUNCHES - before
+        _check(launched == len(plan), f"fused bf16 n=18: {launched} launches for {len(plan)} segments")
+        _check(worst <= BF16_ULP_TOL, f"fused bf16 n=18 offset {offset}: {worst} ulps > {BF16_ULP_TOL}")
+        out.append(f"fused_segment random n=18 M=4 bf16, {'un' if offset else ''}aligned planes: max {worst:.3f} ulps a "
+                   f"pass, {launched} launches")
     return out
 
 
@@ -330,14 +353,17 @@ def stride_permute_m22(device) -> List[str]:
 
 def probe_kernels(device) -> List[str]:
     """The probes on a 2^16 plane (W = 2048): the three chunk probes at
-    aligned, in-range and out-of-range starts, and both rolls."""
-    M, W = 16, 2048
-    dim, nc = 1 << M, (1 << M) // W
+    aligned, in-range and out-of-range starts, and both rolls; mxuroll also
+    at W = 1024 (half of its 16-row step) and W = 20480 (a chunk over two
+    blocks, the second of 32 rows)."""
+    M = 16
+    dim = 1 << M
     out = []
     x = torch.from_numpy(np.random.default_rng(8).standard_normal(dim).astype(np.float32)).to(device)
     rng = np.random.default_rng(9)
-    starts = (np.arange(nc) * W, rng.integers(0, dim - W - 1024, nc), rng.integers(-3000, dim + 3000, nc))
-    for name in ("copy", "roll2", "mxuroll"):
+    for name, W in (("copy", 2048), ("roll2", 2048), ("mxuroll", 2048), ("mxuroll", 1024), ("mxuroll", 20480)):
+        nc = dim // W
+        starts = (np.arange(nc) * W, rng.integers(0, dim - W - 1024, nc), rng.integers(-3000, dim + 3000, nc))
         fn = getattr(probes, f"chunk_{name}")
         plain = probes.chunk_copy_plain if name == "copy" else probes.chunk_gather_plain
         for st in starts:
@@ -346,7 +372,7 @@ def probe_kernels(device) -> List[str]:
             got = fn(x, s, W)
             torch.cuda.synchronize()
             _check(probes.LAUNCHES[name] == before + 1, f"probe {name} launched no kernel")
-            _check(torch.equal(got, plain(x, s, W)), f"probe {name} differs")
+            _check(torch.equal(got, plain(x, s, W)), f"probe {name} W={W} differs")
         out.append(f"probe_{name} M={M} W={W}, aligned / in-range / out-of-range starts: exact")
     rng = np.random.default_rng(10)
     x3 = torch.from_numpy(rng.standard_normal((300, 8, 128)).astype(np.float32)).to(device)

@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+from quantumcomputer_tpu import cli as jcli
+from quantumcomputer_tpu.algorithms import shor as jshor
 from quantumcomputer_tpu.models import circuit as jcir
 from quantumcomputer_tpu.models.shor_circuit import shor_circuit as jshor_circuit
 from quantumcomputer_tpu.models.shor_circuit import shor_circuit_mhigh as jshor_circuit_mhigh
@@ -201,16 +203,35 @@ def test_camodc_segment_bf16_is_exact_against_jax(M, C, gates):
 def test_descriptor_tables_of_a_bf16_segment_are_float32():
     """The kernel's bf16 instance reads its coefficient records and phase
     tables in float32, the compute dtype: the same arrays as a float32
-    segment's."""
+    segment's.  Its register groups hold 2^5 amplitudes a thread (the
+    float32 instance's 2^4), so the groups, the slot fields of the int
+    records and an iQFT op's slot factors (two a slot) are those of that
+    form; its camodc segments keep the float32 form."""
     n, M = 20, 4
     circuit = (cir.H(19), cir.IQFT_STAGE(18), cir.CPHASE(17, 2, 0.3), cir.U2Q(16, 1, np.eye(4)))
     ((_, ops, axes),) = fused.plan_circuit(circuit, n, M, fused.TILE_BITS[torch.bfloat16])
     got = fused.host_descriptor(ops, axes, n, M, torch.bfloat16)
     want = fused.host_descriptor(ops, axes, n, M, torch.float32)
-    assert got[:4] == want[:4]  # t, high, vb, ne
+    assert got[:4] == want[:3] + (5,) and want[3] == 4  # t, high, vb, ne
     for a, b in zip(got[4:], want[4:]):
-        assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert a.dtype == b.dtype
+    ops_i, ops_f, grp, ftab = got[4:]
+    np.testing.assert_array_equal(ops_i[:, :3], want[4][:, :3])  # kinds and qubits
+    np.testing.assert_array_equal(ops_i[:, 5:], want[4][:, 5:])  # the iQFT op's table offsets
+    np.testing.assert_array_equal(ftab, want[7])
+    iqft = ops_i[:, 0] == 3
+    np.testing.assert_array_equal(ops_f[~iqft], want[5][~iqft])
     assert got[5].dtype == np.float32 and got[7].dtype == np.float32
+    # The iQFT op's slot factors: those of its own slots, in the float32 compute dtype.
+    (k,) = np.flatnonzero(iqft)
+    slots = [0, 1] + [int(p) for p in grp[next(i for i, g in enumerate(grp) if g[0] <= k < g[1]), 2:5]]
+    t, high = got[0], got[1]
+    glob = [p if p < t else high[p - t] for p in slots]
+    w = fused.iqft_phases([1 << q for q in glob], 18, M)
+    np.testing.assert_array_equal(ops_f[k, :10], np.stack([w.real, w.imag], 1).reshape(-1).astype(np.float32))
+    camodc = ((_, cops, caxes),) = fused.plan_circuit((cir.CAMODC(15, 7, 9), cir.H(5)), 12, M,
+                                                       fused.TILE_BITS[torch.bfloat16], fuse_oracle=True)
+    assert camodc and fused.host_descriptor(cops, caxes, 12, M, torch.bfloat16)[2:4] == (2, 4)
 
 
 def test_fused_wrapper_takes_bf16_on_the_cpu():
@@ -418,32 +439,73 @@ def test_nan_checks_on_bf16_planes(capsys):
 
 
 def test_complex32_engine_needs_the_cuda_backend(monkeypatch):
-    reg = engine.Register(L=3, M=4)
+    """complex32 runs on the cuda backend's planned path only (the JAX
+    engine's pallas rule): backend="torch" raises, "auto" places it as
+    complex64 is placed (here, with no card, on the CPU through the plain
+    versions, within the circuit bound of the JAX complex32 engine run in
+    interpret mode), an explicit "cuda" with no card raises, and with a
+    card present "auto" puts it on the card."""
+    C, a, L, M = 15, 7, 3, 4
+    reg = engine.Register(L=L, M=M)
     with pytest.raises(ValueError, match="requires backend='cuda'"):
         engine.StateVectorEngine(reg, dtype="complex32", backend="torch")
     with pytest.raises(ValueError, match="no CUDA device"):
-        engine.StateVectorEngine(reg, dtype="complex32")  # auto -> cuda, never the CPU
+        engine.StateVectorEngine(reg, dtype="complex32", backend="cuda")
+    eng = engine.StateVectorEngine(reg, dtype="complex32")
+    assert (eng.backend, eng.device.type, eng.real_dtype, eng.dtype) == ("cuda", "cpu", torch.bfloat16, "complex32")
+    got = eng.run(shor_circuit(C, a, L, M))
+    assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
+    j32 = jengine.StateVectorEngine(jengine.Register(L=L, M=M), dtype="complex32", backend="pallas")
+    want = _amps(j32.run(jshor_circuit(C, a, L, M)))
+    assert np.abs(_amps(got) - want).max() < CIRCUIT_TOL
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setenv("QC_TPU_HBM_BYTES", str(1 << 30))  # the budget without asking the device
     eng = engine.StateVectorEngine(reg, dtype="c32")
     assert (eng.backend, eng.device.type, eng.real_dtype, eng.dtype) == ("cuda", "cuda", torch.bfloat16, "complex32")
 
 
-def test_shors_algorithm_complex32_overrides_torch_and_never_runs_on_the_cpu(caplog):
+def test_shors_algorithm_complex32_overrides_torch_and_never_runs_on_the_cpu(monkeypatch, caplog):
+    """backend="torch" is overridden to the planned path with the JAX
+    package's warning, as the JAX shors_algorithm overrides xla with pallas; with each
+    draw fed to both packages' samplers, both measure the same index and
+    find the same factors of 15."""
     import logging
 
+    import jax
+
+    draws = (0.1, 0.35, 0.6, 0.85)
     logger = logging.getLogger("quantumcomputer_tpu_torch")
     logger.addHandler(caplog.handler)
+    got, want = [], []
     try:
-        with pytest.raises(ValueError, match="no CUDA device"):
-            shor.shors_algorithm(15, 3, 4, forced_trial_int=7, seed=0, dtype="complex32", backend="torch")
+        for r in draws:
+            with monkeypatch.context() as m:
+                m.setattr(torch, "rand", lambda *a, r=r, **k: torch.tensor(r, dtype=k.get("dtype")))
+                res = shor.shors_algorithm(15, 3, 4, forced_trial_int=7, seed=0, dtype="complex32", backend="torch")
+            got.append((res.outcome.name, res.factors, [t.measured_index for t in res.attempts]))
+            with monkeypatch.context() as m:
+                m.setattr(jax.random, "uniform", lambda key, shape=(), dtype=jnp.float32, r=r, **k: jnp.full(shape, r, dtype))
+                jres = jshor.shors_algorithm(15, 3, 4, forced_trial_int=7, seed=0, dtype="complex32", backend="xla")
+            want.append((jres.outcome.name, jres.factors, [t.measured_index for t in jres.attempts]))
     finally:
         logger.removeHandler(caplog.handler)
-    assert any("overriding backend='torch' -> 'cuda'" in r.getMessage() for r in caplog.records)
+    assert got == want
+    assert all(g[:2] == ("OK", (5, 3)) for g in got)
+    assert any("overriding backend='torch' -> 'auto'" in r.getMessage() for r in caplog.records)
 
 
 def test_cli_complex32_full_register_needs_a_card(capsys):
-    assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--dtype", "complex32", "--layout", "m_high"]) == 2
+    """The full register at complex32 on this card-less host: the JAX CLI's
+    exit code and factors line in each layout and with the Beneš oracle;
+    only an explicit --backend cuda still exits 2."""
+    argv = ["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--seed", "0", "--dtype", "complex32"]
+    for extra in ([], ["--layout", "m_high"], ["--oracle", "benes"]):
+        want_rc = jcli.main(argv + extra)
+        want = [line for line in capsys.readouterr().out.splitlines() if "Factors of" in line]
+        assert cli.main(argv + extra) == want_rc == 0
+        assert [line for line in capsys.readouterr().out.splitlines() if "Factors of" in line] == want
+        assert want == [" --- Factors of 15 found: (5, 3)."]
+    assert cli.main(argv + ["--backend", "cuda"]) == 2
     assert capsys.readouterr().err.strip() == "Error: --backend cuda needs a CUDA device, and none is available."
     assert cli.not_ported(cli.build_parser().parse_args(["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32"])) is None
 

@@ -377,12 +377,13 @@ def test_split_angle_emulation_matches_jax_iqft(n, M):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL64)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("n,M", [(1, 0), (2, 3), (3, 0), (4, 13), (5, 3), (9, 0), (13, 3), (15, 0), (16, 13)])
 def test_kernel_emulation_matches_plain_segment(dtype, n, M):
     """Every op kind through the kernel's register groups (edge form for the
     smallest states) equals plain_segment: within 1e-12 from f64 tables,
-    3e-5 from f32 ones."""
+    3e-5 from f32 ones (bf16 segments: their descriptor, 2^5 amplitudes a
+    thread and float32 tables, before any bf16 rounding)."""
     rng = np.random.default_rng(n * 7 + M)
     circuit = _random_circuit(rng, n, 30) if n > 1 else (cir.H(0), cir.IQFT_STAGE(0), cir.RZ(0, 0.3), cir.IQFT_STAGE(0))
     psi = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)

@@ -116,9 +116,10 @@ def test_the_m_high_flagship_plan_groups():
     for _, ops, axes in fused_segs:
         gops, tables = fused.segment_ops(ops, 0, torch.bfloat16, 28)
         t, high, vb, ne, *_ = fused.host_descriptor(gops, axes, 28, 0, torch.bfloat16, tables)
-        assert (vb, ne) == (2, 4)
         if any(op[0] in fused.MATRIX_KINDS for op in gops):
-            assert (t, high) == (13, ())
+            assert (t, high, vb, ne) == (13, (), 2, 4)
+        else:  # the butterfly segments: the bf16 instance's 2^5 amplitudes a thread
+            assert (vb, ne) == (2, 5)
     # float64 never groups: its segments stay in the butterfly form, 11-bit tiles.
     plan64 = engine.plan_circuit(shor_circuit_mhigh(8191, 3, 15, 13), 0, 28, torch.float64, "cpu")
     for _, ops, axes in (s for s in plan64 if s[0] == "fused"):

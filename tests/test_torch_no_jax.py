@@ -23,6 +23,7 @@ import quantumcomputer_tpu_torch.ops.modperm
 import quantumcomputer_tpu_torch.ops.probes
 import quantumcomputer_tpu_torch.scripts.prof_benes
 import quantumcomputer_tpu_torch.scripts.prof_chunkgather
+import quantumcomputer_tpu_torch.scripts.prof_fused
 import quantumcomputer_tpu_torch.scripts.prof_rowperm
 from quantumcomputer_tpu_torch.algorithms import semiclassical
 from quantumcomputer_tpu_torch.utils import debug, experiments, kernel_checks, profiling

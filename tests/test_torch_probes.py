@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from quantumcomputer_tpu_torch.ops import probes
-from quantumcomputer_tpu_torch.scripts import prof_benes, prof_chunkgather, prof_rowperm
+from quantumcomputer_tpu_torch.scripts import prof_benes, prof_chunkgather, prof_fused, prof_rowperm
 
 M, W = 16, 2048
 DIM = 1 << M
@@ -132,4 +132,5 @@ def test_scripts_need_a_card(monkeypatch, capsys):
     assert prof_chunkgather.main() == 1
     assert prof_rowperm.main() == 1
     assert prof_benes.main([]) == 1
+    assert prof_fused.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
