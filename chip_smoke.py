@@ -31,7 +31,10 @@ Phases, each of which must pass:
      instance (fused_matmul.cu), float32 within 3e-5 and bf16 within one ulp
      a pass (kernel_checks.bf16_within for grouped passes); then the
      card-only cases of the port's tests
-     (quantumcomputer_tpu_torch/utils/kernel_checks.py);
+     (quantumcomputer_tpu_torch/utils/kernel_checks.py), the strip pass
+     (oracle_strip.cu) among them: bf16 and float32 exactly against its
+     plain version at n = 20 (M = 6, 9, 13), n = 10 (rows of one sector)
+     and with strips left alone, and its refusals;
   3. factor 15 through the CLI (-C 15 -L 3 -M 4 -a 7), through the fused
      kernel, then again with --layout m_high, through the cycle kernel, with
      --oracle benes (a segment with a camodc op must launch), with
@@ -69,7 +72,9 @@ Phases, each of which must pass:
      layout and with oracle="benes" (no gather oracle may run, and every
      camodc segment launches the camodc permutation); every
      kernel's launch counter is reset just before each and read just after,
-     and each kernel of that path must have launched;
+     and each kernel of that path must have launched (at complex32 the
+     m_high path's adjacent walks run as one strip pass, which must launch,
+     in place of the cycle walk);
   6. the semiclassical engine's kernels, transpose and chunk_gather (its four
      forms), held against their plain versions in float32 and float64,
      exactly, on aligned, ragged and extra-row transposes and on in-range,
@@ -115,7 +120,13 @@ Phases, each of which must pass:
      the m_high flagship's matrix groups launched, and its segments timed
      grouped and in the butterfly form in turns;
      m_high below two states (cycle_masked) equal to the two-state plan
-     exactly; every bf16 segment and oracle
+     exactly; the m_high flagship and its run below two states each
+     launching the strip pass and equal bit for bit to the same plan applied
+     entry by entry through the walks (run_with_norms); the strip pass on
+     the plan's walks (controls 0-11) timed beside the sum of the twelve
+     walks, its plain version, its bound and one advanced-indexing call, and
+     the same run at M = 12 in 32-byte strips (its float32 instance on the
+     complex64 plan's walks, in phase 4, off the engine's path); every bf16 segment and oracle
      kernel of those plans timed beside its bound, each bf16 segment
      without matrix groups also beside the float32 instance's time for the
      same ops and axes, and the benes plan's six H and iQFT segments held
@@ -126,7 +137,8 @@ Phases, each of which must pass:
      kernels and steps at bf16; 1,060,314,373 at M = 30 (4 GiB work state),
      bits equal to the prediction, branch deviation from the complex64
      attempt under the draws' margin; TABLE I through the experiments CLI
-     and run_with_norms (float32 norms) at complex32.
+     and run_with_norms (float32 norms) at complex32, whose m_high run walks
+     its single oracles one by one (the bf16 cycle walk's launches).
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
 kernel's entry holds its launches on a main path, its max abs error, its ms
@@ -149,7 +161,10 @@ take their numbers from the m_high iQFT segment (rowmat + xtable +
 lanemat), their bound the larger of the bytes and the tensor-core products
 (3xTF32 at 495 TFLOP/s, two bf16 products at 989 TFLOP/s), "segments" every
 grouped segment with its butterfly form's time, "flagship_ms" /
-"flagship_butterfly_ms" the m_high flagship in both forms.  Any failure
+"flagship_butterfly_ms" the m_high flagship in both forms.  oracle_strip_bf16
+takes its numbers from the complex32 m_high plan's walks (controls 0-11),
+"walks_sum_ms" / "walk_ms" the same gates one by one through the cycle
+walk, "m12" the same run at M = 12 in 32-byte strips.  Any failure
 exits non-zero without that line.  Imports
 nothing of JAX.
 """
@@ -448,30 +463,22 @@ def oracle_err(site: str, planar, C: int, A_list, controls, M: int) -> float:
 
 
 def time_library_row_gather(planar, C: int, A_list, controls, M: int) -> tuple:
-    """(library_ms, library) of the m_high oracle at `controls`, the top
-    column bits in order, as one advanced-indexing call out of place: over
-    the (2, 2^M, 2^K, rest >> K) view, out[p, f, m, r] = x[p, T[f, m], m, r]
-    with T the (2^M, 2^K) source rows of each control combination m.  The
-    index is built beforehand; the call is held exactly against the plain
+    """(library_ms, library) of the m_high oracle at `controls`, contiguous
+    column bits in order, as one advanced-indexing call out of place
+    (scripts/prof_strip.library_row_gather), held exactly against the plain
     version, then timed.  The port never calls it."""
     import torch
 
     from quantumcomputer_tpu_torch.ops import gates as tops
+    from quantumcomputer_tpu_torch.scripts.prof_strip import library_row_gather
 
-    K, log_rest = len(controls), planar.shape[1].bit_length() - 1 - M
-    check(tuple(controls) == tuple(range(log_rest - K, log_rest)), f"controls {controls} are not the top column bits")
-    combos = torch.from_numpy(tops.modexp_combo_multipliers(C, list(A_list))).to(planar.device)
-    f = torch.arange(1 << M, device=planar.device)[:, None]
-    rows = torch.where(f < C, (combos[None, :] * f) % C, f)
-    lanes = torch.arange(1 << K, device=planar.device)
-    view = planar.view(2, 1 << M, 1 << K, -1)
+    call, library = library_row_gather(planar, C, A_list, controls, M)
     want = tops.apply_camodc_ladder_high_planes_(planar.clone(), C, A_list, controls, M)
-    err = exact_err(view[:, rows, lanes].reshape(2, -1), want)
+    err = exact_err(call(), want)
     del want
     torch.cuda.synchronize()
     check(err == 0.0, f"the library call of the oracle at controls {controls} differs: {err}")
-    lib_ms = time_ms(lambda: view[:, rows, lanes], reps=5)
-    return lib_ms, "one advanced-indexing call x.view(2, 2^M, 2^K, -1)[:, T, arange(2^K)] (out of place)"
+    return time_ms(call, reps=5), library
 
 
 def phase_build() -> float:
@@ -1178,6 +1185,9 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
         grouped = [s for s in plan if s[0] == "fused" and segment_products(s[1], 0, torch.float32, n)]
         fill_matmul_entry(report, torch.float32, time_segments(report, planar, grouped, 0, "m_high grouped"))
     time_mhigh_oracles(report, planar, C, a, M, tuple(range(11, 15)), WALK_CONTROLS)
+    # The strip pass's float32 instance on the complex64 plan's walks: timed
+    # here only (the engine merges bf16 walks alone).
+    time_strip_run(planar, C, a, M, WALK_CONTROLS)
     return timed
 
 
@@ -1227,6 +1237,24 @@ def time_mhigh_oracles(report: dict, planar, C: int, a: int, M: int, ladder, wal
     torch.cuda.empty_cache()
 
 
+def time_strip_run(planar, C: int, a: int, M: int, controls) -> dict:
+    """The strip pass (oracle_strip.cu) on a run of an m_high plan's
+    adjacent walks at `controls`, on `planar` (scripts/prof_strip.strip_case:
+    held exactly against the plain version and timed beside the same walks
+    one by one, the plain version, the library call and the bound).
+    Returns strip_case's numbers."""
+    from quantumcomputer_tpu_torch.scripts import prof_strip
+
+    r = prof_strip.strip_case(planar, C, a, M, controls)
+    log(
+        f"kernel oracle_strip {dname(planar.dtype)} run at controls {tuple(controls)} n={planar.shape[1].bit_length() - 1} "
+        f"C={C} M={M}: exact; {r['strip_bytes']}-byte strips {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms (bytes), "
+        f"{r['share']:.1%} of bound; plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms; the "
+        f"{len(controls)} walks one by one {r['walks_sum_ms']:.4f} ms ({', '.join(f'{w:.4f}' for w in r['walk_ms'])})"
+    )
+    return r
+
+
 def phase_factor(report: dict, planes) -> None:
     """Factor 8187 at n = 30 end to end in the standard layout, m_high and
     with oracle="benes", on planes of `planes` (float32: complex64; bfloat16:
@@ -1267,8 +1295,11 @@ def phase_factor(report: dict, planes) -> None:
     )
     wall = time.perf_counter() - t0
     counts = launches()
-    for k in ("ladder", "cycle"):
-        report[key(k, planes)]["launches"] = counts[k]
+    # complex32 merges the plan's adjacent walks into one strip pass; the
+    # walk's bf16 launches come from the per-entry run (phase_validation_c32).
+    walk = "strip" if planes == torch.bfloat16 else "cycle"
+    report[key("ladder", planes)]["launches"] = counts["ladder"]
+    report["oracle_strip_bf16" if walk == "strip" else key("cycle", planes)]["launches"] = counts[walk]
     if planes in fused.GROUP_DTYPES:
         report[key("fused_matmul", planes)]["launches"] = counts["matmul"]
         check(counts["matmul"] > 0, f"the m_high main path at {dname(planes)} launched no matrix group")
@@ -1277,7 +1308,7 @@ def phase_factor(report: dict, planes) -> None:
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; launches {counts}"
     )
     check(result.factors == (2729, 3), f"m_high factors {result.factors} != (2729, 3)")
-    for k in ("fused_segment", "block_sums", "ladder", "cycle"):
+    for k in ("fused_segment", "block_sums", "ladder", walk):
         check(counts[k] > 0, f"the m_high main path launched no {k} kernel")
 
     # The standard layout with oracle="benes": every oracle inside a fused
@@ -1872,6 +1903,12 @@ def phase_flagship_c32(report: dict) -> None:
                   f"the complex32 benes flagship's camodc segments did not all launch the camodc permutation: {counts}")
         if name == "m_high":
             check(counts["matmul"] > 0, "the complex32 m_high flagship launched no matrix group")
+            check(counts["strip"] > 0, f"the complex32 m_high flagship merged no walks into a strip pass: {counts}")
+            walked, _ = e32.run_with_norms(circuit)  # with norms every plan entry runs alone: the walks
+            same = torch.equal(walked, s32)
+            del walked
+            log(f"flagship complex32 m_high: equal bit for bit to its plan applied entry by entry through the walks: {same}")
+            check(same, "the complex32 m_high flagship state differs from its plan applied entry by entry")
         check(abs(norm - 1.0) <= C32_NORM_TOL, f"complex32 {name} flagship norm {norm}")
         check(dist <= C32_DIST_TOL, f"complex32 {name} flagship distance to complex64 {dist}")
         report["fused_segment_bf16"].setdefault("flagship", {})[name] = dict(
@@ -1915,12 +1952,16 @@ def phase_flagship_c32(report: dict) -> None:
         reset_launches()
         low = ceiling.run(circuit)
         counts = launches()
+        walked, _ = ceiling.run_with_norms(circuit)
     finally:
         del os.environ["QC_TPU_HBM_BYTES"]
     same = torch.equal(low, states["m_high"])
-    del low
+    same_walked = torch.equal(low, walked)
+    del low, walked
     log(f"flagship complex32 m_high below two states: {ceiling_ms:.3f} ms, launches {counts}; equal to the two-state "
-        f"plan bit for bit: {same}")
+        f"plan bit for bit: {same}; to its own plan applied entry by entry through the walks: {same_walked}")
+    check(counts["strip"] > 0, "the complex32 memory-ceiling run merged no walks into a strip pass")
+    check(same_walked, "the complex32 memory-ceiling state differs from its plan applied entry by entry")
     check(counts["cycle_masked"] > 0, "the complex32 memory-ceiling run launched no cycle_masked kernel")
     check(counts["ladder"] == 0, "the complex32 memory-ceiling run launched the out-of-place ladder")
     check(same, "the complex32 memory-ceiling flagship state differs from the two-state plan's")
@@ -1964,6 +2005,16 @@ def phase_flagship_c32(report: dict) -> None:
     walks = tuple(g.qubits[0] for g in singles if g.name == "camodc_high")
     log(f"m_high complex32 plan at n={n}: ladder at controls {ladder}, walks at controls {walks}")
     time_mhigh_oracles(report, planar, C, a, M, ladder, walks)
+    r = time_strip_run(planar, C, a, M, walks)
+    report["oracle_strip_bf16"].update(
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+        library=r["library"], strip_bytes=r["strip_bytes"], walks_sum_ms=r["walks_sum_ms"], walk_ms=r["walk_ms"],
+    )
+    # The 32-byte strips, which a run takes where C of their rows fit shared
+    # memory: the same run at M = 12 (C = 4093, a prime below 2^12).
+    wide = time_strip_run(planar, 4093, 2, 12, walks)
+    check(wide["strip_bytes"] == 32, f"the run at M = 12 took {wide['strip_bytes']}-byte strips")
+    report["oracle_strip_bf16"]["m12"] = {k: wide[k] for k in ("strip_bytes", "ms", "bound_ms", "walks_sum_ms")}
     del planar
     torch.cuda.empty_cache()
 
@@ -1998,7 +2049,7 @@ def phase_cli_c32() -> None:
             log(f"  | {line}")
         log(f"cli n=31 complex32 m_high --seed {seed}: exit {rc}, {wall:.3f} s, launches {counts}")
         check(rc in (0, 3), f"the n=31 CLI returned {rc}")
-        for k in ("fused_segment", "matmul", "block_sums", "ladder", "cycle"):
+        for k in ("fused_segment", "matmul", "block_sums", "ladder", "strip"):
             check(counts[k] > 0, f"the n=31 complex32 CLI run launched no {k} kernel")
         if rc == 0:
             check(" --- Factors of 8189 found: (431, 19)." in buf.getvalue(), "the n=31 CLI did not factor 8189")
@@ -2006,11 +2057,14 @@ def phase_cli_c32() -> None:
     raise SmokeFailure(f"the n=31 complex32 CLI factored 8189 under none of the seeds {list(C32_CLI_SEEDS)}")
 
 
-def phase_validation_c32() -> None:
+def phase_validation_c32(report: dict) -> None:
     """The validation layer at complex32: the experiments CLI with --dtype
     complex32 (TABLE I, 400 shots, on the complex32 cuda engine), and
     run_with_norms on the n = 28 flagship in both layouts (float32 norms,
-    every one within C32_NORM_TOL of 1, one per entry of the plan)."""
+    every one within C32_NORM_TOL of 1, one per entry of the plan).  With
+    norms every plan entry runs on its own, so the m_high run walks its
+    single oracles (the bf16 cycle walk, whose launches it reports) and
+    launches no strip pass."""
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
@@ -2035,11 +2089,16 @@ def phase_validation_c32() -> None:
         eng = StateVectorEngine(Register(L=L, M=M), "complex32", device=DEVICE, layout=layout)
         reset_launches()
         state, norms = eng.run_with_norms(circuit)
+        counts = launches()
         dev = float((norms - 1.0).abs().max())
         log(
             f"run_with_norms complex32 flagship n={L + M} {layout}: {len(norms)} {dname(norms.dtype)} norms (launches "
-            f"{launches()}), max |norm - 1| {dev:.3e} (tol {C32_NORM_TOL:.0e}): {[round(float(v), 6) for v in norms]}"
+            f"{counts}), max |norm - 1| {dev:.3e} (tol {C32_NORM_TOL:.0e}): {[round(float(v), 6) for v in norms]}"
         )
+        if layout == "m_high":
+            check(counts["cycle"] > 0 and counts["strip"] == 0,
+                  f"the complex32 m_high run with norms did not walk its single oracles one by one: {counts}")
+            report["cycle_bf16"]["launches"] = counts["cycle"]
         check(state.dtype == torch.bfloat16 and norms.dtype == torch.float32, f"{layout}: {state.dtype}, {norms.dtype}")
         check(len(norms) == len(eng._plan(circuit)), f"{layout}: {len(norms)} norms for {len(eng._plan(circuit))} entries")
         check(dev <= C32_NORM_TOL, f"complex32 {layout} flagship norm trace deviates by {dev}")
@@ -2083,6 +2142,8 @@ def new_report() -> dict:
         ("fused_matmul", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
         ("fused_matmul_bf16", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
         ("oracle_gather_bf16", "oracle_gather.cu", "pallas_oracle.py:47", None),
+        # The complex32 m_high plan's adjacent walks, merged into one pass.
+        ("oracle_strip_bf16", "oracle_strip.cu", "pallas_oracle.py:389-392", None),
     )
     return {
         name: {
@@ -2135,7 +2196,7 @@ def main() -> int:
     phase_cli_c32()
     phase_semiclassical_timing(report, torch.bfloat16)
     phase_semiclassical_factor(report, torch.bfloat16, reference=sc64)
-    phase_validation_c32()
+    phase_validation_c32(report)
 
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,

@@ -120,6 +120,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("qc_oracle_cycle", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, p]),
         # re, im, sched, segs, scratch, S, nmasks, log_rows, log_rest, pos_a, pos_b, vec, stream
         ("qc_oracle_cycle_masked", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]),
+        # re, im, tab, K, C, log_rows, log_rest, strip_bytes, stream
+        ("qc_oracle_strip", ("f32", "bf16"), [p, p, p, i64, i64, i64, i64, i64, p]),
         # x, out, B, R, Cc, extra_rows, stream
         ("qc_transpose", ("f32", "f64", "bf16"), [p, p, i64, i64, i64, i64, p]),
         # x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream
@@ -140,6 +142,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         # x, shifts, out, B, stream
         fn.argtypes = [p, p, p, i64, p]
         fn.restype = ctypes.c_int
+    lib.qc_oracle_strip_room.argtypes = [p]  # int64_t* bytes
+    lib.qc_oracle_strip_room.restype = ctypes.c_int
     lib.qc_error_string.argtypes = [ctypes.c_int]
     lib.qc_error_string.restype = ctypes.c_char_p
 

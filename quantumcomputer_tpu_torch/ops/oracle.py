@@ -5,7 +5,7 @@ The counterpart of the JAX package's ``ops/pallas_oracle.py``.  In the
 m_high layout the work register is the top M physical bits, so over the
 (2^M, 2^(n-M)) view of each plane a controlled modular multiply moves whole
 rows of the columns whose control bit is set:
-x[j, col] <- x[ginv[j], col].  Four CUDA kernels carry it:
+x[j, col] <- x[ginv[j], col].  Five CUDA kernels carry it:
 
   * ``gather`` (``csrc/oracle_gather.cu``): one gate out of place,
     ``in`` -> ``out`` (``apply_camodc_high_planar``; the JAX package's
@@ -18,13 +18,18 @@ x[j, col] <- x[ginv[j], col].  Four CUDA kernels carry it:
   * ``cycle_masked`` (the same source, its own entry point): the in-place
     walk with one schedule per nonzero control mask; a lone gate
     (``apply_camodc_high_perm_planar``) or a fused pair of gates
-    (``apply_camodc_pair_inplace_planar``).
+    (``apply_camodc_pair_inplace_planar``);
+  * ``strip`` (``csrc/oracle_strip.cu``): a run of K gates in place, in one
+    pass through column strips staged in shared memory
+    (``apply_camodc_run_inplace_planar``; the engine sends it runs of
+    adjacent bf16 walks, ``strip_run_supported``).
 
 Each wrapper takes the plain version (``ops/gates.py``) for a CPU tensor,
 launches its kernel for a CUDA tensor at every size, and raises for any
 other device.  ``LAUNCHES`` counts kernel launches per kernel.  The ladder,
-both walks and the row gather (which no dispatcher picks) also take bf16
-("complex32") planes, as 2-byte elements (exact: they only move data).
+both walks, the strip pass and the row gather (which no dispatcher picks)
+also take bf16 ("complex32") planes, as 2-byte elements (exact: they only
+move data).
 
 The eligibility predicates keep the JAX package's thresholds unchanged
 (they come from the TPU's DMA slab sizes), so the engine plans the same
@@ -34,6 +39,7 @@ H100 is later work.
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -44,7 +50,7 @@ from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.sim import statevec as sv
 
 #: Kernel launches per kernel (CUDA tensors only).
-LAUNCHES = {"gather": 0, "ladder": 0, "cycle": 0, "cycle_masked": 0}
+LAUNCHES = {"gather": 0, "ladder": 0, "cycle": 0, "cycle_masked": 0, "strip": 0}
 
 # The JAX package's thresholds (pallas_oracle.py), in its units.
 LANE = 128
@@ -204,6 +210,79 @@ def pair_inplace_supported(controls, M: int, n: int, itemsize: int = 4) -> bool:
     return all(pair_member_supported(c, M, n, itemsize) for c in controls)
 
 
+# The strip pass (csrc/oracle_strip.cu): one block stages C rows of a 16- or
+# 32-byte column strip of one plane in shared memory; a row holds at least
+# one 32-byte sector.
+STRIP_MIN_ROW_BYTES = 32
+#: The shared memory a strip block may take on an H100 (sm_90a, the one
+#: architecture the build targets: 227 KB a block less the kernel's reserve
+#: for its static arrays).  The card reports its own (strip_room); a CPU run
+#: takes this, so it merges what the card would.
+STRIP_ROOM_SM90 = 232448 - 1024
+_STRIP_DTYPES = (torch.bfloat16, torch.float32)
+
+
+@lru_cache(maxsize=8)
+def strip_room(device) -> int:
+    """The shared memory (bytes) a strip block may take on `device`: what
+    the kernel reads from a CUDA card (qc_oracle_strip_room), else
+    STRIP_ROOM_SM90."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return STRIP_ROOM_SM90
+    room = ctypes.c_int64(0)
+    with torch.cuda.device(device):
+        _build.check(_build.load().qc_oracle_strip_room(ctypes.byref(room)), "oracle strip room")
+    return room.value
+
+
+def strip_bytes(C: int, room: int) -> int:
+    """The strip width a run takes: 32 bytes (a warp storing whole sectors)
+    where C rows of it fit `room`, else 16 (PERF.md §6)."""
+    return 32 if 32 * C <= room else 16
+
+
+def strip_run_supported(M: int, n: int, itemsize: int, aligned: bool, room: int) -> bool:
+    """The strip kernel's eligibility, from the card's limits: 16-byte
+    aligned bf16 or float32 planes, a 2^M-row 16-byte strip within `room`
+    (strip_room), rows of at least a sector."""
+    return (
+        aligned
+        and itemsize in (2, 4)
+        and 1 <= M < n
+        and (16 << M) <= room
+        and (itemsize << (n - M)) >= STRIP_MIN_ROW_BYTES
+    )
+
+
+# Shares of the memory rate at n = 28, bf16, on an H100 (PERF.md §6,
+# scripts/prof_strip.py): a cycle walk's by the bytes of its runs of moved
+# columns (itemsize << control, at least 16), the strip pass's by its width.
+WALK_SHARE = {16: 0.39, 32: 0.47, 64: 0.59, 128: 0.63, 256: 0.70}
+STRIP_SHARE = {16: 0.39, 32: 0.50}
+
+
+def strip_pays(controls, C: int, itemsize: int, room: int) -> bool:
+    """True when one strip pass over a run of walks at `controls` should
+    beat the walks one by one: its time, the 32-byte sectors it moves (all
+    of them when a control lies below a sector's column bits, else those
+    with a control bit set) at STRIP_SHARE of the memory rate, against the
+    walks', half the state each at WALK_SHARE; a tie goes to the walks.  A
+    lone gate keeps its walk (on an H100 the pass read 1.62-1.63 ms against
+    the walk's 0.82-0.87 at controls 0 and 3)."""
+    sector_bits = (WALK_SECTOR_BYTES // itemsize).bit_length() - 1
+    moved = 1.0 if min(controls) < sector_bits else 1.0 - 2.0 ** -len(controls)
+    strip = moved / STRIP_SHARE[strip_bytes(C, room)]
+    walks = sum(0.5 / WALK_SHARE[min(max(itemsize << c, 16), 256)] for c in controls)
+    return len(controls) >= 2 and strip < walks
+
+
+def planes_aligned(planar: torch.Tensor) -> bool:
+    """True when both planes start on a 16-byte boundary (the walk's and the
+    strip pass's vector width)."""
+    return all(p.data_ptr() % 16 == 0 for p in (planar[0], planar[1]))
+
+
 def mask_multipliers(C: int, A_list, M: int) -> np.ndarray:
     """(2^K - 1, 2^M) int32 inverse permutations of a run of K gates, one
     per nonzero control mask m (bit k = gate k): ginv_m[j] = combo[m] * j
@@ -235,6 +314,13 @@ def _schedules(C: int, A_list: tuple, M: int, device: torch.device) -> torch.Ten
 def _segments(C: int, A_list: tuple, M: int, S: int, device: torch.device) -> torch.Tensor:
     """int32 (2^K - 1, S, 8): walk_segments of each mask's schedule."""
     return torch.from_numpy(np.stack([walk_segments(*s, S) for s in _host_schedules(C, A_list, M)])).to(device)
+
+
+@lru_cache(maxsize=256)
+def _strip_table(C: int, A_list: tuple, controls: tuple, device: torch.device) -> torch.Tensor:
+    """int32 (2K,): the run's inverse multipliers, then its controls."""
+    ainv = [pow(int(A) % C, -1, C) for A in A_list]
+    return torch.tensor(ainv + list(controls), dtype=torch.int32).to(device)
 
 
 @lru_cache(maxsize=256)
@@ -355,8 +441,7 @@ def walk_vector(planar: torch.Tensor, controls) -> int:
     moved columns (2^min(controls) of them) fills a 32-byte sector and the
     planes are 16-byte aligned, else 1."""
     item = planar.element_size()
-    aligned = all(p.data_ptr() % WALK_VEC_BYTES == 0 for p in (planar[0], planar[1]))
-    return WALK_VEC_BYTES // item if aligned and (item << min(controls)) >= WALK_SECTOR_BYTES else 1
+    return WALK_VEC_BYTES // item if planes_aligned(planar) and (item << min(controls)) >= WALK_SECTOR_BYTES else 1
 
 
 def _walk(planar: torch.Tensor, C: int, A_list: tuple, controls: tuple, M: int, kernel: str) -> torch.Tensor:
@@ -404,3 +489,41 @@ def apply_camodc_pair_inplace_planar(planar: torch.Tensor, C: int, A_pair, contr
     if _device_kind(planar, "pair") == "cpu":
         return tops.apply_camodc_ladder_high_planes_(planar, C, A_pair, controls, M)
     return _walk(planar, C, tuple(int(A) for A in A_pair), tuple(int(c) for c in controls), M, "cycle_masked")
+
+
+def apply_camodc_run_inplace_planar(planar: torch.Tensor, C: int, A_list, controls, M: int) -> torch.Tensor:
+    """A run of K controlled modular multiplies (m_high layout), IN PLACE, in
+    one pass: x[j, col] <- x[(mu(col) * j) mod C, col] for j < C, mu(col)
+    the product of the inverse multipliers of the gates whose control bit
+    of col is set.  The gates commute, so this equals applying them one by
+    one.  Takes the kernel's limits on every device (strip_run_supported:
+    bf16 or float32 planes, 16-byte aligned, M within shared memory, rows
+    of a sector), so a CPU run accepts what the card does.  Returns
+    `planar`."""
+    controls = tuple(int(c) for c in controls)
+    if not controls or len(A_list) != len(controls) or len(set(controls)) != len(controls):
+        raise ValueError("a run takes one or more gates with distinct controls, one multiplier each")
+    log_rows, log_rest = _geometry(planar, C, M, controls)
+    if planar.dtype not in _STRIP_DTYPES:
+        raise TypeError(f"the strip pass takes bfloat16 or float32 planes, not {planar.dtype}")
+    if C * C >= (1 << 31):
+        raise ValueError(f"C={C} too large for int32 run composition")
+    kind = _device_kind(planar, "strip")
+    room = strip_room(planar.device)
+    if not strip_run_supported(M, log_rows + log_rest, planar.element_size(), planes_aligned(planar), room):
+        raise ValueError(
+            f"the strip pass needs 16-byte aligned planes, 2^M x 16 bytes within {room} bytes of shared "
+            f"memory and rows of at least {STRIP_MIN_ROW_BYTES} bytes (M={M}, n={log_rows + log_rest})"
+        )
+    if kind == "cpu":
+        return tops.apply_camodc_ladder_high_planes_(planar, C, A_list, controls, M)
+    tab = _strip_table(C, tuple(int(A) for A in A_list), controls, planar.device)
+    fn = _build.entry("qc_oracle_strip", planar.dtype)
+    with torch.cuda.device(planar.device):
+        err = fn(
+            planar[0].data_ptr(), planar[1].data_ptr(), tab.data_ptr(), len(controls), C, log_rows, log_rest,
+            strip_bytes(C, room), _stream(planar),
+        )
+    _build.check(err, "oracle strip")
+    LAUNCHES["strip"] += 1
+    return planar

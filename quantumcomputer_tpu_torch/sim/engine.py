@@ -332,13 +332,27 @@ def apply_circuit_fused_(
     out-of-place ladder between `planar` and one scratch buffer, every other
     single gate in place through apply_gate_planes_.  Returns the buffer
     that holds the result: `planar`, or the scratch buffer after an odd
-    number of ladders.  With a `norms` list, the norm after each entry of
-    the plan (segment or single gate) is appended to it; with nan_checks,
-    check_finite after each entry."""
+    number of ladders.  A run of adjacent bf16 cycle walks (strip_run) goes
+    through one in-place strip pass where that beats the walks
+    (oracle.strip_pays).  With a `norms` list,
+    the norm after each entry of the plan (segment or single gate) is
+    appended to it, and with nan_checks check_finite runs after each entry:
+    then every entry runs on its own, walks included."""
     if plan is None:
         plan = plan_circuit(circuit, M, sv.num_qubits(planar), planar.dtype, planar.device)
     cur, spare = planar, None
-    for i, seg in enumerate(plan):
+    i = 0
+    while i < len(plan):
+        seg = plan[i]
+        run = [] if norms is not None or nan_checks else strip_run(cur, plan, i)
+        if run and oracle.strip_pays([g.qubits[0] for g in run], run[0].meta[0], cur.element_size(),
+                                     oracle.strip_room(cur.device)):
+            C, m_reg = run[0].meta[0], run[0].meta[2]
+            oracle.apply_camodc_run_inplace_planar(
+                cur, C, [g.meta[1] for g in run], [g.qubits[0] for g in run], m_reg
+            )
+            i += len(run)
+            continue
         if seg[0] == "fused":
             fused.apply_fused(cur, seg[1], seg[2], M)
         elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
@@ -355,7 +369,39 @@ def apply_circuit_fused_(
         if nan_checks:
             g = seg[1]
             check_finite(cur, f"fused segment {i} ({len(g)} ops)" if seg[0] == "fused" else f"gate {g.name}{g.qubits}")
+        i += 1
     return cur
+
+
+def _strip_walk(planar: torch.Tensor, entry) -> bool:
+    """True when a plan entry is a single camodc_high gate that
+    apply_gate_planes_ would send to the cycle walk, on bf16 planes the
+    strip kernel takes."""
+    if entry[0] == "fused" or entry[1].name != "camodc_high" or planar.dtype != torch.bfloat16:
+        return False
+    g = entry[1]
+    m_reg, n, itemsize = g.meta[2], sv.num_qubits(planar), planar.element_size()
+    return not oracle.perm_supported(g.qubits[0], m_reg, n, itemsize) and oracle.strip_run_supported(
+        m_reg, n, itemsize, oracle.planes_aligned(planar), oracle.strip_room(planar.device)
+    )
+
+
+def strip_run(planar: torch.Tensor, plan, i: int) -> list:
+    """The gates of the maximal run of adjacent plan entries from plan[i]
+    that one strip pass applies (oracle.apply_camodc_run_inplace_planar):
+    single bf16 cycle walks (_strip_walk) on one C and work register, with
+    distinct controls.  The plan stays the JAX package's; runs merge at
+    launch."""
+    run: list = []
+    for entry in plan[i:]:
+        if not _strip_walk(planar, entry):
+            break
+        g = entry[1]
+        if run and (g.meta[0] != run[0].meta[0] or g.meta[2] != run[0].meta[2]
+                    or g.qubits[0] in {h.qubits[0] for h in run}):
+            break
+        run.append(g)
+    return run
 
 
 def is_complex32(dtype) -> bool:

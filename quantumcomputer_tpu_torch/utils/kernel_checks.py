@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from quantumcomputer_tpu_torch.models import circuit as cir
-from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, modperm, oracle, probes
+from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.scripts import exact_err
 
@@ -267,6 +267,92 @@ def walk_flagship_multipliers(device) -> List[str]:
     return out
 
 
+# (M, C, a) of the strip pass's cases at n = 20: the flagship's modulus at
+# M = 13, primes just below 2^M elsewhere.
+STRIP_CASES = ((6, 61, 2), (9, 509, 3), (13, 8191, 3))
+
+
+def strip_controls(rng, K: int, bits: int) -> tuple:
+    """K distinct column bits below `bits`, controls 0-3 among them (as many
+    as K allows), in a seeded unsorted order."""
+    low = list(range(min(K, 4)))
+    high = [int(c) for c in rng.choice(np.arange(4, bits), K - len(low), replace=False)]
+    return tuple(int(c) for c in rng.permutation(low + high))
+
+
+def strip_runs(device) -> List[str]:
+    """The strip pass (oracle.apply_camodc_run_inplace_planar) exactly
+    against its plain version at n = 20: M = 6, 9 and 13 (STRIP_CASES), runs
+    of 2, 5 and min(12, n - M) gates at unsorted controls that include 0-3,
+    A_k = a^(2^k) mod C (at M = 13 the flagship's multipliers, and 16 bf16 /
+    32 float32 strips a plane: fewer blocks than the card has SMs), both
+    instances, 32-byte strips at M = 6 and 9, 16-byte ones at M = 13; then
+    n = 10, M = 6, whose bf16 rows are one sector, and a run at controls
+    4-5 only, whose strips with neither bit set stay as they were; then the
+    card's shared-memory room against the one a CPU run takes
+    (oracle.STRIP_ROOM_SM90), and the refusals: float64 planes, an
+    unaligned plane, M = 14, and the kernel's own refusal of 32-byte strips
+    of 8191 rows."""
+    n = 20
+    rng = np.random.default_rng(12)
+    out = []
+    room = oracle.strip_room(torch.device(device))
+    _check(room == oracle.STRIP_ROOM_SM90, f"the card's strip room {room} != {oracle.STRIP_ROOM_SM90}")
+
+    def held(state, C, A_list, controls, M, what):
+        want = tops.apply_camodc_ladder_high_planes_(state.clone(), C, A_list, controls, M)
+        before = oracle.LAUNCHES["strip"]
+        oracle.apply_camodc_run_inplace_planar(state, C, A_list, controls, M)
+        torch.cuda.synchronize()
+        _check(oracle.LAUNCHES["strip"] == before + 1, "the strip pass launched no kernel")
+        _check(torch.equal(state, want), f"strip {what} M={M} C={C} controls {controls} {_name(state.dtype)} differs")
+
+    for M, C, a in STRIP_CASES:
+        width = oracle.strip_bytes(C, room)
+        for K in (2, 5, min(12, n - M)):
+            controls = strip_controls(rng, K, n - M)
+            A_list = tuple(pow(a, 1 << k, C) for k in range(K))
+            for dtype in (torch.bfloat16, torch.float32):
+                held(random_planar(rng, n, dtype, device, normalize=False), C, A_list, controls, M, f"n={n}")
+            out.append(f"oracle_strip n={n} M={M} C={C} controls {controls}: bfloat16 and float32, "
+                       f"{width}-byte strips: exact")
+    # The narrowest rows the engine sends: one sector a bf16 row (one 32-byte strip, two 16-byte ones).
+    M, C, controls = 6, 61, (3, 1, 0, 2)
+    A_list = tuple(pow(2, 1 << k, C) for k in range(len(controls)))
+    for dtype in (torch.bfloat16, torch.float32):
+        held(random_planar(rng, M + len(controls), dtype, device, normalize=False), C, A_list, controls, M, "narrow")
+    # Controls above a strip's column bits: a quarter of the strips skipped.
+    for M, C, a in STRIP_CASES:
+        held(random_planar(rng, n, torch.bfloat16, device, normalize=False), C, (a, a * a % C), (5, 4), M, "skip")
+    out.append(f"oracle_strip n={M + len(controls)} M=6 (rows of one sector at bf16), and controls (5, 4) at "
+               f"n={n}, M=6/9/13 (strips with neither bit set skipped): exact; the card's room {room} bytes")
+    C, A_list, controls = 8191, (3, 9), (0, 3)
+    refusals = (
+        (TypeError, lambda: random_planar(rng, n, torch.float64, device), 13),
+        (ValueError, lambda: torch.zeros(2 * (1 << n) + 8, dtype=torch.bfloat16, device=device)[1:1 + (2 << n)]
+         .view(2, 1 << n), 13),
+        (ValueError, lambda: torch.zeros((2, 1 << n), dtype=torch.bfloat16, device=device), 14),
+    )
+    for error, make, M in refusals:
+        before = oracle.LAUNCHES["strip"]
+        try:
+            oracle.apply_camodc_run_inplace_planar(make(), C, A_list, controls, M)
+        except error:
+            pass
+        else:
+            raise KernelCheckFailure(f"the strip pass took M={M}: no {error.__name__}")
+        _check(oracle.LAUNCHES["strip"] == before, "a refused strip pass counted a launch")
+    state = torch.zeros((2, 1 << n), dtype=torch.bfloat16, device=device)
+    tab = torch.tensor([pow(3, -1, C), pow(9, -1, C), 0, 3], dtype=torch.int32, device=device)
+    err = _build.entry("qc_oracle_strip", torch.bfloat16)(
+        state[0].data_ptr(), state[1].data_ptr(), tab.data_ptr(), 2, C, 13, n - 13, 32,
+        torch.cuda.current_stream(device).cuda_stream)
+    torch.cuda.synchronize()
+    _check(err != 0, "the strip kernel took 32-byte strips of 8191 rows")
+    out.append("oracle_strip refusals (float64, unaligned plane, M=14; the kernel: 32-byte strips at C=8191): raised")
+    return out
+
+
 def ladder_unsorted_controls(device) -> List[str]:
     """The ladder at controls (0, 5, 3): low, unsorted column bits."""
     C, a, M, n, controls = 33, 7, 6, 21, (0, 5, 3)
@@ -445,6 +531,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     fused_split_angle,
     block_sums_f64,
     walk_flagship_multipliers,
+    strip_runs,
     ladder_unsorted_controls,
     gather_oracle_controls,
     chunk_gather_narrow,

@@ -3,8 +3,8 @@ validation layer (profiling, experiments, debug), its probe kernels and
 scripts, the Benes router and the card-only kernel checks, runs a 7-qubit
 circuit, a norm trace, a few TABLE I shots, a tiny semiclassical attempt
 (also at complex32), the Benes oracle path (plain segments,
-strict_reference, dd64, nan_checks) and a complex32 plan on bf16 planes,
-and checks that no jax or ml_dtypes module was loaded.
+strict_reference, dd64, nan_checks), a complex32 plan on bf16 planes and a
+complex32 m_high plan whose walks merge into one strip pass, and checks that no jax or ml_dtypes module was loaded.
 chip_smoke.py is imported too (without running it), since it must run where
 jax is absent."""
 
@@ -25,6 +25,7 @@ import quantumcomputer_tpu_torch.scripts.prof_benes
 import quantumcomputer_tpu_torch.scripts.prof_chunkgather
 import quantumcomputer_tpu_torch.scripts.prof_fused
 import quantumcomputer_tpu_torch.scripts.prof_rowperm
+import quantumcomputer_tpu_torch.scripts.prof_strip
 from quantumcomputer_tpu_torch.algorithms import semiclassical
 from quantumcomputer_tpu_torch.utils import debug, experiments, kernel_checks, profiling
 from quantumcomputer_tpu_torch.ops import benes
@@ -55,6 +56,14 @@ assert len(c32.bits) == 3
 bf16 = tengine.apply_circuit_fused_(q.sim.statevec.initial_planar(7, torch.bfloat16), circuit, 4,
                                     tengine.plan_circuit(circuit, 4, 7, torch.bfloat16, "cpu"))
 assert bf16.dtype == torch.bfloat16 and abs(float(q.sim.statevec.norm(bf16)) - 1.0) < 5e-3
+from quantumcomputer_tpu_torch.ops import oracle
+runs = []
+strip = oracle.apply_camodc_run_inplace_planar
+oracle.apply_camodc_run_inplace_planar = lambda *a, **k: runs.append(a[3]) or strip(*a, **k)
+mh = q.shor_circuit_mhigh(15, 7, 4, 4)
+mh_out = tengine.apply_circuit_fused_(q.sim.statevec.initial_planar(8, torch.bfloat16, 16), mh, 0,
+                                      tengine.plan_circuit(mh, 0, 8, torch.bfloat16, "cpu"))
+assert runs == [[0, 1, 2, 3]] and abs(float(q.sim.statevec.norm(mh_out)) - 1.0) < 5e-3, runs
 loaded = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules

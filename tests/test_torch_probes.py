@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from quantumcomputer_tpu_torch.ops import probes
-from quantumcomputer_tpu_torch.scripts import prof_benes, prof_chunkgather, prof_fused, prof_rowperm
+from quantumcomputer_tpu_torch.scripts import prof_benes, prof_chunkgather, prof_fused, prof_rowperm, prof_strip
 
 M, W = 16, 2048
 DIM = 1 << M
@@ -133,4 +133,5 @@ def test_scripts_need_a_card(monkeypatch, capsys):
     assert prof_rowperm.main() == 1
     assert prof_benes.main([]) == 1
     assert prof_fused.main([]) == 1
+    assert prof_strip.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
