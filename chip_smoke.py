@@ -138,7 +138,33 @@ Phases, each of which must pass:
      bits equal to the prediction, branch deviation from the complex64
      attempt under the draws' margin; TABLE I through the experiments CLI
      and run_with_norms (float32 norms) at complex32, whose m_high run walks
-     its single oracles one by one (the bf16 cycle walk's launches).
+     its single oracles one by one (the bf16 cycle walk's launches);
+ 12. checkpoint/resume: the complex32 n = 28 flagship in both layouts
+     through run_with_checkpoints (6 segments of 8 gates, 1 GiB snapshots
+     under a temporary directory removed afterwards), killed after segment
+     3 and resumed: equal bit for bit to the uninterrupted segmented run and
+     within C32_DIST_TOL of engine.run, with the snapshot seconds per GiB;
+     the CLI with --checkpoint-dir (-C 21 -L 4 -M 5 -a 2 --seed 1) against
+     the same line without it; the M = 28 structured semiclassical attempt
+     (complex64, checkpoint_every 4, a 2 GiB snapshot) killed after its
+     step-4 snapshot and resumed, its bits and branch probabilities equal
+     to the uninterrupted run's and to the run's without checkpoint_dir;
+     the card-only checks batched_sampler and mcphase_planes run in phase 2;
+ 13. the generic algorithms at n = 28, complex64 and complex32, secrets from
+     a seeded numpy rng: Grover (3 iterations; the marked amplitude against
+     sin 7 theta, every other against cos 7 theta / sqrt(2^28 - 1), within
+     ALGO_TOL; one measure; 6 mcphase calls), Bernstein-Vazirani (three
+     draws read s), Deutsch-Jozsa, Simon at 14 + 14 qubits, QPE on t = 20,
+     M = 8 and semiclassical at M = 28, t = 12 (exact readouts), amplitude
+     estimation (n = 18, t = 10, 2 marked: the counting register's
+     distribution within AE_TV_TOL of the ideal one, the readout one the
+     ideal distribution gives the draw within that distance, never the
+     readout of an iterate without its oracle, and within the BHMT bound);
+     one QV model circuit at m = 28 (392 U2Q) at complex64 within 1e-4 of
+     complex128 and complex32 within kernel_checks.bf16_circuit_within
+     (root sum of squares of the per-pass bounds) of complex64, its
+     100-shot sample in one block-sum launch, equal to and
+     timed beside 100 single draws; the experiments CLI with --qv 16.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
 kernel's entry holds its launches on a main path, its max abs error, its ms
@@ -238,6 +264,42 @@ GATHER_CONTROLS = (14, 3, 0)  # pure, mixed and sub-vector controls at n = 28, M
 PROBE_M, PROBE_W = 28, 16384
 UNFUSED = (8191, 3, 7, 13)  # C, a, L, M: n = 20
 WALK_CONTROLS = tuple(range(11))  # the controls the m_high flagship plan walks (its 11 single gates)
+# Checkpoint/resume of the complex32 flagship: segments of 8 gates (the
+# default), a preemption after segment 3; the semiclassical attempt's draws
+# from this seed.
+CKPT_SEGMENT_GATES = 8
+CKPT_KILL_AFTER = 3
+SC_CKPT_SEED = 5
+# The generic algorithms at n = 28: secrets and draws from ALGO_SEED; Grover
+# with 3 iterations; QPE on t = 20 counting and M = 8 work qubits, its
+# semiclassical form at M = 28 and t = 12; amplitude estimation with n = 18
+# and t = 10, 2 marked items (the least work at 28 qubits whose counting
+# register resolves a: its eigenphases lie 0.90 of a bin from 1/2, where an
+# iterate without its oracle reads), its counting register's distribution
+# within AE_TV_TOL of the ideal one in total variation; QV's full-width
+# circuit held against complex128 within QV_C64_TOL, its sample of QV_SHOTS
+# shots; the QV protocol at m = 16.
+ALGO_SEED = 2026
+ALGO_N = 28
+GROVER_ITERS = 3
+QPE_T, QPE_M, QPE_SC_T = 20, 8, 12
+AE_N, AE_T, AE_MARKED = 18, 10, 2
+# complex64 holds the ideal distribution to rounding.  complex32 cannot: the
+# iterate turns an unmarked amplitude by a relative 1 - cos(theta_a) ~ 4e-6,
+# far below bf16's 2^-9, so 16,374 bf16 passes drift the counting register,
+# the more the larger n, as the kernels' plain versions do where the CPU can
+# run them (scripts/prof_ae_drift.py, PERF.md section 6).  Its limit is read
+# from those runs; an iterate without its oracle reads 0.99.
+AE_TV_TOL = {"complex64": 1e-4, "complex32": 0.25}
+# What the sampler's float32 cumulative sums may move a draw's place in the
+# distribution by, beside the state's own distance from the ideal one.
+AE_SAMPLER_SLACK = 1e-5
+QV_C64_TOL = 1e-4
+QV_SHOTS = 100
+QV_PROTOCOL_M = 16
+# Grover's amplitudes against the closed form, relative to each: complex64
+# at a float32 circuit's error, complex32 at bf16 rounding over its passes.
+ALGO_TOL = {"complex64": 1e-3, "complex32": 5e-2}
 # The H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores.  A kernel's bound is the
 # larger of its bytes (each input read once, each output written once) and
@@ -2106,6 +2168,368 @@ def phase_validation_c32(report: dict) -> None:
         torch.cuda.empty_cache()
 
 
+class Killed(RuntimeError):
+    """A simulated preemption of a checkpointed run."""
+
+
+def timed_saves(ckpt) -> list:
+    """Wrap ckpt.save_state to record (bytes, seconds) of each snapshot, the
+    device's queued work finished before the clock starts."""
+    import torch
+
+    saves, save = [], ckpt.save_state
+
+    def timed(path, state, meta):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, state, meta)
+        saves.append((state.numel() * state.element_size(), time.perf_counter() - t0))
+
+    ckpt.save_state = timed
+    return saves
+
+
+def phase_checkpoint() -> None:
+    """Checkpoint/resume on the card: the complex32 flagship (n = 28) in both
+    layouts through run_with_checkpoints, killed after segment 3 and
+    resumed, bit for bit against the uninterrupted segmented run and within
+    C32_DIST_TOL of engine.run on the whole circuit; the README's CLI example
+    with --checkpoint-dir; the M = 28 structured semiclassical attempt
+    killed after its step-4 snapshot and resumed, against the uninterrupted
+    and the unchecked attempts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from quantumcomputer_tpu_torch import cli
+    from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.sim import checkpoint as ckpt
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    t_phase = time.perf_counter()
+    save = ckpt.save_state
+    saves = timed_saves(ckpt)
+    C, a, L, M = FLAGSHIP
+    tmp = tempfile.mkdtemp(prefix="qc_ckpt_")
+    try:
+        for layout, build in (("standard", shor_circuit), ("m_high", shor_circuit_mhigh)):
+            t0 = time.perf_counter()
+            circuit = build(C, a, L, M)
+            nseg = -(-len(circuit) // CKPT_SEGMENT_GATES)
+
+            def engine():
+                return StateVectorEngine(Register(L=L, M=M), "complex32", backend=KERNEL_BACKEND, device=DEVICE,
+                                         layout=layout)
+
+            whole = engine().run(circuit)
+            reset_launches()
+            eng = engine()
+            segmented = ckpt.run_with_checkpoints(eng, circuit, os.path.join(tmp, "full"), CKPT_SEGMENT_GATES)
+            counts = launches()
+            check(ckpt.latest_segment(os.path.join(tmp, "full")) == nseg, f"{layout}: not every segment snapshotted")
+            shutil.rmtree(os.path.join(tmp, "full"))
+            check(counts["fused_segment"] > 0, f"{layout}: the segmented run launched no fused kernel: {counts}")
+            if layout == "m_high":
+                check(counts["cycle"] + counts["strip"] + counts["ladder"] + counts["cycle_masked"] > 0,
+                      f"the segmented m_high run launched no oracle kernel: {counts}")
+            eng = engine()
+            run, done = eng.run, []
+
+            def dying_run(circ, state=None):
+                if len(done) >= CKPT_KILL_AFTER:
+                    raise Killed(f"after segment {len(done)}")
+                done.append(1)
+                return run(circ, state)
+
+            eng.run = dying_run
+            killed_dir = os.path.join(tmp, "killed")
+            try:
+                ckpt.run_with_checkpoints(eng, circuit, killed_dir, CKPT_SEGMENT_GATES)
+                check(False, f"{layout}: the killed run was not killed")
+            except Killed:
+                pass
+            check(ckpt.latest_segment(killed_dir) == CKPT_KILL_AFTER, f"{layout}: {ckpt.all_segments(killed_dir)}")
+            eng, executed = engine(), []
+            run2 = eng.run
+            eng.run = lambda circ, state=None: (executed.append(1), run2(circ, state))[1]
+            resumed = ckpt.run_with_checkpoints(eng, circuit, killed_dir, CKPT_SEGMENT_GATES)
+            shutil.rmtree(killed_dir)
+            check(len(executed) == nseg - CKPT_KILL_AFTER, f"{layout}: resumed run executed {len(executed)} segments")
+            check(torch.equal(resumed, segmented), f"{layout}: the resumed state differs from the segmented run")
+            dist = float(torch.linalg.vector_norm(resumed.float() - whole.float()))
+            log(f"checkpoint complex32 {layout} n={L + M}: {nseg} segments of {CKPT_SEGMENT_GATES} gates, killed after "
+                f"{CKPT_KILL_AFTER}, resumed {len(executed)}: equal bit for bit to the segmented run; "
+                f"||resumed - run||_2 = {dist:.3e} (tol {C32_DIST_TOL:.0e}); launches of the segmented run {counts}; "
+                f"{time.perf_counter() - t0:.3f} s")
+            check(dist <= C32_DIST_TOL, f"{layout}: checkpointed state {dist} from engine.run")
+            del whole, segmented, resumed
+            torch.cuda.empty_cache()
+        nbytes, secs = sum(b for b, _ in saves), sum(t for _, t in saves)
+        log(f"checkpoint snapshots: {len(saves)} of {saves[0][0] / 2**30:.3f} GiB, {secs / (nbytes / 2**30):.3f} s per GiB "
+            f"(device to host and np.savez to {tempfile.gettempdir()})")
+
+        argv = ["-C", "21", "-L", "4", "-M", "5", "-a", "2", "--seed", "1"]
+        outs = []
+        for extra in (["--checkpoint-dir", os.path.join(tmp, "cli")], []):
+            reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + extra)
+            outs.append((rc, [x for x in buf.getvalue().splitlines() if "Factors of" in x]))
+            log(f"cli {' '.join(argv + extra)}: exit {rc}, {outs[-1][1]}, launches {launches()}")
+        check(outs[0] == outs[1] and outs[0][0] == 0, f"the CLI with --checkpoint-dir: {outs}")
+        check(os.listdir(os.path.join(tmp, "cli")) == [], "the CLI left its attempt directory")
+
+        C, a, L, M = SC_M28
+        gen = torch.Generator().manual_seed(SC_CKPT_SEED)
+        rs = torch.rand((L,), generator=gen, dtype=torch.float32)
+        t0 = time.perf_counter()
+        plain = sc.run_semiclassical(C, a, L, M, rs, structured=True, device=DEVICE)
+        t_plain = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        full = sc.run_semiclassical(C, a, L, M, rs, structured=True, device=DEVICE,
+                                    checkpoint_dir=os.path.join(tmp, "sc"), checkpoint_every=4)
+        t_full = time.perf_counter() - t0
+        counts = launches()
+        check(counts["transpose"] > 0 and counts["chunk_gather"] > 0, f"the checkpointed attempt: {counts}")
+        timed = ckpt.save_state
+
+        def save_and_kill(path, state, meta):
+            timed(path, state, meta)
+            raise Killed(f"after step {meta['step']}")
+
+        ckpt.save_state = save_and_kill
+        try:
+            sc.run_semiclassical(C, a, L, M, rs, structured=True, device=DEVICE,
+                                 checkpoint_dir=os.path.join(tmp, "sc"), checkpoint_every=4)
+            check(False, "the semiclassical attempt was not killed")
+        except Killed:
+            pass
+        ckpt.save_state = timed
+        (attempt,) = os.listdir(os.path.join(tmp, "sc"))
+        check(ckpt.all_segments(os.path.join(tmp, "sc", attempt)) == [4], "no step-4 snapshot")
+        t0 = time.perf_counter()
+        resumed = sc.run_semiclassical(C, a, L, M, rs, structured=True, device=DEVICE,
+                                       checkpoint_dir=os.path.join(tmp, "sc"), checkpoint_every=4)
+        t_resumed = time.perf_counter() - t0
+        check(os.listdir(os.path.join(tmp, "sc")) == [], "the resumed attempt left its directory")
+        for rec, what in ((full, "uninterrupted"), (resumed, "resumed")):
+            check((rec.bits, rec.branch_probs) == (plain.bits, plain.branch_probs),
+                  f"semiclassical {what}: {rec.bits} {rec.branch_probs} vs {plain.bits} {plain.branch_probs}")
+        sc_save = saves[-1]
+        log(f"checkpoint semiclassical M={M} C={C} a={a} L={L} complex64 structured: bits {plain.bits}, probs "
+            f"{[round(p, 9) for p in plain.branch_probs]} equal without checkpoint_dir ({t_plain:.3f} s), "
+            f"uninterrupted ({t_full:.3f} s) and resumed from step 4 ({t_resumed:.3f} s); snapshot "
+            f"{sc_save[0] / 2**30:.3f} GiB in {sc_save[1]:.3f} s; launches {counts}")
+    finally:
+        ckpt.save_state = save
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase checkpoint: {time.perf_counter() - t_phase:.3f} s")
+
+
+def amplitude_stats(state, marked: int) -> tuple:
+    """(marked amplitude, mean, spread and largest imaginary part of every
+    other amplitude), on the card, in float64, up to the global sign that
+    makes the marked amplitude positive."""
+    import torch
+
+    re = state[0].double()
+    sign = 1.0 if float(re[marked]) >= 0 else -1.0
+    others = torch.cat([re[:marked], re[marked + 1:]]) * sign
+    return (sign * float(re[marked]), float(others.mean()), float(others.max() - others.min()),
+            float(state[1].double().abs().max()))
+
+
+def phase_algorithms() -> None:
+    """The generic algorithm layer at n = 28 on the card, complex64 and
+    complex32 (PERF.md section 4): Grover, Bernstein-Vazirani,
+    Deutsch-Jozsa, Simon, QPE in both forms, amplitude estimation, one
+    full-width QV model circuit against the complex128 engine with its
+    100-shot sample, and the QV protocol through the experiments CLI."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms import amplitude_estimation as ae
+    from quantumcomputer_tpu_torch.algorithms import grover, oracle_algorithms as ora, qpe, quantum_volume as qv, simon
+    from quantumcomputer_tpu_torch.models import circuit as cir
+    from quantumcomputer_tpu_torch.ops import measure
+    from quantumcomputer_tpu_torch.ops import gates as tops
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+    from quantumcomputer_tpu_torch.utils import experiments, kernel_checks
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(ALGO_SEED)
+    n = ALGO_N
+    secrets = {"grover": int(rng.integers(1 << n)), "bv": int(rng.integers(1, 1 << n)),
+               "simon": int(rng.integers(1, 1 << (n // 2))), "qpe": int(rng.integers(1 << QPE_T)),
+               "qpe_sc": int(rng.integers(1 << QPE_SC_T)),
+               "ae": sorted(int(x) for x in rng.choice(1 << AE_N, AE_MARKED, replace=False))}
+    draws = [float(x) for x in rng.random(64)]
+    log(f"algorithms n={n}: secrets {secrets}")
+
+    def engine(L, M, dtype):
+        return StateVectorEngine(Register(L=L, M=M), dtype, backend=KERNEL_BACKEND, device=DEVICE)
+
+    for dtype in (torch.complex64, "complex32"):
+        name = "complex64" if dtype == torch.complex64 else "complex32"
+        tol = ALGO_TOL[name]
+        eng = engine(n, 0, dtype)
+
+        t0 = time.perf_counter()
+        reset_launches()
+        tops.MCPHASE_CALLS = 0
+        marked = secrets["grover"]
+        state = eng.run(grover.grover_circuit(n, marked, iterations=GROVER_ITERS), eng.zero_state())
+        amp, mean, spread, imag = amplitude_stats(state, marked)
+        theta = math.asin(2.0 ** (-n / 2))
+        want_amp = math.sin((2 * GROVER_ITERS + 1) * theta)
+        want_other = math.cos((2 * GROVER_ITERS + 1) * theta) / math.sqrt((1 << n) - 1)
+        idx, _ = eng.measure(state, draws[0])
+        counts, mcp = launches(), tops.MCPHASE_CALLS
+        del state
+        log(f"grover {name} n={n} marked {marked}, {GROVER_ITERS} iterations: amplitude {amp:.9e} (sin(7 theta) "
+            f"{want_amp:.9e}), others mean {mean:.9e} ({want_other:.9e}), spread {spread:.3e}, max |im| {imag:.3e}; "
+            f"measured {idx}; mcphase calls {mcp}, launches {counts}; {time.perf_counter() - t0:.3f} s")
+        check(abs(amp - want_amp) <= tol * want_amp, f"grover {name}: marked amplitude {amp} vs {want_amp}")
+        check(abs(mean - want_other) <= tol * want_other and spread <= tol * want_other and imag <= tol * want_other,
+              f"grover {name}: other amplitudes mean {mean} spread {spread} imag {imag}")
+        check(mcp == 2 * GROVER_ITERS and counts["fused_segment"] > 0 and counts["block_sums"] == 1,
+              f"grover {name}: mcphase {mcp}, launches {counts}")
+
+        t0 = time.perf_counter()
+        s = secrets["bv"]
+        got = [ora.bernstein_vazirani(n, s, r, engine=eng) for r in draws[1:4]]
+        const = ora.deutsch_jozsa(n, [], draws[4], engine=eng)
+        balanced = ora.deutsch_jozsa(n, ora.bv_oracle(n, s), draws[5], engine=eng)
+        log(f"bernstein-vazirani {name} n={n}: s {s}, three draws read {got}; deutsch-jozsa constant -> {const} "
+            f"(index 0), balanced -> {balanced} (a non-zero index); {time.perf_counter() - t0:.3f} s")
+        check(got == [s] * 3, f"bernstein-vazirani {name}: {got} != {s}")
+        check(const is True and balanced is False, f"deutsch-jozsa {name}: constant {const}, balanced {balanced}")
+        del eng
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        half = n // 2
+        res = simon.simon_search(half, secrets["simon"], draws, engine=engine(half, half, dtype))
+        log(f"simon {name} n={half} ({n} qubits): s {secrets['simon']} recovered {res.s} in {res.rounds} rounds; "
+            f"{time.perf_counter() - t0:.3f} s")
+        check(res.s == secrets["simon"], f"simon {name}: {res.s}")
+
+        t0 = time.perf_counter()
+        x = secrets["qpe"]
+        cu = (lambda x: lambda j, c: [cir.CPHASE(c, 0, 2.0 * math.pi * x * (1 << j) / (1 << QPE_T))])(x)
+        res = qpe.estimate_phase(cu, QPE_T, QPE_M, draws[6], engine=engine(QPE_T, QPE_M, dtype))
+        log(f"qpe {name} full register t={QPE_T} M={QPE_M}: x {x} read {res.x} (raw {res.raw}); "
+            f"{time.perf_counter() - t0:.3f} s")
+        check(res.x == x, f"qpe {name}: read {res.x}, want {x}")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        reset_launches()
+        x = secrets["qpe_sc"]
+        u = (lambda x: lambda j: [cir.PHASE(0, 2.0 * math.pi * x * (1 << j) / (1 << QPE_SC_T))])(x)
+        res = qpe.run_semiclassical_qpe(u, QPE_SC_T, ALGO_N, draws[7:7 + QPE_SC_T], dtype=dtype,
+                                        backend=KERNEL_BACKEND, device=DEVICE)
+        log(f"qpe {name} semiclassical M={ALGO_N} t={QPE_SC_T}: x {x} read {res.x}, branch probabilities "
+            f"min {min(res.record.branch_probs):.9f}; launches {launches()}; {time.perf_counter() - t0:.3f} s")
+        check(res.x == x, f"semiclassical qpe {name}: read {res.x}, want {x}")
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        reset_launches()
+        tops.MCPHASE_CALLS = 0
+        ae_eng = engine(AE_T, AE_N, dtype)
+        marginals = []
+        ae_run = ae_eng.run
+
+        def observed_run(circ, state=None, ae_run=ae_run, marginals=marginals):
+            out = ae_run(circ, state)
+            marginals.append(kernel_checks.counting_marginal(out, AE_N))  # before measure collapses it
+            return out
+
+        ae_eng.run = observed_run
+        r = draws[20]
+        est = ae.amplitude_estimate(AE_N, secrets["ae"], AE_T, r, engine=ae_eng)
+        seconds, counts = time.perf_counter() - t0, launches()
+        ideal = kernel_checks.ae_counting_probabilities(AE_N, AE_MARKED, AE_T)
+        tv = 0.5 * float(np.abs(marginals[0] - ideal).sum())
+        raw = lambda c: int(f"{c:0{AE_T}b}"[::-1], 2)  # the counting register's value <-> qpe's raw readout
+        accepted = [qpe._negate_readout(raw(c), AE_T) for c in kernel_checks.readouts_within(ideal, r, tv + AE_SAMPLER_SLACK)]
+        half = 1 << (AE_T - 1)  # an iterate without its oracle has eigenphase 1/2 alone
+        a_true = AE_MARKED / float(1 << AE_N)
+        bhmt = 2 * math.pi * math.sqrt(a_true * (1 - a_true)) / (1 << AE_T) + (math.pi / (1 << AE_T)) ** 2
+        log(f"amplitude estimation {name} n={AE_N} t={AE_T} marked {secrets['ae']}: draw {r:.9f} read x {est.qpe.x}, "
+            f"the ideal distribution gives {accepted} (x = {half} has probability "
+            f"{ideal[raw(half)]:.3e}); counting register total variation from ideal {tv:.3e} (tol "
+            f"{AE_TV_TOL[name]:g}); a_hat {est.a_hat:.9e} (a {a_true:.9e}, BHMT bound {bhmt:.9e}); mcphase calls "
+            f"{tops.MCPHASE_CALLS}, launches {counts}; {seconds:.3f} s")
+        check(tv <= AE_TV_TOL[name], f"amplitude estimation {name}: total variation {tv} from the ideal distribution")
+        check(half not in accepted, f"amplitude estimation {name}: the draw cannot tell a from 0 ({accepted})")
+        check(est.qpe.x in accepted, f"amplitude estimation {name}: read {est.qpe.x}, the ideal distribution gives {accepted}")
+        check(abs(est.a_hat - a_true) <= bhmt, f"amplitude estimation {name}: {est.a_hat} vs {a_true}")
+        del ae_eng
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    circ = qv.qv_model_circuit(n, np.random.default_rng(ALGO_SEED))
+    states = {}
+    for dtype in (torch.complex128, torch.complex64, "complex32"):
+        eng = engine(n, 0, dtype)
+        reset_launches()
+        t1 = time.perf_counter()
+        states[str(dtype)] = eng.run(circ, eng.zero_state())
+        torch.cuda.synchronize()
+        log(f"quantum volume m={n} {dtype}: {len(circ)} u2q gates, {time.perf_counter() - t1:.3f} s, launches {launches()}")
+    d64 = float(torch.linalg.vector_norm(states["torch.complex64"].double() - states["torch.complex128"]))
+    plan = engine(n, 0, "complex32")._plan(circ)
+    pass_products = [kernel_checks.segment_products(e[1], 0, torch.bfloat16, n) for e in plan if e[0] == "fused"]
+    d32 = float(torch.linalg.vector_norm(states["complex32"].double() - states["torch.complex64"].double()))
+    bound32 = 2 * math.sqrt(sum((p + 1) ** 2 for p in pass_products)) * kernel_checks.BF16_UNIT
+    log(f"quantum volume m={n}: ||c64 - c128||_2 = {d64:.3e} (tol {QV_C64_TOL:.0e}); ||c32 - c64||_2 = {d32:.3e} "
+        f"(bf16_circuit_within: {len(pass_products)} passes, {sum(pass_products)} matrix products, root-sum-square "
+        f"bound {bound32:.3e})")
+    check(d64 <= QV_C64_TOL, f"quantum volume complex64 vs complex128: {d64}")
+    check(kernel_checks.bf16_circuit_within(states["complex32"], states["torch.complex64"], pass_products),
+          f"quantum volume complex32 vs complex64: {d32}")
+    del states["torch.complex128"]
+    torch.cuda.empty_cache()
+    rs = torch.tensor(rng.random(QV_SHOTS), dtype=torch.float32)
+    for key_, state in states.items():
+        eng = engine(n, 0, torch.complex64 if key_ == "torch.complex64" else "complex32")
+        reset_launches()
+        samples = eng.sample(state, rs)
+        one = measure.LAUNCHES
+        batched_ms = time_ms(lambda: eng.sample(state, rs), reps=3)
+        reset_launches()
+        single = [measure.sample_index(state, float(r)) for r in rs]
+        per_draw = measure.LAUNCHES
+        single_ms = time_ms(lambda: [measure.sample_index(state, float(r)) for r in rs], reps=1)
+        log(f"quantum volume m={n} {key_} sample of {QV_SHOTS} shots: {one} block_sums launch, {batched_ms:.3f} ms; "
+            f"{QV_SHOTS} single sample_index calls {single_ms:.3f} ms ({per_draw} launches); equal: "
+            f"{samples.tolist() == single}")
+        check(one == 1, f"sample of {QV_SHOTS} shots made {one} block_sums launches")
+        check(samples.tolist() == single, f"{key_}: the batched sampler differs from the per-draw sampler")
+    del states
+    torch.cuda.empty_cache()
+    log(f"quantum volume full width: {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = experiments.main(["--qv", str(QV_PROTOCOL_M)])
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    log(f"experiments --qv {QV_PROTOCOL_M}: exit {rc}; {time.perf_counter() - t0:.3f} s")
+    check(rc == 0 and f"QV m={QV_PROTOCOL_M}:" in buf.getvalue() and "PASS (QV=" in buf.getvalue(),
+          f"experiments --qv {QV_PROTOCOL_M} exited {rc}")
+    log(f"phase algorithms: {time.perf_counter() - t_phase:.3f} s")
+
+
 def new_report() -> dict:
     """One JSON entry per kernel instance: the float32 / float64 kernels,
     then the bf16 ("complex32") instances, whose `replaces` names the TPU
@@ -2197,6 +2621,8 @@ def main() -> int:
     phase_semiclassical_timing(report, torch.bfloat16)
     phase_semiclassical_factor(report, torch.bfloat16, reference=sc64)
     phase_validation_c32(report)
+    phase_checkpoint()
+    phase_algorithms()
 
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,

@@ -32,13 +32,21 @@ complex128, which the card has natively.  dtype="complex32" stores the work
 state in bf16 and rounds where the JAX package does: angles, draws and
 branch sums run in float32, the rotation ct * g - st * g' is computed in
 float32 and rounded to bf16 once, and the collapse is bf16 arithmetic.
-Checkpointing and sharding are not yet ported.
+With ``checkpoint_dir`` the attempt snapshots the work state with the bits
+and branch probabilities measured so far every ``checkpoint_every`` steps,
+in a subdirectory per attempt; a killed attempt called again with the same
+arguments and draws resumes from its newest snapshot.  The JAX package needs
+two checkpointed forms (per-step dispatches, and segments of its unrolled
+structured program); eager PyTorch has one step loop for both oracles, so
+one form serves.  Sharding is not yet ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import os
+import shutil
 from typing import List, Optional
 
 import numpy as np
@@ -47,8 +55,12 @@ import torch
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.ops import modperm
+from quantumcomputer_tpu_torch.sim import checkpoint as ckpt
 from quantumcomputer_tpu_torch.sim import statevec as sv
+from quantumcomputer_tpu_torch.utils.logging import get_logger
 from quantumcomputer_tpu_torch.utils.memory import device_memory_budget, fused_attempt_fits, step_program_fits
+
+log = get_logger("semiclassical")
 
 # Rows per block of the gather oracle's on-device index vector (32 MB of
 # int64) and of the elementwise passes that follow it.
@@ -220,6 +232,47 @@ class SemiclassicalRecord:
         return cls(bits, branch_probs, x_tilde, x_tilde / float(1 << len(bits)))
 
 
+def _attempt_fingerprint(C: int, a: int, L: int, M: int, rdtype: torch.dtype, rs: torch.Tensor, forces) -> str:
+    """Identity of one attempt for snapshot matching: its arguments, the
+    draws and the forced bits pin the whole measurement record (the JAX
+    package hashes the key the draws come from)."""
+    h = hashlib.sha256()
+    h.update(f"semiclassical-work|{C}|{a}|{L}|{M}|{str(rdtype).removeprefix('torch.')}".encode())
+    h.update(rs.detach().cpu().numpy().tobytes())
+    h.update(np.asarray(forces, np.int32).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _scan_resume(attempt_dir: str, fp: str, L: int, device) -> tuple:
+    """The newest snapshot in attempt_dir matching this attempt's
+    fingerprint: (state or None, bits, probs, start step)."""
+    segs = ckpt.all_segments(attempt_dir)
+    for seg in reversed(segs):
+        if seg >= L:
+            continue
+        try:
+            loaded, meta = ckpt.load_state(ckpt._segment_path(attempt_dir, seg), device)
+        except Exception as e:  # corrupt or unreadable snapshot
+            log.warning("semiclassical snapshot %d unreadable (%s): skipped", seg, e)
+            continue
+        if meta.get("fingerprint") == fp and meta.get("step") == seg:
+            log.info("resuming semiclassical attempt at step %d/%d", seg, L)
+            return loaded, [int(b) for b in meta["bits"]], [float(p) for p in meta["probs"]], seg
+    if segs:
+        log.info("no snapshot matches this attempt: cold start")
+    return None, [], [], 0
+
+
+def _phi_from_bits(bits, cdt: torch.dtype, device) -> torch.Tensor:
+    """The deferred phase after the measured `bits`, replayed with _step's
+    recurrence phi' = (phi + m) / 2 in cdt: the value an uninterrupted run
+    carries, bit for bit."""
+    phi = torch.zeros((), dtype=cdt, device=device)
+    for m in bits:
+        phi = (phi + torch.tensor(m, dtype=torch.int64, device=device).to(cdt)) / 2
+    return phi
+
+
 def _use_structured(structured: Optional[bool], M: int, rdtype, device: torch.device) -> bool:
     env = os.environ.get("QC_SC_STRUCTURED")
     if structured is None and env is not None:
@@ -240,10 +293,19 @@ def run_semiclassical(
     structured: Optional[bool] = None,
     device=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 4,
 ) -> SemiclassicalRecord:
     """One semiclassical attempt: L measure-and-reset steps on the 2^M work
     register, on `device`: None is the CUDA device when one is present and
     the CPU otherwise (``StateVectorEngine``'s rule).
+
+    checkpoint_dir: after every `checkpoint_every` steps (not after the
+    last) the work state is snapshotted with the bits and branch
+    probabilities so far, under ``sc_<fingerprint>`` (_attempt_fingerprint);
+    a call with the same arguments and draws resumes from the newest
+    snapshot, its deferred phase replayed from the bits, and the
+    subdirectory is removed when the attempt completes.  Each snapshot is a
+    host sync.  Not with dtype="dd64", as in the JAX package.
 
     rs: the L uniform draws (a tensor or array, taken in the compute
     dtype).  forced_bits walks one branch regardless of the draws; the
@@ -264,8 +326,10 @@ def run_semiclassical(
     if math.gcd(a, C) != 1:
         raise ValueError(f"a={a} not coprime to C={C}: gate is not a permutation")
     forced_bits = validate_forced_bits(forced_bits, L, "L")
-    if checkpoint_dir is not None:
-        raise ValueError("semiclassical checkpointing is not yet ported to quantumcomputer_tpu_torch")
+    if checkpoint_dir is not None and checkpoint_every <= 0:
+        raise ValueError(f"checkpoint_every={checkpoint_every} must be positive")
+    if dtype == "dd64" and checkpoint_dir is not None:
+        raise ValueError("dd64 semiclassical has no checkpointing (parity mode)")
     rdtype = sv.real_dtype_of(torch.complex128 if dtype == "dd64" else dtype)
     cdt = _compute_dtype(rdtype)
     device = torch.device(device if device is not None else "cuda" if torch.cuda.is_available() else "cpu")
@@ -281,15 +345,30 @@ def run_semiclassical(
 
     a_invs = [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)]
     plans = _structured_plans(C, a_invs, M) if _use_structured(structured, M, rdtype, device) else [None] * L
-    w = sv.initial_planar(M, rdtype, 1, device)
-    phi = torch.zeros((), dtype=cdt, device=device)
+    w, bits, probs, start, attempt_dir = None, [], [], 0, None
+    if checkpoint_dir is not None:
+        fp = _attempt_fingerprint(C, a, L, M, rdtype, rs, forces)
+        attempt_dir = os.path.join(checkpoint_dir, f"sc_{fp}")
+        w, bits, probs, start = _scan_resume(attempt_dir, fp, L, device)
+    if w is None:
+        w = sv.initial_planar(M, rdtype, 1, device)
+    phi = _phi_from_bits(bits, cdt, device)
     bits_d, probs_d = [], []
-    for s in range(L):
+    for s in range(start, L):
         bit, p_cond, w, phi = _step(w, phi, M, rdtype, C, a_invs[s], plans[s], rs[s], forces[s])
         bits_d.append(bit)
         probs_d.append(p_cond)
-    bits = [int(b) for b in torch.stack(bits_d).cpu()]
-    probs = [float(p) for p in torch.stack(probs_d).cpu()]
+        if attempt_dir is not None and (s + 1) % checkpoint_every == 0 and s + 1 < L:
+            ckpt.save_state(
+                ckpt._segment_path(attempt_dir, s + 1), w,
+                {"kind": "semiclassical", "fingerprint": fp, "step": s + 1,
+                 "bits": bits + [int(b) for b in bits_d], "probs": probs + [float(p) for p in probs_d]},
+            )
+    if bits_d:
+        bits += [int(b) for b in torch.stack(bits_d).cpu()]
+        probs += [float(p) for p in torch.stack(probs_d).cpu()]
+    if attempt_dir is not None:
+        shutil.rmtree(attempt_dir, ignore_errors=True)  # attempt complete
     rec = SemiclassicalRecord.from_bits(bits, probs)
     rec.oracles = ["gather" if p is None else "structured" for p in plans]
     return rec

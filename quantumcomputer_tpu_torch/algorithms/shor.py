@@ -18,6 +18,8 @@ save XLA recompiles and is not ported.
 
 from __future__ import annotations
 
+import os
+import shutil
 import time
 from dataclasses import dataclass, field
 from enum import Enum
@@ -28,6 +30,7 @@ import torch
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
 from quantumcomputer_tpu_torch.algorithms.semiclassical import find_period_semiclassical
 from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+from quantumcomputer_tpu_torch.sim.checkpoint import run_with_checkpoints
 from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, is_complex32, resolve_backend
 from quantumcomputer_tpu_torch.utils.logging import get_logger, ui_active, verbosity
 
@@ -106,6 +109,8 @@ def find_period(
     r: float,
     num_fractions: int = nt.NUM_CONTINUED_FRACTIONS,
     trials_per_denominator: int = nt.TRIALS_PER_DENOMINATOR,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_segment_gates: int = 8,
 ) -> AttemptRecord:
     """One quantum period-finding attempt (find_period, qc_shor.c:912-964):
     reset -> circuit -> measure with draw r -> omega -> continued fractions
@@ -116,11 +121,22 @@ def find_period(
     each followed by a norm read that waits for the device, so the progress
     lines reflect real execution.  Both layouts' circuits are
     [H layer | L oracles | iQFT], L gates each; an m_high engine's measured
-    index is mapped back to the logical index before it is read."""
+    index is mapped back to the logical index before it is read.
+
+    checkpoint_dir: the circuit runs in segments of
+    `checkpoint_segment_gates` gates with a snapshot after each
+    (sim/checkpoint.run_with_checkpoints), in a subdirectory per (C, a),
+    ``C{C}_a{a}``; a killed attempt resumes from its last valid snapshot
+    when called again.  The measurement always runs fresh, never from a
+    snapshot, and the subdirectory is removed once the attempt completes.
+    Checkpointing wins over -V's per-phase progress."""
     reg = engine.register
     build = shor_circuit_mhigh if engine.layout == "m_high" else shor_circuit
     circuit = build(C, a, reg.L, reg.M)
     _, very_verbose = verbosity()
+    if very_verbose and checkpoint_dir is not None:
+        print("      - (checkpointing enabled: per-phase -V progress is replaced by per-segment snapshots)")
+        very_verbose = False
     if very_verbose:
         print("      - Performing quantum computation...")
         L = reg.L
@@ -136,6 +152,11 @@ def find_period(
             engine.norm(state)
         print("      - Measuring state...")
         idx, _ = engine.measure(state, r)
+    elif checkpoint_dir is not None:
+        attempt_dir = os.path.join(checkpoint_dir, f"C{C}_a{a}")
+        state = run_with_checkpoints(engine, circuit, attempt_dir, segment_gates=checkpoint_segment_gates)
+        idx, _ = engine.measure(state, r)  # fresh measurement, never replayed
+        shutil.rmtree(attempt_dir, ignore_errors=True)  # attempt complete
     else:
         idx = engine.run_and_measure_index(circuit, r)
     idx = engine.logical_index(idx)
@@ -178,6 +199,7 @@ def shors_algorithm(
     oracle: str = "gather",
     strict_reference: bool = False,
     semiclassical: bool = False,
+    checkpoint_dir: Optional[str] = None,
 ) -> ShorResult:
     """Full Shor algorithm (qc_shor.c:1003-1134).
 
@@ -203,7 +225,12 @@ def shors_algorithm(
     semiclassical=True runs each attempt on the one-control-qubit engine
     (``algorithms/semiclassical.py``): a 2^M state instead of 2^(L+M), the
     same outcome distribution, on the CUDA device when the backend is
-    ``cuda`` and on the CPU otherwise."""
+    ``cuda`` and on the CPU otherwise.
+
+    checkpoint_dir: snapshots for preemption recovery, per segment of the
+    full-register circuit (find_period) or every few semiclassical steps
+    (run_semiclassical); a killed run called again with the same arguments
+    and seed resumes where it stopped."""
     if C < 4 or L < 1 or M < 1:
         return ShorResult(outcome=Outcome.BAD_ARGUMENTS, C=C)
     if dtype == "dd64":
@@ -281,6 +308,7 @@ def shors_algorithm(
                 period, screc = find_period_semiclassical(
                     C, a, L, M, rs, dtype=dtype, num_fractions=num_fractions,
                     trials_per_denominator=trials_per_denominator, device=device,
+                    checkpoint_dir=checkpoint_dir,
                 )
                 # measured_index records x~, the sequential bit readout: this
                 # mode has no full-register basis index.
@@ -291,7 +319,9 @@ def shors_algorithm(
             else:
                 r = float(torch.rand((), generator=gen, dtype=torch.float64))
                 t_attempt = time.perf_counter()
-                attempt = find_period(engine, C, a, r, num_fractions, trials_per_denominator)
+                attempt = find_period(
+                    engine, C, a, r, num_fractions, trials_per_denominator, checkpoint_dir=checkpoint_dir
+                )
             attempt.elapsed_s = time.perf_counter() - t_attempt
             log.info("attempt a=%d took %.6fs", a, attempt.elapsed_s)
             result.attempts.append(attempt)

@@ -12,10 +12,11 @@ in float32) runs the full register on the cuda backend's kernel path, as
 the JAX package forces pallas: on the card when there is one, else on the
 CPU through the kernels' plain versions (the JAX package's interpret mode);
 the semiclassical engine runs it on the card or the CPU like any dtype.
-Flags whose path is not ported yet (``--devices > 1``,
-``--checkpoint-dir``) exit 2 with a message that says so; ``--backend
-cuda`` on a host with no CUDA device exits 2 as well, and never runs on the
-CPU.
+``--checkpoint-dir`` snapshots the full-register circuit between segments
+of 8 gates, or the semiclassical work state every 4 steps, and resumes a
+killed run.  ``--devices > 1``, whose path is not ported yet, exits 2 with a
+message that says so; ``--backend cuda`` on a host with no CUDA device exits
+2 as well, and never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -155,8 +156,6 @@ def not_ported(args: argparse.Namespace) -> Optional[str]:
     """The first flag whose path this package does not carry yet, or None."""
     if args.devices > 1:
         return "--devices > 1"
-    if args.checkpoint_dir is not None:
-        return "--checkpoint-dir"
     return None
 
 
@@ -196,6 +195,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         oracle=args.oracle,
         strict_reference=args.strict_reference,
         semiclassical=args.semiclassical,
+        checkpoint_dir=args.checkpoint_dir,
     )
 
     if args.verbose:

@@ -68,14 +68,57 @@ def apply_2q(state: torch.Tensor, u4, q_hi: int, q_lo: int) -> torch.Tensor:
     return torch.einsum("efab,xaybc->xeyfc", u, x).reshape(-1)
 
 
-def apply_mcphase(state: torch.Tensor, controls, theta: float) -> torch.Tensor:
-    """Multi-controlled phase: e^{i theta} where every control bit is 1."""
+#: Calls of apply_mcphase_planes_, the planar mcphase (torch glue, no kernel).
+MCPHASE_CALLS = 0
+
+
+def mcphase_view(x: torch.Tensor, controls) -> torch.Tensor:
+    """The strided view of a flat 2^n tensor at the indices whose control
+    bits are all 1: one dimension per run of free bits, the storage offset
+    the control mask (a 0-d view when every bit is a control)."""
+    n = x.shape[0].bit_length() - 1
     mask = 0
     for q in controls:
         mask |= 1 << int(q)
-    idx = torch.arange(state.shape[0], device=state.device)
-    hit = (idx & mask) == mask
-    return torch.where(hit, state * complex(np.exp(1j * float(theta))), state)
+    sizes, strides = [], []
+    q = 0
+    while q < n:
+        start = q
+        while q < n and not (mask >> q) & 1:
+            q += 1
+        if q > start:
+            sizes.append(1 << (q - start))
+            strides.append(1 << start)
+        q += 1
+    return x.as_strided(sizes[::-1], strides[::-1], x.storage_offset() + mask)
+
+
+def apply_mcphase(state: torch.Tensor, controls, theta: float) -> torch.Tensor:
+    """Multi-controlled phase: e^{i theta} where every control bit is 1."""
+    out = state.clone()
+    mcphase_view(out, controls).mul_(complex(np.exp(1j * float(theta))))
+    return out
+
+
+def apply_mcphase_planes_(planar: torch.Tensor, controls, theta: float) -> torch.Tensor:
+    """apply_mcphase on a planar state, in place: only the sub-view where
+    every control bit is 1 is read and written, as (re c - im s, re s + im c)
+    with the phase c + i s rounded to the complex dtype, as the JAX
+    package's complex multiply takes it.  bf16 planes are widened to
+    float32, multiplied there and rounded once."""
+    global MCPHASE_CALLS
+    cdt = torch.float32 if planar.dtype == torch.bfloat16 else planar.dtype
+    ph = np.asarray(np.exp(1j * float(theta)), np.complex128 if cdt == torch.float64 else np.complex64)
+    c = torch.tensor(float(ph.real), dtype=cdt, device=planar.device)
+    s = torch.tensor(float(ph.imag), dtype=cdt, device=planar.device)
+    re, im = mcphase_view(planar[0], controls), mcphase_view(planar[1], controls)
+    xr, xi = re.to(cdt), im.to(cdt)
+    new_re = xr * c - xi * s
+    new_im = xr * s + xi * c
+    re.copy_(new_re)
+    im.copy_(new_im)
+    MCPHASE_CALLS += 1
+    return planar
 
 
 def iqft_stage_phases(l: int, M: int, dtype=torch.complex64, device="cpu") -> torch.Tensor:

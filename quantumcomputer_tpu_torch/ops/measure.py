@@ -8,7 +8,8 @@ two-level inverse-CDF replaces a full-state cumulative scan:
      exists in device memory);
   2. a cumulative scan over the <= 1024 block sums picks the block, and a
      local scan inside the picked block picks the element (torch glue, as
-     it is XLA glue in the JAX package).
+     it is XLA glue in the JAX package).  A batch of draws shares the one
+     block-sum pass (``sample_indices_planes``).
 
 The result is the smallest index whose cumulative probability reaches
 r * total, falling through to the last index.  The draw is scaled by the
@@ -83,38 +84,72 @@ def block_sums(planar: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _first_reaching(cum: torch.Tensor, value: torch.Tensor) -> int:
-    """Smallest index with cum >= value, clamped to the last index."""
-    idx = int(torch.searchsorted(cum, value.view(1), side="left").item())
-    return min(idx, cum.shape[0] - 1)
+def _clamped_search(cum: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Smallest index with cum >= value per value (along cum's last axis),
+    clamped to the last index."""
+    return torch.searchsorted(cum, values, side="left").clamp_(max=cum.shape[-1] - 1)
+
+
+def _draws(rs, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(rs if isinstance(rs, torch.Tensor) else list(map(float, rs)), dtype=torch.float64).to(
+        device=device, dtype=dtype
+    ).reshape(-1)
+
+
+def sample_indices_planes(planar: torch.Tensor, rs, plain: bool = False) -> torch.Tensor:
+    """Hierarchical inverse-CDF samples, one per draw in `rs` (each in
+    [0, 1)), without collapsing: ONE block-sum pass for all draws (the
+    block sums from block_sums_plain with plain=True, the torch backend's
+    spec path; else from block_sums), then for each shot a one-dimensional
+    scan of its own block (the JAX package's sample_indices_planes scans
+    chunks of shots together).  One block per scan is what makes a shot find
+    the same index whether it is drawn alone or in a batch: torch.cumsum on a
+    CUDA tensor picks its algorithm and thread layout from the number of
+    rows, and rounds differently at knife edges.  It also keeps a lone
+    draw's temporaries at one block.  Returns the indices as an int64 CPU
+    tensor, after one host sync."""
+    sums = block_sums_plain(planar) if plain else block_sums(planar)
+    nblocks, block = _nblocks_block(planar)
+    cum = torch.cumsum(sums, 0)
+    scaled = _draws(rs, cum.dtype, cum.device) * cum[-1]
+    b = _clamped_search(cum, scaled)
+    target = scaled - (cum[b] - sums[b])
+    blocks = planar.view(2, nblocks, block)
+    local = [
+        _clamped_search(torch.cumsum(sv.probabilities(blocks.index_select(1, b[i : i + 1]).view(2, block)), 0),
+                        target[i : i + 1])
+        for i in range(b.shape[0])
+    ]
+    return (b * block + torch.cat(local)).cpu()
+
+
+def sample_indices_flat(planar: torch.Tensor, rs) -> torch.Tensor:
+    """Flat inverse-CDF samples over ONE full cumulative sum for all draws
+    (small or f64 states), each draw scaled by the total."""
+    cum = torch.cumsum(sv.probabilities(planar), 0)
+    return _clamped_search(cum, _draws(rs, cum.dtype, cum.device) * cum[-1]).cpu()
+
+
+def sample_indices(planar: torch.Tensor, rs, plain: bool = False) -> torch.Tensor:
+    """The engine's sampler switch (JAX engine.sample and
+    _sample_index_planes): f32 and bf16 states of at least 2^16 amplitudes
+    sample hierarchically, the rest flat.  One index per draw in `rs`, as an
+    int64 CPU tensor."""
+    if planar.dtype in (torch.float32, torch.bfloat16) and planar.shape[-1] >= HIERARCHICAL_MIN_DIM:
+        return sample_indices_planes(planar, rs, plain)
+    return sample_indices_flat(planar, rs)
 
 
 def sample_index_planes(planar: torch.Tensor, r: float, plain: bool = False) -> int:
-    """Hierarchical inverse-CDF sample with draw r in [0, 1).  plain=True
-    takes the block sums from block_sums_plain on any device (the torch
-    backend's spec path); otherwise from block_sums."""
-    sums = block_sums_plain(planar) if plain else block_sums(planar)
-    cum = torch.cumsum(sums, 0)
-    scaled = torch.as_tensor(r, dtype=cum.dtype, device=cum.device) * cum[-1]
-    b = _first_reaching(cum, scaled)
-    offset = cum[b] - sums[b]
-    _, block = _nblocks_block(planar)
-    start = b * block
-    local = torch.cumsum(sv.probabilities(planar[:, start : start + block]), 0)
-    return start + _first_reaching(local, scaled - offset)
+    """sample_indices_planes for one draw r."""
+    return int(sample_indices_planes(planar, [r], plain)[0])
 
 
 def sample_index_flat(planar: torch.Tensor, r: float) -> int:
-    """Flat inverse-CDF sample over the full cumulative sum (small or f64
-    states), the draw scaled by the total."""
-    cum = torch.cumsum(sv.probabilities(planar), 0)
-    return _first_reaching(cum, torch.as_tensor(r, dtype=cum.dtype, device=cum.device) * cum[-1])
+    """sample_indices_flat for one draw r."""
+    return int(sample_indices_flat(planar, [r])[0])
 
 
 def sample_index(planar: torch.Tensor, r: float, plain: bool = False) -> int:
-    """The engine's sampler switch (JAX engine._sample_index_planes): f32
-    and bf16 states of at least 2^16 amplitudes sample hierarchically, the
-    rest flat."""
-    if planar.dtype in (torch.float32, torch.bfloat16) and planar.shape[-1] >= HIERARCHICAL_MIN_DIM:
-        return sample_index_planes(planar, r, plain)
-    return sample_index_flat(planar, r)
+    """sample_indices for one draw r: the index the draw gets in a batch."""
+    return int(sample_indices(planar, [r], plain)[0])

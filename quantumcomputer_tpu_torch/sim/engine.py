@@ -147,7 +147,8 @@ def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     runs as a one-op segment through fused.apply_fused (the kernel for a
     CUDA tensor, its plain version for a CPU tensor), as the JAX package's
     pallas_gates runs single gates; the oracles through their in-place
-    paths; only a gate with neither (mcphase) through the complex plain
+    paths; mcphase through the planar in-place mcphase
+    (tops.apply_mcphase_planes_); any other gate through the complex plain
     ops.  The m_high oracles dispatch as the JAX package's pallas_gates
     does: a lone gate to the masked walk when perm_supported, else to the
     cycle walk; a K = 2 run to the in-place pair when
@@ -157,6 +158,8 @@ def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     seg = fused.gate_segment(g, sv.num_qubits(planar), fused.TILE_BITS[planar.dtype])
     if seg is not None:
         return fused.apply_fused(planar, seg[0], seg[1], M)
+    if g.name == "mcphase":
+        return tops.apply_mcphase_planes_(planar, g.qubits, g.params[0])
     if g.name == "camodc":
         C, atox = g.meta
         return tops.apply_c_amodc_planes_(planar, C, atox, g.qubits[0], M)
@@ -593,8 +596,19 @@ class StateVectorEngine:
         return idx, state
 
     def sample(self, state: torch.Tensor, rs) -> torch.Tensor:
-        """One basis index per draw in `rs`, without collapsing the state."""
-        return torch.tensor([self._sample(state, float(r)) for r in rs], dtype=torch.int64)
+        """One basis index per draw in `rs`, without collapsing the state, as
+        an int64 CPU tensor: one pass over the state for all draws (one
+        block-sum launch, or one flat cumulative sum), each index the one
+        measure() would take for the same draw."""
+        return measure.sample_indices(state, rs, plain=self.backend == "torch")
+
+    def draws(self, shape, seed: int) -> torch.Tensor:
+        """Uniform draws in [0, 1) of `shape` from a CPU torch.Generator
+        seeded with `seed`, in the compute dtype (float32 for complex64 and
+        complex32, float64 for complex128): the draws an algorithm makes
+        when its caller passes none."""
+        gen = torch.Generator().manual_seed(int(seed))
+        return torch.rand(shape, generator=gen, dtype=sv.compute_dtype(self.real_dtype))
 
     def probabilities(self, state: torch.Tensor) -> torch.Tensor:
         return sv.probabilities(state)

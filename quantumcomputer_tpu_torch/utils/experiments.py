@@ -10,7 +10,7 @@ the port's engine.  Draws are injected: ``omega_histogram`` takes them as
 ``rs``, or draws them from a CPU ``torch.Generator`` seeded with ``seed``
 (the port's convention, ``algorithms/shor.py``).
 
-    python -m quantumcomputer_tpu_torch.utils.experiments [--runs N] [--fig3]
+    python -m quantumcomputer_tpu_torch.utils.experiments [--runs N] [--fig3] [--qv M]
 """
 
 from __future__ import annotations
@@ -27,8 +27,6 @@ from quantumcomputer_tpu_torch.algorithms.shor import read_omega
 from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh, shor_circuit_reference
 from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
 from quantumcomputer_tpu_torch.utils.profiling import NormTrace, norm_trace, time_circuit_folded
-
-PACKAGE = "quantumcomputer_tpu_torch"
 
 
 def omega_histogram(
@@ -171,7 +169,10 @@ def main(argv=None) -> int:
     runs the scripted TABLE I check on the default backend (cuda when a card
     is present) and exits nonzero on failure.  --dtype complex32 runs it on
     the complex32 engine (the cuda backend, on the CPU through the kernels'
-    plain versions on a host with no CUDA device); --qv, whose path is not ported yet, exits 2."""
+    plain versions on a host with no CUDA device).  --qv M also runs the
+    Quantum Volume protocol at width M (30 circuits, 100 shots, the draws
+    and circuits from --seed) on a complex64 engine, and the exit code is
+    nonzero when either check fails."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Scripted TABLE I omega-distribution check")
@@ -193,9 +194,6 @@ def main(argv=None) -> int:
         help="also run the Quantum Volume protocol at width M (pass/fail vs 2/3)",
     )
     args = ap.parse_args(argv)
-    if args.qv:
-        print(f"Error: --qv is not yet ported to {PACKAGE}.", file=sys.stderr)
-        return 2
     engine = None
     if args.dtype == "complex32":
         engine = StateVectorEngine(Register(L=3, M=4), dtype="complex32")
@@ -205,7 +203,18 @@ def main(argv=None) -> int:
         rows_L, rows_M = fig3_scaling()
         print("FIG.3 time vs L (M=5):", ", ".join(f"L={L}: {s*1e3:.1f} ms" for L, _, _, s in rows_L))
         print("FIG.3 time vs M (L=3):", ", ".join(f"M={M}: {s*1e3:.1f} ms" for _, M, _, s in rows_M))
-    return 0 if res.passed else 1
+    qv_ok = True
+    if args.qv:
+        from quantumcomputer_tpu_torch.algorithms.quantum_volume import run_quantum_volume
+
+        qv_eng = StateVectorEngine(Register(L=args.qv, M=0), dtype=torch.complex64)
+        qv = run_quantum_volume(args.qv, qv_eng, num_circuits=30, shots=100, seed=args.seed)
+        print(
+            f"QV m={args.qv}: mean HOP {qv.mean_hop:.3f}, 2-sigma lower "
+            f"{qv.lower_2sigma:.3f} -> {'PASS (QV=%d)' % qv.quantum_volume if qv.passed else 'FAIL'}"
+        )
+        qv_ok = qv.passed
+    return 0 if (res.passed and qv_ok) else 1
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ from quantumcomputer_tpu_torch.models import circuit as cir
 from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.scripts import exact_err
+from quantumcomputer_tpu_torch.sim import statevec as sv
 
 DTYPES = (torch.float32, torch.float64)
 FUSED_TOL = {torch.float32: 3e-5, torch.float64: 1e-12}
@@ -126,6 +127,58 @@ def bf16_within(got: torch.Tensor, want: torch.Tensor, products: int) -> bool:
     d = g - w
     return (float(torch.linalg.vector_norm(d)) <= 2 * (products + 1) * BF16_UNIT * float(torch.linalg.vector_norm(w))
             and float(d.abs().max()) <= BF16_STRADDLE_REL * float(w.abs().max()))
+
+
+def bf16_circuit_within(got: torch.Tensor, want: torch.Tensor, pass_products) -> bool:
+    """A whole bf16 circuit, one entry of `pass_products` per pass (its
+    matrix products), held as bf16_within holds one pass, in root sum of
+    squares over the passes: each pass's roundings move the state by at
+    most 2 (products + 1) BF16_UNIT of its norm, every op keeps the norm,
+    and the roundings of separate passes are independent errors in
+    unrelated directions of a 2^n-dimensional space, so their norms add in
+    quadrature (the elementwise straddle bound of one pass does not compose
+    and is not held)."""
+    d = got.double() - want.double()
+    bound = 2 * math.sqrt(sum((p + 1) ** 2 for p in pass_products)) * BF16_UNIT
+    return float(torch.linalg.vector_norm(d)) <= bound * float(torch.linalg.vector_norm(want.double()))
+
+
+def ae_counting_probabilities(n: int, num_marked: int, t: int) -> np.ndarray:
+    """The ideal distribution of amplitude estimation's counting register
+    (algorithms/amplitude_estimation.py, n work qubits, `num_marked` of
+    2^n marked, t counting bits), indexed by the register's value c as the
+    state holds it (before qpe's bit reversal and negation): the
+    uniform superposition is an equal mix of the iterate's eigenvectors of
+    phases 1/2 +- theta_a / pi, and QPE reads phase phi as x with
+    probability sin^2(pi 2^t d) / (2^2t sin^2(pi d)), d = x / 2^t - phi."""
+    from quantumcomputer_tpu_torch.algorithms.qpe import _negate_readout
+
+    size = 1 << t
+    theta = math.asin(math.sqrt(num_marked / float(1 << n)))
+    x = np.array([_negate_readout(int(f"{c:0{t}b}"[::-1], 2), t) for c in range(size)], dtype=np.float64)
+    probs = np.zeros(size)
+    for phi in (0.5 + theta / math.pi, 0.5 - theta / math.pi):
+        d = x / size - phi
+        den = size * size * np.sin(math.pi * d) ** 2
+        near = den < 1e-300
+        probs += 0.5 * np.where(near, 1.0, np.sin(math.pi * size * d) ** 2 / np.where(near, 1.0, den))
+    return probs
+
+
+def counting_marginal(planar: torch.Tensor, M: int) -> np.ndarray:
+    """The probabilities of the register above bit M of a standard-layout
+    state (sum over the low M bits), in float64, normalised."""
+    probs = sv.probabilities(planar).view(-1, 1 << M).sum(1, dtype=torch.float64).cpu().numpy()
+    return probs / probs.sum()
+
+
+def readouts_within(probs: np.ndarray, r: float, slack: float) -> List[int]:
+    """The values an inverse-CDF draw r picks from a distribution within
+    total variation `slack` of `probs` (index order): every value whose
+    cumulative interval meets [r - slack, r + slack]."""
+    cum = np.cumsum(probs)
+    lo = cum - probs
+    return [int(c) for c in np.nonzero((cum >= r - slack) & (lo <= r + slack))[0]]
 
 
 def segment_products(ops, M: int, dtype, n: int) -> int:
@@ -526,6 +579,64 @@ def camodc_few_changed_blocks(device) -> List[str]:
     return out
 
 
+def boundary_draws(planar: torch.Tensor, per_block: int = 8) -> List[float]:
+    """Draws of a hierarchical sample whose scaled value lands on, or one
+    float32 step beside, a cumulative boundary: every block boundary and
+    `per_block` element boundaries in three blocks (the knife edges where a
+    different scan would pick another index)."""
+    sums = measure.block_sums_plain(planar)
+    cum = torch.cumsum(sums, 0)
+    _, block = measure.block_geom(planar.shape[1])
+    targets = list(cum[:-1].cpu())
+    for b in (0, 3, sums.shape[0] // 2):
+        local = torch.cumsum(sv.probabilities(planar[:, b * block : (b + 1) * block]), 0)
+        targets += list((cum[b] - sums[b] + local[:: max(1, block // per_block)]).cpu())
+    draws = []
+    for t in targets:
+        r = np.float32(float(t / cum[-1].cpu()))
+        draws += [float(np.nextafter(r, np.float32(-1))), float(r), float(np.nextafter(r, np.float32(2)))]
+    return [r for r in draws if 0.0 <= r < 1.0]
+
+
+def batched_sampler(device) -> List[str]:
+    """The batched sampler (measure.sample_indices) on the card: one
+    block-sum launch for all draws, and for every draw, knife edges
+    included, the index of the per-draw sampler, at float32 and bf16."""
+    lines = []
+    rng = np.random.default_rng(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        planar = random_planar(rng, 20, torch.float64, device)
+        planar *= torch.exp(-torch.arange(1 << 20, device=device, dtype=torch.float64) / float(1 << 17))
+        planar = (planar / planar.square().sum().sqrt()).to(dtype)
+        draws = boundary_draws(planar) + [float(r) for r in rng.random(100)]
+        before = measure.LAUNCHES
+        batched = measure.sample_indices(planar, draws)
+        _check(measure.LAUNCHES == before + 1, f"sample_indices {_name(dtype)}: {measure.LAUNCHES - before} launches")
+        single = [measure.sample_index(planar, r) for r in draws]
+        differ = [(r, x, y) for r, x, y in zip(draws, batched.tolist(), single) if x != y]
+        _check(not differ, f"sample_indices {_name(dtype)} differs from the per-draw sampler at {differ[:5]}")
+        lines.append(f"sample_indices {_name(dtype)} n=20: {len(draws)} draws (knife edges included) equal per draw")
+    return lines
+
+
+def mcphase_planes(device) -> List[str]:
+    """The planar mcphase on the card against the same op on CPU planes,
+    exactly, at float32, float64 and bf16, with controls of one bit, of
+    runs and of every bit (a 0-d view)."""
+    rng = np.random.default_rng(14)
+    lines = []
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
+        for controls in ((0,), (19,), (3, 4, 5, 11), tuple(range(20))):
+            host = random_planar(rng, 20, torch.float64, "cpu", normalize=False).to(dtype)
+            card = host.to(device)
+            tops.apply_mcphase_planes_(card, controls, 2.1)
+            tops.apply_mcphase_planes_(host, controls, 2.1)
+            err = exact_err(card.cpu(), host)
+            _check(err == 0, f"mcphase {_name(dtype)} controls {controls}: {err}")
+        lines.append(f"mcphase {_name(dtype)} n=20: 4 control sets exact")
+    return lines
+
+
 CHECKS: List[Callable[[torch.device], List[str]]] = [
     fused_random_circuit,
     fused_split_angle,
@@ -539,6 +650,8 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     probe_kernels,
     camodc_router_shapes,
     camodc_few_changed_blocks,
+    batched_sampler,
+    mcphase_planes,
 ]
 
 

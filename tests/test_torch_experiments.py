@@ -120,8 +120,10 @@ def test_experiments_cli_exit_codes(capsys):
     c32 = ["--dtype", "complex32", "--runs", "40"]  # ported: on the CPU here, as the JAX CLI runs pallas
     assert ex.main(c32) == jex.main(c32) == 0
     assert capsys.readouterr().out.count("TABLE I (40 runs)") == 2
-    assert ex.main(["--qv", "3"]) == 2
-    assert "--qv is not yet ported" in capsys.readouterr().err
+    qv = ["--runs", "40", "--qv", "3"]  # ported: the JAX CLI's exit code and verdict
+    assert ex.main(qv) == jex.main(qv) == 0
+    out = capsys.readouterr().out
+    assert out.count("QV m=3: mean HOP") == 2 and out.count("-> PASS (QV=8)") == 2
     with pytest.raises(SystemExit) as e:
         ex.main(["--dtype", "complex128"])
     assert e.value.code == 2

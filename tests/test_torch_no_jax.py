@@ -4,7 +4,10 @@ scripts, the Benes router and the card-only kernel checks, runs a 7-qubit
 circuit, a norm trace, a few TABLE I shots, a tiny semiclassical attempt
 (also at complex32), the Benes oracle path (plain segments,
 strict_reference, dd64, nan_checks), a complex32 plan on bf16 planes and a
-complex32 m_high plan whose walks merge into one strip pass, and checks that no jax or ml_dtypes module was loaded.
+complex32 m_high plan whose walks merge into one strip pass, a checkpointed
+run (segments, the Shor and semiclassical attempts), each generic algorithm
+(Grover, BV / DJ, Simon, QPE in both forms, amplitude estimation, quantum
+volume), and checks that no jax or ml_dtypes module was loaded.
 chip_smoke.py is imported too (without running it), since it must run where
 jax is absent."""
 
@@ -21,12 +24,16 @@ import quantumcomputer_tpu_torch.cli
 import quantumcomputer_tpu_torch.interop
 import quantumcomputer_tpu_torch.ops.modperm
 import quantumcomputer_tpu_torch.ops.probes
+import quantumcomputer_tpu_torch.scripts.prof_ae_drift
 import quantumcomputer_tpu_torch.scripts.prof_benes
 import quantumcomputer_tpu_torch.scripts.prof_chunkgather
 import quantumcomputer_tpu_torch.scripts.prof_fused
+import quantumcomputer_tpu_torch.scripts.prof_measure
 import quantumcomputer_tpu_torch.scripts.prof_rowperm
 import quantumcomputer_tpu_torch.scripts.prof_strip
 from quantumcomputer_tpu_torch.algorithms import semiclassical
+from quantumcomputer_tpu_torch.algorithms import amplitude_estimation, grover, oracle_algorithms, qpe, quantum_volume, simon
+from quantumcomputer_tpu_torch.sim import checkpoint
 from quantumcomputer_tpu_torch.utils import debug, experiments, kernel_checks, profiling
 from quantumcomputer_tpu_torch.ops import benes
 from quantumcomputer_tpu_torch.sim import engine as tengine
@@ -64,6 +71,22 @@ mh = q.shor_circuit_mhigh(15, 7, 4, 4)
 mh_out = tengine.apply_circuit_fused_(q.sim.statevec.initial_planar(8, torch.bfloat16, 16), mh, 0,
                                       tengine.plan_circuit(mh, 0, 8, torch.bfloat16, "cpu"))
 assert runs == [[0, 1, 2, 3]] and abs(float(q.sim.statevec.norm(mh_out)) - 1.0) < 5e-3, runs
+import tempfile
+with tempfile.TemporaryDirectory() as ck:
+    seg = checkpoint.run_with_checkpoints(eng, circuit, ck, segment_gates=4)
+    assert checkpoint.latest_segment(ck) == 3 and float((seg - state).abs().max()) < 1e-6
+    assert checkpoint.load_state(checkpoint._segment_path(ck, 3))[0].shape == (2, 128)
+    assert q.algorithms.shor.shors_algorithm(15, 3, 4, forced_trial_int=7, seed=0, checkpoint_dir=ck).factors == (5, 3)
+    assert semiclassical.run_semiclassical(15, 7, 5, 4, [0.3] * 5, checkpoint_dir=ck, checkpoint_every=2).x_tilde < 32
+assert grover.grover_search(5, 9, 0.4)[0] == 9
+assert oracle_algorithms.bernstein_vazirani(6, 37) == 37 and oracle_algorithms.deutsch_jozsa(4, [])
+assert simon.simon_search(4, 0b0110).s == 0b0110
+ph = lambda j, c: [q.models.circuit.CPHASE(c, 0, 2 * 3.141592653589793 * 5 / 8 * (1 << j))]
+assert qpe.estimate_phase(ph, 3, 1).x == 5
+assert qpe.run_semiclassical_qpe(lambda j: [q.models.circuit.PHASE(0, 2 * 3.141592653589793 * 3 / 8 * (1 << j))], 3, 1).x == 3
+assert abs(amplitude_estimation.amplitude_estimate(2, [0, 1], 3).a_hat - 0.5) < 1e-9
+assert quantum_volume.run_quantum_volume(3, q.StateVectorEngine(q.Register(L=3, M=0), backend="torch"),
+                                         num_circuits=2, shots=10).num_circuits == 2
 loaded = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules

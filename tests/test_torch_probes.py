@@ -24,7 +24,8 @@ import pytest
 import torch
 
 from quantumcomputer_tpu_torch.ops import probes
-from quantumcomputer_tpu_torch.scripts import prof_benes, prof_chunkgather, prof_fused, prof_rowperm, prof_strip
+from quantumcomputer_tpu_torch.scripts import (prof_ae_drift, prof_benes, prof_chunkgather, prof_fused, prof_measure,
+                                               prof_rowperm, prof_strip)
 
 M, W = 16, 2048
 DIM = 1 << M
@@ -134,4 +135,6 @@ def test_scripts_need_a_card(monkeypatch, capsys):
     assert prof_benes.main([]) == 1
     assert prof_fused.main([]) == 1
     assert prof_strip.main([]) == 1
+    assert prof_measure.main([]) == 1
+    assert prof_ae_drift.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err

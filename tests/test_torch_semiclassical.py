@@ -162,8 +162,13 @@ def test_argument_checks_match_jax():
         assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="rs must hold"):
         sc.run_semiclassical(15, 7, 4, 4, np.zeros(3, np.float32))
-    with pytest.raises(ValueError, match="not yet ported"):
-        sc.run_semiclassical(15, 7, 4, 4, np.zeros(4, np.float32), checkpoint_dir="ck")
+    # Ported: checkpoint_dir runs (tests/test_torch_checkpoint.py); its refusals match the JAX package's.
+    for kw in ({"dtype": "dd64", "checkpoint_dir": "ck"}, {"checkpoint_dir": "ck", "checkpoint_every": 0}):
+        with pytest.raises(ValueError) as want:
+            jsc.run_semiclassical(15, 7, 4, 4, jax.random.PRNGKey(0), **kw)
+        with pytest.raises(ValueError) as got:
+            sc.run_semiclassical(15, 7, 4, 4, np.zeros(4, np.float32), **kw)
+        assert str(got.value) == str(want.value)
     c32 = sc.run_semiclassical(15, 7, 4, 4, np.full(4, 0.5, np.float32), dtype="complex32")  # ported
     assert len(c32.bits) == 4 and all(0.0 < p <= 1.0 + 1e-6 for p in c32.branch_probs)
     rs = np.full(4, 0.5)

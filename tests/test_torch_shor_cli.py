@@ -3,6 +3,7 @@ cli.py) against the JAX package's: the same print lines, validation messages,
 exit codes and classical post-processing."""
 
 import logging
+import os
 
 import numpy as np
 import pytest
@@ -105,9 +106,7 @@ NEEDS_A_CARD = "Error: --backend cuda needs a CUDA device, and none is available
 @pytest.mark.parametrize(
     "extra,line",
     [
-        (["--semiclassical", "--checkpoint-dir", "ck"], "Error: --checkpoint-dir is not yet ported to quantumcomputer_tpu_torch."),
         (["--devices", "2"], "Error: --devices > 1 is not yet ported to quantumcomputer_tpu_torch."),
-        (["--checkpoint-dir", "ck"], "Error: --checkpoint-dir is not yet ported to quantumcomputer_tpu_torch."),
         # Ported: the full register at complex32 runs on the cuda backend's
         # path, on the CPU here through the plain versions; --backend cuda
         # still needs a card.
@@ -117,6 +116,24 @@ NEEDS_A_CARD = "Error: --backend cuda needs a CUDA device, and none is available
 def test_unported_flags_exit_2(extra, line, capsys):
     assert cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7"] + extra) == 2
     assert capsys.readouterr().err.strip() == line
+
+
+@pytest.mark.parametrize("extra", [[], ["--semiclassical"]], ids=["full_register", "semiclassical"])
+def test_checkpoint_dir_matches_the_jax_cli(extra, tmp_path, capsys):
+    """--checkpoint-dir (the README's example) gives the JAX CLI's exit code
+    and factors, and this package's own factors without the flag; the
+    attempt directories are removed once the attempts complete."""
+    argv = ["-C", "21", "-L", "4", "-M", "5", "-a", "2", "--seed", "1"] + extra
+    want = jcli.main(argv + ["--checkpoint-dir", str(tmp_path / "jax")])
+    want_out = capsys.readouterr().out
+    got = cli.main(argv + ["--checkpoint-dir", str(tmp_path / "port")])
+    got_out = capsys.readouterr().out
+    plain = cli.main(argv)
+    plain_out = capsys.readouterr().out
+    assert got == want == plain == 0
+    line = " --- Factors of 21 found: (7, 3)."
+    assert line in got_out and line in want_out and line in plain_out
+    assert not os.path.isdir(tmp_path / "port") or os.listdir(tmp_path / "port") == []
 
 
 @pytest.mark.parametrize(
