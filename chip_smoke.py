@@ -164,7 +164,27 @@ Phases, each of which must pass:
      complex128 and complex32 within kernel_checks.bf16_circuit_within
      (root sum of squares of the per-pass bounds) of complex64, its
      100-shot sample in one block-sum launch, equal to and
-     timed beside 100 single draws; the experiments CLI with --qv 16.
+     timed beside 100 single draws; the experiments CLI with --qv 16;
+ 14. the variational layer: the engine's gradient (its backward runs the
+     dagger circuit through the same plan and kernels) on the n = 28
+     flagship at complex64 with the gather oracle, with oracle="benes" and
+     in the m_high layout, and at complex32 in the m_high layout, the loss
+     sum(out * w) for a seeded unit state w: p.grad equal to engine.run of
+     the dagger circuit on w (torch.equal), U^dagger U |reset> within
+     ||d||_2 <= 1e-4 of |reset> (complex32: kernel_checks.
+     bf16_circuit_within over the passes of both plans), the complex64
+     gather gradient within 1e-4 of the torch backend's, the run without a
+     gradient, the forward with one and the backward timed in turns and the
+     backward's launches counted; expectation_on_engine at n = 28 (TFIM,
+     55 terms, and Heisenberg, 81, on tests/test_variational_engines.py's
+     state), complex64 within 1e-5 sum |c_k| of the plain expectation,
+     complex32 within the bound its bf16 passes give; VQE at n = 24 (TFIM,
+     depth 3, 20 Adam steps) with its float64 gradient against central
+     differences, a falling energy, expectation against
+     expectation_on_engine at the final parameters, ms a step, peak memory
+     and one step's breakdown; QAOA at n = 24, p = 2, on a seeded random
+     3-regular graph (36 edges), its expected cut rising, its ratio in
+     (0, 1] and its best cut counted from the edges.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
 kernel's entry holds its launches on a main path, its max abs error, its ms
@@ -190,7 +210,10 @@ grouped segment with its butterfly form's time, "flagship_ms" /
 "flagship_butterfly_ms" the m_high flagship in both forms.  oracle_strip_bf16
 takes its numbers from the complex32 m_high plan's walks (controls 0-11),
 "walks_sum_ms" / "walk_ms" the same gates one by one through the cycle
-walk, "m12" the same run at M = 12 in 32-byte strips.  Any failure
+walk, "m12" the same run at M = 12 in 32-byte strips.  Each kernel the
+gradient's backward launched on the n = 28 flagship has "backward_launches"
+(by form), and fused_segment / fused_segment_bf16 "gradient_ms" (the run,
+forward and backward times of each form).  Any failure
 exits non-zero without that line.  Imports
 nothing of JAX.
 """
@@ -200,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -300,6 +324,27 @@ QV_PROTOCOL_M = 16
 # Grover's amplitudes against the closed form, relative to each: complex64
 # at a float32 circuit's error, complex32 at bf16 rounding over its passes.
 ALGO_TOL = {"complex64": 1e-3, "complex32": 5e-2}
+# The variational layer: the engine's gradient on the n = 28 flagship in
+# the four forms of scripts/prof_grad.py (FORMS: name, dtype, layout,
+# oracle), its cotangent prof_grad's seeded unit state; U^dagger U |reset>
+# held within FLAGSHIP_TOL at complex64 and
+# kernel_checks.bf16_circuit_within over both plans' passes at complex32.
+# expectation_on_engine at n = 28 on tests/test_variational_engines.py's
+# state (TFIM J = 1.1, h = 0.6; Heisenberg), complex64 within EXPECT_TOL of
+# sum |c_k| of the plain expectation.  VQE at n = 24 (TFIM J = h = 1, open
+# chain, depth 3, RY + brick, float32, Adam at 0.05, seed 0), its gradient
+# at float64 against central differences (step FD_EPS, within FD_TOL) at
+# FD_PARAMS; QAOA at n = 24, p = 2, on a random 3-regular graph from
+# QAOA_SEED (Farhi, Goldstone and Gutmann's MaxCut family).
+EXPECT_TOL = 1e-5
+VAR_N, VQE_DEPTH, VAR_STEPS, VAR_LR = 24, 3, 20, 0.05
+FD_EPS, FD_TOL = 1e-4, 1e-6
+FD_PARAMS = ((0, 0), (1, 11), (3, 23))
+QAOA_P, QAOA_DEGREE, QAOA_SEED = 2, 3, 2026
+# The VQE's autograd residuals at complex64 (the reckoning of PERF.md
+# section 6): (depth + 1) n rotation inputs and the 2n - 1 Pauli images of
+# the energy, 128 MiB each at n = 24.
+VQE_RESIDUAL_GIB = ((VQE_DEPTH + 1) * VAR_N + 2 * VAR_N - 1) * (8 << VAR_N) / 2 ** 30
 # The H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores.  A kernel's bound is the
 # larger of its bytes (each input read once, each output written once) and
@@ -2530,6 +2575,365 @@ def phase_algorithms() -> None:
     log(f"phase algorithms: {time.perf_counter() - t_phase:.3f} s")
 
 
+def prep_circuit(n: int) -> tuple:
+    """tests/test_variational_engines.py's state preparation: an entangled
+    state touching every qubit."""
+    from quantumcomputer_tpu_torch.models import circuit as cir
+
+    gates = [cir.H(q) for q in range(0, n, 2)]
+    gates += [cir.CNOT(q, q + 1) for q in range(0, n - 1, 2)]
+    gates += [cir.RY(q, 0.3 + 0.11 * q) for q in range(n)]
+    gates += [cir.CZ(q, (q + 2) % n) for q in range(0, n - 1)]
+    gates += [cir.T(0), cir.S(n - 1)]
+    return tuple(gates)
+
+
+def random_regular_edges(n: int, degree: int, rng) -> list:
+    """A random simple degree-regular graph on n nodes (the configuration
+    model: stubs paired at random until no loop or multi-edge is left)."""
+    import numpy as np
+
+    while True:
+        pairs = rng.permutation(np.repeat(np.arange(n), degree)).reshape(-1, 2)
+        edges = {tuple(sorted((int(a), int(b)))) for a, b in pairs if a != b}
+        if len(edges) == len(pairs):
+            return sorted(edges)
+
+
+def pass_products(eng, circuit) -> list:
+    """One entry per fused pass of the engine's plan of `circuit` at bf16:
+    its matrix products (kernel_checks.segment_products)."""
+    import torch
+
+    from quantumcomputer_tpu_torch.utils import kernel_checks
+
+    n = eng.register.n
+    return [kernel_checks.segment_products(e[1], eng.m_eff, torch.bfloat16, n) for e in eng._plan(circuit)
+            if e[0] == "fused"]
+
+
+BACKWARD_ENTRIES = {"fused_segment": "fused_segment", "permute": "camodc", "matmul": "fused_matmul",
+                    "ladder": "ladder", "cycle": "cycle", "cycle_masked": "cycle_masked", "strip": "oracle_strip"}
+
+
+def grad_flagship(report: dict, form) -> None:
+    """The engine's gradient on the n = 28 flagship in one form: the loss
+    sum(out * w), w a seeded unit planar state; p.grad equal to
+    engine.run(dagger_circuit) of w (torch.equal, the same path);
+    U^dagger U |reset> against |reset>; the forward with a gradient, the
+    backward and the run without a gradient timed in turns; the backward's
+    launches into the report entries as "backward_launches"."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.circuit import dagger_circuit
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.scripts import prof_grad
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+    from quantumcomputer_tpu_torch.utils import kernel_checks
+
+    name, dtype, layout, oracle_kind = form
+    C, a, L, M = FLAGSHIP
+    n = L + M
+    turns = {"run": [], "forward": [], "backward": []}
+    for _ in range(2):
+        for k, ms in prof_grad.form_ms(form).items():
+            turns[k].append(ms)
+    circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
+    eng = StateVectorEngine(Register(L=L, M=M), torch.complex64 if dtype == "complex64" else dtype,
+                            backend=KERNEL_BACKEND, device=DEVICE, layout=layout, oracle=oracle_kind)
+    planes = eng.real_dtype
+    w = prof_grad.cotangent(n, planes)
+    p = eng.initial_state().requires_grad_()
+    out = eng.run(circuit, p)
+    check(out is not p and torch.equal(p.detach(), eng.initial_state()),
+          f"gradient {name}: the run with a gradient changed its input")
+    reset_launches()
+    torch.sum(out * w).backward()
+    counts = {k: v for k, v in launches().items() if v}
+    adjoint = dagger_circuit(circuit, eng.m_eff)
+    same = torch.equal(p.grad, eng.run(adjoint, w.clone()))
+    reset = eng.initial_state()
+    back = eng.run(adjoint, out.detach().clone())
+    dist = float(torch.linalg.vector_norm(back.double() - reset.double()))
+    if planes == torch.bfloat16:
+        products = pass_products(eng, circuit) + pass_products(eng, adjoint)
+        ok = kernel_checks.bf16_circuit_within(back, reset, products)
+        tol = 2 * math.sqrt(sum((q + 1) ** 2 for q in products)) * kernel_checks.BF16_UNIT
+        bound = f"bf16_circuit_within over {len(products)} passes, {sum(products)} matrix products: {tol:.3e}"
+    else:
+        ok, bound = dist <= FLAGSHIP_TOL, f"{FLAGSHIP_TOL:.0e}"
+    log(f"gradient {name} n={n}: run {turns['run']} ms, forward with a gradient {turns['forward']} ms, backward "
+        f"{turns['backward']} ms (turns run, forward, backward twice); {len(eng._plan(circuit))} / "
+        f"{len(eng._plan(adjoint))} plan entries forward / backward; backward launches {counts}; p.grad equal to "
+        f"run(dagger_circuit, w): {same}; grad dtype {p.grad.dtype}; ||U^dagger U|reset> - |reset>||_2 = {dist:.3e} "
+        f"(tol {bound})")
+    check(p.grad.dtype == planes and same, f"gradient {name}: p.grad ({p.grad.dtype}) differs from the dagger run")
+    check(ok, f"gradient {name}: U^dagger U |reset> is {dist} from |reset>")
+    check(counts.get("fused_segment", 0) > 0, f"gradient {name}: the backward launched no fused segment: {counts}")
+    suffix = "_bf16" if planes == torch.bfloat16 else ""
+    for counter, entry in BACKWARD_ENTRIES.items():
+        if counts.get(counter):
+            report[entry + suffix].setdefault("backward_launches", {})[name] = counts[counter]
+    report["fused_segment" + suffix].setdefault("gradient_ms", {})[name] = turns
+    if name == "gather":
+        del back, reset
+        plain = StateVectorEngine(Register(L=L, M=M), torch.complex64, backend="torch", device=DEVICE)
+        q = plain.initial_state().requires_grad_()
+        torch.sum(plain.run(circuit, q) * w).backward()
+        d = float(torch.linalg.vector_norm(p.grad - q.grad))
+        log(f"gradient {name} n={n}: ||grad cuda - grad torch backend||_2 = {d:.3e} (tol {FLAGSHIP_TOL:.0e})")
+        check(d <= FLAGSHIP_TOL, f"gradient {name}: the cuda gradient is {d} from the torch backend's")
+
+
+def expectation_engine_n28() -> None:
+    """expectation_on_engine at n = 28 on the prep state: complex64 against
+    the plain expectation of the same state within EXPECT_TOL sum |c_k|,
+    complex32 against complex64 within the bound its bf16 passes give;
+    each timed (host clock: one host fetch per term)."""
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms import variational as var
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+    from quantumcomputer_tpu_torch.utils import kernel_checks
+
+    n = ALGO_N
+    prep = prep_circuit(n)
+    for label, terms in (("tfim", var.tfim_hamiltonian(n, J=1.1, h=0.6)), ("heisenberg", var.heisenberg_hamiltonian(n))):
+        weight = sum(abs(c) for c, _ in terms)
+        values = {}
+        for dtype in (torch.complex64, "complex32"):
+            eng = StateVectorEngine(Register(L=n, M=0), dtype, backend=KERNEL_BACKEND, device=DEVICE)
+            state = eng.run(prep, eng.zero_state())
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = var.expectation_on_engine(eng, state, terms)
+            seconds, counts = time.perf_counter() - t0, launches()
+            values[str(dtype)] = got
+            line = (f"expectation_on_engine {label} n={n} {dtype}: {len(terms)} terms, {got:.9f} in {seconds:.3f} s, "
+                    f"fused launches {counts['fused_segment']}")
+            check(counts["fused_segment"] == len(terms), f"expectation_on_engine {label}: launches {counts}")
+            if dtype == torch.complex64:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plain = float(var.expectation(state, terms))
+                diff = abs(got - plain)
+                log(f"{line}; plain expectation {plain:.9f} in {time.perf_counter() - t0:.3f} s, |diff| {diff:.3e} "
+                    f"(tol {EXPECT_TOL * weight:.3e})")
+                check(diff <= EXPECT_TOL * weight, f"expectation_on_engine {label}: {got} vs plain {plain}")
+            else:
+                # The state's bf16 passes move it by at most eps in norm
+                # (bf16_circuit_within's root sum of squares), so the energy
+                # moves by at most (2 eps + eps^2) sum |c_k|; each Pauli string's
+                # pass moves entries by 0 or +-1 times, and rounds nothing.
+                products = pass_products(eng, prep)
+                eps = 2 * math.sqrt(sum((q + 1) ** 2 for q in products)) * kernel_checks.BF16_UNIT
+                tol = (2 * eps + eps * eps) * weight
+                diff = abs(got - values["torch.complex64"])
+                log(f"{line}; |c32 - c64| {diff:.3e} (tol {tol:.3e}: {len(products)} passes, state eps {eps:.3e})")
+                check(diff <= tol, f"expectation_on_engine {label} complex32: {got} vs {values['torch.complex64']}")
+            del state, eng
+            torch.cuda.empty_cache()
+
+
+def vqe_step_breakdown(ans, terms, theta, steps: int = 3) -> dict:
+    """One VQE step's parts at n = 24 (ansatz forward, energy, backward,
+    Adam), CUDA events around each, averaged over `steps` steps after a
+    first step (a cold allocator: its host-clock ms apart); each step's
+    host-clock ms (it ends in the host fetch of the energy); then
+    torch.profiler over two steps for the device's busy share, the union
+    of its device events' intervals over the wall time, or None where the
+    trace holds no device event."""
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms import variational as var
+
+    theta = theta.detach().clone().requires_grad_()
+    opt = torch.optim.Adam([theta], lr=VAR_LR, betas=(0.9, 0.999), eps=1e-8)
+    parts = {"ansatz": 0.0, "energy": 0.0, "backward": 0.0, "adam": 0.0}
+
+    def step(events=None):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        marks[0].record()
+        opt.zero_grad(set_to_none=True)
+        planar = ans.apply(theta, torch.float32)
+        marks[1].record()
+        e = var.expectation(planar, terms)
+        marks[2].record()
+        e.backward()
+        marks[3].record()
+        opt.step()
+        marks[4].record()
+        value = float(e.detach())
+        if events is not None:
+            for k, (a, b) in zip(parts, zip(marks, marks[1:])):
+                events[k] += a.elapsed_time(b) / steps
+        return value
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(parts)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    busy = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        device_us, end = 0.0, float("-inf")
+        for a, b in spans:
+            device_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        busy = device_us / wall_us if spans else None
+    except RuntimeError as exc:
+        log(f"vqe step profile: torch.profiler failed ({exc}); busy share not measured")
+    return {"parts_ms": parts, "first_step_ms": first_ms, "step_ms": step_ms, "busy_share": busy}
+
+
+def vqe_n24() -> None:
+    """VQE at n = 24 on the card: the float64 gradient at the initial
+    parameters against central differences, the 20-step run (energy
+    falling), expectation against expectation_on_engine at the final
+    parameters, ms per step, peak memory, and one step's breakdown."""
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms import variational as var
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    n = VAR_N
+    terms = var.tfim_hamiltonian(n, J=1.0, h=1.0)
+    weight = sum(abs(c) for c, _ in terms)
+    ans = var.HardwareEfficientAnsatz(n, VQE_DEPTH, rotation="Y", entangler="brick")
+    theta0 = ans.initial_parameters(torch.Generator().manual_seed(0))
+
+    def energy64(th):
+        return var.expectation(ans.apply(th, torch.float64), terms)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    th = theta0.double().to(DEVICE).requires_grad_()
+    energy64(th).backward()
+    grad = th.grad.cpu()
+    readings = []
+    with torch.no_grad():
+        for idx in FD_PARAMS:
+            bump = th.detach().clone()
+            bump[idx] += FD_EPS
+            ep = float(energy64(bump))
+            bump[idx] -= 2 * FD_EPS
+            em = float(energy64(bump))
+            readings.append((idx, float(grad[idx]), (ep - em) / (2 * FD_EPS)))
+    del th
+    torch.cuda.empty_cache()
+    worst = max(abs(g - fd) for _, g, fd in readings)
+    log(f"vqe n={n} float64 gradient at the initial parameters against central differences (eps {FD_EPS:g}): "
+        + ", ".join(f"{idx}: {g:.12f} vs {fd:.12f}" for idx, g, fd in readings)
+        + f"; max |diff| {worst:.3e} (tol {FD_TOL:.0e}); {time.perf_counter() - t0:.3f} s")
+    check(worst <= FD_TOL, f"vqe gradient against central differences: {worst}")
+
+    # A process's first torch.optim optimizer costs about a second of imports, not a step's time.
+    torch.optim.Adam([torch.zeros(1, requires_grad=True)])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = var.vqe(terms, n, depth=VQE_DEPTH, steps=VAR_STEPS, learning_rate=VAR_LR, ansatz=ans, seed=0, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    final = torch.from_numpy(res.parameters).to(DEVICE)
+    with torch.no_grad():
+        state = ans.apply(final, torch.float32)
+        plain = float(var.expectation(state, terms))
+    eng = StateVectorEngine(Register(L=n, M=0), torch.complex64, backend=KERNEL_BACKEND, device=DEVICE)
+    on_engine = var.expectation_on_engine(eng, state, terms)
+    diff = abs(plain - on_engine)
+    log(f"vqe n={n} depth {VQE_DEPTH} TFIM: {VAR_STEPS} steps in {seconds:.3f} s ({seconds / VAR_STEPS * 1e3:.3f} ms a "
+        f"step, host clock over the call with its final energy and state); energy {res.energies[0]:.9f} -> "
+        f"{res.energies[-1]:.9f}, final {res.energy:.9f}; peak memory {peak:.3f} GiB (residual reckoning "
+        f"{VQE_RESIDUAL_GIB:.3f} GiB); expectation {plain:.9f} vs expectation_on_engine {on_engine:.9f}, |diff| "
+        f"{diff:.3e} (tol {EXPECT_TOL * weight:.3e})")
+    check(res.energies[-1] < res.energies[0], f"vqe energy did not fall: {res.energies[0]} -> {res.energies[-1]}")
+    check(diff <= EXPECT_TOL * weight, f"vqe final state: expectation {plain} vs on the engine {on_engine}")
+    del state, eng
+    torch.cuda.empty_cache()
+    br = vqe_step_breakdown(ans, terms, theta0.to(DEVICE))
+    busy = "not measured" if br["busy_share"] is None else f"{br['busy_share']:.1%}"
+    log(f"vqe n={n} step breakdown (CUDA events, mean of 3 steps): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in br["parts_ms"].items())
+        + f"; host clock {br['step_ms']:.3f} ms a step, the first (cold allocator) {br['first_step_ms']:.3f} ms; "
+        f"device busy share over two profiled steps {busy}")
+
+
+def qaoa_n24() -> None:
+    """QAOA at n = 24, p = 2 on a seeded random 3-regular graph: the
+    expected cut rises, the ratio lies in (0, 1], best_cut is the cut of
+    best_bitstring (counted from the edges) and at most the optimal cut."""
+    import numpy as np
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms import variational as var
+
+    n = VAR_N
+    edges = random_regular_edges(n, QAOA_DEGREE, np.random.default_rng(QAOA_SEED))
+    t0 = time.perf_counter()
+    var.maxcut_cost_vector(n, edges)
+    cost_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = var.qaoa_maxcut(n, edges, p=QAOA_P, steps=VAR_STEPS, learning_rate=VAR_LR, seed=0, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cut = sum(((res.best_bitstring >> a) ^ (res.best_bitstring >> b)) & 1 for a, b in edges)
+    log(f"qaoa n={n} p={QAOA_P} on a random {QAOA_DEGREE}-regular graph ({len(edges)} edges): {VAR_STEPS} steps in "
+        f"{seconds:.3f} s ({seconds / VAR_STEPS * 1e3:.3f} ms a step, host clock over the call with the cost vector "
+        f"built on the host, which alone takes {cost_s:.3f} s); expected cut {res.expectations[0]:.6f} -> {res.expectations[-1]:.6f}, final "
+        f"{res.expected_cut:.6f}; optimal {res.optimal_cut:g}, ratio {res.approximation_ratio:.6f}; best bitstring "
+        f"{res.best_bitstring} cuts {res.best_cut:g} (counted {cut}); peak memory {peak:.3f} GiB")
+    check(len(edges) == n * QAOA_DEGREE // 2, f"qaoa graph has {len(edges)} edges")
+    check(res.expectations[-1] > res.expectations[0], "qaoa expected cut did not rise")
+    check(0.0 < res.approximation_ratio <= 1.0, f"qaoa ratio {res.approximation_ratio}")
+    check(res.best_cut == cut <= res.optimal_cut, f"qaoa best cut {res.best_cut}, counted {cut}, optimal {res.optimal_cut}")
+
+
+def phase_variational(report: dict) -> None:
+    """The variational layer on the card (PERF.md section 4): the engine's
+    gradient on the n = 28 flagship in prof_grad's four FORMS,
+    expectation_on_engine at n = 28, VQE and QAOA at n = 24."""
+    import torch
+
+    from quantumcomputer_tpu_torch.scripts import prof_grad
+
+    t_phase = time.perf_counter()
+    for form in prof_grad.FORMS:
+        t0 = time.perf_counter()
+        grad_flagship(report, form)
+        torch.cuda.empty_cache()
+        log(f"gradient {form[0]}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    expectation_engine_n28()
+    log(f"expectation_on_engine n={ALGO_N}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    vqe_n24()
+    torch.cuda.empty_cache()
+    log(f"vqe n={VAR_N}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    qaoa_n24()
+    torch.cuda.empty_cache()
+    log(f"qaoa n={VAR_N}: {time.perf_counter() - t0:.3f} s")
+    log(f"phase variational: {time.perf_counter() - t_phase:.3f} s")
+
+
 def new_report() -> dict:
     """One JSON entry per kernel instance: the float32 / float64 kernels,
     then the bf16 ("complex32") instances, whose `replaces` names the TPU
@@ -2623,6 +3027,7 @@ def main() -> int:
     phase_validation_c32(report)
     phase_checkpoint()
     phase_algorithms()
+    phase_variational(report)
 
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,

@@ -14,6 +14,14 @@ from quantumcomputer_tpu_torch.algorithms.shor import (  # noqa: F401
     read_omega,
     shors_algorithm,
 )
+from quantumcomputer_tpu_torch.algorithms.variational import (  # noqa: F401
+    HardwareEfficientAnsatz,
+    expectation,
+    expectation_on_engine,
+    pauli_term,
+    qaoa_maxcut,
+    vqe,
+)
 from quantumcomputer_tpu_torch.models import circuit  # noqa: F401
 from quantumcomputer_tpu_torch.models.shor_circuit import (  # noqa: F401
     shor_circuit,

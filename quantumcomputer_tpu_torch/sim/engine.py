@@ -59,6 +59,13 @@ pairs, as the JAX package does at its memory ceiling.
 
 Randomness is injected: every measuring entry point takes its uniform draw
 ``r`` in [0, 1) as an argument, so one draw can drive both packages.
+
+Gradients: ``run`` is differentiable in its input planes, as the JAX
+engine's is through its custom VJP.  The backward applies the dagger
+circuit (``models/circuit.dagger_circuit``) to the cotangent through the
+same plan and kernels as the forward pass, so no intermediate state is
+saved (``_AdjointRun``); a run with no gradient asked for keeps its in-place
+path.  ``run_with_norms``, ``measure`` and ``sample`` take no gradient.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ from quantumcomputer_tpu_torch.models.circuit import (
     DIAGONAL_1Q,
     Circuit,
     Gate,
+    dagger_circuit,
     gate_matrix_1q,
     gate_matrix_2q,
 )
@@ -189,21 +197,28 @@ def check_finite(x: torch.Tensor, label: str) -> None:
         print(f"*** non-finite amplitudes after {label}")
 
 
-def apply_circuit_plain_(
-    planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None, nan_checks: bool = False
+def circuit_plain(
+    z: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None, nan_checks: bool = False
 ) -> torch.Tensor:
-    """The torch backend: every gate through the plain ops; the result is
-    written back into `planar`.  With a `norms` list, the norm after each
-    gate is appended to it (a 0-d tensor on the state's device); with
-    nan_checks, check_finite after each gate."""
-    z = sv.to_complex(planar)
+    """Every gate through the plain ops on a flat complex state, each gate
+    out of place, so autograd runs through the circuit.  With a `norms`
+    list, the norm after each gate is appended to it (a 0-d tensor on the
+    state's device); with nan_checks, check_finite after each gate."""
     for i, g in enumerate(circuit):
         z = apply_gate(z, g, M)
         if norms is not None:
             norms.append(torch.sum(z.real * z.real) + torch.sum(z.imag * z.imag))
         if nan_checks:
             check_finite(z, f"gate {i} {g.name}{g.qubits}")
-    return _store_(planar, z)
+    return z
+
+
+def apply_circuit_plain_(
+    planar: torch.Tensor, circuit: Circuit, M: int, norms: Optional[list] = None, nan_checks: bool = False
+) -> torch.Tensor:
+    """The torch backend: circuit_plain, the result written back into
+    `planar`."""
+    return _store_(planar, circuit_plain(sv.to_complex(planar), circuit, M, norms, nan_checks))
 
 
 def apply_circuit_per_gate_(
@@ -420,6 +435,27 @@ def resolve_backend(backend: str) -> str:
     return backend
 
 
+class _AdjointRun(torch.autograd.Function):
+    """engine.run as a differentiable function of its input planes (the JAX
+    engine's custom_vjp).  The forward runs the circuit on a copy of the
+    input, the backward runs dagger_circuit on a copy of the cotangent, both
+    through the engine's own path (plan, kernels, ladder ping-pong): a
+    unitary's real-linear transpose on the planes is its adjoint, so nothing
+    is saved and no kernel needs a derivative rule.  The gradient has the
+    planes' dtype, bf16 included."""
+
+    @staticmethod
+    def forward(ctx, planar: torch.Tensor, engine: "StateVectorEngine", circuit: Circuit) -> torch.Tensor:
+        ctx.engine, ctx.circuit = engine, circuit
+        return engine._run(circuit, planar.detach().clone(), None)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        engine = ctx.engine
+        adjoint = dagger_circuit(engine._prep(ctx.circuit), engine.m_eff)
+        return engine._run(adjoint, ct.clone(memory_format=torch.contiguous_format), None), None, None
+
+
 class StateVectorEngine:
     """Executes circuits on a (2, 2^n) planar state resident on `device`.
 
@@ -555,7 +591,19 @@ class StateVectorEngine:
         """Apply a circuit and return the planar state.  With no input state
         the run starts from the |0..01> reset.  A caller-supplied `state` is
         CONSUMED: it is updated in place (the counterpart of the JAX
-        engine's buffer donation) and returned."""
+        engine's buffer donation) and returned.
+
+        Differentiable, as the JAX engine's run is: when grad mode is on and
+        `state` requires grad, the run leaves `state` alone and returns a new
+        tensor whose backward applies the dagger circuit to the cotangent
+        through the same path (_AdjointRun).  strict_reference gates are not
+        unitary, so that engine differentiates through its plain ops with
+        autograd instead, as the JAX engine differentiates through XLA."""
+        if state is not None and state.requires_grad and torch.is_grad_enabled():
+            if self.strict_reference:
+                z = circuit_plain(sv.to_complex(state), self._prep(circuit), self.m_eff, nan_checks=self.nan_checks)
+                return sv.from_complex(z)
+            return _AdjointRun.apply(state, self, circuit)
         return self._run(circuit, state, None)
 
     def run_with_norms(self, circuit: Circuit, state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -44,6 +44,16 @@ def real_dtype_of(cdtype) -> torch.dtype:
         raise ValueError(f"not a supported complex dtype: {cdtype!r}") from None
 
 
+def complex_dtype_of(real_dtype: torch.dtype) -> torch.dtype:
+    """Complex dtype of a plane dtype: complex64 for float32 and bf16 (bf16
+    computes in float32), complex128 for float64."""
+    if real_dtype in (torch.float32, torch.bfloat16):
+        return torch.complex64
+    if real_dtype == torch.float64:
+        return torch.complex128
+    raise ValueError(f"not a planar real dtype: {real_dtype}")
+
+
 def compute_dtype(real_dtype: torch.dtype) -> torch.dtype:
     """The dtype arithmetic, sums and draws run in: float32 for bf16
     planes, the plane dtype otherwise."""
@@ -77,6 +87,12 @@ def to_complex(planar: torch.Tensor) -> torch.Tensor:
     to complex64."""
     cdt = compute_dtype(planar.dtype)
     return torch.complex(planar[0].to(cdt), planar[1].to(cdt))
+
+
+def from_complex(z: torch.Tensor) -> torch.Tensor:
+    """(dim,) complex tensor -> (2, dim) planes of its real dtype (a copy).
+    Out of place, as to_complex is, so autograd runs through both."""
+    return torch.stack([z.real, z.imag])
 
 
 def probabilities(planar: torch.Tensor) -> torch.Tensor:

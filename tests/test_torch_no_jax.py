@@ -9,7 +9,9 @@ run (segments, the Shor and semiclassical attempts), each generic algorithm
 (Grover, BV / DJ, Simon, QPE in both forms, amplitude estimation, quantum
 volume), and checks that no jax or ml_dtypes module was loaded.
 chip_smoke.py is imported too (without running it), since it must run where
-jax is absent."""
+jax is absent.  A second interpreter runs the variational layer: a 4-qubit
+VQE and QAOA for 3 steps each, one gradient through engine.run and
+expectation_on_engine."""
 
 import os
 import subprocess
@@ -28,6 +30,7 @@ import quantumcomputer_tpu_torch.scripts.prof_ae_drift
 import quantumcomputer_tpu_torch.scripts.prof_benes
 import quantumcomputer_tpu_torch.scripts.prof_chunkgather
 import quantumcomputer_tpu_torch.scripts.prof_fused
+import quantumcomputer_tpu_torch.scripts.prof_grad
 import quantumcomputer_tpu_torch.scripts.prof_measure
 import quantumcomputer_tpu_torch.scripts.prof_rowperm
 import quantumcomputer_tpu_torch.scripts.prof_strip
@@ -98,6 +101,43 @@ def test_port_imports_no_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run(
         [sys.executable, "-c", PROGRAM], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+VARIATIONAL = """
+import sys
+import torch
+import quantumcomputer_tpu_torch as q
+from quantumcomputer_tpu_torch.algorithms import variational
+from quantumcomputer_tpu_torch.models.circuit import dagger_circuit
+
+terms = variational.tfim_hamiltonian(4)
+res = q.vqe(terms, 4, depth=2, steps=3, device="cpu")
+assert res.energies.shape == (3,) and res.state.shape == (16,)
+cut = q.qaoa_maxcut(4, [(0, 1), (1, 2), (2, 3), (3, 0)], p=1, steps=3, device="cpu")
+assert cut.optimal_cut == 4.0 and cut.expectations.shape == (3,)
+eng = q.StateVectorEngine(q.Register(L=3, M=4), backend="torch")
+circuit = q.shor_circuit(15, 7, 3, 4)
+p = eng.initial_state().requires_grad_()
+w = torch.randn(2, 128)
+torch.sum(eng.run(circuit, p) * w).backward()
+assert torch.allclose(p.grad, eng.run(dagger_circuit(circuit, 4), w.clone()))
+assert abs(q.expectation_on_engine(eng, eng.run(circuit), terms) - float(q.expectation(eng.run(circuit), terms))) < 1e-5
+loaded = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
+assert not loaded, loaded
+assert "quantumcomputer_tpu" not in sys.modules
+print("ok")
+"""
+
+
+def test_variational_layer_imports_no_jax():
+    """The variational layer (VQE, QAOA, observables) and one gradient
+    through engine.run in a fresh interpreter: no jax module is loaded."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", VARIATIONAL], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"
