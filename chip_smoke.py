@@ -185,6 +185,23 @@ Phases, each of which must pass:
      and one step's breakdown; QAOA at n = 24, p = 2, on a seeded random
      3-regular graph (36 edges), its expected cut rising, its ratio in
      (0, 1] and its best cut counted from the edges.
+ 15. the sharded engine (parallel/sharded.py) on a mesh of 4 shards of the
+     one card (build_mesh(devices=[cuda:0] * 4), d = 2): the n = 28
+     flagship in both layouts at complex64 and complex32, each within
+     ||d||_2 <= 1e-4 (complex32: C32_DIST_TOL) of the single-card state,
+     its fused-segment launches exactly 4 x the local plan's segments (the
+     matrix groups launched at complex32), timed (CUDA events, after a
+     warm-up) beside the single-card run and entry by entry (fused,
+     exchanging and other entries, the transport's bytes); complex128 at
+     n = 24 in both layouts within 1e-12 (max abs); 8187 factored at n = 30
+     through shors_algorithm(mesh=...) in both layouts and dtypes (the
+     block sums launched per shard); n = 32 at complex32 in the m_high
+     layout, a 16 GiB state no single card of the port holds: its norm
+     within 5e-3, its peak memory under N32_PEAK_GIB, 8 shots whose
+     composed (shard, local) indices lie below 2^32 on nonzero amplitudes;
+     and 1,060,314,373 at M = 30 with the work register sharded, complex64
+     and complex32, its bits equal to the single-card attempt's on the same
+     draws (phase 7 and 11), 0 overflow, each step's exchange bytes printed.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
 kernel's entry holds its launches on a main path, its max abs error, its ms
@@ -213,7 +230,9 @@ takes its numbers from the complex32 m_high plan's walks (controls 0-11),
 walk, "m12" the same run at M = 12 in 32-byte strips.  Each kernel the
 gradient's backward launched on the n = 28 flagship has "backward_launches"
 (by form), and fused_segment / fused_segment_bf16 "gradient_ms" (the run,
-forward and backward times of each form).  Any failure
+forward and backward times of each form); fused_segment, fused_matmul and block_sums
+(and their bf16 entries) "sharded_launches", their launches in phase 15's
+runs by run.  Any failure
 exits non-zero without that line.  Imports
 nothing of JAX.
 """
@@ -2934,6 +2953,250 @@ def phase_variational(report: dict) -> None:
     log(f"phase variational: {time.perf_counter() - t_phase:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded engine on a mesh of SHARDS shards on the one card.
+
+SHARDS = 4  # shards on cuda:0 (d = 2)
+SHARDED_C128 = (8191, 3, 11, 13)  # C, a, L, M: n = 24
+SHARDED_C128_TOL = 1e-12  # max abs, sharded against the single card (tests/test_sharded.py's bound)
+SHARDED_N32 = (8191, 3, 19, 13)  # n = 32, complex32 m_high: a 16 GiB state
+N32_SHOTS, N32_SEED = 8, 32
+# The n = 32 run's peak: the 16 GiB state, one more state for a ladder's
+# out-of-place result and chunk temporaries (PERF.md section 6).
+N32_PEAK_GIB = 40.0
+
+
+def sharded_mesh():
+    import torch
+
+    from quantumcomputer_tpu_torch.parallel.mesh import build_mesh
+
+    return build_mesh(devices=[torch.device(DEVICE, 0)] * SHARDS)
+
+
+def sharded_entry_ms(eng, circuit) -> dict:
+    """One run of the sharded plan entry by entry, each timed with CUDA
+    events: ms and count of the fused segments (every shard's launch), of
+    the entries that exchange (bytes from the transport) and of the other
+    gates; and the exchanged bytes."""
+    import torch
+
+    from quantumcomputer_tpu_torch.parallel.sharded import apply_plan_sharded_
+
+    out = {"fused": [0.0, 0], "exchange": [0.0, 0], "other": [0.0, 0]}
+    state = eng.initial_state()
+    eng.comm.reset()
+    for entry in eng.plan(circuit):
+        before = eng.comm.total_bytes()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        apply_plan_sharded_(state, [entry], n=eng.register.n, M=eng.m_eff, d=eng.d, comm=eng.comm, backend=eng.backend)
+        end.record()
+        end.synchronize()
+        kind = "fused" if entry[0] == "fused" else "exchange" if eng.comm.total_bytes() > before else "other"
+        out[kind][0] += start.elapsed_time(end)
+        out[kind][1] += 1
+    del state
+    return {**{k: {"ms": v[0], "entries": v[1]} for k, v in out.items()}, "bytes": eng.comm.total_bytes()}
+
+
+def sharded_flagship(report: dict, mesh, layout: str, planes) -> None:
+    """The n = 28 flagship on the mesh against the single-card state."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.ops import fused
+    from quantumcomputer_tpu_torch.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    C, a, L, M = FLAGSHIP
+    circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
+    reg, dtype = Register(L=L, M=M), engine_dtype(planes)
+    single = StateVectorEngine(reg, dtype, backend=KERNEL_BACKEND, layout=layout)
+    single_ms = time_ms(lambda: single.run(circuit), reps=3)
+    want = single.run(circuit)
+    eng = ShardedStateVectorEngine(reg, dtype, mesh=mesh, backend=KERNEL_BACKEND, layout=layout)
+    plan = eng.plan(circuit)
+    segments = sum(e[0] == "fused" for e in plan)
+    reset_launches()
+    eng.comm.reset()
+    state = eng.run(circuit)
+    torch.cuda.synchronize()
+    counts, sent = launches(), eng.comm.total_bytes()
+    got = torch.cat(state, dim=1)
+    dist = float(torch.linalg.vector_norm(got.float() - want.float()))
+    norm = eng.norm(state)
+    del state, got, want
+    tol = FLAGSHIP_TOL if planes == torch.float32 else C32_DIST_TOL
+    entry = report[key("fused_segment", planes)]
+    entry.setdefault("sharded_launches", {})[f"n28 {layout}"] = counts["fused_segment"]
+    if counts["matmul"]:
+        report[key("fused_matmul", planes)].setdefault("sharded_launches", {})[f"n28 {layout}"] = counts["matmul"]
+    sharded_ms = time_ms(lambda: eng.run(circuit), reps=3)
+    parts = sharded_entry_ms(eng, circuit)
+    gates = [e[1].name for e in plan if e[0] == "gate"]
+    log(
+        f"sharded flagship n={L + M} {layout} {dname(planes)} on {mesh.size} shards: {sharded_ms:.3f} ms "
+        f"(single card {single_ms:.3f} ms); ||sharded - single||_2 = {dist:.3e} (tol {tol:.0e}), norm {norm:.9f}; "
+        f"plan {segments} fused segments a shard + {len(gates)} gates {sorted(set(gates))}; launches {counts} "
+        f"(fused {counts['fused_segment']} = {mesh.size} x {segments}); exchanges {sent} bytes; entry by entry "
+        f"{json.dumps(parts)}"
+    )
+    check(dist <= tol, f"sharded flagship {layout} {dname(planes)}: distance {dist}")
+    check(abs(norm - 1.0) <= (FLAGSHIP_TOL if planes == torch.float32 else C32_NORM_TOL), f"sharded norm {norm}")
+    check(counts["fused_segment"] == mesh.size * segments,
+          f"fused launches {counts['fused_segment']} != {mesh.size} x {segments} local segments")
+    check(sent > 0, "the sharded flagship exchanged nothing")
+    if planes == torch.bfloat16 and layout == "m_high":  # the standard plan's ops all lie above bit 12
+        check(counts["matmul"] > 0, "the complex32 m_high sharded flagship launched no matrix group")
+    torch.cuda.empty_cache()
+
+
+def sharded_c128(mesh, layout: str) -> None:
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    C, a, L, M = SHARDED_C128
+    circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
+    reg = Register(L=L, M=M)
+    want = StateVectorEngine(reg, torch.complex128, backend=KERNEL_BACKEND, layout=layout).run(circuit)
+    eng = ShardedStateVectorEngine(reg, torch.complex128, mesh=mesh, backend=KERNEL_BACKEND, layout=layout)
+    reset_launches()
+    got = torch.cat(eng.run(circuit), dim=1)
+    err = float((got - want).abs().max())
+    log(f"sharded complex128 n={L + M} {layout}: max abs vs single card {err:.3e} (tol {SHARDED_C128_TOL:.0e}), "
+        f"||d||_2 {float(torch.linalg.vector_norm(got - want)):.3e}; launches {launches()['fused_segment']}")
+    check(err <= SHARDED_C128_TOL, f"sharded complex128 {layout}: {err}")
+    check(launches()["fused_segment"] > 0, "the complex128 sharded run launched no fused segment")
+
+
+def sharded_factor(report: dict, mesh, layout: str, planes) -> None:
+    from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
+
+    C, a, L, M = FACTOR
+    reset_launches()
+    t0 = time.perf_counter()
+    result = shors_algorithm(C, L, M, forced_trial_int=a, seed=0, dtype=engine_dtype(planes), backend=KERNEL_BACKEND,
+                             max_attempts_per_a=4, mesh=mesh, layout=layout)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    report[key("block_sums", planes)].setdefault("sharded_launches", {})[f"n30 {layout}"] = counts["block_sums"]
+    report[key("fused_segment", planes)].setdefault("sharded_launches", {})[f"n30 {layout}"] = counts["fused_segment"]
+    log(f"sharded factor n={L + M} C={C} a={a} {layout} {dname(planes)}: {result.outcome.value}, factors "
+        f"{result.factors}, period {result.period}; attempts {[round(at.elapsed_s, 6) for at in result.attempts]} s, "
+        f"total {wall:.3f} s; launches {counts}")
+    check(result.factors == (2729, 3), f"sharded factors {result.factors} != (2729, 3)")
+    check(counts["fused_segment"] > 0 and counts["block_sums"] > 0, f"sharded n=30 launches {counts}")
+
+
+def sharded_n32(report: dict, mesh) -> None:
+    """n = 32 at complex32 in the m_high layout: a state no single card of
+    the port holds; its norm, peak memory and 8 shots whose composed
+    indices must reach past 2^31 exactly."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer_tpu_torch.sim.engine import Register
+
+    C, a, L, M = SHARDED_N32
+    n = L + M
+    circuit = shor_circuit_mhigh(C, a, L, M)
+    eng = ShardedStateVectorEngine(Register(L=L, M=M), "complex32", mesh=mesh, backend=KERNEL_BACKEND, layout="m_high")
+    plan = eng.plan(circuit)
+    gates = [e[1].name for e in plan if e[0] == "gate"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eng.comm.reset()
+    t0 = time.perf_counter()
+    state = eng.run(circuit)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, sent = launches(), eng.comm.total_bytes()
+    norm = eng.norm(state)
+    rs = torch.rand((N32_SHOTS,), generator=torch.Generator().manual_seed(N32_SEED), dtype=torch.float32)
+    shots = eng.sample(state, rs).tolist()
+    counts["block_sums"] = launches()["block_sums"]  # the sample's, one a shard
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    probs = []
+    for idx in shots:
+        dev, loc = divmod(idx, eng.shard_len)
+        probs.append(float(state[dev][:, loc].float().square().sum()))
+    high = sum(idx >= 1 << 31 for idx in shots)
+    report[key("fused_segment", torch.bfloat16)].setdefault("sharded_launches", {})["n32 m_high"] = counts["fused_segment"]
+    report[key("fused_matmul", torch.bfloat16)].setdefault("sharded_launches", {})["n32 m_high"] = counts["matmul"]
+    report[key("block_sums", torch.bfloat16)].setdefault("sharded_launches", {})["n32 m_high"] = counts["block_sums"]
+    log(f"sharded n={n} complex32 m_high on {mesh.size} shards: run {wall:.3f} s, norm {norm:.6f} (tol {C32_NORM_TOL:.0e}), "
+        f"peak memory {peak:.3f} GiB (reckoning <= {N32_PEAK_GIB:.0f}); plan {sum(e[0] == 'fused' for e in plan)} "
+        f"fused segments a shard, gates {[(g, gates.count(g)) for g in sorted(set(gates))]}; exchanges {sent} bytes; "
+        f"launches {counts}")
+    log(f"sharded n={n} shots {shots} (>= 2^31: {high}), logical {[eng.logical_index(i) for i in shots]}, "
+        f"|amp|^2 {probs}")
+    check(abs(norm - 1.0) <= C32_NORM_TOL, f"n=32 norm {norm}")
+    check(peak <= N32_PEAK_GIB, f"n=32 peak memory {peak:.3f} GiB above {N32_PEAK_GIB} GiB")
+    check(all(0 <= i < 1 << n for i in shots), f"n=32 shots out of range {shots}")
+    check(all(p > 0.0 for p in probs), f"n=32 shot on a zero amplitude: {probs}")
+    check(counts["fused_segment"] > 0 and counts["matmul"] > 0 and counts["block_sums"] > 0, f"n=32 launches {counts}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def sharded_semiclassical(mesh, planes, reference) -> None:
+    """1,060,314,373 at M = 30 with the work register over the mesh, on the
+    draws of the single-card attempt `reference` (seed SC_SEED): the same
+    bits, the factors, 0 overflow."""
+    import torch
+
+    from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
+
+    C, a, L, M = SC_FACTOR
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = shors_algorithm(C, L, M, forced_trial_int=a, seed=SC_SEED, dtype=engine_dtype(planes),
+                             backend=KERNEL_BACKEND, semiclassical=True, mesh=mesh)
+    wall = time.perf_counter() - t0
+    attempt = result.attempts[0]
+    rec = attempt.semiclassical
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"sharded semiclassical M={M} C={C} a={a} {dname(planes)} on {mesh.size} shards: {result.outcome.value}, "
+        f"factors {result.factors}; attempt {attempt.elapsed_s:.3f} s ({attempt.elapsed_s / L * 1e3:.3f} ms a step), "
+        f"total {wall:.3f} s; capacity {rec.capacity} slots a bin ({mesh.size} bins a shard), overflow {rec.overflow}; "
+        f"peak memory {peak:.3f} GiB; bits equal to the single card's: {rec.bits == reference.bits}")
+    log(f"sharded semiclassical {dname(planes)} exchange bytes by step {rec.exchange_bytes}")
+    check(rec.bits == reference.bits, f"sharded bits {rec.bits} != single-card bits {reference.bits}")
+    check(result.factors == SC_FACTORS, f"sharded semiclassical factors {result.factors}")
+    check(rec.overflow == 0, f"overflow {rec.overflow}")
+    torch.cuda.empty_cache()
+
+
+def phase_sharded(report: dict, sc64, sc32) -> None:
+    """The sharded engine (parallel/sharded.py, sharded_semiclassical.py)
+    on SHARDS shards of the one card (PERF.md section 4)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    mesh = sharded_mesh()
+    log(f"phase sharded: mesh {mesh}")
+    for planes in (torch.float32, torch.bfloat16):
+        for layout in ("standard", "m_high"):
+            sharded_flagship(report, mesh, layout, planes)
+    for layout in ("standard", "m_high"):
+        sharded_c128(mesh, layout)
+    for planes in (torch.float32, torch.bfloat16):
+        for layout in ("standard", "m_high"):
+            sharded_factor(report, mesh, layout, planes)
+    torch.cuda.empty_cache()
+    sharded_n32(report, mesh)
+    sharded_semiclassical(mesh, torch.float32, sc64)
+    sharded_semiclassical(mesh, torch.bfloat16, sc32)
+    log(f"phase sharded: {time.perf_counter() - t_phase:.3f} s")
+
+
 def new_report() -> dict:
     """One JSON entry per kernel instance: the float32 / float64 kernels,
     then the bf16 ("complex32") instances, whose `replaces` names the TPU
@@ -3023,11 +3286,12 @@ def main() -> int:
     phase_factor(report, torch.bfloat16)
     phase_cli_c32()
     phase_semiclassical_timing(report, torch.bfloat16)
-    phase_semiclassical_factor(report, torch.bfloat16, reference=sc64)
+    sc32 = phase_semiclassical_factor(report, torch.bfloat16, reference=sc64)
     phase_validation_c32(report)
     phase_checkpoint()
     phase_algorithms()
     phase_variational(report)
+    phase_sharded(report, sc64, sc32)
 
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,

@@ -38,7 +38,8 @@ in a subdirectory per attempt; a killed attempt called again with the same
 arguments and draws resumes from its newest snapshot.  The JAX package needs
 two checkpointed forms (per-step dispatches, and segments of its unrolled
 structured program); eager PyTorch has one step loop for both oracles, so
-one form serves.  Sharding is not yet ported.
+one form serves.  ``find_period_semiclassical(mesh=...)`` shards the work
+register over a mesh (``parallel/sharded_semiclassical.py``).
 """
 
 from __future__ import annotations
@@ -390,11 +391,24 @@ def find_period_semiclassical(
 ):
     """The semiclassical attempt, then omega -> continued fractions ->
     period test (the full-register path's classical pipeline).  `device`
-    as in run_semiclassical.  Returns (period or None, SemiclassicalRecord)."""
+    as in run_semiclassical.  With a `mesh` the work register is sharded
+    over it (parallel/sharded_semiclassical.run_semiclassical_sharded),
+    without checkpointing and not at dd64, as in the JAX package.  Returns
+    (period or None, SemiclassicalRecord)."""
     if mesh is not None:
-        raise ValueError("sharded semiclassical is not yet ported to quantumcomputer_tpu_torch")
-    rec = run_semiclassical(
-        C, a, L, M, rs, dtype, structured=structured, device=device, checkpoint_dir=checkpoint_dir
-    )
+        if checkpoint_dir is not None:
+            raise ValueError(
+                "checkpoint_dir is single-chip only: the sharded attempt is "
+                "one fused dispatch with no step boundary to snapshot"
+            )
+        if dtype == "dd64":
+            raise ValueError("dd64 semiclassical is single-chip (parity mode)")
+        from quantumcomputer_tpu_torch.parallel.sharded_semiclassical import run_semiclassical_sharded
+
+        rec = run_semiclassical_sharded(C, a, L, M, rs, mesh, dtype)
+    else:
+        rec = run_semiclassical(
+            C, a, L, M, rs, dtype, structured=structured, device=device, checkpoint_dir=checkpoint_dir
+        )
     period = nt.find_period_from_omega(rec.omega, a, C, num_fractions, trials_per_denominator)
     return period, rec

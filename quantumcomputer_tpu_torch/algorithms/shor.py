@@ -13,7 +13,9 @@ in the compute dtype, from the same generator.
 
 Eager PyTorch compiles nothing per circuit, so ``find_period`` always runs
 the static circuit; the JAX package's slot-template form exists only to
-save XLA recompiles and is not ported.
+save XLA recompiles and is not ported.  ``shors_algorithm(mesh=...)`` runs
+the circuit on the sharded engine (``parallel/sharded.py``), or shards the
+semiclassical work register.
 """
 
 from __future__ import annotations
@@ -193,6 +195,7 @@ def shors_algorithm(
     backend: str = "auto",
     max_attempts_per_a: int = 1,
     engine: Optional[StateVectorEngine] = None,
+    mesh=None,
     num_fractions: int = nt.NUM_CONTINUED_FRACTIONS,
     trials_per_denominator: int = nt.TRIALS_PER_DENOMINATOR,
     layout: str = "standard",
@@ -230,10 +233,17 @@ def shors_algorithm(
     checkpoint_dir: snapshots for preemption recovery, per segment of the
     full-register circuit (find_period) or every few semiclassical steps
     (run_semiclassical); a killed run called again with the same arguments
-    and seed resumes where it stopped."""
+    and seed resumes where it stopped.
+
+    mesh (parallel/mesh.build_mesh): the state is sharded over it, on the
+    ShardedStateVectorEngine (dd64 as complex128; oracle="benes" logs the
+    JAX package's warning and runs the gather oracle; strict_reference
+    raises), or with semiclassical=True the work register is sharded
+    (parallel/sharded_semiclassical.py; not at dd64)."""
     if C < 4 or L < 1 or M < 1:
         return ShorResult(outcome=Outcome.BAD_ARGUMENTS, C=C)
-    if dtype == "dd64":
+    dd64 = dtype == "dd64"
+    if dd64:
         if layout != "standard":
             raise ValueError("dd64 parity mode uses the standard layout")
         dtype = torch.complex128
@@ -244,6 +254,8 @@ def shors_algorithm(
             log.warning(
                 "semiclassical mode ignores oracle=%r (its oracle is the blockwise on-device index generation)", oracle
             )
+        if dd64 and mesh is not None:
+            raise ValueError("dd64 semiclassical is single-chip (parity mode); use complex32/complex64 on a mesh")
         device = "cuda" if resolve_backend(backend) == "cuda" else "cpu"
         # The draws in the engine's compute dtype (dd64 is complex128 by now).
         draw_dtype = torch.float64 if dtype in (torch.complex128, "complex128") else torch.float32
@@ -264,16 +276,24 @@ def shors_algorithm(
                 "kernels' plain versions on the CPU)"
             )
             backend = "auto"
-        if oracle == "benes" and not is_complex32(dtype) and resolve_backend(backend) == "torch":
+        if oracle == "benes" and (mesh is not None or (not is_complex32(dtype) and resolve_backend(backend) == "torch")):
             log.warning(
                 "oracle='benes' requires the single-chip cuda backend; "
-                "falling back to the gather oracle (mesh=none, backend=torch)"
+                "falling back to the gather oracle (mesh=%s, backend=%s)",
+                "set" if mesh is not None else "none", resolve_backend(backend),
             )
             oracle = "gather"
-        engine = StateVectorEngine(
-            Register(L=L, M=M), dtype=dtype, backend=backend, layout=layout,
-            oracle=oracle, strict_reference=strict_reference,
-        )
+        if mesh is not None:
+            if strict_reference:
+                raise ValueError("strict_reference mode is single-chip (no mesh support)")
+            from quantumcomputer_tpu_torch.parallel.sharded import ShardedStateVectorEngine
+
+            engine = ShardedStateVectorEngine(Register(L=L, M=M), dtype=dtype, mesh=mesh, backend=backend, layout=layout)
+        else:
+            engine = StateVectorEngine(
+                Register(L=L, M=M), dtype=dtype, backend=backend, layout=layout,
+                oracle=oracle, strict_reference=strict_reference,
+            )
     if seed is None:
         seed = int(time.time_ns() % (1 << 31))
     gen = torch.Generator().manual_seed(seed)
@@ -308,7 +328,7 @@ def shors_algorithm(
                 period, screc = find_period_semiclassical(
                     C, a, L, M, rs, dtype=dtype, num_fractions=num_fractions,
                     trials_per_denominator=trials_per_denominator, device=device,
-                    checkpoint_dir=checkpoint_dir,
+                    mesh=mesh, checkpoint_dir=checkpoint_dir,
                 )
                 # measured_index records x~, the sequential bit readout: this
                 # mode has no full-register basis index.

@@ -14,9 +14,12 @@ CPU through the kernels' plain versions (the JAX package's interpret mode);
 the semiclassical engine runs it on the card or the CPU like any dtype.
 ``--checkpoint-dir`` snapshots the full-register circuit between segments
 of 8 gates, or the semiclassical work state every 4 steps, and resumes a
-killed run.  ``--devices > 1``, whose path is not ported yet, exits 2 with a
-message that says so; ``--backend cuda`` on a host with no CUDA device exits
-2 as well, and never runs on the CPU.
+killed run.  ``--devices N > 1`` shards the state (or the semiclassical work
+register) over a mesh of N distinct devices (``parallel/mesh.build_mesh``):
+the visible CUDA cards, or on a host with no card the CPU's 8 virtual
+shards; more than the host has exits 2, as the JAX CLI does.  ``--backend
+cuda`` on a host with no CUDA device exits 2 as well, and never runs on the
+CPU.
 """
 
 from __future__ import annotations
@@ -32,8 +35,6 @@ from quantumcomputer_tpu_torch.algorithms.shor import Outcome, issue_warnings, s
 from quantumcomputer_tpu_torch.utils.logging import configure, get_logger
 
 log = get_logger("cli")
-
-PACKAGE = "quantumcomputer_tpu_torch"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -152,22 +153,11 @@ def validate(args: argparse.Namespace) -> Optional[str]:
     return None
 
 
-def not_ported(args: argparse.Namespace) -> Optional[str]:
-    """The first flag whose path this package does not carry yet, or None."""
-    if args.devices > 1:
-        return "--devices > 1"
-    return None
-
-
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     err = validate(args)
     if err:
         print(f"Error: {err}", file=sys.stderr)
-        return 2
-    missing = not_ported(args)
-    if missing:
-        print(f"Error: {missing} is not yet ported to {PACKAGE}.", file=sys.stderr)
         return 2
     backend = args.backend
     if args.strict_reference:
@@ -180,6 +170,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for w in issue_warnings(args.C, args.L, args.M):
         print(f" --- *WARNING* {w}")
 
+    mesh = None
+    if args.devices > 1:
+        from quantumcomputer_tpu_torch.parallel.mesh import build_mesh
+
+        try:
+            mesh = build_mesh(num_devices=args.devices)
+        except ValueError as e:
+            print(f"Error: {e}", file=sys.stderr)
+            return 2
+        print(f" --- Sharding state vector over {mesh.size} device(s).")
+
     print("\n --- Finding factors...\n")
     result = shors_algorithm(
         C=args.C,
@@ -189,6 +190,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         seed=args.seed,
         dtype={"complex128": torch.complex128, "dd64": "dd64", "complex32": "complex32"}.get(args.dtype, torch.complex64),
         backend=backend,
+        mesh=mesh,
         num_fractions=args.fractions,
         trials_per_denominator=args.trials,
         layout=args.layout,

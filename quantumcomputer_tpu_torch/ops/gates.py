@@ -220,10 +220,13 @@ def apply_c_amodc_strict(state: torch.Tensor, C: int, atox: int, c_q: int, M: in
     return torch.zeros_like(state).index_add_(0, j[keep], state[keep])
 
 
-def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: int) -> torch.Tensor:
+def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: int, ginv=None) -> torch.Tensor:
     """apply_c_amodc on a (2, 2^n) planar state, IN PLACE: each plane's
-    control==1 half is gathered (one half-plane temporary) and written back."""
-    ginv = torch.from_numpy(modmul_inverse_permutation(C, atox, M)).to(planar.device)
+    control==1 half is gathered (one half-plane temporary) and written back.
+    `ginv`: the gate's modmul_inverse_permutation table already on the
+    state's device (else it is built and copied there)."""
+    if ginv is None:
+        ginv = torch.from_numpy(modmul_inverse_permutation(C, atox, M)).to(planar.device)
     for p in range(2):
         x = _camodc_view(planar[p], c_q, M)
         x[:, 1] = torch.index_select(x[:, 1], -1, ginv)

@@ -19,6 +19,8 @@ block sums, scans and draws alike (``statevec.compute_dtype``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from quantumcomputer_tpu_torch.ops import _build
@@ -96,7 +98,9 @@ def _draws(rs, dtype, device) -> torch.Tensor:
     ).reshape(-1)
 
 
-def sample_indices_planes(planar: torch.Tensor, rs, plain: bool = False) -> torch.Tensor:
+def sample_indices_planes(
+    planar: torch.Tensor, rs, plain: bool = False, absolute: bool = False, sums: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Hierarchical inverse-CDF samples, one per draw in `rs` (each in
     [0, 1)), without collapsing: ONE block-sum pass for all draws (the
     block sums from block_sums_plain with plain=True, the torch backend's
@@ -107,11 +111,19 @@ def sample_indices_planes(planar: torch.Tensor, rs, plain: bool = False) -> torc
     CUDA tensor picks its algorithm and thread layout from the number of
     rows, and rounds differently at knife edges.  It also keeps a lone
     draw's temporaries at one block.  Returns the indices as an int64 CPU
-    tensor, after one host sync."""
-    sums = block_sums_plain(planar) if plain else block_sums(planar)
+    tensor, after one host sync.
+
+    With `absolute` each draw is a target on the state's own probability
+    scale, not scaled by the total (a shard of a sharded state picks at the
+    draw less the shards before it); `sums` passes block sums the caller
+    already has."""
+    if sums is None:
+        sums = block_sums_plain(planar) if plain else block_sums(planar)
     nblocks, block = _nblocks_block(planar)
     cum = torch.cumsum(sums, 0)
-    scaled = _draws(rs, cum.dtype, cum.device) * cum[-1]
+    scaled = _draws(rs, cum.dtype, cum.device)
+    if not absolute:
+        scaled = scaled * cum[-1]
     b = _clamped_search(cum, scaled)
     target = scaled - (cum[b] - sums[b])
     blocks = planar.view(2, nblocks, block)
@@ -123,21 +135,26 @@ def sample_indices_planes(planar: torch.Tensor, rs, plain: bool = False) -> torc
     return (b * block + torch.cat(local)).cpu()
 
 
-def sample_indices_flat(planar: torch.Tensor, rs) -> torch.Tensor:
+def sample_indices_flat(planar: torch.Tensor, rs, absolute: bool = False) -> torch.Tensor:
     """Flat inverse-CDF samples over ONE full cumulative sum for all draws
-    (small or f64 states), each draw scaled by the total."""
+    (small or f64 states), each draw scaled by the total unless
+    `absolute`."""
     cum = torch.cumsum(sv.probabilities(planar), 0)
-    return _clamped_search(cum, _draws(rs, cum.dtype, cum.device) * cum[-1]).cpu()
+    scaled = _draws(rs, cum.dtype, cum.device)
+    return _clamped_search(cum, scaled if absolute else scaled * cum[-1]).cpu()
 
 
-def sample_indices(planar: torch.Tensor, rs, plain: bool = False) -> torch.Tensor:
+def sample_indices(
+    planar: torch.Tensor, rs, plain: bool = False, absolute: bool = False, sums: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """The engine's sampler switch (JAX engine.sample and
     _sample_index_planes): f32 and bf16 states of at least 2^16 amplitudes
     sample hierarchically, the rest flat.  One index per draw in `rs`, as an
-    int64 CPU tensor."""
+    int64 CPU tensor.  `absolute` and `sums` as in sample_indices_planes
+    (`sums` serves the hierarchical path only)."""
     if planar.dtype in (torch.float32, torch.bfloat16) and planar.shape[-1] >= HIERARCHICAL_MIN_DIM:
-        return sample_indices_planes(planar, rs, plain)
-    return sample_indices_flat(planar, rs)
+        return sample_indices_planes(planar, rs, plain, absolute, sums)
+    return sample_indices_flat(planar, rs, absolute)
 
 
 def sample_index_planes(planar: torch.Tensor, r: float, plain: bool = False) -> int:

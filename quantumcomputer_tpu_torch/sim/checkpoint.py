@@ -96,6 +96,12 @@ def latest_segment(directory: str) -> Optional[int]:
     return segs[-1] if segs else None
 
 
+def _sharded(engine) -> bool:
+    """A sharded engine (parallel/sharded.py): its state is a list of
+    shards, snapshotted as one joined planar array."""
+    return hasattr(engine, "mesh")
+
+
 def _resume(engine, fp: str, directory: str, segment_gates: int, nsegments: int):
     """(state, segment) of the newest valid snapshot, or (None, 0).  A
     snapshot is valid when its fingerprint, segment number and segmentation
@@ -107,7 +113,7 @@ def _resume(engine, fp: str, directory: str, segment_gates: int, nsegments: int)
             continue
         path = _segment_path(directory, seg)
         try:
-            st, meta = load_state(path, engine.device)
+            st, meta = load_state(path, getattr(engine, "device", "cpu"))
         except Exception as e:  # corrupt or unreadable snapshot
             log.warning("failed to load checkpoint %s (%s: %s); trying older segments", path, type(e).__name__, e)
             continue
@@ -118,7 +124,7 @@ def _resume(engine, fp: str, directory: str, segment_gates: int, nsegments: int)
             and st.shape[0] == PLANES
             and st.dtype == engine.real_dtype
         ):
-            return st, seg
+            return (engine.from_planar(st) if _sharded(engine) else st), seg
         log.warning(
             "checkpoint %s rejected (fingerprint/segmentation/dtype mismatch); trying older segments", path
         )
@@ -132,7 +138,8 @@ def run_with_checkpoints(engine, circuit: Circuit, directory: str, segment_gates
     segment is planned on its own, so the result equals an unsegmented run
     within the circuit tolerance, and a resumed run equals an uninterrupted
     segmented one bit for bit.  Returns the state engine.run returned for
-    the last segment."""
+    the last segment.  A sharded engine's state is snapshotted joined, in
+    the same format, and cut into its shards again on resume."""
     fp = circuit_fingerprint(circuit)
     segments = [circuit[i : i + segment_gates] for i in range(0, len(circuit), segment_gates)]
     state, start = _resume(engine, fp, directory, segment_gates, len(segments))
@@ -142,7 +149,7 @@ def run_with_checkpoints(engine, circuit: Circuit, directory: str, segment_gates
         state = engine.run(tuple(segments[seg]), state)
         save_state(
             _segment_path(directory, seg + 1),
-            state,
+            engine.to_planar(state) if _sharded(engine) else state,
             {"fingerprint": fp, "segment": seg + 1, "segment_gates": segment_gates, "n": engine.register.n},
         )
     return state

@@ -5,9 +5,10 @@ The counterpart of the JAX package's ``utils/profiling.py``.  The analytic
 cost model (bytes moved per gate pass, roofline bound) is carried over as
 it is.  Timing differs: PyTorch returns before the card finishes, so a CUDA
 engine is timed with CUDA events on the current stream, and a CPU engine
-with the host clock.  ``trace`` wraps ``torch.profiler``.  The StableHLO
-collective accounting of mesh programs (``collective_stats`` and its
-helpers) waits for the multi-device engines.
+with the host clock.  ``trace`` wraps ``torch.profiler``.  The JAX
+package reads a mesh program's collectives from its lowered StableHLO;
+here the sharded engine's transport counts them as they run
+(``mesh_collective_report``).
 """
 
 from __future__ import annotations
@@ -189,3 +190,26 @@ def norm_trace(engine, circuit: Circuit) -> NormTrace:
     """Run with norm tracking (the FIG. 2 experiment)."""
     _, norms = engine.run_with_norms(circuit)
     return NormTrace(deviations=[float(v) - 1.0 for v in norms.tolist()])
+
+
+def mesh_collective_report(engine, circuit: Circuit) -> dict:
+    """The exchanges of one ``engine.run(circuit)`` from the reset on a
+    sharded engine (parallel/sharded.py), read from its transport's
+    counters (parallel/comm.py) in place of the JAX package's StableHLO
+    parse: ``{kind: {"count", "bytes"}, "total_bytes": N, "shards": D}``,
+    bytes per shard (what a shard sends to other shards, averaged over the
+    shards), as the JAX report counts each device's operands.  Unlike the
+    JAX report it runs the circuit once.  complex32 moves half the bytes of
+    complex64."""
+    comm = getattr(engine, "comm", None)
+    if comm is None:
+        raise ValueError("mesh_collective_report needs a sharded engine (no mesh found)")
+    comm.reset()
+    engine.run(circuit)
+    D = comm.size
+    report: dict = {
+        kind: {"count": v["count"], "bytes": v["bytes"] // D} for kind, v in comm.stats.items() if v["count"]
+    }
+    report["total_bytes"] = comm.total_bytes() // D
+    report["shards"] = D
+    return report

@@ -507,7 +507,7 @@ def test_cli_complex32_full_register_needs_a_card(capsys):
         assert want == [" --- Factors of 15 found: (5, 3)."]
     assert cli.main(argv + ["--backend", "cuda"]) == 2
     assert capsys.readouterr().err.strip() == "Error: --backend cuda needs a CUDA device, and none is available."
-    assert cli.not_ported(cli.build_parser().parse_args(["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32"])) is None
+    assert cli.validate(cli.build_parser().parse_args(["-C", "15", "-L", "3", "-M", "4", "--dtype", "complex32"])) is None
 
 
 def test_cli_strict_reference_refuses_complex32(capsys):

@@ -7,7 +7,11 @@ strict_reference, dd64, nan_checks), a complex32 plan on bf16 planes and a
 complex32 m_high plan whose walks merge into one strip pass, a checkpointed
 run (segments, the Shor and semiclassical attempts), each generic algorithm
 (Grover, BV / DJ, Simon, QPE in both forms, amplitude estimation, quantum
-volume), and checks that no jax or ml_dtypes module was loaded.
+volume), the multi-device layer (parallel.mesh, comm, sharded and
+sharded_semiclassical: the 7-qubit circuit on a 2-shard CPU mesh, its
+measured index against the single-device engine's, a sharded
+semiclassical attempt and the mesh's collective report), and checks that
+no jax or ml_dtypes module was loaded.
 chip_smoke.py is imported too (without running it), since it must run where
 jax is absent.  A second interpreter runs the variational layer: a 4-qubit
 VQE and QAOA for 3 steps each, one gradient through engine.run and
@@ -33,6 +37,7 @@ import quantumcomputer_tpu_torch.scripts.prof_fused
 import quantumcomputer_tpu_torch.scripts.prof_grad
 import quantumcomputer_tpu_torch.scripts.prof_measure
 import quantumcomputer_tpu_torch.scripts.prof_rowperm
+import quantumcomputer_tpu_torch.scripts.prof_sharded
 import quantumcomputer_tpu_torch.scripts.prof_strip
 from quantumcomputer_tpu_torch.algorithms import semiclassical
 from quantumcomputer_tpu_torch.algorithms import amplitude_estimation, grover, oracle_algorithms, qpe, quantum_volume, simon
@@ -40,6 +45,7 @@ from quantumcomputer_tpu_torch.sim import checkpoint
 from quantumcomputer_tpu_torch.utils import debug, experiments, kernel_checks, profiling
 from quantumcomputer_tpu_torch.ops import benes
 from quantumcomputer_tpu_torch.sim import engine as tengine
+from quantumcomputer_tpu_torch.parallel import comm, mesh, sharded, sharded_semiclassical
 import chip_smoke
 
 eng = q.StateVectorEngine(q.Register(L=3, M=4), backend="torch")
@@ -90,6 +96,15 @@ assert qpe.run_semiclassical_qpe(lambda j: [q.models.circuit.PHASE(0, 2 * 3.1415
 assert abs(amplitude_estimation.amplitude_estimate(2, [0, 1], 3).a_hat - 0.5) < 1e-9
 assert quantum_volume.run_quantum_volume(3, q.StateVectorEngine(q.Register(L=3, M=0), backend="torch"),
                                          num_circuits=2, shots=10).num_circuits == 2
+two = mesh.build_mesh(2)
+sh = sharded.ShardedStateVectorEngine(q.Register(L=3, M=4), mesh=two)
+sh_state = sh.run(circuit)
+assert len(sh_state) == 2 and sh_state[0].shape == (2, 64)
+assert float((sh.to_planar(sh_state) - state).abs().max()) < 1e-6
+assert sh.run_and_measure_index(circuit, 0.3) == eng.run_and_measure_index(circuit, 0.3)
+assert profiling.mesh_collective_report(sh, circuit)["ppermute"]["count"] == 2
+assert sharded_semiclassical.run_semiclassical_sharded(15, 7, 3, 4, [0.1, 0.6, 0.3], two).bits == rec.bits
+assert isinstance(sh.comm, comm.LocalTransport)
 loaded = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules

@@ -174,8 +174,16 @@ def test_argument_checks_match_jax():
     rs = np.full(4, 0.5)
     dd, c128 = (sc.run_semiclassical(15, 7, 4, 4, rs, dtype=d) for d in ("dd64", torch.complex128))
     assert (dd.bits, dd.branch_probs) == (c128.bits, c128.branch_probs)  # dd64 runs complex128
-    with pytest.raises(ValueError, match="not yet ported"):
-        sc.find_period_semiclassical(15, 7, 4, 4, np.zeros(4, np.float32), mesh=object())
+    # Ported: mesh= runs the sharded attempt (tests/test_torch_sharded_semiclassical.py); with
+    # a checkpoint directory it raises the JAX package's message.
+    from quantumcomputer_tpu.parallel.mesh import build_mesh as jbuild_mesh
+    from quantumcomputer_tpu_torch.parallel.mesh import build_mesh
+
+    with pytest.raises(ValueError) as want:
+        jsc.find_period_semiclassical(15, 7, 4, 4, jax.random.PRNGKey(0), mesh=jbuild_mesh(2), checkpoint_dir="ck")
+    with pytest.raises(ValueError) as got:
+        sc.find_period_semiclassical(15, 7, 4, 4, np.zeros(4, np.float32), mesh=build_mesh(2), checkpoint_dir="ck")
+    assert str(got.value) == str(want.value)
 
 
 def test_record_readout_matches_jax():

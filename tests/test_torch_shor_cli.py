@@ -106,7 +106,9 @@ NEEDS_A_CARD = "Error: --backend cuda needs a CUDA device, and none is available
 @pytest.mark.parametrize(
     "extra,line",
     [
-        (["--devices", "2"], "Error: --devices > 1 is not yet ported to quantumcomputer_tpu_torch."),
+        # Ported: --devices 2 shards the state (test_devices_rows_match_the_jax_cli);
+        # more shards than the host offers exits 2 as the JAX CLI does.
+        (["--devices", "16"], "Error: requested 16 devices, only 8 available"),
         # Ported: the full register at complex32 runs on the cuda backend's
         # path, on the CPU here through the plain versions; --backend cuda
         # still needs a card.
@@ -139,18 +141,15 @@ def test_checkpoint_dir_matches_the_jax_cli(extra, tmp_path, capsys):
 @pytest.mark.parametrize(
     "extra,flag",
     [
-        (["--devices", "2"], "--devices > 1"),
+        (["--devices", "2"], None),  # ported: the sharded work register, on 2 CPU shards here
         (["--dtype", "complex32"], None),  # ported: runs on the CPU here
     ],
 )
 def test_unported_semiclassical_flags_exit_2(extra, flag, capsys):
     rc = cli.main(["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--semiclassical", "--seed", "0"] + extra)
     captured = capsys.readouterr()
-    if flag is None:
-        assert rc == 0 and " --- Factors of 15 found: (5, 3)." in captured.out
-        return
-    assert rc == 2
-    assert captured.err.strip() == f"Error: {flag} is not yet ported to quantumcomputer_tpu_torch."
+    assert flag is None
+    assert rc == 0 and " --- Factors of 15 found: (5, 3)." in captured.out
 
 
 @pytest.mark.parametrize(
@@ -194,10 +193,17 @@ def test_validate_equals_jax_over_the_grid(LM, devices, dtype, semiclassical):
 
 
 def test_devices_2_at_32_qubits_reaches_not_ported(capsys):
+    """32 qubits over 2 devices passes validation in both packages (the
+    port no longer refuses --devices); asking for more devices than the
+    host has then exits 2 with the JAX CLI's message, before any state."""
     argv = ["-C", "15", "-L", "16", "-M", "16", "--devices", "2"]
     assert jcli.validate(jcli.build_parser().parse_args(argv)) is None
+    assert cli.validate(cli.build_parser().parse_args(argv)) is None
+    argv[-1] = "16"
+    assert jcli.main(argv) == 2
+    want = capsys.readouterr().err.strip()
     assert cli.main(argv) == 2
-    assert capsys.readouterr().err.strip() == "Error: --devices > 1 is not yet ported to quantumcomputer_tpu_torch."
+    assert capsys.readouterr().err.strip() == want == "Error: requested 16 devices, only 8 available"
 
 
 def test_cli_factors_15_in_the_mhigh_layout(capsys):
@@ -243,3 +249,38 @@ def test_shors_algorithm_is_seeded():
     assert [r.measured_index for r in runs[0].attempts] == [r.measured_index for r in runs[1].attempts]
     assert runs[0].factors == (5, 3)
     assert shor.shors_algorithm(3, 8, 4).outcome is shor.Outcome.BAD_ARGUMENTS
+
+
+FACTOR_15_SEED = ["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--seed", "0"]
+DEVICES_ROWS = {
+    "devices_2": ["--devices", "2"],
+    "devices_4_m_high": ["--devices", "4", "--layout", "m_high"],
+    "complex32_devices_2": ["--dtype", "complex32", "--devices", "2", "-v"],  # tests/test_cli.py:117
+    "semiclassical_devices_4": ["--semiclassical", "--devices", "4", "-v"],  # tests/test_semiclassical.py:407
+    "dd64_devices_4": ["--dtype", "dd64", "--devices", "4"],  # tests/test_sharded_dd.py:122
+    "benes_devices_2": ["--oracle", "benes", "--devices", "2"],
+    "strict_reference_devices_2": ["-M", "3", "--strict-reference", "--devices", "2"],  # test_strict_reference.py:99
+    "semiclassical_devices_16": ["--semiclassical", "--devices", "16"],  # tests/test_semiclassical.py:405
+    "devices_3": ["--devices", "3"],
+}
+
+
+@pytest.mark.parametrize("extra", list(DEVICES_ROWS.values()), ids=list(DEVICES_ROWS))
+def test_devices_rows_match_the_jax_cli(extra, capsys):
+    """--devices N on the CPU's 8 shards: the JAX CLI's exit code, its
+    " --- Sharding state vector over N device(s)." and factors lines, and
+    its error line."""
+    argv = FACTOR_15_SEED + extra
+    keep = lambda out: [line for line in out.splitlines() if "Sharding" in line or "Factors of" in line]
+    want_rc = jcli.main(argv)
+    want = capsys.readouterr()
+    got_rc = cli.main(argv)
+    got = capsys.readouterr()
+    assert got_rc == want_rc
+    assert keep(got.out) == keep(want.out)
+    errors = lambda err: [line for line in err.splitlines() if line.startswith("Error:")]
+    # Backend names translated as in cli.validate: xla -> torch.
+    assert errors(got.err) == [line.replace("xla backend", "torch backend") for line in errors(want.err)]
+    if want_rc == 0:
+        assert " --- Factors of 15 found: (5, 3)." in got.out
+        assert f" --- Sharding state vector over {extra[extra.index('--devices') + 1]} device(s)." in got.out
