@@ -199,9 +199,32 @@ Phases, each of which must pass:
      layout, a 16 GiB state no single card of the port holds: its norm
      within 5e-3, its peak memory under N32_PEAK_GIB, 8 shots whose
      composed (shard, local) indices lie below 2^32 on nonzero amplitudes;
-     and 1,060,314,373 at M = 30 with the work register sharded, complex64
-     and complex32, its bits equal to the single-card attempt's on the same
-     draws (phase 7 and 11), 0 overflow, each step's exchange bytes printed.
+     and 1,060,314,373 at M = 30 with the work register sharded: complex32
+     factored at the full depth, its bits equal to phase 11's single-card
+     attempt on the same draws; complex64 at a depth of SHARDED_SC_L = 12
+     of its 45 steps, its bits equal to the single card's attempt at that
+     depth; 0 overflow, each step's exchange bytes printed; the shards'
+     sha256, counters, plan segments, norm and the index measured at
+     PROCESS_DRAW of the n = 28 runs of PROCESS_FORMS kept;
+ 16. the mesh across processes (parallel/comm.ProcessTransport over gloo,
+     CUDA operands staged through pinned host buffers) on the one card, the
+     kernel library built before and loaded by the workers
+     (python3 chip_smoke.py --mesh-worker JOB, parallel/launch.run): 2
+     processes x 2 shards of cuda:0 run the n = 28 flagship m_high at
+     complex64 and complex32 and standard at complex64, and 4 x 1 the
+     complex32 m_high one, each shard's sha256 equal to phase 15's
+     one-process 4-shard run, the same measured index and norm in every
+     process, the counters' calls equal on every process and their bytes
+     summed over the processes equal to phase 15's, fused launches = the
+     process's shards x the local plan's segments, block sums launched by
+     the measure (and matrix groups at complex32); each run's host-clock
+     seconds, the bytes that crossed processes and each process's peak
+     memory printed, beside a probe of one 256 MiB pinned copy each way
+     and one gloo message each way; and the semiclassical attempt at M = 24
+     (C = 2^24 - 3, a = 7, L = 12) across the 2 processes, its bits and
+     branch probabilities equal to the one-process 4-shard attempt's and
+     its exchange bytes summed equal to it.  A worker that fails or
+     outlasts its limit fails the phase.
 
 Prints a JSON kernel report and, last, {"ok": true, "device": {...}}.  Each
 kernel's entry holds its launches on a main path, its max abs error, its ms
@@ -232,7 +255,8 @@ gradient's backward launched on the n = 28 flagship has "backward_launches"
 (by form), and fused_segment / fused_segment_bf16 "gradient_ms" (the run,
 forward and backward times of each form); fused_segment, fused_matmul and block_sums
 (and their bf16 entries) "sharded_launches", their launches in phase 15's
-runs by run.  Any failure
+runs by run, and "process_launches", phase 16's by run and process (block
+sums: the measure's).  Any failure
 exits non-zero without that line.  Imports
 nothing of JAX.
 """
@@ -2964,6 +2988,11 @@ N32_SHOTS, N32_SEED = 8, 32
 # The n = 32 run's peak: the 16 GiB state, one more state for a ladder's
 # out-of-place result and chunk temporaries (PERF.md section 6).
 N32_PEAK_GIB = 40.0
+# The sharded complex64 M = 30 attempt's depth: 12 of the factorization's 45
+# steps (the time phase 16 needs, within the script's limit), held against
+# the single card at the same depth; the complex32 one factors at the full
+# depth, as phases 7 and 11 do on the single card.
+SHARDED_SC_L = 12
 
 
 def sharded_mesh():
@@ -3000,8 +3029,20 @@ def sharded_entry_ms(eng, circuit) -> dict:
     return {**{k: {"ms": v[0], "entries": v[1]} for k, v in out.items()}, "bytes": eng.comm.total_bytes()}
 
 
-def sharded_flagship(report: dict, mesh, layout: str, planes) -> None:
-    """The n = 28 flagship on the mesh against the single-card state."""
+def shard_hashes(state, local) -> dict:
+    """sha256 of each of this process's shards' bytes, by shard."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha256(state[k].contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            for k in local}
+
+
+def sharded_flagship(report: dict, mesh, layout: str, planes, refs: dict) -> None:
+    """The n = 28 flagship on the mesh against the single-card state.  For
+    the forms the process mesh runs (PROCESS_FORMS), the run's shard hashes,
+    counters, plan segments, norm and measured index go into `refs`."""
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
@@ -3023,9 +3064,15 @@ def sharded_flagship(report: dict, mesh, layout: str, planes) -> None:
     state = eng.run(circuit)
     torch.cuda.synchronize()
     counts, sent = launches(), eng.comm.total_bytes()
+    stats = eng.comm.world_stats()
     got = torch.cat(state, dim=1)
     dist = float(torch.linalg.vector_norm(got.float() - want.float()))
     norm = eng.norm(state)
+    if (layout, dname(engine_dtype(planes))) in PROCESS_FORMS:
+        refs[(layout, dname(engine_dtype(planes)))] = {
+            "hashes": shard_hashes(state, range(mesh.size)), "stats": stats, "segments": segments, "norm": norm,
+            "index": eng.measure(state, PROCESS_DRAW)[0],
+        }
     del state, got, want
     tol = FLAGSHIP_TOL if planes == torch.float32 else C32_DIST_TOL
     entry = report[key("fused_segment", planes)]
@@ -3033,6 +3080,8 @@ def sharded_flagship(report: dict, mesh, layout: str, planes) -> None:
     if counts["matmul"]:
         report[key("fused_matmul", planes)].setdefault("sharded_launches", {})[f"n28 {layout}"] = counts["matmul"]
     sharded_ms = time_ms(lambda: eng.run(circuit), reps=3)
+    if (layout, dname(engine_dtype(planes))) in refs:
+        refs[(layout, dname(engine_dtype(planes)))]["ms"] = sharded_ms
     parts = sharded_entry_ms(eng, circuit)
     gates = [e[1].name for e in plan if e[0] == "gate"]
     log(
@@ -3145,46 +3194,58 @@ def sharded_n32(report: dict, mesh) -> None:
     torch.cuda.empty_cache()
 
 
-def sharded_semiclassical(mesh, planes, reference) -> None:
-    """1,060,314,373 at M = 30 with the work register over the mesh, on the
-    draws of the single-card attempt `reference` (seed SC_SEED): the same
-    bits, the factors, 0 overflow."""
+def sharded_semiclassical(mesh, planes, reference=None) -> None:
+    """1,060,314,373 at M = 30 with the work register over the mesh,
+    through shors_algorithm(semiclassical=True, mesh=...), 0 overflow.
+    With `reference` (the single card's attempt of phase 11 on the same
+    draws, seed SC_SEED) at the full depth: the same bits and the factors.
+    Without: at a depth of SHARDED_SC_L steps, the bits of the single
+    card's attempt at that depth."""
     import torch
 
     from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
 
     C, a, L, M = SC_FACTOR
+    kwargs = dict(forced_trial_int=a, seed=SC_SEED, dtype=engine_dtype(planes), backend=KERNEL_BACKEND,
+                  semiclassical=True)
+    if reference is None:
+        L = SHARDED_SC_L
+        reference = shors_algorithm(C, L, M, **kwargs).attempts[0].semiclassical
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = shors_algorithm(C, L, M, forced_trial_int=a, seed=SC_SEED, dtype=engine_dtype(planes),
-                             backend=KERNEL_BACKEND, semiclassical=True, mesh=mesh)
+    result = shors_algorithm(C, L, M, mesh=mesh, **kwargs)
     wall = time.perf_counter() - t0
     attempt = result.attempts[0]
     rec = attempt.semiclassical
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"sharded semiclassical M={M} C={C} a={a} {dname(planes)} on {mesh.size} shards: {result.outcome.value}, "
-        f"factors {result.factors}; attempt {attempt.elapsed_s:.3f} s ({attempt.elapsed_s / L * 1e3:.3f} ms a step), "
-        f"total {wall:.3f} s; capacity {rec.capacity} slots a bin ({mesh.size} bins a shard), overflow {rec.overflow}; "
-        f"peak memory {peak:.3f} GiB; bits equal to the single card's: {rec.bits == reference.bits}")
+    log(f"sharded semiclassical M={M} C={C} a={a} L={L} {dname(planes)} on {mesh.size} shards: "
+        f"{result.outcome.value}, factors {result.factors}; attempt {attempt.elapsed_s:.3f} s "
+        f"({attempt.elapsed_s / L * 1e3:.3f} ms a step), total {wall:.3f} s; capacity {rec.capacity} slots a bin "
+        f"({mesh.size} bins a shard), overflow {rec.overflow}; peak memory {peak:.3f} GiB; bits {rec.bits}, equal to "
+        f"the single card's: {rec.bits == reference.bits}")
     log(f"sharded semiclassical {dname(planes)} exchange bytes by step {rec.exchange_bytes}")
     check(rec.bits == reference.bits, f"sharded bits {rec.bits} != single-card bits {reference.bits}")
-    check(result.factors == SC_FACTORS, f"sharded semiclassical factors {result.factors}")
+    if L == SC_FACTOR[2]:
+        check(result.factors == SC_FACTORS, f"sharded semiclassical factors {result.factors}")
     check(rec.overflow == 0, f"overflow {rec.overflow}")
     torch.cuda.empty_cache()
 
 
-def phase_sharded(report: dict, sc64, sc32) -> None:
+def phase_sharded(report: dict, sc32) -> dict:
     """The sharded engine (parallel/sharded.py, sharded_semiclassical.py)
-    on SHARDS shards of the one card (PERF.md section 4)."""
+    on SHARDS shards of the one card (PERF.md section 4); `sc32` is phase
+    11's complex32 attempt record.  Returns the references of the process
+    mesh's runs (sharded_flagship)."""
     import torch
 
     t_phase = time.perf_counter()
     mesh = sharded_mesh()
     log(f"phase sharded: mesh {mesh}")
+    refs: dict = {}
     for planes in (torch.float32, torch.bfloat16):
         for layout in ("standard", "m_high"):
-            sharded_flagship(report, mesh, layout, planes)
+            sharded_flagship(report, mesh, layout, planes, refs)
     for layout in ("standard", "m_high"):
         sharded_c128(mesh, layout)
     for planes in (torch.float32, torch.bfloat16):
@@ -3192,9 +3253,262 @@ def phase_sharded(report: dict, sc64, sc32) -> None:
             sharded_factor(report, mesh, layout, planes)
     torch.cuda.empty_cache()
     sharded_n32(report, mesh)
-    sharded_semiclassical(mesh, torch.float32, sc64)
-    sharded_semiclassical(mesh, torch.bfloat16, sc32)
+    sharded_semiclassical(mesh, torch.float32)
+    sharded_semiclassical(mesh, torch.bfloat16, reference=sc32)
     log(f"phase sharded: {time.perf_counter() - t_phase:.3f} s")
+    return refs
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh across processes, on the one card.
+
+# The n = 28 flagship forms the process mesh runs: (layout, dtype name).
+PROCESS_FORMS = (("m_high", "complex64"), ("m_high", "complex32"), ("standard", "complex64"))
+PROCESS_DRAW = 0.37  # the measurement's draw, in phase 15 and in every worker
+# The semiclassical attempt across processes: C = 2^24 - 3, a, L, M.  M = 24,
+# not the M = 30 of phase 15, whose all_to_all moves 12 GiB a step.
+PROCESS_SC = (16777213, 7, 12, 24)
+PROCESS_SC_SEED = 24
+PROCESS_PROBE_BYTES = 1 << 28  # the transfer probe's message (256 MiB)
+PROCESS_GLOO_TIMEOUT_S = 300
+PROCESS_GROUP_TIMEOUT_S = 420
+
+
+def transfer_probe(rank: int) -> dict:
+    """GB/s of one PROCESS_PROBE_BYTES copy device -> pinned host and back,
+    and of one gloo message each way between the two processes at once
+    (the second of two tries each), host clock."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.cuda.current_device()
+    x = torch.ones(PROCESS_PROBE_BYTES // 4, dtype=torch.float32, device=dev)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    rates = {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.copy_(x, non_blocking=True)
+        torch.cuda.synchronize()
+        rates["d2h_gbps"] = PROCESS_PROBE_BYTES / (time.perf_counter() - t0) / 1e9
+        t0 = time.perf_counter()
+        x.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        rates["h2d_gbps"] = PROCESS_PROBE_BYTES / (time.perf_counter() - t0) / 1e9
+        back = torch.empty_like(host)
+        peer = 1 - rank
+        dist.barrier()
+        t0 = time.perf_counter()
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, host, peer), dist.P2POp(dist.irecv, back, peer)]):
+            work.wait()
+        rates["gloo_gbps"] = PROCESS_PROBE_BYTES / (time.perf_counter() - t0) / 1e9
+    return rates
+
+
+def process_flagship(mesh, layout: str, dtype_name: str) -> dict:
+    """One form of the n = 28 flagship on this process's share of the world
+    mesh: one run, counted (launches, counters, hashes, norm, the measured
+    index) and timed (host clock; the process's first run of a state size
+    also allocates its pinned host buffers), and the peak memory."""
+    import torch
+
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.parallel.sharded import ShardedStateVectorEngine
+    from quantumcomputer_tpu_torch.sim.engine import Register
+
+    C, a, L, M = FLAGSHIP
+    circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
+    dtype = "complex32" if dtype_name == "complex32" else torch.complex64
+    eng = ShardedStateVectorEngine(Register(L=L, M=M), dtype, mesh=mesh, backend=KERNEL_BACKEND, layout=layout)
+    segments = sum(e[0] == "fused" for e in eng.plan(circuit))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    eng.comm.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = eng.run(circuit)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launches()
+    stats = {kind: dict(v) for kind, v in eng.comm.stats.items()}
+    hashes = shard_hashes(state, mesh.local)
+    norm = eng.norm(state)
+    reset_launches()
+    index = eng.measure(state, PROCESS_DRAW)[0]
+    measure_sums = launches()["block_sums"]
+    del state
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    return {"layout": layout, "dtype": dtype_name, "segments": segments, "launches": counts, "stats": stats,
+            "hashes": hashes, "norm": norm, "index": index, "measure_block_sums": measure_sums, "run_s": run_s,
+            "peak_gib": peak}
+
+
+def process_semiclassical(mesh) -> dict:
+    import torch
+
+    from quantumcomputer_tpu_torch.parallel.sharded_semiclassical import run_semiclassical_sharded
+
+    C, a, L, M = PROCESS_SC
+    rs = torch.rand((L,), generator=torch.Generator().manual_seed(PROCESS_SC_SEED), dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = run_semiclassical_sharded(C, a, L, M, rs, mesh, dtype=torch.complex64)
+    torch.cuda.synchronize()
+    return {"bits": rec.bits, "probs": [float(p) for p in rec.branch_probs], "exchange_bytes": rec.exchange_bytes,
+            "capacity": rec.capacity, "overflow": rec.overflow, "s": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def mesh_worker(job: dict) -> int:
+    """One process of the mesh (python3 chip_smoke.py --mesh-worker JOB):
+    join the gloo group, build the world mesh of job["shards"] shards of
+    cuda:0 a process, run the job's forms, print one MESH_RESULT line."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import _build
+    from quantumcomputer_tpu_torch.parallel import launch
+    from quantumcomputer_tpu_torch.parallel.mesh import build_mesh
+
+    prebuilt = os.path.exists(_build.library_path())
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    launch.join(job["store"], job["rank"], job["world"], timeout_s=PROCESS_GLOO_TIMEOUT_S)
+    mesh = build_mesh(devices=[torch.device(DEVICE, 0)] * job["shards"])
+    _build.load()
+    out = {"rank": job["rank"], "library_prebuilt": prebuilt, "join_s": time.perf_counter() - t0,
+           "local": list(mesh.local), "owners": [s.process_index for s in mesh.slots]}
+    if job.get("probe"):
+        out["probe"] = transfer_probe(job["rank"])
+    out["forms"] = [process_flagship(mesh, layout, dtype) for layout, dtype in job["forms"]]
+    if job.get("semiclassical"):
+        out["semiclassical"] = process_semiclassical(mesh)
+    launch.leave()
+    print("MESH_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def run_mesh_group(world: int, shards: int, **job) -> list:
+    """Start `world` workers of `shards` shards each and return their
+    MESH_RESULT records, rank by rank; a worker that fails or outlasts
+    PROCESS_GROUP_TIMEOUT_S fails the phase (its log's end is printed)."""
+    import tempfile
+
+    from quantumcomputer_tpu_torch.parallel import launch
+
+    with tempfile.TemporaryDirectory(prefix="mesh_group_") as tmp:
+        store = os.path.join(tmp, "store")
+        commands = [[sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                     json.dumps({**job, "world": world, "shards": shards, "rank": r, "store": store})]
+                    for r in range(world)]
+        t0 = time.perf_counter()
+        ran = launch.run(commands, [os.path.join(tmp, f"worker{r}.log") for r in range(world)],
+                         timeout_s=PROCESS_GROUP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    results = []
+    for r, (rc, out) in enumerate(ran):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MESH_RESULT ")]
+        if rc != 0 or len(lines) != 1:
+            log(f"process mesh {world}x{shards}: worker {r} exited {rc}; its output ends:\n{out[-6000:]}")
+        check(rc == 0 and len(lines) == 1, f"process mesh {world}x{shards}: worker {r} failed (exit {rc})")
+        results.append(json.loads(lines[0][len("MESH_RESULT "):]))
+    log(f"process mesh {world}x{shards}: {world} workers ran in {wall:.3f} s (join {[round(x['join_s'], 3) for x in results]} s)")
+    return results
+
+
+def check_process_form(report: dict, results: list, ref: dict, group: str) -> None:
+    """Every rank's run of one form against the one-process 4-shard run of
+    phase 15: hash-equal shards, the same index and norm, counters (calls
+    on each rank, bytes summed) equal, fused launches = local shards x the
+    local plan's segments."""
+    import torch
+
+    layout, dtype = ref["form"]
+    runs = [next(f for f in r["forms"] if (f["layout"], f["dtype"]) == (layout, dtype)) for r in results]
+    hashes = {int(k): v for run in runs for k, v in run["hashes"].items()}
+    planes = torch.bfloat16 if dtype == "complex32" else torch.float32
+    crossing = sum(v["crossing"] for run in runs for v in run["stats"].values())
+    counted = sum(v["bytes"] for run in runs for v in run["stats"].values())
+    log(f"process mesh {group} n=28 {layout} {dtype}: run {[round(run['run_s'], 3) for run in runs]} s a process "
+        f"(one-process 4 shards {ref['ms']:.3f} ms); "
+        f"bytes crossing processes {crossing} ({crossing / 2**30:.3f} GiB), counted {counted} "
+        f"(one process: {sum(v['bytes'] for v in ref['stats'].values())}); peak "
+        f"{[round(run['peak_gib'], 3) for run in runs]} GiB a process; index {[run['index'] for run in runs]} "
+        f"(one process {ref['index']}); norm {runs[0]['norm']:.9f}; fused launches "
+        f"{[run['launches']['fused_segment'] for run in runs]} ({ref['segments']} segments a shard); "
+        f"hash-equal {hashes == ref['hashes']}; sha256 by shard {json.dumps(hashes, sort_keys=True)}")
+    check(hashes == ref["hashes"], f"process mesh {group} {layout} {dtype}: shard hashes differ from the one-process run")
+    check(all(run["index"] == ref["index"] for run in runs), f"process mesh {group} {layout} {dtype}: indices differ")
+    check(all(run["norm"] == ref["norm"] for run in runs), f"process mesh {group} {layout} {dtype}: norms differ")
+    for kind, want in ref["stats"].items():
+        check(all(run["stats"][kind]["count"] == want["count"] for run in runs), f"{group} {kind} calls differ")
+        check(sum(run["stats"][kind]["bytes"] for run in runs) == want["bytes"],
+              f"process mesh {group} {layout} {dtype}: {kind} bytes summed over the processes != the one-process run's")
+    check(crossing > 0, f"process mesh {group} {layout} {dtype}: no byte crossed processes")
+    for r, run in zip(results, runs):
+        check(run["segments"] == ref["segments"], f"process mesh {group}: plan segments {run['segments']} != {ref['segments']}")
+        check(run["launches"]["fused_segment"] == len(r["local"]) * ref["segments"] > 0,
+              f"process mesh {group} rank {r['rank']}: fused launches {run['launches']['fused_segment']} != "
+              f"{len(r['local'])} x {ref['segments']}")
+        check(run["measure_block_sums"] >= len(r["local"]), f"process mesh {group}: the measure launched no block sums")
+        if (layout, dtype) == ("m_high", "complex32"):
+            check(run["launches"]["matmul"] > 0, f"process mesh {group}: no matrix group launched")
+    per_process = {"fused_segment": [run["launches"]["fused_segment"] for run in runs],
+                   "block_sums": [run["measure_block_sums"] for run in runs]}
+    if (layout, dtype) == ("m_high", "complex32"):
+        per_process["fused_matmul"] = [run["launches"]["matmul"] for run in runs]
+    for name, counts in per_process.items():
+        report[key(name, planes)].setdefault("process_launches", {})[f"n28 {layout} {group}"] = counts
+
+
+def phase_process_mesh(report: dict, refs: dict) -> None:
+    """The mesh across processes (parallel/comm.ProcessTransport over gloo,
+    CUDA operands staged through pinned host memory) on the one card:
+    2 processes x 2 shards and 4 x 1, against phase 15's one-process runs."""
+    import numpy as np
+    import torch
+
+    from quantumcomputer_tpu_torch.parallel.sharded_semiclassical import run_semiclassical_sharded
+
+    t_phase = time.perf_counter()
+    C, a, L, M = PROCESS_SC
+    rs = torch.rand((L,), generator=torch.Generator().manual_seed(PROCESS_SC_SEED), dtype=torch.float32)
+    t0 = time.perf_counter()
+    sc_ref = run_semiclassical_sharded(C, a, L, M, rs, sharded_mesh(), dtype=torch.complex64)
+    torch.cuda.synchronize()
+    sc_ref_s = time.perf_counter() - t0
+    for form, ref in refs.items():
+        ref["form"] = form
+    torch.cuda.empty_cache()  # the workers share the card
+
+    results = run_mesh_group(2, 2, forms=PROCESS_FORMS, probe=True, semiclassical=True)
+    for r in results:
+        check(r["library_prebuilt"], f"worker {r['rank']} found no built library")
+        check(r["owners"] == [0, 0, 1, 1] and r["local"] == [2 * r["rank"], 2 * r["rank"] + 1],
+              f"worker {r['rank']}: mesh not process-major: {r['owners']}")
+        log(f"process mesh 2x2 rank {r['rank']} transfers of {PROCESS_PROBE_BYTES} bytes: {json.dumps(r['probe'])}")
+    for form in PROCESS_FORMS:
+        check_process_form(report, results, refs[form], "2x2")
+    sc = [r["semiclassical"] for r in results]
+    cap = sc[0]["capacity"]
+    crossing = 8 * 2 * cap * 4  # a step: the 8 (sender, receiver) pairs across processes, (2, cap) float32 slots each
+    log(f"process mesh 2x2 semiclassical M={M} C={C} a={a} L={L}: {[round(x['s'], 3) for x in sc]} s "
+        f"(one process 4 shards {sc_ref_s:.3f} s); capacity {cap}, crossing {crossing} bytes a step with an exchange; "
+        f"exchange bytes summed {np.sum([x['exchange_bytes'] for x in sc], axis=0).tolist() == sc_ref.exchange_bytes}; "
+        f"peak {[round(x['peak_gib'], 3) for x in sc]} GiB; bits {sc[0]['bits']}")
+    check(all(x["bits"] == sc_ref.bits and x["probs"] == [float(p) for p in sc_ref.branch_probs] for x in sc),
+          "process mesh semiclassical: bits or probabilities differ from the one-process attempt")
+    check(all(x["overflow"] == 0 for x in sc), "process mesh semiclassical: overflow")
+    check(np.sum([x["exchange_bytes"] for x in sc], axis=0).tolist() == sc_ref.exchange_bytes,
+          "process mesh semiclassical: exchange bytes summed over the processes != the one-process attempt's")
+
+    results = run_mesh_group(4, 1, forms=(("m_high", "complex32"),))
+    for r in results:
+        check(r["owners"] == [0, 1, 2, 3] and r["local"] == [r["rank"]], f"worker {r['rank']}: mesh {r['owners']}")
+    check_process_form(report, results, refs[("m_high", "complex32")], "4x1")
+    log(f"phase process mesh: {time.perf_counter() - t_phase:.3f} s")
 
 
 def new_report() -> dict:
@@ -3261,6 +3575,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout that holds quantumcomputer_tpu_torch/", file=sys.stderr)
         return 1
     sys.path.insert(0, root)
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(json.loads(sys.argv[2]))
 
     report = new_report()
     card = card_line()
@@ -3291,7 +3607,8 @@ def main() -> int:
     phase_checkpoint()
     phase_algorithms()
     phase_variational(report)
-    phase_sharded(report, sc64, sc32)
+    refs = phase_sharded(report, sc32)
+    phase_process_mesh(report, refs)
 
     for entry in report.values():
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,

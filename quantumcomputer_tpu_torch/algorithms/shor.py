@@ -228,7 +228,11 @@ def shors_algorithm(
     semiclassical=True runs each attempt on the one-control-qubit engine
     (``algorithms/semiclassical.py``): a 2^M state instead of 2^(L+M), the
     same outcome distribution, on the CUDA device when the backend is
-    ``cuda`` and on the CPU otherwise.
+    ``cuda`` and on the CPU otherwise.  Its dtype may also be given as the
+    strings "complex64" and "complex128", which the JAX package's
+    semiclassical mode refuses (it takes only "complex32", "c32" and
+    "dd64" as strings, though its message names all four): a departure
+    kept on purpose.
 
     checkpoint_dir: snapshots for preemption recovery, per segment of the
     full-register circuit (find_period) or every few semiclassical steps

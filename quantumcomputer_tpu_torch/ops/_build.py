@@ -5,7 +5,9 @@ Every ``ops/csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 link into ONE shared library with a plain C interface, loaded with ctypes.  The build runs at first use, keyed by a hash of the sources and
 flags, into ``build/quantumcomputer_tpu_torch/`` beside the package (a
 git-ignored directory), so a fresh checkout builds its own kernels and a
-changed source never loads a stale library.  A failed build raises.
+changed source never loads a stale library.  A failed build raises.  A
+file lock beside the library lets one process build it while the others
+that need it (the processes of a mesh on a fresh checkout) wait and load.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the
@@ -18,6 +20,7 @@ when it is not 0.  A kernel has one entry point per plane dtype, named
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -101,6 +104,21 @@ def _build(out: str) -> None:
     os.replace(f"{tmp}.so", out)  # atomic: a concurrent build never loads a partial file
 
 
+def _build_once(path: str) -> None:
+    """Build the library at `path` unless it exists, one process at a time:
+    the first to take the lock builds, the others wait for it and find the
+    library built.  The operating system drops the lock of a process that
+    dies."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(path[:-3] + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):
+                _build(path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     kernels = (
@@ -155,7 +173,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not os.path.exists(path):
-                _build(path)
+                _build_once(path)
             lib = ctypes.CDLL(path)
             _bind(lib)
             _lib = lib

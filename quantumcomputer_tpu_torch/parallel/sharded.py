@@ -3,7 +3,9 @@
 The counterpart of the JAX package's ``parallel/sharded.py``.  A state on
 n qubits over a mesh of D = 2^d shards is a list of D planar (2, 2^(n-d))
 tensors, shard k on the mesh's device k; the top d qubits are global
-(``parallel/mesh.py``).  Each gate runs as the JAX engine runs it inside
+(``parallel/mesh.py``).  On a mesh over several processes each process
+holds its own shards, the other entries are None, and every body loops
+over ``comm.local``.  Each gate runs as the JAX engine runs it inside
 ``shard_map``:
 
   * gates on shard-local qubits: the single-device ops on every shard.
@@ -62,7 +64,7 @@ from quantumcomputer_tpu_torch.models.circuit import (
 )
 from quantumcomputer_tpu_torch.ops import fused, measure
 from quantumcomputer_tpu_torch.ops import gates as tops
-from quantumcomputer_tpu_torch.parallel.comm import LocalTransport
+from quantumcomputer_tpu_torch.parallel.comm import Transport, transport_for
 from quantumcomputer_tpu_torch.parallel.mesh import Mesh, build_mesh, mesh_degree
 from quantumcomputer_tpu_torch.sim import engine as seng
 from quantumcomputer_tpu_torch.sim import statevec as sv
@@ -164,20 +166,20 @@ def _bit_diag_(x: torch.Tensor, q: int, d0, d1) -> torch.Tensor:
 # Gates on global qubits.
 
 
-def _apply_1q_global_(shards: list, u2: np.ndarray, p: int, comm: LocalTransport) -> None:
+def _apply_1q_global_(shards: list, u2: np.ndarray, p: int, comm: Transport) -> None:
     """Dense 1q gate on global qubit bit p: exchange shards with the
     partner, then new = U[b,b] * ours + U[b,1-b] * theirs (b = our bit)."""
     D = len(shards)
     remote = comm.ppermute(shards, _butterfly_pairs(D, p))
-    out = []
-    for me in range(D):
+    out = list(shards)
+    for me in comm.local:
         b = _device_bit(me, p)
         diag, off = (u2[0, 0], u2[0, 1]) if b == 0 else (u2[1, 1], u2[1, 0])
-        out.append(_combine_(torch.empty_like(shards[me]), ((diag, shards[me]), (off, remote[me]))))
+        out[me] = _combine_(torch.empty_like(shards[me]), ((diag, shards[me]), (off, remote[me])))
     shards[:] = out
 
 
-def _apply_2q_one_global_(shards: list, u4: np.ndarray, p: int, q_local: int, comm: LocalTransport) -> None:
+def _apply_2q_one_global_(shards: list, u4: np.ndarray, p: int, q_local: int, comm: Transport) -> None:
     """Dense 2q gate with exactly one global qubit (shard bit p) and one
     local; u4 in the basis 2*bit(global) + bit(local).  One shard exchange,
     then the contraction over (global, local) pairs, in the complex
@@ -185,8 +187,8 @@ def _apply_2q_one_global_(shards: list, u4: np.ndarray, p: int, q_local: int, co
     D = len(shards)
     remote = comm.ppermute(shards, _butterfly_pairs(D, p))
     inner = 1 << q_local
-    out = []
-    for me in range(D):
+    out = list(shards)
+    for me in comm.local:
         x = shards[me]
         b = _device_bit(me, p)
         cdt = sv.complex_dtype_of(x.dtype)
@@ -195,11 +197,11 @@ def _apply_2q_one_global_(shards: list, u4: np.ndarray, p: int, q_local: int, co
         x_rm = sv.to_complex(remote[me]).view(-1, 2, inner)
         xs = torch.stack([x_me, x_rm] if b == 0 else [x_rm, x_me])  # (g, outer, l, inner)
         z = torch.einsum("fgl,golx->ofx", w, xs).reshape(-1)
-        out.append(sv.from_complex(z).to(x.dtype))
+        out[me] = sv.from_complex(z).to(x.dtype)
     shards[:] = out
 
 
-def _apply_2q_both_global_(shards: list, u4: np.ndarray, p_hi: int, p_lo: int, comm: LocalTransport) -> None:
+def _apply_2q_both_global_(shards: list, u4: np.ndarray, p_hi: int, p_lo: int, comm: Transport) -> None:
     """Dense 2q gate with both qubits global (shard bits p_hi, p_lo): the
     shards of the three XOR partners (three exchanges), then a 4-term
     combination selected by the shard's two bits; u4 in the basis
@@ -208,8 +210,8 @@ def _apply_2q_both_global_(shards: list, u4: np.ndarray, p_hi: int, p_lo: int, c
     r_lo = comm.ppermute(shards, _butterfly_pairs(D, p_lo))
     r_hi = comm.ppermute(shards, _butterfly_pairs(D, p_hi))
     r_both = comm.ppermute(r_lo, _butterfly_pairs(D, p_hi))
-    out = []
-    for me in range(D):
+    out = list(shards)
+    for me in comm.local:
         b_hi, b_lo = _device_bit(me, p_hi), _device_bit(me, p_lo)
         urow = u4[2 * b_hi + b_lo]
         terms = []
@@ -217,7 +219,7 @@ def _apply_2q_both_global_(shards: list, u4: np.ndarray, p_hi: int, p_lo: int, c
             for d_lo in (0, 1):
                 src = (shards, r_lo, r_hi, r_both)[2 * d_hi + d_lo][me]
                 terms.append((urow[2 * (b_hi ^ d_hi) + (b_lo ^ d_lo)], src))
-        out.append(_combine_(torch.empty_like(shards[me]), terms))
+        out[me] = _combine_(torch.empty_like(shards[me]), terms)
     shards[:] = out
 
 
@@ -239,7 +241,7 @@ def _work_permutation(C: int, atox: int, M: int, device: torch.device) -> torch.
     return torch.from_numpy(tops.modmul_inverse_permutation(C, atox, M)).to(device)
 
 
-def _apply_iqft_global_(shards: list, l: int, M: int, n_local: int, comm: LocalTransport) -> None:
+def _apply_iqft_global_(shards: list, l: int, M: int, n_local: int, comm: Transport) -> None:
     """One inverse-QFT stage on global qubit l: H on it (an exchange), then
     on the shards whose bit l is 1 the stage's ladder diagonal
     exp(i pi (g & mask) / 2^l), mask = 2^l - 2^M, at global indices g: the
@@ -250,7 +252,8 @@ def _apply_iqft_global_(shards: list, l: int, M: int, n_local: int, comm: LocalT
     if l <= M:
         return
     mask = (1 << l) - (1 << M)
-    for me, x in enumerate(shards):
+    for me in comm.local:
+        x = shards[me]
         if _device_bit(me, l - n_local) != 1:
             continue
         high = (me & ((1 << (l - n_local)) - 1)) << n_local
@@ -323,29 +326,31 @@ def _device_schedule(C: int, atox: int, m_reg: int, d: int, device: torch.device
     )
 
 
-def _apply_rows_packed_(views: list, C: int, atox: int, m_reg: int, d: int, comm: LocalTransport) -> None:
+def _apply_rows_packed_(views: list, C: int, atox: int, m_reg: int, d: int, comm: Transport) -> None:
     """The m_high oracle's row exchange on (2, R, ...) views of the shards
-    (rows second), in place, on the packed static schedule: one row gather
-    of each shard's local sources, then per offset one packed send of rows
-    and their placement.  Every shard's new rows are made before any view
-    is written."""
+    (rows second; None for another process's), in place, on the packed
+    static schedule: one row gather of each local shard's local sources,
+    then per offset one packed send of rows and their placement.  Every
+    shard's new rows are made before any view is written."""
     D = len(views)
-    tables = [_device_schedule(C, atox, m_reg, d, v.device) for v in views]
-    outs = [v.index_select(1, tab[0][me]) for me, (v, tab) in enumerate(zip(views, tables))]
-    for i, delta in enumerate(entry[0] for entry in tables[0][1]):
-        bufs = [v.index_select(1, tab[1][i][1][p]) for p, (v, tab) in enumerate(zip(views, tables))]
+    tables = {me: _device_schedule(C, atox, m_reg, d, views[me].device) for me in comm.local}
+    outs = {me: views[me].index_select(1, tables[me][0][me]) for me in comm.local}
+    for i, delta in enumerate(entry[0] for entry in tables[comm.local[0]][1]):
+        bufs = [None] * D
+        for p in comm.local:  # padded to one shape across the shards
+            bufs[p] = views[p].index_select(1, tables[p][1][i][1][p])
         received = comm.ppermute(bufs, _rotation(D, delta))
         del bufs
-        for k in range(D):
+        for k in comm.local:
             rows = tables[k][1][i][2][k]  # the padding (row R) is a suffix, dropped
             if rows.numel():
                 outs[k].index_copy_(1, rows, received[k][:, : rows.numel()])
         del received
-    for v, o in zip(views, outs):
-        v.copy_(o)
+    for me, o in outs.items():
+        views[me].copy_(o)
 
 
-def _apply_camodc_high_(shards: list, g: Gate, d: int, comm: LocalTransport) -> None:
+def _apply_camodc_high_(shards: list, g: Gate, d: int, comm: Transport) -> None:
     """The m_high oracle (work register in the top m_reg bits, the global
     bits inside it) on the mesh: the row exchange of the (R, 2^(n-m_reg))
     row view, on the columns whose control bit is 1."""
@@ -355,7 +360,7 @@ def _apply_camodc_high_(shards: list, g: Gate, d: int, comm: LocalTransport) -> 
     c_phys = g.qubits[0]
     R = (1 << m_reg) >> d
     B = 1 << c_phys
-    views = [x.view(2, R, -1, 2, B)[:, :, :, 1, :] for x in shards]
+    views = [None if x is None else x.view(2, R, -1, 2, B)[:, :, :, 1, :] for x in shards]
     _apply_rows_packed_(views, int(C), int(atox), m_reg, d, comm)
 
 
@@ -375,32 +380,32 @@ def _ladder_masks(rest: int, controls: tuple, device: torch.device) -> torch.Ten
     return tops._column_bits(rest, controls, device)
 
 
-def _apply_ladder_high_(shards: list, g: Gate, d: int, comm: LocalTransport) -> None:
+def _apply_ladder_high_(shards: list, g: Gate, d: int, comm: Transport) -> None:
     """A fused run of m_high oracles on the mesh: the composed source row
     (mult * f) mod C depends on each column's control bits, so one rotation
     of D - 1 whole-shard exchanges serves the run; each output element
     takes the element of its source row.  Out of place, a block of columns
     at a time: the D source shards' column blocks are joined into one
     (2, D * R, cols) block in global row order (on one device the received
-    shards are the senders' own, so one join serves every shard), and each
-    shard gathers its rows from it through a (row, control-mask) table of
-    global source rows."""
+    shards are the senders' own, so one join serves every shard; received
+    copies are joined for each receiver), and each shard gathers its rows
+    from it through a (row, control-mask) table of global source rows."""
     C, m_reg = g.meta[0], g.meta[1]
     if d > m_reg:
         raise ValueError("m_high sharding needs the global bits inside the M register")
     D = len(shards)
     R = (1 << m_reg) >> d
-    rest = shards[0].shape[1] // R
+    rest = shards[comm.local[0]].shape[1] // R
     # incoming[delta][me]: the shard (me - delta) % D, as shard me receives it.
     incoming = [shards] + [comm.ppermute(shards, _rotation(D, delta)) for delta in range(1, D)]
-    tables = [_ladder_rows(C, g.meta[2:], m_reg, d, x.device)[me] for me, x in enumerate(shards)]
-    masks = [_ladder_masks(rest, g.qubits, x.device) for x in shards]
-    out = [torch.empty_like(x).view(2, R, rest) for x in shards]
+    tables = {me: _ladder_rows(C, g.meta[2:], m_reg, d, shards[me].device)[me] for me in comm.local}
+    masks = {me: _ladder_masks(rest, g.qubits, shards[me].device) for me in comm.local}
+    out = [torch.empty_like(x).view(2, R, rest) if x is not None else None for x in shards]
     cols = max(1, min(rest, _LADDER_CHUNK // (D * R)))
     for c0 in range(0, rest, cols):
         c1 = min(rest, c0 + cols)
         joined_from, joined = None, None
-        for me in range(D):
+        for me in comm.local:
             sources = [incoming[(me - e) % D][me] for e in range(D)]
             if joined_from != [id(t) for t in sources]:
                 joined = torch.cat([t.view(2, R, rest)[:, :, c0:c1] for t in sources], dim=1)
@@ -409,7 +414,7 @@ def _apply_ladder_high_(shards: list, g: Gate, d: int, comm: LocalTransport) -> 
             for p in range(2):
                 out[me][p, :, c0:c1] = torch.gather(joined[p], 0, idx)
     del incoming, joined
-    shards[:] = [o.view(2, -1) for o in out]
+    shards[:] = [None if o is None else o.view(2, -1) for o in out]
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +437,7 @@ def _local_gate_(x: torch.Tensor, g: Gate, M: int, backend: str) -> None:
 
 
 def apply_gate_sharded_(
-    shards: list, g: Gate, *, n: int, M: int, d: int, comm: LocalTransport, backend: str
+    shards: list, g: Gate, *, n: int, M: int, d: int, comm: Transport, backend: str
 ) -> list:
     """Dispatch one gate over the shards (list updated in place and
     returned): the JAX package's apply_gate_sharded and its planar twin."""
@@ -442,6 +447,7 @@ def apply_gate_sharded_(
         return q >= n_local
 
     name = g.name
+    mine = [(me, shards[me]) for me in comm.local]
     if name in ("camodc_high", "camodc_ladder_high"):
         if d == 0:
             _local_gate_(shards[0], g, M, backend)
@@ -451,7 +457,7 @@ def apply_gate_sharded_(
             _apply_ladder_high_(shards, g, d, comm)
         return shards
     if not any(is_global(q) for q in g.qubits):
-        for x in shards:
+        for _, x in mine:
             _local_gate_(x, g, M, backend)
         return shards
 
@@ -460,12 +466,12 @@ def apply_gate_sharded_(
     elif name in DIAGONAL_1Q:
         dg = np.diagonal(gate_matrix_1q(g))
         p = g.qubits[0] - n_local
-        for me, x in enumerate(shards):
+        for me, x in mine:
             _scale_(x, dg[_device_bit(me, p)])
     elif name in ("cz", "cphase"):
         d4 = np.diagonal(gate_matrix_2q(g))
         q_hi, q_lo = g.qubits if g.qubits[0] > g.qubits[1] else (g.qubits[1], g.qubits[0])
-        for me, x in enumerate(shards):
+        for me, x in mine:
             if is_global(q_hi) and is_global(q_lo):
                 _scale_(x, d4[2 * _device_bit(me, q_hi - n_local) + _device_bit(me, q_lo - n_local)])
             elif is_global(q_hi):
@@ -478,7 +484,7 @@ def apply_gate_sharded_(
         # Global controls are a condition on the shard's bits; the local
         # controls the single-device in-place mcphase.
         local = [q for q in g.qubits if not is_global(q)]
-        for me, x in enumerate(shards):
+        for me, x in mine:
             if all(_device_bit(me, q - n_local) for q in g.qubits if is_global(q)):
                 tops.apply_mcphase_planes_(x, local, g.params[0])
     elif name == "camodc":
@@ -486,7 +492,7 @@ def apply_gate_sharded_(
             raise ValueError("M register must be shard-local")
         C, atox = g.meta
         p = g.qubits[0] - n_local
-        for me, x in enumerate(shards):
+        for me, x in mine:
             if _device_bit(me, p):
                 _permute_work_(x, _work_permutation(C, atox, M, x.device), M)
     elif name == "iqft_stage":
@@ -556,7 +562,7 @@ def plan_sharded(circuit: Circuit, n: int, M: int, d: int, real_dtype: torch.dty
 
 
 def apply_plan_sharded_(
-    shards: list, plan: list, *, n: int, M: int, d: int, comm: LocalTransport, backend: str,
+    shards: list, plan: list, *, n: int, M: int, d: int, comm: Transport, backend: str,
     norms: Optional[list] = None,
 ) -> list:
     """Run a plan (plan_sharded) over the shards, in place.  With a
@@ -564,12 +570,12 @@ def apply_plan_sharded_(
     appended to it (a 0-d tensor on the first shard's device)."""
     for entry in plan:
         if entry[0] == "fused":
-            for x in shards:
-                fused.apply_fused(x, entry[1], entry[2], M)
+            for me in comm.local:
+                fused.apply_fused(shards[me], entry[1], entry[2], M)
         else:
             apply_gate_sharded_(shards, entry[1], n=n, M=M, d=d, comm=comm, backend=backend)
         if norms is not None:
-            norms.append(comm.psum([sv.norm(x) for x in shards]))
+            norms.append(comm.psum([None if x is None else sv.norm(x) for x in shards]))
     return shards
 
 
@@ -587,26 +593,32 @@ def _shard_sums(x: torch.Tensor, plain: bool) -> tuple:
     return None, sv.probabilities(x).sum()
 
 
-def two_level_pick(shards: list, rs, comm: LocalTransport, plain: bool, scale_by_total: bool = False) -> list:
+def two_level_pick(shards: list, rs, comm: Transport, plain: bool, scale_by_total: bool = False) -> list:
     """The sharded inverse-CDF pick (the JAX package's two_level_pick): the
     shards' totals gathered, a cumulative sum over D picks the shard, then
     the single-device sampler inside the chosen shard picks the element at
     the draw less the shards before it.  `rs` are draws in [0, 1) on the
     probability scale (normalized states), or, with scale_by_total, scaled
-    by the gathered total here.  Returns one (shard, local index) pair of
+    by the gathered total here.  Only the owner of the chosen shard knows
+    the local index: each shard contributes its picks and zeros elsewhere,
+    and a psum of those (the JAX body's psum of a one-hot) hands every
+    process the same pairs.  Returns one (shard, local index) pair of
     Python ints per draw."""
-    parts = [_shard_sums(x, plain) for x in shards]
-    totals = comm.all_gather([t for _, t in parts]).cpu()
+    parts = [None if x is None else _shard_sums(x, plain) for x in shards]
+    totals = comm.all_gather([None if p is None else p[1] for p in parts]).cpu()
     cum = torch.cumsum(totals, 0)
     r = torch.tensor(np.asarray(rs, dtype=np.float64)).reshape(-1).to(totals.dtype)
     if scale_by_total:
         r = r * cum[-1]
     dev = torch.searchsorted(cum, r, side="left").clamp_(max=len(shards) - 1)
     targets = r - (cum[dev] - totals[dev])
-    loc = torch.zeros_like(dev)
-    for k in torch.unique(dev).tolist():
+    picks = [None] * len(shards)
+    for k in comm.local:
+        picks[k] = torch.zeros_like(dev)
         sel = torch.nonzero(dev == k).reshape(-1)
-        loc[sel] = measure.sample_indices(shards[k], targets[sel], plain, absolute=True, sums=parts[k][0])
+        if sel.numel():
+            picks[k][sel] = measure.sample_indices(shards[k], targets[sel], plain, absolute=True, sums=parts[k][0])
+    loc = comm.psum(picks).cpu()
     return list(zip(dev.tolist(), loc.tolist()))
 
 
@@ -614,27 +626,34 @@ class _ShardedAdjointRun(torch.autograd.Function):
     """engine.run as a differentiable function of its input shards (the
     JAX engine's custom_vjp): the forward runs the circuit on copies of the
     shards, the backward runs dagger_circuit on copies of the cotangents,
-    both through the same sharded run; nothing is saved."""
+    both through the same sharded run; nothing is saved.  On a mesh over
+    processes the entries of other processes' shards stay None, forward and
+    back, and every process must run the backward (its exchanges are
+    collectives)."""
 
     @staticmethod
     def forward(ctx, engine: "ShardedStateVectorEngine", circuit: Circuit, *shards):
         ctx.engine, ctx.circuit = engine, circuit
-        return tuple(engine._run(circuit, [x.detach().clone() for x in shards], None))
+        return tuple(engine._run(circuit, [None if x is None else x.detach().clone() for x in shards], None))
 
     @staticmethod
     def backward(ctx, *cts):
         engine = ctx.engine
         adjoint = dagger_circuit(ctx.circuit, engine.m_eff)
-        out = engine._run(adjoint, [c.clone(memory_format=torch.contiguous_format) for c in cts], None)
-        return (None, None, *out)
+        cts = [None if c is None else c.clone(memory_format=torch.contiguous_format) for c in cts]
+        return (None, None, *engine._run(adjoint, cts, None))
 
 
 class ShardedStateVectorEngine:
     """The single-device StateVectorEngine's API over a mesh of shards.
 
     A state is a list of D planar (2, 2^(n-d)) tensors, shard k on the
-    mesh's device k.  `mesh` defaults to build_mesh() (every visible CUDA
-    card, or CPU_SHARDS virtual CPU shards).  dtype: complex64 (float32
+    mesh's device k; on a mesh that spans processes (build_mesh under a
+    torch.distributed process group) each process holds its own shards and
+    the other entries are None, every process runs the same calls, and the
+    exchanges go through comm.ProcessTransport.  `mesh` defaults to
+    build_mesh() (every visible CUDA card, or CPU_SHARDS virtual CPU
+    shards).  dtype: complex64 (float32
     planes), complex128 (float64) or "complex32" (bf16 planes computed in
     float32).  backend: "torch" (every gate through the plain ops, gate by
     gate), "cuda" (the fused path: the kernels on CUDA shards, their plain
@@ -660,7 +679,7 @@ class ShardedStateVectorEngine:
         self.register = register
         self.mesh = mesh if mesh is not None else build_mesh()
         self.d = mesh_degree(self.mesh)
-        self.comm = LocalTransport(self.mesh)
+        self.comm = transport_for(self.mesh)
         self.real_dtype = sv.real_dtype_of(dtype)
         self.dtype = {torch.float32: torch.complex64, torch.float64: torch.complex128}.get(self.real_dtype, sv.COMPLEX32)
         on_card = all(dv.type == "cuda" for dv in self.mesh.devices)
@@ -669,7 +688,7 @@ class ShardedStateVectorEngine:
                 raise ValueError("dtype='complex32' requires backend='cuda' or 'auto'")
             backend = "cuda"
         self.backend = ("cuda" if on_card else "torch") if backend == "auto" else backend
-        if any(dv.type == "cuda" for dv in self.mesh.devices) and not torch.cuda.is_available():
+        if any(self.mesh.devices[k].type == "cuda" for k in self.mesh.local) and not torch.cuda.is_available():
             raise ValueError("no CUDA device is available")
         self.layout = layout
         if register.n - self.d < 1:
@@ -689,7 +708,7 @@ class ShardedStateVectorEngine:
         self.m_eff = 0 if layout == "m_high" else register.M
         self.reset_index = (1 << register.L) if layout == "m_high" else 1
         if not mesh_fits(1.25, self.n_local, self.real_dtype, self.mesh):
-            dev = self.mesh.devices[0]
+            dev = self.mesh.first_device
             raise ValueError(
                 f"a 2^{register.n} state of {self.dtype} in {self.mesh.size} shards does not fit the "
                 f"{device_memory_budget(dev)} usable bytes of {dev} ({self.mesh.shards_on(dev)} shards on it)"
@@ -716,8 +735,11 @@ class ShardedStateVectorEngine:
 
     def _basis_state(self, index: int) -> list:
         dev, loc = divmod(index, self.shard_len)
-        shards = [torch.zeros((2, self.shard_len), dtype=self.real_dtype, device=dv) for dv in self.mesh.devices]
-        shards[dev][0, loc] = 1.0
+        shards = [None] * self.mesh.size
+        for k in self.mesh.local:
+            shards[k] = torch.zeros((2, self.shard_len), dtype=self.real_dtype, device=self.mesh.devices[k])
+        if shards[dev] is not None:
+            shards[dev][0, loc] = 1.0
         return shards
 
     def initial_state(self) -> list:
@@ -729,15 +751,27 @@ class ShardedStateVectorEngine:
 
     def from_planar(self, planar: torch.Tensor) -> list:
         """A (2, 2^n) planar state cut into this engine's shards (copies on
-        the mesh's devices, in its plane dtype)."""
-        return [
-            planar[:, k * self.shard_len : (k + 1) * self.shard_len].to(device=dv, dtype=self.real_dtype).contiguous()
-            for k, dv in enumerate(self.mesh.devices)
-        ]
+        the mesh's devices, in its plane dtype; this process's shards)."""
+        shards = [None] * self.mesh.size
+        for k in self.mesh.local:
+            piece = planar[:, k * self.shard_len : (k + 1) * self.shard_len]
+            shards[k] = piece.to(device=self.mesh.devices[k], dtype=self.real_dtype).contiguous()
+        return shards
+
+    def _whole(self, state: list) -> list:
+        """The shards of a state this process holds whole; raises where
+        another process holds some (the JAX package's fetch of a global
+        array fails across processes too)."""
+        if any(x is None for x in state):
+            raise RuntimeError(
+                "the state spans shards held by other processes: only the local shards "
+                f"{list(self.mesh.local)} of {self.mesh.size} can be read here"
+            )
+        return state
 
     def to_planar(self, state: list) -> torch.Tensor:
         """The shards joined into one (2, 2^n) planar CPU tensor."""
-        return torch.cat([x.detach().cpu() for x in state], dim=1)
+        return torch.cat([x.detach().cpu() for x in self._whole(state)], dim=1)
 
     # -- execution ----------------------------------------------------------
 
@@ -769,8 +803,9 @@ class ShardedStateVectorEngine:
         shards, as the single-device engine's run is: when grad mode is on
         and a shard requires grad, the run leaves `state` alone and returns
         new shards whose backward applies the dagger circuit to the
-        cotangents through the same sharded run."""
-        if state is not None and torch.is_grad_enabled() and any(x.requires_grad for x in state):
+        cotangents through the same sharded run (on a mesh over processes,
+        a collective: every process runs its backward)."""
+        if state is not None and torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in state):
             return list(_ShardedAdjointRun.apply(self, circuit, *state))
         return self._run(circuit, state, None)
 
@@ -806,9 +841,10 @@ class ShardedStateVectorEngine:
         overwritten in place with the one-hot basis state and returned."""
         idx = self._pick(state, [r])[0]
         dev, loc = divmod(idx, self.shard_len)
-        for x in state:
-            x.zero_()
-        state[dev][0, loc] = 1.0
+        for k in self.mesh.local:
+            state[k].zero_()
+        if state[dev] is not None:
+            state[dev][0, loc] = 1.0
         return idx, state
 
     def sample(self, state: list, rs) -> torch.Tensor:
@@ -822,11 +858,11 @@ class ShardedStateVectorEngine:
 
     def probabilities(self, state: list) -> torch.Tensor:
         """|amp|^2 of the whole state, one CPU tensor (for small states)."""
-        return torch.cat([sv.probabilities(x).cpu() for x in state])
+        return torch.cat([sv.probabilities(x).cpu() for x in self._whole(state)])
 
     def norm(self, state: list) -> float:
-        return float(self.comm.psum([sv.norm(x) for x in state]))
+        return float(self.comm.psum([None if x is None else sv.norm(x) for x in state]))
 
     def to_numpy(self, state: list) -> np.ndarray:
         """Host-side complex copy of the whole state (for small states)."""
-        return np.concatenate([sv.to_numpy_complex(x) for x in state])
+        return np.concatenate([sv.to_numpy_complex(x) for x in self._whole(state)])

@@ -43,7 +43,7 @@ import torch
 
 from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
 from quantumcomputer_tpu_torch.ops import gates as tops
-from quantumcomputer_tpu_torch.parallel.comm import LocalTransport
+from quantumcomputer_tpu_torch.parallel.comm import Transport, transport_for
 from quantumcomputer_tpu_torch.parallel.mesh import Mesh, mesh_degree
 from quantumcomputer_tpu_torch.sim import statevec as sv
 from quantumcomputer_tpu_torch.utils.memory import device_memory_budget, mesh_fits
@@ -126,17 +126,18 @@ def _blocks(m: int):
     return ((lo, min(m, lo + _BLOCK)) for lo in range(0, m, _BLOCK))
 
 
-def _oracle_exchange(xs: list, b: int, b_inv: int, C: int, s2s: dict, *, M: int, d: int, cap: int, comm: LocalTransport):
-    """g = U (x * s2) on every shard: the controlled modular multiply's
-    permutation of the c = 1 branch, as one all_to_all (module docstring);
-    s2s holds 1/sqrt(2) in the plane dtype on each device.  Returns (new
-    shards, the number of bins that exceeded cap)."""
+def _oracle_exchange(xs: list, b: int, b_inv: int, C: int, s2s: dict, *, M: int, d: int, cap: int, comm: Transport):
+    """g = U (x * s2) on every shard of this process: the controlled modular
+    multiply's permutation of the c = 1 branch, as one all_to_all (module
+    docstring); s2s holds 1/sqrt(2) in the plane dtype on each device.
+    Returns (new shards, the number of bins that exceeded cap, a shard)."""
     D = 1 << d
     n_l = M - d
     ls = 1 << n_l
     # Senders: bin the local rows by destination shard, in source order.
-    blocks, overflow = [], 0
-    for me, x in enumerate(xs):
+    blocks, overflow = [None] * D, [0] * D
+    for me in comm.local:
+        x = xs[me]
         s_glob = me * ls + torch.arange(ls, device=x.device, dtype=torch.int64)
         w = tops.modmul_permute_onchip(b, s_glob, C)
         dest = torch.where(s_glob < C, w >> n_l, D).to(torch.int32)
@@ -148,18 +149,19 @@ def _oracle_exchange(xs: list, b: int, b_inv: int, C: int, s2s: dict, *, M: int,
         buf = torch.empty((2, D, cap), dtype=x.dtype, device=x.device)
         for e in range(D):
             cnt = starts[e + 1] - starts[e]
-            overflow += cnt > cap
+            overflow[me] += cnt > cap
             cnt = min(cnt, cap)
             if cnt:
                 buf[:, e, :cnt] = x[:, order[starts[e] : starts[e] + cnt]] * s2
         del order
-        blocks.append([buf[:, e] for e in range(D)])
+        blocks[me] = [buf[:, e] for e in range(D)]
     received = comm.all_to_all(blocks)
     del blocks
     # Receivers: sort the local rows by source index; the rows of one
     # source shard then stand in that sender's packing order.
-    out = []
-    for me, x in enumerate(xs):
+    out = [None] * D
+    for me in comm.local:
+        x = xs[me]
         w_glob = me * ls + torch.arange(ls, device=x.device, dtype=torch.int64)
         src = tops.modmul_permute_onchip(b_inv, w_glob, C)
         del w_glob
@@ -179,7 +181,7 @@ def _oracle_exchange(xs: list, b: int, b_inv: int, C: int, s2s: dict, *, M: int,
         if t0 < ls:
             g[:, t0:] = x[:, t0:] * s2
         del rows
-        out.append(g)
+        out[me] = g
     return out, overflow
 
 
@@ -214,8 +216,11 @@ def run_semiclassical_sharded(
     run_semiclassical, the same bits for the same draws `rs` (L uniforms,
     taken in the compute dtype).  The record also holds the exchange's
     slots a bin (`capacity`), the bytes each step's exchange moved between
-    shards (`exchange_bytes`) and the bins that overflowed (`overflow`,
-    0, or the call raises)."""
+    shards (`exchange_bytes`; on a mesh over several processes, what this
+    process's shards sent) and the bins that overflowed (`overflow`, 0, or
+    the call raises).  On such a mesh every process runs the attempt and
+    gets the same bits and probabilities: the branch sums are gathered and
+    added in shard order on each."""
     if (1 << M) < C:
         raise ValueError(f"2^M={1 << M} < C={C}: the modular-multiply gate is not unitary")
     if C >= (1 << MAX_MODULUS_BITS):
@@ -235,7 +240,7 @@ def run_semiclassical_sharded(
     rdtype = sv.real_dtype_of(dtype)
     if not sharded_attempt_fits(M, rdtype, mesh):
         itemsize = torch.empty((), dtype=rdtype).element_size()
-        device = mesh.devices[0]
+        device = mesh.first_device
         per_shard = _SHARD_STATES_HEADROOM * 2 * (1 << (M - d)) * itemsize
         raise ValueError(
             f"M={M} at {str(rdtype).removeprefix('torch.')} needs ~"
@@ -255,29 +260,33 @@ def run_semiclassical_sharded(
     a_pows = [pow(a, 1 << (L - 1 - s), C) for s in range(L)]
     a_invs = [pow(p, -1, C) for p in a_pows]
     cap = exchange_capacity(a_pows, C, M, d)
-    comm = LocalTransport(mesh)
+    comm = transport_for(mesh)
     ls = 1 << (M - d)
-    first = mesh.devices[0]
+    first = mesh.first_device
     rs = rs.to(first)
-    xs = [torch.zeros((2, ls), dtype=rdtype, device=dv) for dv in mesh.devices]
-    xs[0][0, 1] = 1.0  # |1>: work register = 1 (shard 0, local row 1)
+    xs = [None] * mesh.size
+    for k in mesh.local:
+        xs[k] = torch.zeros((2, ls), dtype=rdtype, device=mesh.devices[k])
+    if xs[0] is not None:
+        xs[0][0, 1] = 1.0  # |1>: work register = 1 (shard 0, local row 1)
     phi = torch.zeros((), dtype=cdt, device=first)
-    s2s = {dv: sc._s2(rdtype, dv) for dv in set(mesh.devices)}
+    s2s = {xs[k].device: sc._s2(rdtype, xs[k].device) for k in mesh.local}
     pi = torch.tensor(math.pi, dtype=cdt, device=first)
-    bits_d, probs_d, sent, overflow = [], [], [], 0
+    bits_d, probs_d, sent, overflow = [], [], [], [0] * mesh.size
     for s in range(L):
         before = comm.total_bytes()
         theta = phi * pi
         ct, st = torch.cos(theta), torch.sin(theta)
         if a_pows[s] == 1:
-            gs = [x * s2s[x.device] for x in xs]
+            gs = [None if x is None else x * s2s[x.device] for x in xs]
         else:
             gs, of = _oracle_exchange(xs, a_pows[s], a_invs[s], C, s2s, M=M, d=d, cap=cap, comm=comm)
-            overflow += of
+            overflow = [o + f for o, f in zip(overflow, of)]
         # The deferred phase on the c = 1 branch, in place a block at a time,
         # computed in the compute dtype and rounded once.
-        parts = []
-        for x, g in zip(xs, gs):
+        parts = [None] * mesh.size
+        for me in comm.local:
+            x, g = xs[me], gs[me]
             s2 = s2s[x.device]
             ctd, std = ct.to(x.device), st.to(x.device)
             for lo, hi in _blocks(ls):
@@ -290,15 +299,15 @@ def run_semiclassical_sharded(
                 q0, q1 = sc._branch_sums(x[:, lo:hi], g[:, lo:hi], s2, cdt)
                 p0 += q0
                 p1 += q1
-            parts.append((p0, p1))
-        p0 = comm.psum([p for p, _ in parts])
-        p1 = comm.psum([p for _, p in parts])
-        new = []
-        for x, g in zip(xs, gs):
-            bit, p_cond, out = sc.collapse_from_a1(
+            parts[me] = (p0, p1)
+        p0 = comm.psum([None if p is None else p[0] for p in parts])
+        p1 = comm.psum([None if p is None else p[1] for p in parts])
+        new = [None] * mesh.size
+        for me in comm.local:
+            x, g = xs[me], gs[me]
+            bit, p_cond, new[me] = sc.collapse_from_a1(
                 x, g, p0.to(x.device), p1.to(x.device), rs[s].to(x.device), forces[s], rdtype, cdt
             )
-            new.append(out)
         xs = new
         del gs, new
         bit = bit.to(first)
@@ -306,6 +315,8 @@ def run_semiclassical_sharded(
         probs_d.append(p_cond.to(first))
         phi = (phi + bit.to(cdt)) / 2
         sent.append(comm.total_bytes() - before)
+    # Every process raises alike: the bins' overflow counts, summed over the shards.
+    overflow = int(comm.psum([None if xs[k] is None else torch.tensor(overflow[k]) for k in range(mesh.size)]))
     if overflow:
         raise RuntimeError(
             "oracle exchange bin overflow: a destination bin exceeded the "

@@ -5,7 +5,7 @@ from the ``QC_TPU_HBM_BYTES`` override when it is set (any device, as in the
 JAX package: tests and unusual deployments), else from the engine's own
 device (``torch.cuda.mem_get_info``); a CPU device reports none, and then
 nothing is checked.  A sharded state's gates (``mesh_fits``) count every
-shard that shares a device against that device's one budget.
+shard that shares a physical card against that card's one budget.
 """
 
 from __future__ import annotations
@@ -87,14 +87,17 @@ def two_state_programs_fit(n: int, real_dtype: torch.dtype, device) -> bool:
 
 def mesh_fits(states: float, n_local: int, real_dtype: torch.dtype, mesh) -> bool:
     """True when `states` buffers of one (2, 2^n_local) shard, for every
-    shard of `mesh`, fit each device's budget: the shards that share a
-    device (several virtual shards on one card) are counted together, so
-    each shard's budget is its device's divided among them.  Always true
-    for devices with no budget (CPU with no override)."""
+    shard of `mesh`, fit each card's budget: the shards that share a
+    physical card (several virtual shards on one card, in one process or
+    in several) are counted together, so each shard's budget is its card's
+    divided among them.  The budgets are the mesh's, recorded when it was
+    built (over several processes, gathered from all), so every process
+    decides alike.  Always true for devices with no budget (CPU with no
+    override)."""
     itemsize = torch.empty((), dtype=real_dtype).element_size()
     shard = 2 * (1 << n_local) * itemsize
-    for device in set(mesh.devices):
-        budget = device_memory_budget(device)
-        if budget is not None and mesh.shards_on(device) * states * shard > budget:
+    for card, count in mesh.cards().items():
+        budget = mesh.budgets[card]
+        if budget is not None and count * states * shard > budget:
             return False
     return True

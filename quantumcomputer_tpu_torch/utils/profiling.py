@@ -200,16 +200,17 @@ def mesh_collective_report(engine, circuit: Circuit) -> dict:
     bytes per shard (what a shard sends to other shards, averaged over the
     shards), as the JAX report counts each device's operands.  Unlike the
     JAX report it runs the circuit once.  complex32 moves half the bytes of
-    complex64."""
+    complex64.  On a mesh over several processes every process calls it
+    and gets the same report: the bytes are summed over the processes
+    (the transport's world_stats)."""
     comm = getattr(engine, "comm", None)
     if comm is None:
         raise ValueError("mesh_collective_report needs a sharded engine (no mesh found)")
     comm.reset()
     engine.run(circuit)
     D = comm.size
-    report: dict = {
-        kind: {"count": v["count"], "bytes": v["bytes"] // D} for kind, v in comm.stats.items() if v["count"]
-    }
-    report["total_bytes"] = comm.total_bytes() // D
+    stats = comm.world_stats()
+    report: dict = {kind: {"count": v["count"], "bytes": v["bytes"] // D} for kind, v in stats.items() if v["count"]}
+    report["total_bytes"] = sum(v["bytes"] for v in stats.values()) // D
     report["shards"] = D
     return report

@@ -88,4 +88,5 @@ def test_memory_gates_count_every_shard_on_a_device(monkeypatch):
     assert not sharded_attempt_fits(17, torch.float32, four)  # 6 x 4 x 256 KiB
     assert sharded_attempt_fits(17, torch.bfloat16, tmesh.build_mesh(devices=[CPU] * 8)) is False
     monkeypatch.delenv("QC_TPU_HBM_BYTES")
-    assert mesh_fits(1000, 30, torch.float64, four)  # no budget on the CPU
+    assert not mesh_fits(2, 15, torch.float32, four)  # the budget recorded when the mesh was built
+    assert mesh_fits(1000, 30, torch.float64, tmesh.build_mesh(devices=[CPU] * 4))  # no budget on the CPU

@@ -7,11 +7,13 @@ strict_reference, dd64, nan_checks), a complex32 plan on bf16 planes and a
 complex32 m_high plan whose walks merge into one strip pass, a checkpointed
 run (segments, the Shor and semiclassical attempts), each generic algorithm
 (Grover, BV / DJ, Simon, QPE in both forms, amplitude estimation, quantum
-volume), the multi-device layer (parallel.mesh, comm, sharded and
-sharded_semiclassical: the 7-qubit circuit on a 2-shard CPU mesh, its
-measured index against the single-device engine's, a sharded
-semiclassical attempt and the mesh's collective report), and checks that
-no jax or ml_dtypes module was loaded.
+volume), the multi-device layer (parallel.mesh, comm, sharded,
+sharded_semiclassical and launch: the 7-qubit circuit on a 2-shard CPU
+mesh, its measured index against the single-device engine's, a sharded
+semiclassical attempt and the mesh's collective report; the process
+mesh's domain ordering; the dryrun script, imported), the package's
+top-level exports, and checks that no jax or ml_dtypes module was
+loaded.
 chip_smoke.py is imported too (without running it), since it must run where
 jax is absent.  A second interpreter runs the variational layer: a 4-qubit
 VQE and QAOA for 3 steps each, one gradient through engine.run and
@@ -30,6 +32,7 @@ import quantumcomputer_tpu_torch.cli
 import quantumcomputer_tpu_torch.interop
 import quantumcomputer_tpu_torch.ops.modperm
 import quantumcomputer_tpu_torch.ops.probes
+import quantumcomputer_tpu_torch.scripts.dcn_dryrun
 import quantumcomputer_tpu_torch.scripts.prof_ae_drift
 import quantumcomputer_tpu_torch.scripts.prof_benes
 import quantumcomputer_tpu_torch.scripts.prof_chunkgather
@@ -45,7 +48,10 @@ from quantumcomputer_tpu_torch.sim import checkpoint
 from quantumcomputer_tpu_torch.utils import debug, experiments, kernel_checks, profiling
 from quantumcomputer_tpu_torch.ops import benes
 from quantumcomputer_tpu_torch.sim import engine as tengine
-from quantumcomputer_tpu_torch.parallel import comm, mesh, sharded, sharded_semiclassical
+from quantumcomputer_tpu_torch.parallel import comm, launch, mesh, sharded, sharded_semiclassical
+from quantumcomputer_tpu_torch import (amplitude_estimate, bernstein_vazirani, build_mesh, deutsch_jozsa, estimate_phase,
+                                       grover_circuit, grover_search, run_quantum_volume, run_semiclassical,
+                                       ShardedStateVectorEngine, simon_search, __version__)
 import chip_smoke
 
 eng = q.StateVectorEngine(q.Register(L=3, M=4), backend="torch")
@@ -104,7 +110,10 @@ assert float((sh.to_planar(sh_state) - state).abs().max()) < 1e-6
 assert sh.run_and_measure_index(circuit, 0.3) == eng.run_and_measure_index(circuit, 0.3)
 assert profiling.mesh_collective_report(sh, circuit)["ppermute"]["count"] == 2
 assert sharded_semiclassical.run_semiclassical_sharded(15, 7, 3, 4, [0.1, 0.6, 0.3], two).bits == rec.bits
-assert isinstance(sh.comm, comm.LocalTransport)
+assert isinstance(sh.comm, comm.LocalTransport) and comm.transport_for(two).local == (0, 1)
+slots = [mesh.MeshDevice(torch.device("cpu"), process_index=p, id=i) for i, p in enumerate((1, 0, 1, 0))]
+assert mesh.ici_degree(mesh.Mesh(mesh.order_devices_for_ici(slots))) == 1 and callable(launch.run)
+assert __version__ == "0.3.0" and build_mesh is mesh.build_mesh
 loaded = sorted(m for m in sys.modules if m in ("jax", "ml_dtypes") or m.startswith(("jax.", "jaxlib", "ml_dtypes.")))
 assert not loaded, loaded
 assert "quantumcomputer_tpu" not in sys.modules
