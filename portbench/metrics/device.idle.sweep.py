@@ -1,0 +1,16 @@
+"""device.idle.sweep: device.idle.attempt in the sweep cell, whose attempt time is
+sweep_attempt_ms (PERF.md); the arithmetic is device.idle.attempt's.
+Layer: device.  Source: the device trace.  Moves: sweep_attempt_ms."""
+
+import os
+
+from portbench import core
+
+_base = core.load_module("metrics", "device.idle.attempt", os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+UNIT = _base.UNIT
+MOVES = "sweep_attempt_ms"
+
+
+def read(obs):
+    return _base.value(obs) if MOVES in obs.reports else None
