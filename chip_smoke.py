@@ -105,7 +105,7 @@ Phases, each of which must pass:
      factoring 39 at complex128 with fuse=False (max deviation < 1e-13, one
      fused launch per gate with an op form); run_with_norms on the n = 28
      flagship in both layouts (every norm within 1e-4 of 1, one per entry of
-     the plan); phase_profile of the m_high flagship; and a fuse=False run at
+     the plan); the m_high flagship's spans (span_summary); and a fuse=False run at
      n = 20 whose fused-kernel launches equal its gates with an op form,
      within ||d||_2 <= 1e-5 of the fused run;
  11. complex32 (bf16 planes, f32 compute), through the bf16 instance of every
@@ -1924,8 +1924,8 @@ def phase_probes(report: dict) -> None:
 
 
 def phase_validation() -> None:
-    """TABLE I, FIG. 2 and FIG. 3, the n = 28 norm traces, the m_high phase
-    profile and the fuse=False route, on the cuda backend."""
+    """TABLE I, FIG. 2 and FIG. 3, the n = 28 norm traces, the m_high
+    flagship's spans and the fuse=False route, on the cuda backend."""
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh, shor_circuit_reference
@@ -1981,9 +1981,16 @@ def phase_validation() -> None:
         check(dev <= FLAGSHIP_TOL, f"{layout} flagship norm trace deviates by {dev}")
         del state
         if layout == "m_high":
-            phases = [("H layer", circuit[:L]), ("oracle ladder", circuit[L:2 * L]), ("inverse QFT", circuit[2 * L:])]
-            for p in profiling.phase_profile(eng, phases, iters=3):
-                log(f"phase_profile m_high n={L + M}: {p.label:13s} {p.n_gates:2d} gates {p.seconds * 1e3:.3f} ms")
+            eng.run(circuit)  # warm
+            profiling.span_records(clear=True)
+            profiling.record_spans(True)
+            try:
+                eng.run(circuit)
+            finally:
+                profiling.record_spans(False)
+            for name, tot in profiling.span_summary(profiling.span_records(clear=True)).items():
+                log(f"spans m_high n={L + M}: {name:13s} {tot['count']:2d} x, host {tot['host_ms']:.3f} ms, "
+                    f"device {tot['device_ms']:.3f} ms")
         torch.cuda.empty_cache()
 
     C, a, L, M = UNFUSED

@@ -58,6 +58,7 @@ from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.ops import modperm
 from quantumcomputer_tpu_torch.sim import checkpoint as ckpt
 from quantumcomputer_tpu_torch.sim import statevec as sv
+from quantumcomputer_tpu_torch.utils import profiling
 from quantumcomputer_tpu_torch.utils.logging import get_logger
 from quantumcomputer_tpu_torch.utils.memory import device_memory_budget, fused_attempt_fits, step_program_fits
 
@@ -141,24 +142,27 @@ def _oracle_pass_structured(w, M: int, rdtype, cdt, plan, ct, st) -> tuple:
     """_oracle_pass with U as the structured stride permutation, one plane
     at a time (each plane's leg transients are freed before the next)."""
     s2 = _s2(rdtype, w.device)
-    gr = modperm.apply_stride_permute(w[0:1], plan)[0].mul_(s2)
-    gi = modperm.apply_stride_permute(w[1:2], plan)[0].mul_(s2)
-    a1 = torch.empty_like(w)
-    if a1.dtype == cdt:
-        # The rotation written into a1 plane by plane: one plane of temporaries.
-        torch.mul(gr, ct, out=a1[0]).sub_(gi * st)
-        torch.mul(gr, st, out=a1[1]).add_(gi * ct)
-    else:
-        # bf16: widened and rounded once, block by block (temporaries of a block).
+    with profiling.span("sc.permute", w.device):
+        gr = modperm.apply_stride_permute(w[0:1], plan)[0].mul_(s2)
+        gi = modperm.apply_stride_permute(w[1:2], plan)[0].mul_(s2)
+    with profiling.span("sc.rotate", w.device):
+        a1 = torch.empty_like(w)
+        if a1.dtype == cdt:
+            # The rotation written into a1 plane by plane: one plane of temporaries.
+            torch.mul(gr, ct, out=a1[0]).sub_(gi * st)
+            torch.mul(gr, st, out=a1[1]).add_(gi * ct)
+        else:
+            # bf16: widened and rounded once, block by block (temporaries of a block).
+            for lo, hi in _blocks(1 << M):
+                _rotate(a1[:, lo:hi], gr[lo:hi], gi[lo:hi], ct, st, cdt)
+        del gr, gi
+    with profiling.span("sc.branch_sums", w.device):
+        p0 = torch.zeros((), dtype=cdt, device=w.device)
+        p1 = torch.zeros((), dtype=cdt, device=w.device)
         for lo, hi in _blocks(1 << M):
-            _rotate(a1[:, lo:hi], gr[lo:hi], gi[lo:hi], ct, st, cdt)
-    del gr, gi
-    p0 = torch.zeros((), dtype=cdt, device=w.device)
-    p1 = torch.zeros((), dtype=cdt, device=w.device)
-    for lo, hi in _blocks(1 << M):
-        q0, q1 = _branch_sums(w[:, lo:hi], a1[:, lo:hi], s2, cdt)
-        p0 += q0
-        p1 += q1
+            q0, q1 = _branch_sums(w[:, lo:hi], a1[:, lo:hi], s2, cdt)
+            p0 += q0
+            p1 += q1
     return a1, p0, p1
 
 
@@ -194,8 +198,10 @@ def _step(w, phi, M: int, rdtype, C: int, a_inv: int, plan, r, force: int) -> tu
     if plan is not None:
         a1, p0, p1 = _oracle_pass_structured(w, M, rdtype, cdt, plan, ct, st)
     else:
-        a1, p0, p1 = _oracle_pass(w, M, rdtype, cdt, C, a_inv, ct, st)
-    bit, p_cond, out = collapse_from_a1(w, a1, p0, p1, r, force, rdtype, cdt)
+        with profiling.span("sc.gather_pass", w.device):
+            a1, p0, p1 = _oracle_pass(w, M, rdtype, cdt, C, a_inv, ct, st)
+    with profiling.span("sc.collapse", w.device):
+        bit, p_cond, out = collapse_from_a1(w, a1, p0, p1, r, force, rdtype, cdt)
     return bit, p_cond, out, (phi + bit.to(cdt)) / 2
 
 
@@ -339,40 +345,47 @@ def run_semiclassical(
             f"semiclassical work state 2^{M} amplitudes exceeds the device memory budget "
             f"({device_memory_budget(device)} bytes) even for one step"
         )
-    rs = (rs if isinstance(rs, torch.Tensor) else torch.tensor(np.asarray(rs))).to(device=device, dtype=cdt)
-    if rs.shape != (L,):
-        raise ValueError(f"rs must hold L={L} draws, got shape {tuple(rs.shape)}")
-    forces = forced_bits if forced_bits is not None else [-1] * L
+    with profiling.span("sc.attempt", device):
+        rs = (rs if isinstance(rs, torch.Tensor) else torch.tensor(np.asarray(rs))).to(device=device, dtype=cdt)
+        if rs.shape != (L,):
+            raise ValueError(f"rs must hold L={L} draws, got shape {tuple(rs.shape)}")
+        forces = forced_bits if forced_bits is not None else [-1] * L
 
-    a_invs = [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)]
-    plans = _structured_plans(C, a_invs, M) if _use_structured(structured, M, rdtype, device) else [None] * L
-    w, bits, probs, start, attempt_dir = None, [], [], 0, None
-    if checkpoint_dir is not None:
-        fp = _attempt_fingerprint(C, a, L, M, rdtype, rs, forces)
-        attempt_dir = os.path.join(checkpoint_dir, f"sc_{fp}")
-        w, bits, probs, start = _scan_resume(attempt_dir, fp, L, device)
-    if w is None:
-        w = sv.initial_planar(M, rdtype, 1, device)
-    phi = _phi_from_bits(bits, cdt, device)
-    bits_d, probs_d = [], []
-    for s in range(start, L):
-        bit, p_cond, w, phi = _step(w, phi, M, rdtype, C, a_invs[s], plans[s], rs[s], forces[s])
-        bits_d.append(bit)
-        probs_d.append(p_cond)
-        if attempt_dir is not None and (s + 1) % checkpoint_every == 0 and s + 1 < L:
-            ckpt.save_state(
-                ckpt._segment_path(attempt_dir, s + 1), w,
-                {"kind": "semiclassical", "fingerprint": fp, "step": s + 1,
-                 "bits": bits + [int(b) for b in bits_d], "probs": probs + [float(p) for p in probs_d]},
-            )
-    if bits_d:
-        bits += [int(b) for b in torch.stack(bits_d).cpu()]
-        probs += [float(p) for p in torch.stack(probs_d).cpu()]
-    if attempt_dir is not None:
-        shutil.rmtree(attempt_dir, ignore_errors=True)  # attempt complete
-    rec = SemiclassicalRecord.from_bits(bits, probs)
-    rec.oracles = ["gather" if p is None else "structured" for p in plans]
-    return rec
+        a_invs = [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)]
+        plans = [None] * L
+        if _use_structured(structured, M, rdtype, device):
+            with profiling.span("sc.plan") as span:
+                plans = _structured_plans(C, a_invs, M)
+                if span is not None:
+                    span.counts["planned"] = sum(p is not None for p in plans)
+        w, bits, probs, start, attempt_dir = None, [], [], 0, None
+        if checkpoint_dir is not None:
+            fp = _attempt_fingerprint(C, a, L, M, rdtype, rs, forces)
+            attempt_dir = os.path.join(checkpoint_dir, f"sc_{fp}")
+            w, bits, probs, start = _scan_resume(attempt_dir, fp, L, device)
+        if w is None:
+            w = sv.initial_planar(M, rdtype, 1, device)
+        phi = _phi_from_bits(bits, cdt, device)
+        bits_d, probs_d = [], []
+        for s in range(start, L):
+            with profiling.span("sc.step", device):
+                bit, p_cond, w, phi = _step(w, phi, M, rdtype, C, a_invs[s], plans[s], rs[s], forces[s])
+            bits_d.append(bit)
+            probs_d.append(p_cond)
+            if attempt_dir is not None and (s + 1) % checkpoint_every == 0 and s + 1 < L:
+                ckpt.save_state(
+                    ckpt._segment_path(attempt_dir, s + 1), w,
+                    {"kind": "semiclassical", "fingerprint": fp, "step": s + 1,
+                     "bits": bits + [int(b) for b in bits_d], "probs": probs + [float(p) for p in probs_d]},
+                )
+        if bits_d:
+            bits += [int(b) for b in torch.stack(bits_d).cpu()]
+            probs += [float(p) for p in torch.stack(probs_d).cpu()]
+        if attempt_dir is not None:
+            shutil.rmtree(attempt_dir, ignore_errors=True)  # attempt complete
+        rec = SemiclassicalRecord.from_bits(bits, probs)
+        rec.oracles = ["gather" if p is None else "structured" for p in plans]
+        return rec
 
 
 def find_period_semiclassical(

@@ -34,6 +34,7 @@ from quantumcomputer_tpu_torch.algorithms.semiclassical import find_period_semic
 from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
 from quantumcomputer_tpu_torch.sim.checkpoint import run_with_checkpoints
 from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine, is_complex32, resolve_backend
+from quantumcomputer_tpu_torch.utils import profiling
 from quantumcomputer_tpu_torch.utils.logging import get_logger, ui_active, verbosity
 
 log = get_logger("shor")
@@ -132,42 +133,45 @@ def find_period(
     when called again.  The measurement always runs fresh, never from a
     snapshot, and the subdirectory is removed once the attempt completes.
     Checkpointing wins over -V's per-phase progress."""
-    reg = engine.register
-    build = shor_circuit_mhigh if engine.layout == "m_high" else shor_circuit
-    circuit = build(C, a, reg.L, reg.M)
-    _, very_verbose = verbosity()
-    if very_verbose and checkpoint_dir is not None:
-        print("      - (checkpointing enabled: per-phase -V progress is replaced by per-segment snapshots)")
-        very_verbose = False
-    if very_verbose:
-        print("      - Performing quantum computation...")
-        L = reg.L
-        phases = (
-            ("         - Applying Hadamard matrices.", circuit[:L]),
-            ("         - Applying a^x mod (C) gates.", circuit[L : 2 * L]),
-            ("         - Performing inverse quantum Fourier transform.", circuit[2 * L :]),
-        )
-        state = None
-        for banner, phase in phases:
-            print(banner)
-            state = engine.run(tuple(phase), state)
-            engine.norm(state)
-        print("      - Measuring state...")
-        idx, _ = engine.measure(state, r)
-    elif checkpoint_dir is not None:
-        attempt_dir = os.path.join(checkpoint_dir, f"C{C}_a{a}")
-        state = run_with_checkpoints(engine, circuit, attempt_dir, segment_gates=checkpoint_segment_gates)
-        idx, _ = engine.measure(state, r)  # fresh measurement, never replayed
-        shutil.rmtree(attempt_dir, ignore_errors=True)  # attempt complete
-    else:
-        idx = engine.run_and_measure_index(circuit, r)
-    idx = engine.logical_index(idx)
-    omega = read_omega(idx, reg.L, reg.M)
-    if very_verbose:
-        print("      - Using continued fractions to guess period...")
-    period = nt.find_period_from_omega(omega, a, C, num_fractions, trials_per_denominator)
-    log.debug("a=%d measured index=%d omega=%.6f period=%s", a, idx, omega, period)
-    return AttemptRecord(a=a, measured_index=idx, omega=omega, period=period, valid=period is not None)
+    # A sharded engine holds no single device: its attempt span takes no device time.
+    with profiling.span("driver.attempt", getattr(engine, "device", None)):
+        reg = engine.register
+        build = shor_circuit_mhigh if engine.layout == "m_high" else shor_circuit
+        circuit = build(C, a, reg.L, reg.M)
+        _, very_verbose = verbosity()
+        if very_verbose and checkpoint_dir is not None:
+            print("      - (checkpointing enabled: per-phase -V progress is replaced by per-segment snapshots)")
+            very_verbose = False
+        if very_verbose:
+            print("      - Performing quantum computation...")
+            L = reg.L
+            phases = (
+                ("         - Applying Hadamard matrices.", circuit[:L]),
+                ("         - Applying a^x mod (C) gates.", circuit[L : 2 * L]),
+                ("         - Performing inverse quantum Fourier transform.", circuit[2 * L :]),
+            )
+            state = None
+            for banner, phase in phases:
+                print(banner)
+                state = engine.run(tuple(phase), state)
+                engine.norm(state)
+            print("      - Measuring state...")
+            idx, _ = engine.measure(state, r)
+        elif checkpoint_dir is not None:
+            attempt_dir = os.path.join(checkpoint_dir, f"C{C}_a{a}")
+            state = run_with_checkpoints(engine, circuit, attempt_dir, segment_gates=checkpoint_segment_gates)
+            idx, _ = engine.measure(state, r)  # fresh measurement, never replayed
+            shutil.rmtree(attempt_dir, ignore_errors=True)  # attempt complete
+        else:
+            idx = engine.run_and_measure_index(circuit, r)
+        with profiling.span("driver.period"):
+            idx = engine.logical_index(idx)
+            omega = read_omega(idx, reg.L, reg.M)
+            if very_verbose:
+                print("      - Using continued fractions to guess period...")
+            period = nt.find_period_from_omega(omega, a, C, num_fractions, trials_per_denominator)
+            log.debug("a=%d measured index=%d omega=%.6f period=%s", a, idx, omega, period)
+            return AttemptRecord(a=a, measured_index=idx, omega=omega, period=period, valid=period is not None)
 
 
 def _validate_and_factor(C: int, a: int, period: int) -> Tuple[bool, str, Optional[Tuple[int, int]]]:

@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from quantumcomputer_tpu_torch.utils import profiling
+
 SQRT1_2 = 1.0 / math.sqrt(2.0)
 
 
@@ -226,7 +228,9 @@ def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: 
     `ginv`: the gate's modmul_inverse_permutation table already on the
     state's device (else it is built and copied there)."""
     if ginv is None:
-        ginv = torch.from_numpy(modmul_inverse_permutation(C, atox, M)).to(planar.device)
+        # The table is int64, 8 bytes an entry of the work register.
+        with profiling.span("oracle.table", planar.device, bytes=8 << M):
+            ginv = torch.from_numpy(modmul_inverse_permutation(C, atox, M)).to(planar.device)
     for p in range(2):
         x = _camodc_view(planar[p], c_q, M)
         x[:, 1] = torch.index_select(x[:, 1], -1, ginv)

@@ -70,6 +70,7 @@ path.  ``run_with_norms``, ``measure`` and ``sample`` take no gradient.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -90,6 +91,7 @@ from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.ops import measure
 from quantumcomputer_tpu_torch.ops import oracle
 from quantumcomputer_tpu_torch.sim import statevec as sv
+from quantumcomputer_tpu_torch.utils import profiling
 from quantumcomputer_tpu_torch.utils.memory import device_memory_budget, state_fits, two_state_programs_fit
 
 
@@ -366,22 +368,24 @@ def apply_circuit_fused_(
         if run and oracle.strip_pays([g.qubits[0] for g in run], run[0].meta[0], cur.element_size(),
                                      oracle.strip_room(cur.device)):
             C, m_reg = run[0].meta[0], run[0].meta[2]
-            oracle.apply_camodc_run_inplace_planar(
-                cur, C, [g.meta[1] for g in run], [g.qubits[0] for g in run], m_reg
-            )
+            with profiling.span("oracle.gate", cur.device, gates=len(run)):
+                oracle.apply_camodc_run_inplace_planar(
+                    cur, C, [g.meta[1] for g in run], [g.qubits[0] for g in run], m_reg
+                )
             i += len(run)
             continue
-        if seg[0] == "fused":
-            fused.apply_fused(cur, seg[1], seg[2], M)
-        elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
-            g = seg[1]
-            if spare is None:
-                spare = torch.empty_like(cur)
-            C, m_reg = g.meta[0], g.meta[1]
-            oracle.apply_camodc_ladder_high_planar(cur, spare, C, g.meta[2:], g.qubits, m_reg)
-            cur, spare = spare, cur
-        else:
-            apply_gate_planes_(cur, seg[1], M)
+        with _entry_span(seg, cur.device):
+            if seg[0] == "fused":
+                fused.apply_fused(cur, seg[1], seg[2], M)
+            elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
+                g = seg[1]
+                if spare is None:
+                    spare = torch.empty_like(cur)
+                C, m_reg = g.meta[0], g.meta[1]
+                oracle.apply_camodc_ladder_high_planar(cur, spare, C, g.meta[2:], g.qubits, m_reg)
+                cur, spare = spare, cur
+            else:
+                apply_gate_planes_(cur, seg[1], M)
         if norms is not None:
             norms.append(sv.norm(cur))
         if nan_checks:
@@ -389,6 +393,24 @@ def apply_circuit_fused_(
             check_finite(cur, f"fused segment {i} ({len(g)} ops)" if seg[0] == "fused" else f"gate {g.name}{g.qubits}")
         i += 1
     return cur
+
+
+_ORACLE_GATES = ("camodc", "camodc_high", "camodc_ladder_high")
+
+
+def _entry_span(seg, device):
+    """The span of one plan entry: ``oracle.gate`` (counting the oracle
+    gates it applies) for an oracle gate or a segment of camodc ops alone
+    (the Beneš permutation), ``fused.segment`` for any other segment, none
+    for any other single gate."""
+    if seg[0] == "fused":
+        ops = seg[1]
+        if ops and all(op[0] == "camodc" for op in ops):
+            return profiling.span("oracle.gate", device, gates=len(ops))
+        return profiling.span("fused.segment", device)
+    if seg[1].name in _ORACLE_GATES:
+        return profiling.span("oracle.gate", device, gates=len(seg[1].qubits))
+    return contextlib.nullcontext()
 
 
 def _strip_walk(planar: torch.Tensor, entry) -> bool:
@@ -557,9 +579,10 @@ class StateVectorEngine:
     def _plan(self, circuit: Circuit):
         plan = self._plans.get(circuit)
         if plan is None:
-            plan = plan_circuit(
-                circuit, self.m_eff, self.register.n, self.real_dtype, self.device, self.oracle == "benes"
-            )
+            with profiling.span("engine.plan", self.device):
+                plan = plan_circuit(
+                    circuit, self.m_eff, self.register.n, self.real_dtype, self.device, self.oracle == "benes"
+                )
             self._plans[circuit] = plan
         return plan
 
@@ -573,19 +596,20 @@ class StateVectorEngine:
         )
 
     def _run(self, circuit: Circuit, state: Optional[torch.Tensor], norms: Optional[list]) -> torch.Tensor:
-        fresh = state is None
-        if fresh:
-            state = self.initial_state()
-        circuit, checks = self._prep(circuit), self.nan_checks
-        if self.backend == "torch":
-            return apply_circuit_plain_(state, circuit, self.m_eff, norms, checks)
-        if not self.fuse:
-            return apply_circuit_per_gate_(state, circuit, self.m_eff, norms, checks)
-        out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit), norms, nan_checks=checks)
-        if out is not state and not fresh:
-            state.copy_(out)
-            return state
-        return out
+        with profiling.span("engine.run", self.device):
+            fresh = state is None
+            if fresh:
+                state = self.initial_state()
+            circuit, checks = self._prep(circuit), self.nan_checks
+            if self.backend == "torch":
+                return apply_circuit_plain_(state, circuit, self.m_eff, norms, checks)
+            if not self.fuse:
+                return apply_circuit_per_gate_(state, circuit, self.m_eff, norms, checks)
+            out = apply_circuit_fused_(state, circuit, self.m_eff, self._plan(circuit), norms, nan_checks=checks)
+            if out is not state and not fresh:
+                state.copy_(out)
+                return state
+            return out
 
     def run(self, circuit: Circuit, state: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply a circuit and return the planar state.  With no input state
@@ -632,7 +656,8 @@ class StateVectorEngine:
     # -- measurement ----------------------------------------------------------
 
     def _sample(self, planar: torch.Tensor, r: float) -> int:
-        return measure.sample_index(planar, r, plain=self.backend == "torch")
+        with profiling.span("measure.sample", planar.device):
+            return measure.sample_index(planar, r, plain=self.backend == "torch")
 
     def measure(self, state: torch.Tensor, r: float) -> Tuple[int, torch.Tensor]:
         """Inverse-CDF measurement with draw r, then collapse

@@ -1,53 +1,182 @@
-"""Profiling and observability: cost model, timing, phase profile, traces
-and the norm trace.
+"""Profiling and observability: spans, timing, traces and the norm trace.
 
-The counterpart of the JAX package's ``utils/profiling.py``.  The analytic
-cost model (bytes moved per gate pass, roofline bound) is carried over as
-it is.  Timing differs: PyTorch returns before the card finishes, so a CUDA
-engine is timed with CUDA events on the current stream, and a CPU engine
-with the host clock.  ``trace`` wraps ``torch.profiler``.  The JAX
-package reads a mesh program's collectives from its lowered StableHLO;
-here the sharded engine's transport counts them as they run
-(``mesh_collective_report``).
+The counterpart of the JAX package's ``utils/profiling.py``.  Timing
+differs: PyTorch returns before the card finishes, so a CUDA engine is
+timed with CUDA events on the current stream, and a CPU engine with the
+host clock.  ``trace`` wraps ``torch.profiler``.  The JAX package reads a
+mesh program's collectives from its lowered StableHLO; here the sharded
+engine's transport counts them as they run (``mesh_collective_report``).
+
+Spans (``span``) mark the layer boundaries of the single-card paths: the
+Shor attempt, the engine's run and plan, each fused segment and oracle
+gate, the oracle tables, the measurement and the semiclassical step's
+parts.  They are off by default, and then cost one check a span.  They
+record while torch.profiler records (so ``trace`` shows each as
+a ``qc.<name>`` range beside the kernels it launched, on the same clock)
+and after ``record_spans(True)``; ``span_records`` and ``span_summary``
+read what they recorded.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
+from torch.autograd import _profiler_enabled
 
 from quantumcomputer_tpu_torch.models.circuit import Circuit
 from quantumcomputer_tpu_torch.sim import statevec as sv
 from quantumcomputer_tpu_torch.utils.logging import get_logger
 
+# -- spans ---------------------------------------------------------------------------
 
-@dataclass
-class GateCost:
-    gate: str
-    qubits: Tuple[int, ...]
-    bytes_moved: int  # device-memory traffic of one pass (read + write)
+#: Span records kept in memory; later spans are dropped and counted.
+MAX_SPANS = 1 << 16
 
-
-def bytes_per_state(n: int, real_dtype_bytes: int = 4) -> int:
-    """Planar state footprint: 2 planes x 2^n x itemsize."""
-    return 2 * (1 << n) * real_dtype_bytes
-
-
-def circuit_cost(circuit: Circuit, n: int, real_dtype_bytes: int = 4) -> List[GateCost]:
-    """Analytic traffic per gate: every dense/diagonal/permutation pass reads
-    and writes the full state once (the fused-kernel design goal)."""
-    sb = bytes_per_state(n, real_dtype_bytes)
-    return [GateCost(g.name, g.qubits, 2 * sb) for g in circuit]
+_NO_SPAN = contextlib.nullcontext()
+_recording = False
+_records: List["SpanRecord"] = []
+_dropped = 0
+_ids = itertools.count()
+_local = threading.local()  # per thread: the stack of open spans
+_events: Dict[torch.device, list] = {}  # CUDA events to reuse, per device
 
 
-def roofline_seconds(circuit: Circuit, n: int, hbm_gbps: float, real_dtype_bytes: int = 4) -> float:
-    """Lower bound on circuit wall-clock from memory bandwidth alone."""
-    total = sum(c.bytes_moved for c in circuit_cost(circuit, n, real_dtype_bytes))
-    return total / (hbm_gbps * 1e9)
+class SpanRecord:
+    """One closed span: its `name` (without the ``qc.`` prefix), `id`,
+    `parent` id (None for a root) and `root` id (its own for a root), its
+    host start and end (``time.perf_counter_ns``), `device_ms` (between two
+    CUDA events on the device's current stream; None for work off the
+    card) and its integer `counts`."""
+
+    __slots__ = ("name", "id", "parent", "root", "start_ns", "end_ns", "device_ms", "counts", "_events")
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-6
+
+
+class _Span:
+    """An open span: the host clock, a profiler range ``qc.<name>`` while a
+    profiler records and, on a CUDA device, two events on the stream current
+    at its start (looked up once: the lookup costs as much as a record)."""
+
+    __slots__ = ("rec", "device", "range", "stream")
+
+    def __init__(self, name: str, device, counts: dict):
+        rec = SpanRecord()
+        rec.name, rec.counts, rec.device_ms, rec._events = name, counts, None, None
+        self.rec = rec
+        self.device = device
+        self.range = None
+
+    def __enter__(self):
+        rec = self.rec
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        rec.id = next(_ids)
+        rec.parent = stack[-1].id if stack else None
+        rec.root = stack[0].id if stack else rec.id
+        stack.append(rec)
+        if _profiler_enabled():
+            self.range = torch.profiler.record_function("qc." + rec.name)
+            self.range.__enter__()
+        if self.device is not None:
+            pool = _events.setdefault(self.device, [])
+            start, end = (pool.pop() if pool else torch.cuda.Event(enable_timing=True) for _ in range(2))
+            self.stream = torch.cuda.current_stream(self.device)
+            start.record(self.stream)
+            rec._events = (self.device, start, end)
+        rec.start_ns = time.perf_counter_ns()
+        return rec
+
+    def __exit__(self, *exc):
+        global _dropped
+        rec = self.rec
+        rec.end_ns = time.perf_counter_ns()
+        if rec._events is not None:
+            rec._events[2].record(self.stream)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _local.stack.pop()
+        if len(_records) < MAX_SPANS:
+            _records.append(rec)
+        else:
+            _dropped += 1
+            if rec._events is not None:
+                _events[self.device].extend(rec._events[1:])
+                rec._events = None
+        return False
+
+
+def span(name: str, device=None, **counts):
+    """A context manager around one layer's work, recorded while spans are
+    on (torch.profiler records, or ``record_spans(True)``): its
+    host clock, a ``qc.<name>`` range in the profiler's trace while one
+    records, and its parent span; otherwise one shared no-op context, after
+    one check.  `device`: the device the work runs on; on a CUDA device the
+    span also times the work on the device's current stream.  `counts`:
+    integers the span carries (gates applied, bytes copied, ...).  Entered,
+    a recording span gives its SpanRecord, whose `counts` the body may add
+    to (a count known only at the end); the no-op gives None."""
+    if not (_recording or _profiler_enabled()):
+        return _NO_SPAN
+    device = torch.device(device) if device is not None else None
+    return _Span(name, device if device is not None and device.type == "cuda" else None, counts)
+
+
+def record_spans(on: bool) -> None:
+    """Record spans without a profiler (on) or only while one records (off)."""
+    global _recording
+    _recording = bool(on)
+
+
+def span_records(clear: bool = False) -> List[SpanRecord]:
+    """The closed spans recorded so far, in the order they closed, with
+    their device times resolved (one wait for each device they ran on).
+    With `clear` the buffer and the dropped count start again."""
+    global _dropped
+    recs = list(_records)
+    pending = [r for r in recs if r._events is not None]
+    for dev in {r._events[0] for r in pending}:
+        torch.cuda.synchronize(dev)
+    for r in pending:
+        dev, start, end = r._events
+        r.device_ms = start.elapsed_time(end)
+        r._events = None
+        _events[dev].extend((start, end))
+    if clear:
+        _records.clear()
+        _dropped = 0
+    return recs
+
+
+def dropped_spans() -> int:
+    """Spans closed while the buffer held MAX_SPANS records (not kept)."""
+    return _dropped
+
+
+def span_summary(records) -> Dict[str, dict]:
+    """Per span name: ``count``, total ``host_ms`` and total ``device_ms``
+    (None where no span of the name ran on the card), in order of first
+    appearance."""
+    out: Dict[str, dict] = {}
+    for r in records:
+        s = out.setdefault(r.name, {"count": 0, "host_ms": 0.0, "device_ms": None})
+        s["count"] += 1
+        s["host_ms"] += r.host_ms
+        if r.device_ms is not None:
+            s["device_ms"] = (s["device_ms"] or 0.0) + r.device_ms
+    return out
+
+
+# -- timing ---------------------------------------------------------------------------
 
 
 def force_completion(state: torch.Tensor) -> float:
@@ -114,32 +243,6 @@ def time_circuit_folded(engine, circuit: Circuit, iters: int = 3) -> float:
     return best
 
 
-@dataclass
-class PhaseTiming:
-    label: str
-    n_gates: int
-    seconds: float
-
-
-def phase_profile(engine, phases, iters: int = 3) -> List[PhaseTiming]:
-    """Time breakdown of a circuit by named phase (e.g. H layer / oracle
-    ladder / iQFT).  `phases` is a sequence of (label, gates).  Cumulative
-    prefixes are timed and differenced, so fixed overheads cancel and each
-    number is the MARGINAL cost of its phase on the engine's real execution
-    path (fusion across phase boundaries is preserved)."""
-    base = time_circuit(engine, (), iters=iters)
-    out: List[PhaseTiming] = []
-    prefix: list = []
-    prev = base
-    for label, gates in phases:
-        gates = tuple(gates)  # before extend: a one-shot iterable would be spent
-        prefix.extend(gates)
-        t = time_circuit(engine, tuple(prefix), iters=iters)
-        out.append(PhaseTiming(label, len(gates), max(t - prev, 0.0)))
-        prev = t
-    return out
-
-
 @contextlib.contextmanager
 def trace(path: str):
     """torch.profiler around the body (CPU, and the card when one is
@@ -155,7 +258,7 @@ def trace(path: str):
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     prof = profile(activities=activities)
     started = False
-    if torch.autograd._profiler_enabled():
+    if _profiler_enabled():
         log.warning("a torch profiler is already active; the body runs untraced (no trace at %r)", path)
     else:
         try:

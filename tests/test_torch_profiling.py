@@ -1,8 +1,8 @@
 """The port's profiling layer (quantumcomputer_tpu_torch/utils/profiling.py)
 and the engine's norm trace, against the JAX package's utils/profiling.py
-and tests/test_profiling.py: the cost model value for value, the timing and
-phase-profile machinery, and the FIG. 2 norm trace at complex128 (1e-12
-between the packages, 1e-13 from 1, the JAX suite's bounds)."""
+and tests/test_profiling.py: the timing helpers, the trace wrapper, and the
+FIG. 2 norm trace at complex128 (1e-12 between the packages, 1e-13 from 1,
+the JAX suite's bounds).  The spans are tests/test_torch_spans.py's."""
 
 import json
 import logging
@@ -17,35 +17,9 @@ from quantumcomputer_tpu.sim.engine import Register as JRegister
 from quantumcomputer_tpu.sim.engine import StateVectorEngine as JEngine
 from quantumcomputer_tpu.utils import profiling as jprof
 from quantumcomputer_tpu_torch import Register, StateVectorEngine
-from quantumcomputer_tpu_torch.models.shor_circuit import (
-    hadamard_layer,
-    inverse_qft_fused,
-    modexp_ladder,
-    shor_circuit,
-    shor_circuit_mhigh,
-    shor_circuit_reference,
-)
+from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh, shor_circuit_reference
 from quantumcomputer_tpu_torch.sim import engine as tengine
 from quantumcomputer_tpu_torch.utils import profiling as prof
-
-
-def test_bytes_accounting_matches_jax():
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit as jshor_circuit
-
-    assert prof.bytes_per_state(10) == jprof.bytes_per_state(10) == 2 * 1024 * 4
-    assert prof.bytes_per_state(12, 8) == jprof.bytes_per_state(12, 8)
-    costs = prof.circuit_cost(shor_circuit(15, 7, 3, 4), 7)
-    jcosts = jprof.circuit_cost(jshor_circuit(15, 7, 3, 4), 7)
-    assert [(c.gate, c.qubits, c.bytes_moved) for c in costs] == [(c.gate, c.qubits, c.bytes_moved) for c in jcosts]
-    assert all(c.bytes_moved == 2 * prof.bytes_per_state(7) for c in costs)
-
-
-def test_roofline_projection_matches_jax():
-    from quantumcomputer_tpu.models.shor_circuit import shor_circuit as jshor_circuit
-
-    t = prof.roofline_seconds(shor_circuit(15, 7, 3, 4), 28, hbm_gbps=3350.0)
-    assert t == jprof.roofline_seconds(jshor_circuit(15, 7, 3, 4), 28, hbm_gbps=3350.0)
-    assert 0.005 < t < 0.1  # 9 gates x 2 x 2 GiB at 3.35 TB/s ~ 11.5 ms
 
 
 @pytest.mark.parametrize("fuse", [True, False])
@@ -55,25 +29,6 @@ def test_time_circuit_runs(fuse):
     assert prof.time_circuit_folded(eng, shor_circuit(15, 7, 3, 4), iters=2) > 0
     state = eng.initial_state()
     assert abs(prof.force_completion(eng.run(shor_circuit(15, 7, 3, 4), state)) - 1.0) < 1e-6
-
-
-@pytest.mark.parametrize("layout", ["standard", "m_high"])
-def test_phase_profile(layout):
-    C, a, L, M = 15, 7, 3, 4
-    eng = StateVectorEngine(Register(L=L, M=M), dtype=torch.complex128, backend="torch", layout=layout)
-    if layout == "standard":
-        phases = [
-            ("H layer", hadamard_layer(L, M)),
-            ("oracle ladder", modexp_ladder(C, a, L, M)),
-            ("inverse QFT", inverse_qft_fused(L, M)),
-        ]
-    else:
-        circ = shor_circuit_mhigh(C, a, L, M)
-        phases = [("H layer", circ[:L]), ("oracle ladder", circ[L:2 * L]), ("inverse QFT", iter(circ[2 * L:]))]
-    out = prof.phase_profile(eng, phases, iters=1)
-    assert [p.label for p in out] == ["H layer", "oracle ladder", "inverse QFT"]
-    assert [p.n_gates for p in out] == [3, 3, 3]
-    assert all(p.seconds >= 0.0 for p in out)
 
 
 def test_norm_trace_fig2_matches_jax_per_gate():

@@ -1,0 +1,235 @@
+"""The port's spans (quantumcomputer_tpu_torch/utils/profiling.py: span,
+record_spans, span_records, span_summary) on the CPU: off by default and
+then a shared no-op, results bit for bit the same with recording on, the
+span tree of a Shor attempt and of a semiclassical attempt, the counts the
+spans carry, the ``qc.*`` ranges in a profiler's Chrome trace, and the
+bounded buffer.
+
+complex32 off the card runs the cuda backend's planned path
+(apply_circuit_fused_) through the kernels' plain versions, so these
+engines reach every full-register span a card run has."""
+
+import json
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
+from quantumcomputer_tpu_torch.algorithms import shor
+from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+from quantumcomputer_tpu_torch.utils import profiling as prof
+
+C, A, L, M = 21, 2, 6, 5
+SC_C, SC_L, SC_M = (1 << 18) - 3, 6, 18
+
+
+@pytest.fixture(autouse=True)
+def _fresh_spans():
+    prof.record_spans(False)
+    prof.span_records(clear=True)
+    yield
+    prof.record_spans(False)
+    prof.span_records(clear=True)
+
+
+def engine(**kw):
+    return StateVectorEngine(Register(L, M), dtype="complex32", **kw)
+
+
+def recorded(fn):
+    """fn() with recording on; returns (its result, the records)."""
+    prof.record_spans(True)
+    try:
+        out = fn()
+    finally:
+        prof.record_spans(False)
+    return out, prof.span_records(clear=True)
+
+
+def children(recs, parent):
+    return [r for r in recs if r.parent == parent.id]
+
+
+def names(recs):
+    return [r.name for r in recs]
+
+
+def sc_base(need=2):
+    """A base whose SC_L-step ladder plans at least `need` structured steps."""
+    for a in range(2, 400):
+        if math.gcd(a, SC_C) != 1:
+            continue
+        a_invs = [pow(pow(a, 1 << (SC_L - 1 - s), SC_C), -1, SC_C) for s in range(SC_L)]
+        if sum(p is not None for p in sc._structured_plans(SC_C, a_invs, SC_M)) >= need:
+            return a
+    raise AssertionError("no base with enough planned steps")
+
+
+def test_off_by_default_a_shared_noop_that_records_nothing():
+    eng = engine()
+    a, b = prof.span("engine.run"), prof.span("oracle.gate", eng.device, gates=1)
+    assert a is b
+    with a as rec:
+        assert rec is None
+    shor.find_period(eng, C, A, 0.3)
+    assert prof.span_records() == [] and prof.dropped_spans() == 0
+
+
+@pytest.mark.parametrize("layout,oracle", [("standard", "gather"), ("standard", "benes"), ("m_high", "gather")])
+def test_fused_path_bit_identical_with_recording(layout, oracle):
+    circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, A, L, M)
+    eng = engine(layout=layout, oracle=oracle)
+    assert eng.backend == "cuda" and eng.device.type == "cpu"
+    off = eng.run(circuit)
+    on, recs = recorded(lambda: eng.run(circuit))
+    assert torch.equal(on, off)
+    assert {"engine.run", "fused.segment", "oracle.gate"} <= set(names(recs))
+    assert all(r.device_ms is None for r in recs)  # no CUDA events off the card
+
+
+def test_semiclassical_bit_identical_with_recording():
+    a = sc_base()
+    rs = np.random.default_rng(3).random(SC_L).astype(np.float32)
+    off = sc.run_semiclassical(SC_C, a, SC_L, SC_M, rs, structured=True)
+    on, _ = recorded(lambda: sc.run_semiclassical(SC_C, a, SC_L, SC_M, rs, structured=True))
+    assert on.bits == off.bits and on.branch_probs == off.branch_probs and on.oracles == off.oracles
+
+
+def test_shor_attempt_span_tree():
+    eng = engine()
+    rec, recs = recorded(lambda: shor.find_period(eng, C, A, 0.3))
+    (attempt,) = [r for r in recs if r.parent is None]
+    assert attempt.name == "driver.attempt" and all(r.root == attempt.id for r in recs)
+    assert names(children(recs, attempt)) == ["engine.run", "measure.sample", "driver.period"]
+    run = children(recs, attempt)[0]
+    inner = children(recs, run)
+    assert inner[0].name == "engine.plan"
+    assert set(names(inner[1:])) == {"fused.segment", "oracle.gate"}
+    assert names(inner).count("oracle.gate") == L
+    for gate in (r for r in inner if r.name == "oracle.gate"):
+        assert names(children(recs, gate)) == ["oracle.table"]
+    # Children close inside their parent, on the host clock.
+    for r in recs:
+        if r.parent is not None:
+            (p,) = [q for q in recs if q.id == r.parent]
+            assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
+    assert recs[-1] is attempt and rec.measured_index >= 0
+
+
+def test_gather_attempt_counts_its_oracle_gates_and_tables():
+    eng = engine()
+    _, recs = recorded(lambda: shor.find_period(eng, C, A, 0.7))
+    gates = [r for r in recs if r.name == "oracle.gate"]
+    tables = [r for r in recs if r.name == "oracle.table"]
+    assert len(gates) == L and sum(r.counts["gates"] for r in gates) == L
+    assert len(tables) == L and all(r.counts == {"bytes": 8 << M} for r in tables)
+
+
+def test_benes_attempt_spans_its_permutation_segments_as_oracle_gates():
+    """A segment of camodc ops alone is an oracle.gate (the permutation
+    kernel's segment on the card); a segment mixing them with other ops
+    stays a fused.segment."""
+    eng = engine(oracle="benes")
+    _, recs = recorded(lambda: shor.find_period(eng, C, A, 0.7))
+    plan = eng._plan(shor_circuit(C, A, L, M))
+    pure = [ops for _, ops, _ in plan if all(op[0] == "camodc" for op in ops)]
+    assert all(entry[0] == "fused" for entry in plan) and 0 < len(pure) < len(plan)
+    gates = [r for r in recs if r.name == "oracle.gate"]
+    assert len(gates) == len(pure) and [r.counts["gates"] for r in gates] == [len(ops) for ops in pure]
+    assert names(recs).count("fused.segment") == len(plan) - len(pure)
+    assert "oracle.table" not in names(recs)
+
+
+def test_engine_plan_only_on_a_plan_cache_miss():
+    eng = engine()
+    _, first = recorded(lambda: shor.find_period(eng, C, A, 0.5))
+    _, second = recorded(lambda: shor.find_period(eng, C, A, 0.5))
+    _, other = recorded(lambda: shor.find_period(eng, C, 5, 0.5))
+    assert names(first).count("engine.plan") == 1
+    assert "engine.plan" not in names(second)
+    assert names(other).count("engine.plan") == 1
+
+
+@pytest.mark.parametrize("structured", [True, False])
+def test_semiclassical_attempt_span_tree(structured):
+    a = sc_base()
+    rs = np.full(SC_L, 0.5, np.float32)
+    out, recs = recorded(lambda: sc.run_semiclassical(SC_C, a, SC_L, SC_M, rs, structured=structured))
+    (attempt,) = [r for r in recs if r.parent is None]
+    assert attempt.name == "sc.attempt"
+    top = children(recs, attempt)
+    steps = [r for r in top if r.name == "sc.step"]
+    assert len(steps) == SC_L
+    for step, kind in zip(steps, out.oracles):
+        parts = names(children(recs, step))
+        want = ["sc.permute", "sc.rotate", "sc.branch_sums"] if kind == "structured" else ["sc.gather_pass"]
+        assert parts == want + ["sc.collapse"]
+    plans = [r for r in top if r.name == "sc.plan"]
+    if structured:
+        assert len(plans) == 1 and plans[0].counts["planned"] == out.oracles.count("structured") >= 2
+    else:
+        assert plans == [] and out.oracles == ["gather"] * SC_L
+
+
+def test_profiler_trace_holds_the_nested_qc_ranges(tmp_path):
+    eng = engine()
+    path = tmp_path / "trace.json"
+    with prof.trace(str(path)):  # spans record while the profiler does, with no switch
+        shor.find_period(eng, C, A, 0.3)
+    recs = prof.span_records(clear=True)
+    assert names(recs).count("driver.attempt") == 1
+    events = json.loads(path.read_text())["traceEvents"]
+    qc = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name", "").startswith("qc."):
+            qc.setdefault(e["name"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    assert len(qc["qc.oracle.gate"]) == len(qc["qc.oracle.table"]) == L
+    assert len(qc["qc.engine.run"]) == len(qc["qc.measure.sample"]) == 1
+
+    def inside(inner, outer):
+        return all(any(a <= x and y <= b for a, b in qc[outer]) for x, y in qc[inner])
+
+    assert inside("qc.engine.run", "qc.driver.attempt")
+    assert inside("qc.fused.segment", "qc.engine.run") and inside("qc.oracle.gate", "qc.engine.run")
+    assert inside("qc.oracle.table", "qc.oracle.gate") and inside("qc.driver.period", "qc.driver.attempt")
+    assert prof.span_records() == []  # off again once the profiler stopped
+    shor.find_period(eng, C, A, 0.3)
+    assert prof.span_records() == []
+
+
+def test_buffer_bound_and_dropped_count(monkeypatch):
+    monkeypatch.setattr(prof, "MAX_SPANS", 3)
+    prof.record_spans(True)
+    for i in range(5):
+        with prof.span("engine.run", counts_i=i):
+            pass
+    recs = prof.span_records()
+    assert [r.counts["counts_i"] for r in recs] == [0, 1, 2]
+    assert prof.dropped_spans() == 2
+    prof.span_records(clear=True)
+    assert prof.span_records() == [] and prof.dropped_spans() == 0
+
+
+def test_summary_counts_and_a_span_that_raises():
+    prof.record_spans(True)
+    with prof.span("outer") as outer:
+        outer.counts["planned"] = 4
+        for _ in range(3):
+            with prof.span("inner"):
+                pass
+        with pytest.raises(ValueError):
+            with prof.span("inner"):
+                raise ValueError("raised inside a span")
+    recs = prof.span_records()
+    assert [r.name for r in recs] == ["inner"] * 4 + ["outer"]
+    assert all(r.parent == recs[-1].id for r in recs[:4]) and recs[-1].counts == {"planned": 4}
+    summary = prof.span_summary(recs)
+    assert list(summary) == ["inner", "outer"]
+    assert summary["inner"]["count"] == 4 and summary["outer"]["count"] == 1
+    assert summary["outer"]["host_ms"] >= summary["inner"]["host_ms"] >= 0.0
+    assert summary["inner"]["device_ms"] is None
+    with prof.span("after") as rec:  # the raising span left the stack
+        assert rec.parent is None
