@@ -34,7 +34,9 @@ Phases, each of which must pass:
      (quantumcomputer_tpu_torch/utils/kernel_checks.py), the strip pass
      (oracle_strip.cu) among them: bf16 and float32 exactly against its
      plain version at n = 20 (M = 6, 9, 13), n = 10 (rows of one sector)
-     and with strips left alone, and its refusals;
+     and with strips left alone, and its refusals; and the semiclassical
+     step's two passes (sc_step.cu) against their plain versions at M = 24
+     and 30, timed, and whole M = 24 attempts against the CPU's;
   3. factor 15 through the CLI (-C 15 -L 3 -M 4 -a 7), through the fused
      kernel, then again with --layout m_high, through the cycle kernel, with
      --oracle benes (a segment with a camodc op must launch), with
@@ -88,7 +90,8 @@ Phases, each of which must pass:
      M = 30 (complex64, an 8 GiB work state) with
      shors_algorithm(semiclassical=True, backend="cuda"), its bits equal to
      scripts/predict_semiclassical.py's exact prediction on the same draws,
-     the launch counters reset just before and read just after;
+     the launch counters reset just before and read just after (at complex64
+     one launch of each sc_step kernel a structured step);
   8. the m_high row-gather oracle (apply_camodc_high_planar) at n = 28 in the
      flagship geometry (C = 8191, A = 3, M = 13): controls 14 (the JAX
      kernel's pure blocks), 3 (mixed) and 0 (below the vector width), in
@@ -897,7 +900,7 @@ def phase_cli() -> None:
 
 
 def reset_launches() -> None:
-    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, transpose
+    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, sc_step, transpose
 
     fused.LAUNCHES = 0
     fused.CAMODC_LAUNCHES = 0
@@ -905,13 +908,13 @@ def reset_launches() -> None:
     fused.MATMUL_LAUNCHES = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
-    for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES):
+    for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES, sc_step.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches() -> dict:
-    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, transpose
+    from quantumcomputer_tpu_torch.ops import chunkgather, fused, measure, oracle, probes, sc_step, transpose
 
     return {
         "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "permute": fused.PERMUTE_LAUNCHES,
@@ -920,6 +923,7 @@ def launches() -> dict:
         **oracle.LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
         **{f"probe_{k}": v for k, v in probes.LAUNCHES.items()},
+        **{f"sc_{k}": v for k, v in sc_step.LAUNCHES.items()},
     }
 
 
@@ -1739,16 +1743,17 @@ def phase_semiclassical_timing(report: dict, planes) -> None:
     w = (w / torch.linalg.vector_norm(w)).to(planes)
     phi, r = torch.tensor(0.375, device=DEVICE), torch.tensor(0.4, device=DEVICE)
     outs = {}
+    scratch = w.clone()  # a float32 structured step writes its state over its input
     for path, p in (("structured", plan), ("gather", None)):
-        ms = time_ms(lambda: sc._step(w, phi, M, planes, C, a_invs[step], p, r, -1), reps=3)
-        bit, p_cond, out, _ = sc._step(w, phi, M, planes, C, a_invs[step], p, r, -1)
+        ms = time_ms(lambda: sc._step(scratch, phi, M, planes, C, a_invs[step], p, r, -1), reps=3)
+        bit, p_cond, out, _ = sc._step(w.clone(), phi, M, planes, C, a_invs[step], p, r, -1)
         outs[path] = (int(bit), float(p_cond), out)
         log(f"semiclassical step {dname(planes)} M={M} ({path}): {ms:.4f} ms, bit {int(bit)}, p_cond {float(p_cond):.9f}")
     dist = float(torch.linalg.vector_norm(outs["structured"][2].float() - outs["gather"][2].float()))
     log(f"semiclassical step {dname(planes)} M={M}: structured vs gather ||d||_2 = {dist:.3e} (tol {FLAGSHIP_TOL:.0e})")
     check(outs["structured"][0] == outs["gather"][0], "structured and gather steps measured different bits")
     check(dist <= FLAGSHIP_TOL, f"structured vs gather step distance {dist}")
-    del w, outs
+    del w, scratch, outs
     torch.cuda.empty_cache()
 
 
@@ -1822,6 +1827,10 @@ def phase_semiclassical_factor(report: dict, planes, reference=None):
     check(result.factors == SC_FACTORS, f"factors {result.factors} != {SC_FACTORS}")
     check(n_struct > 0, "no step took the structured oracle")
     check(counts["transpose"] > 0, "the semiclassical main path launched no transpose kernel")
+    # float32 planes: the step's two kernels once a structured step; bf16 keeps the PyTorch composition.
+    fused_steps = n_struct if planes == torch.float32 else 0
+    check(counts["sc_branch_sums"] == counts["sc_collapse"] == fused_steps,
+          f"sc_step launches {counts['sc_branch_sums']} / {counts['sc_collapse']}, expected {fused_steps} each")
     for form, n in chunkgather.LAUNCHES.items():
         check(n > 0, f"the semiclassical main path launched no chunk_gather {form}")
     if reference is not None:

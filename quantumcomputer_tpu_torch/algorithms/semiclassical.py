@@ -20,7 +20,11 @@ U runs one of two ways, per step, as in the JAX package:
     device, the branch sums folded into the same sweep;
   * the structured stride permutation (``_oracle_pass_structured``,
     ``ops/modperm.py``: the transpose and chunk-gather kernels on the
-    card), one plane at a time, where the step's multiplier plans.
+    card), one plane at a time, where the step's multiplier plans.  On the
+    card at float32 / float64 the rest of such a step (the scale, the
+    rotation, the branch sums and the collapse) is two passes of
+    ``ops/sc_step.py``'s kernels, which never store a1
+    (``_structured_step_cuda``).
 
 The JAX package compiles its attempt into one program (fused, per-step or
 segmented forms).  Eager PyTorch needs none of that: one step loop updates
@@ -55,7 +59,7 @@ import torch
 
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
 from quantumcomputer_tpu_torch.ops import gates as tops
-from quantumcomputer_tpu_torch.ops import modperm
+from quantumcomputer_tpu_torch.ops import modperm, sc_step
 from quantumcomputer_tpu_torch.sim import checkpoint as ckpt
 from quantumcomputer_tpu_torch.sim import statevec as sv
 from quantumcomputer_tpu_torch.utils import profiling
@@ -187,14 +191,34 @@ def collapse_from_a1(w, a1, p0, p1, r, force: int, rdtype, cdt) -> tuple:
     return bit, p_branch / total, a1
 
 
+def _structured_step_cuda(w, plan, ct, st, r, force: int) -> tuple:
+    """A structured step on the card at float32 / float64: both planes
+    permuted, unscaled, then ops/sc_step's two passes, which fold in the
+    1/sqrt2 scale, the rotation, the branch sums and the collapse without
+    storing a1.  Rounds as _oracle_pass_structured and collapse_from_a1 do;
+    only the sums' order differs.  w' is written over w.  Returns (bit,
+    p_cond)."""
+    with profiling.span("sc.permute", w.device):
+        gr = modperm.apply_stride_permute(w[0:1], plan)[0]
+        gi = modperm.apply_stride_permute(w[1:2], plan)[0]
+    with profiling.span("sc.branch_sums", w.device):
+        partials = sc_step.branch_sums(w, gr, gi, ct, st)
+    with profiling.span("sc.collapse", w.device):
+        return sc_step.collapse(w, gr, gi, ct, st, partials, r, force)
+
+
 def _step(w, phi, M: int, rdtype, C: int, a_inv: int, plan, r, force: int) -> tuple:
     """One step: the oracle pass (structured where `plan` is given, else the
     gather), then the collapse.  phi is the deferred phase, a 0-d tensor in
     the compute dtype.  Returns (bit, p_cond, w', phi'); w' reuses the
-    rotated branch's storage, so the caller drops its reference to w."""
+    rotated branch's storage, or on the card a structured float32 / float64
+    step writes it over w, so the caller drops its reference to w."""
     cdt = _compute_dtype(rdtype)
     theta = phi * torch.tensor(math.pi, dtype=cdt, device=w.device)
     ct, st = torch.cos(theta), torch.sin(theta)
+    if plan is not None and w.device.type == "cuda" and rdtype in sc_step.DTYPES:
+        bit, p_cond = _structured_step_cuda(w, plan, ct, st, r, force)
+        return bit, p_cond, w, (phi + bit.to(cdt)) / 2
     if plan is not None:
         a1, p0, p1 = _oracle_pass_structured(w, M, rdtype, cdt, plan, ct, st)
     else:

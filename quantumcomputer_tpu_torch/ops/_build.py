@@ -12,9 +12,9 @@ that need it (the processes of a mesh on a fresh checkout) wait and load.
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the
 wrappers in ``ops/fused.py``, ``ops/measure.py``, ``ops/oracle.py``,
-``ops/transpose.py``, ``ops/chunkgather.py`` and ``ops/probes.py`` raise
-when it is not 0.  A kernel has one entry point per plane dtype, named
-``<kernel>_f32``, ``_f64`` or ``_bf16`` (``entry``).
+``ops/transpose.py``, ``ops/chunkgather.py``, ``ops/probes.py`` and
+``ops/sc_step.py`` raise when it is not 0.  A kernel has one entry point
+per plane dtype, named ``<kernel>_f32``, ``_f64`` or ``_bf16`` (``entry``).
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def _build_once(path: str) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     kernels = (
         # re, im, ops_i, ops_f, groups, ngroups, ftab, ptab, nperm, nops, n, t, naxes, axes_packed, M, vb, ne, stream
         ("qc_fused_segment", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, p]),
@@ -144,6 +144,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("qc_transpose", ("f32", "f64", "bf16"), [p, p, i64, i64, i64, i64, p]),
         # x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream
         ("qc_chunk_gather", ("f32", "f64", "bf16"), [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, p]),
+        # wr, wi, gr, gi, ct, st, s2, partials, grid, n, stream
+        ("qc_sc_branch_sums", ("f32", "f64"), [p, p, p, p, p, p, f64, p, i64, i64, p]),
+        # wr, wi, gr, gi, ct, st, s2, partials, nparts, r, force, bit, pcond, grid, n, stream
+        ("qc_sc_collapse", ("f32", "f64"), [p, p, p, p, p, p, f64, p, i64, p, i64, p, p, i64, i64, p]),
     )
     for kernel, suffixes, argtypes in kernels:
         for suffix in suffixes:

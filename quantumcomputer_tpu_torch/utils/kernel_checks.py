@@ -31,14 +31,21 @@ import numpy as np
 import torch
 
 from quantumcomputer_tpu_torch.models import circuit as cir
-from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes
+from quantumcomputer_tpu_torch.algorithms import semiclassical
+from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes, sc_step
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.scripts import exact_err
 from quantumcomputer_tpu_torch.sim import statevec as sv
+from quantumcomputer_tpu_torch.utils import profiling
 
 DTYPES = (torch.float32, torch.float64)
 FUSED_TOL = {torch.float32: 3e-5, torch.float64: 1e-12}
 BLOCK_SUMS_TOL = 1e-6
+# The semiclassical step's sums: float64 in its kernel, the plane dtype in the
+# step's PyTorch composition; the CPU suite's tolerances.
+SC_SUM_RTOL = {torch.float32: 1e-6, torch.float64: 1e-13}
+# The card's published HBM bandwidth (H100 SXM), for the kernels' bounds.
+HBM_BYTES_PER_S = 3.35e12
 # bf16: one ulp of the plain result, taken at magnitudes of at least
 # BF16_ULP_FLOOR.  Below it the two float32 results (each within a few
 # float32 ulps of the exact value, at most 3e-5 apart on unit-variance
@@ -637,6 +644,82 @@ def mcphase_planes(device) -> List[str]:
     return lines
 
 
+def _sc_inputs(M: int, dtype, device, seed: int) -> tuple:
+    """A normalized work state on the card, a rotation of its amplitudes as
+    the permuted planes (gr, gi), and cos / sin of pi * 0.3."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((2, 1 << M), generator=gen, device=device, dtype=dtype)
+    w /= torch.linalg.vector_norm(w)
+    g = torch.roll(w, 1 + (1 << (M - 3)), dims=1)
+    theta = torch.tensor(0.3, dtype=dtype, device=device) * torch.tensor(math.pi, dtype=dtype, device=device)
+    return w, g[0], g[1], torch.cos(theta), torch.sin(theta)
+
+
+def _sc_attempts(device) -> List[str]:
+    """Whole M = 24 attempts through the two kernels against the same
+    attempts on the CPU (the step's PyTorch composition) under the same
+    draws: equal bits, and one launch of each kernel a structured step."""
+    C, a, L, M = (1 << 24) - 3, 7, 8, 24
+    rs = np.random.default_rng(24).random(L)
+    lines = []
+    for dtype in (torch.complex64, torch.complex128):
+        before = dict(sc_step.LAUNCHES)
+        rec = semiclassical.run_semiclassical(C, a, L, M, rs, dtype=dtype, structured=True, device=device)
+        planned = rec.oracles.count("structured")
+        launched = {k: sc_step.LAUNCHES[k] - before[k] for k in before}
+        _check(planned > 0, f"no step of the M={M} attempt planned")
+        _check(launched == {"branch_sums": planned, "collapse": planned},
+               f"sc_step launches {launched}, {planned} structured steps")
+        ref = semiclassical.run_semiclassical(C, a, L, M, rs, dtype=dtype, structured=True, device="cpu")
+        _check(rec.bits == ref.bits, f"sc attempt {dtype} bits {rec.bits} != the CPU's {ref.bits}")
+        dev = max(abs(p - q) for p, q in zip(rec.branch_probs, ref.branch_probs))
+        lines.append(f"sc attempt {dtype} M={M} L={L}: bits equal to the CPU's, {planned} structured steps, "
+                     f"launches {launched}, largest p_cond deviation {dev:.3e}")
+    return lines
+
+
+def sc_step_kernels(device) -> List[str]:
+    """The semiclassical step's two kernels (ops/sc_step.py) against their
+    plain versions at M = 24 (float32, float64) and M = 30 (float32): the
+    sums within SC_SUM_RTOL and the same on a second launch; given the same
+    sums, the state, the bit and p_cond equal for a drawn and both forced
+    bits; each kernel timed beside its bound (2S and 3S over 3.35 TB/s) and
+    its plain version.  Then whole M = 24 attempts (``_sc_attempts``)."""
+    lines = []
+    for dtype, M in ((torch.float32, 24), (torch.float64, 24), (torch.float32, 30)):
+        w, gr, gi, ct, st = _sc_inputs(M, dtype, device, seed=M)
+        r = torch.tensor(0.45, dtype=dtype, device=device)
+        parts = sc_step.branch_sums(w, gr, gi, ct, st)
+        what = f"{_name(dtype)} M={M}"
+        _check(torch.equal(parts, sc_step.branch_sums(w, gr, gi, ct, st)), f"sc_branch_sums {what} varies")
+        got = sc_step.reduce_partials(parts)
+        want = sc_step.reduce_partials(sc_step.branch_sums_plain(w, gr, gi, ct, st))
+        rel = float(((got - want).abs() / want.abs()).max())
+        _check(rel <= SC_SUM_RTOL[dtype], f"sc_branch_sums {what}: rel {rel} > {SC_SUM_RTOL[dtype]}")
+        for force in (-1, 0, 1):
+            wk, wp = w.clone(), w.clone()
+            bk, pk = sc_step.collapse(wk, gr, gi, ct, st, parts, r, force)
+            bp, pp = sc_step.collapse_plain(wp, gr, gi, ct, st, parts, r, force)
+            _check(int(bk) == int(bp) and torch.equal(pk, pp), f"sc_collapse {what} force {force}: bit or p_cond differs")
+            _check(torch.equal(wk, wp), f"sc_collapse {what} force {force}: state differs by {exact_err(wk, wp)}")
+            del wk, wp
+        nbytes = 2 * (1 << M) * w.element_size()
+        wk = w.clone()
+        a_ms = profiling.cuda_ms(lambda: sc_step.branch_sums(w, gr, gi, ct, st), reps=10)
+        b_ms = profiling.cuda_ms(lambda: sc_step.collapse(wk, gr, gi, ct, st, parts, r, -1), reps=10)
+        pa_ms = profiling.cuda_ms(lambda: sc_step.branch_sums_plain(w, gr, gi, ct, st), reps=2)
+        pb_ms = profiling.cuda_ms(lambda: sc_step.collapse_plain(wk, gr, gi, ct, st, parts, r, -1), reps=2)
+        a_bound, b_bound = 2e3 * nbytes / HBM_BYTES_PER_S, 3e3 * nbytes / HBM_BYTES_PER_S
+        lines.append(
+            f"sc_step {what}: sums rel {rel:.2e}, repeatable; state, bit and p_cond equal (force -1, 0, 1); "
+            f"branch_sums {a_ms:.4f} ms (bound {a_bound:.4f}, {a_bound / a_ms:.1%}; plain {pa_ms:.3f}), "
+            f"collapse {b_ms:.4f} ms (bound {b_bound:.4f}, {b_bound / b_ms:.1%}; plain {pb_ms:.3f})"
+        )
+        del w, gr, gi, wk, parts
+        torch.cuda.empty_cache()
+    return lines + _sc_attempts(device)
+
+
 CHECKS: List[Callable[[torch.device], List[str]]] = [
     fused_random_circuit,
     fused_split_angle,
@@ -652,6 +735,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     camodc_few_changed_blocks,
     batched_sampler,
     mcphase_planes,
+    sc_step_kernels,
 ]
 
 
