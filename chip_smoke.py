@@ -36,9 +36,15 @@ Phases, each of which must pass:
      plain version at n = 20 (M = 6, 9, 13), n = 10 (rows of one sector)
      and with strips left alone, and its refusals; and the semiclassical
      step's two passes (sc_step.cu) against their plain versions at M = 24
-     and 30, timed, and whole M = 24 attempts against the CPU's;
+     and 30, timed, and whole M = 24 attempts against the CPU's; last, the
+     n = 32 m_high attempt (C = 8191, a = 3, L = 19, M = 13, a 32 GiB
+     complex64 state) through StateVectorEngine, its state within 1e-4 and
+     its index within 2.5e-6 of the closed form, the complex32 run outside
+     one of them;
   3. factor 15 through the CLI (-C 15 -L 3 -M 4 -a 7), through the fused
-     kernel, then again with --layout m_high, through the cycle kernel, with
+     kernel, then again with --layout m_high, through the cycle kernel, then
+     8187 = 3 x 2729 at L + M = 32 (-L 19 -M 13 --layout m_high, unsharded),
+     and -L 20 refused (exit 2); then 15 with
      --oracle benes (a segment with a camodc op must launch), with
      --strict-reference (the torch backend's plain ops: its engine must sit
      on the card and the run allocate there) and with --dtype dd64 (the
@@ -314,6 +320,9 @@ UNFUSED_TOL = 1e-5  # fuse=False against fuse=True at n = 20
 # with about twice their largest as margin.
 C32_NORM_TOL = 5e-3
 C32_DIST_TOL = 6e-3
+# The reference's largest register on one card (L + M = 32, complex64, m_high).
+N32_CLI = ["-C", "8187", "-L", "19", "-M", "13", "--layout", "m_high", "-v", "--seed", "0"]
+
 # The n = 31 single-card demo (README): -C 8189 -L 18 -M 13 -a 2 at complex32 in
 # the m_high layout, an 8 GiB state.  By the exact outcome distribution about
 # 75% of single attempts factor, so seeds are tried in turn.
@@ -869,6 +878,24 @@ def phase_cli() -> None:
     check(" --- Factors of 15 found: (5, 3)." in buf.getvalue(), "the m_high CLI did not factor 15 into (5, 3)")
     check(oracle.LAUNCHES["cycle"] > 0, "the m_high CLI run launched no cycle kernel")
     log(f"cli --layout m_high: factored 15 = 5 x 3, launches {launches()}")
+
+    # The reference's largest register (L + M = 32) unsharded on the card,
+    # and L + M = 33 refused with the reference's message.
+    reset_launches()
+    buf, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(N32_CLI)
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    check(rc == 0, f"cli.main {' '.join(N32_CLI)} returned {rc}")
+    check(any(f in buf.getvalue() for f in (" --- Factors of 8187 found: (3, 2729).", " --- Factors of 8187 found: (2729, 3).")),
+          "the n = 32 m_high CLI did not factor 8187 into 3 x 2729")
+    with contextlib.redirect_stderr(err):
+        rc33 = cli.main([("20" if x == "19" else x) for x in N32_CLI])
+    check(rc33 == 2 and "L + M > 32 qubits" in err.getvalue(), f"L + M = 33 gave {rc33}: {err.getvalue()!r}")
+    log(f"cli n=32 m_high: factored 8187 = 3 x 2729 in {seconds:.2f} s, launches {launches()}; n=33 exits 2")
 
     import torch
 

@@ -19,7 +19,9 @@ register) over a mesh of N distinct devices (``parallel/mesh.build_mesh``):
 the visible CUDA cards, or on a host with no card the CPU's 8 virtual
 shards; more than the host has exits 2, as the JAX CLI does.  ``--backend
 cuda`` on a host with no CUDA device exits 2 as well, and never runs on the
-CPU.
+CPU.  On a CUDA card a register of 32 qubits (the reference's bound) runs
+unsharded at complex64 or complex32 when the card holds its state; with no
+card the JAX package's 31-qubit bound and message stand.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ import torch
 
 from quantumcomputer_tpu_torch.algorithms import number_theory as nt
 from quantumcomputer_tpu_torch.algorithms.shor import Outcome, issue_warnings, shors_algorithm
+from quantumcomputer_tpu_torch.sim.statevec import real_dtype_of
 from quantumcomputer_tpu_torch.utils.logging import configure, get_logger
+from quantumcomputer_tpu_torch.utils.memory import state_fits
 
 log = get_logger("cli")
 
@@ -139,7 +143,7 @@ def validate(args: argparse.Namespace) -> Optional[str]:
         return None
     if args.L + args.M > 32:
         return "L + M > 32 qubits exceeds the index budget (the reference's own bound, qc_shor.c:68-73)."
-    if args.L + args.M - (args.devices.bit_length() - 1) > 31 and args.dtype != "complex128":
+    if args.L + args.M - (args.devices.bit_length() - 1) > 31 and args.dtype != "complex128" and not _one_card(args):
         # The JAX package's condition and message, word for word: its
         # "runs on CPU" clause describes the JAX package's complex128 mode;
         # this package runs complex128 on the card.
@@ -151,6 +155,20 @@ def validate(args: argparse.Namespace) -> Optional[str]:
     if args.layout == "m_high" and args.devices > (1 << args.M):
         return "m_high sharding needs devices <= 2^M (global bits must fit in the work register)."
     return None
+
+
+def _one_card(args: argparse.Namespace) -> bool:
+    """True when the register (L + M <= 32, the reference's bound) runs
+    unsharded on this host's CUDA card: complex64 or complex32 on the cuda
+    backend, and a state the engine's memory rule holds there
+    (utils/memory.state_fits).  The int32 bound of 31 qubits is the JAX
+    package's, whose TPU holds 16 GiB; the port indexes with int64.  With no
+    card the JAX package's answer stands."""
+    if args.devices != 1 or args.backend == "torch" or args.strict_reference:
+        return False
+    if args.dtype not in ("complex64", "complex32") or not torch.cuda.is_available():
+        return False
+    return state_fits(args.L + args.M, real_dtype_of(args.dtype), torch.device("cuda"))
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

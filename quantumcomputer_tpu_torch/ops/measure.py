@@ -15,6 +15,13 @@ The result is the smallest index whose cumulative probability reaches
 r * total, falling through to the last index.  The draw is scaled by the
 total, as in the JAX package.  bf16 ("complex32") states sum in float32,
 block sums, scans and draws alike (``statevec.compute_dtype``).
+
+Up to 2^31 amplitudes the blocks and the scans are the JAX package's,
+which stops there (its indices are int32).  The port's indices are int64,
+so a larger state (n = 32 on one card) keeps the same block rule, 1024
+blocks of 2^22 amplitudes at n = 32, and scans in float64 past the block
+sums (``FLOAT64_SCAN_ABOVE``): its blocks are twice the largest a float32
+scan has served, and the float64 pick costs one block's worth of work.
 """
 
 from __future__ import annotations
@@ -32,17 +39,18 @@ MAX_BLOCKS = 1024
 # The hierarchical path serves f32 and bf16 states of at least this many amplitudes.
 HIERARCHICAL_MIN_DIM = 1 << 16
 
+#: The JAX package's index budget (int32): up to it both packages sample
+#: alike; a larger state's draw, block pick and in-block scan run in float64.
+FLOAT64_SCAN_ABOVE = 1 << 31
+
 #: Kernel launches made by block_sums (CUDA tensors only).
 LAUNCHES = 0
 
 
 def block_geom(dim: int) -> tuple:
     """(block_rows, block) for a state of `dim` amplitudes: the JAX
-    package's _block_geom, so both packages cut the same blocks."""
-    if dim > (1 << 31):
-        raise ValueError(
-            f"dim = 2^{dim.bit_length() - 1} exceeds the 2^31 index budget of the hierarchical sampler"
-        )
+    package's _block_geom up to 2^31 amplitudes, so both packages cut the
+    same blocks; past it (where the JAX package raises) the same rule."""
     rows = dim // LANE
     block_rows = max(BLOCK_ROWS, rows // MAX_BLOCKS)
     return block_rows, block_rows * LANE
@@ -98,8 +106,25 @@ def _draws(rs, dtype, device) -> torch.Tensor:
     ).reshape(-1)
 
 
+def sample_geometry(planar: torch.Tensor) -> tuple:
+    """(blocks, block) of the sampler sample_indices takes for `planar`:
+    the hierarchical blocks, or one block of the whole state (flat)."""
+    if _hierarchical(planar):
+        return _nblocks_block(planar)
+    return 1, planar.shape[-1]
+
+
+def _hierarchical(planar: torch.Tensor) -> bool:
+    return planar.dtype in (torch.float32, torch.bfloat16) and planar.shape[-1] >= HIERARCHICAL_MIN_DIM
+
+
 def sample_indices_planes(
-    planar: torch.Tensor, rs, plain: bool = False, absolute: bool = False, sums: Optional[torch.Tensor] = None
+    planar: torch.Tensor,
+    rs,
+    plain: bool = False,
+    absolute: bool = False,
+    sums: Optional[torch.Tensor] = None,
+    float64_above: int = FLOAT64_SCAN_ABOVE,
 ) -> torch.Tensor:
     """Hierarchical inverse-CDF samples, one per draw in `rs` (each in
     [0, 1)), without collapsing: ONE block-sum pass for all draws (the
@@ -116,10 +141,15 @@ def sample_indices_planes(
     With `absolute` each draw is a target on the state's own probability
     scale, not scaled by the total (a shard of a sharded state picks at the
     draw less the shards before it); `sums` passes block sums the caller
-    already has."""
+    already has.  A state of more than `float64_above` amplitudes takes
+    the block sums to float64 and scans, draws and picks there, its
+    block's probabilities squared in float64 too."""
     if sums is None:
         sums = block_sums_plain(planar) if plain else block_sums(planar)
     nblocks, block = _nblocks_block(planar)
+    wide = planar.shape[-1] > float64_above
+    if wide:
+        sums = sums.to(torch.float64)
     cum = torch.cumsum(sums, 0)
     scaled = _draws(rs, cum.dtype, cum.device)
     if not absolute:
@@ -127,11 +157,11 @@ def sample_indices_planes(
     b = _clamped_search(cum, scaled)
     target = scaled - (cum[b] - sums[b])
     blocks = planar.view(2, nblocks, block)
-    local = [
-        _clamped_search(torch.cumsum(sv.probabilities(blocks.index_select(1, b[i : i + 1]).view(2, block)), 0),
-                        target[i : i + 1])
-        for i in range(b.shape[0])
-    ]
+    local = []
+    for i in range(b.shape[0]):
+        picked = blocks.index_select(1, b[i : i + 1]).view(2, block)
+        probs = sv.probabilities(picked.to(torch.float64) if wide else picked)
+        local.append(_clamped_search(torch.cumsum(probs, 0), target[i : i + 1]))
     return (b * block + torch.cat(local)).cpu()
 
 
@@ -152,7 +182,7 @@ def sample_indices(
     sample hierarchically, the rest flat.  One index per draw in `rs`, as an
     int64 CPU tensor.  `absolute` and `sums` as in sample_indices_planes
     (`sums` serves the hierarchical path only)."""
-    if planar.dtype in (torch.float32, torch.bfloat16) and planar.shape[-1] >= HIERARCHICAL_MIN_DIM:
+    if _hierarchical(planar):
         return sample_indices_planes(planar, rs, plain, absolute, sums)
     return sample_indices_flat(planar, rs, absolute)
 

@@ -40,6 +40,7 @@ H100 is later work.
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -281,6 +282,27 @@ def planes_aligned(planar: torch.Tensor) -> bool:
     """True when both planes start on a 16-byte boundary (the walk's and the
     strip pass's vector width)."""
     return all(p.data_ptr() % 16 == 0 for p in (planar[0], planar[1]))
+
+
+@lru_cache(maxsize=256)
+def pass_bytes(C: int, A_list: tuple, n: int, M: int, itemsize: int, in_place: bool) -> int:
+    """Bytes a pass of K = len(A_list) gates reads and writes on a (2, 2^n)
+    state: out of place (the ladder) every element once each way; in place
+    (a walk, a pair, a strip run) each element it moves, once each way: the
+    rest >> K columns of every nonzero control mask m, times the rows
+    j < C that the mask's composed multiplier mu moves (C - gcd(mu - 1, C)
+    of them; rows >= C and the fixed points stay)."""
+    if not in_place:
+        return 2 * 2 * itemsize << n
+    K = len(A_list)
+    moved = 0
+    for m in range(1, 1 << K):
+        mu = 1
+        for k, A in enumerate(A_list):
+            if m >> k & 1:
+                mu = mu * int(A) % C
+        moved += C - math.gcd(mu - 1, C)
+    return 2 * 2 * itemsize * moved << (n - M - K)
 
 
 def mask_multipliers(C: int, A_list, M: int) -> np.ndarray:

@@ -368,13 +368,13 @@ def apply_circuit_fused_(
         if run and oracle.strip_pays([g.qubits[0] for g in run], run[0].meta[0], cur.element_size(),
                                      oracle.strip_room(cur.device)):
             C, m_reg = run[0].meta[0], run[0].meta[2]
-            with profiling.span("oracle.gate", cur.device, gates=len(run)):
-                oracle.apply_camodc_run_inplace_planar(
-                    cur, C, [g.meta[1] for g in run], [g.qubits[0] for g in run], m_reg
-                )
+            A_list = [g.meta[1] for g in run]
+            with profiling.span("oracle.gate", cur.device, gates=len(run)) as rec:
+                oracle.apply_camodc_run_inplace_planar(cur, C, A_list, [g.qubits[0] for g in run], m_reg)
+                _count_pass(rec, cur, C, A_list, m_reg, True)
             i += len(run)
             continue
-        with _entry_span(seg, cur.device):
+        with _entry_span(seg, cur.device) as rec:
             if seg[0] == "fused":
                 fused.apply_fused(cur, seg[1], seg[2], M)
             elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
@@ -383,9 +383,15 @@ def apply_circuit_fused_(
                     spare = torch.empty_like(cur)
                 C, m_reg = g.meta[0], g.meta[1]
                 oracle.apply_camodc_ladder_high_planar(cur, spare, C, g.meta[2:], g.qubits, m_reg)
+                _count_pass(rec, cur, C, g.meta[2:], m_reg, False)
                 cur, spare = spare, cur
             else:
-                apply_gate_planes_(cur, seg[1], M)
+                g = seg[1]
+                apply_gate_planes_(cur, g, M)
+                if g.name == "camodc_high":
+                    _count_pass(rec, cur, g.meta[0], g.meta[1:2], g.meta[2], True)
+                elif g.name == "camodc_ladder_high":  # an in-place pair
+                    _count_pass(rec, cur, g.meta[0], g.meta[2:], g.meta[1], True)
         if norms is not None:
             norms.append(sv.norm(cur))
         if nan_checks:
@@ -396,6 +402,17 @@ def apply_circuit_fused_(
 
 
 _ORACLE_GATES = ("camodc", "camodc_high", "camodc_ladder_high")
+
+
+def _count_pass(rec, planar: torch.Tensor, C: int, A_list, m_reg: int, in_place: bool) -> None:
+    """Give a recording m_high `oracle.gate` span (`rec`; None when spans
+    are off) the bytes its pass reads and writes (oracle.pass_bytes) and
+    whether it ran in place (1) or out of place (0, the ladder)."""
+    if rec is not None:
+        n = sv.num_qubits(planar)
+        A = tuple(int(a) % C for a in A_list)
+        rec.counts.update(bytes=oracle.pass_bytes(C, A, n, m_reg, planar.element_size(), in_place),
+                          inplace=int(in_place))
 
 
 def _entry_span(seg, device):
@@ -599,7 +616,8 @@ class StateVectorEngine:
         with profiling.span("engine.run", self.device):
             fresh = state is None
             if fresh:
-                state = self.initial_state()
+                with profiling.span("engine.reset", self.device):
+                    state = self.initial_state()
             circuit, checks = self._prep(circuit), self.nan_checks
             if self.backend == "torch":
                 return apply_circuit_plain_(state, circuit, self.m_eff, norms, checks)
@@ -656,7 +674,10 @@ class StateVectorEngine:
     # -- measurement ----------------------------------------------------------
 
     def _sample(self, planar: torch.Tensor, r: float) -> int:
-        with profiling.span("measure.sample", planar.device):
+        with profiling.span("measure.sample", planar.device) as rec:
+            if rec is not None:
+                blocks, block = measure.sample_geometry(planar)
+                rec.counts.update(blocks=blocks, block=block)
             return measure.sample_index(planar, r, plain=self.backend == "torch")
 
     def measure(self, state: torch.Tensor, r: float) -> Tuple[int, torch.Tensor]:

@@ -720,6 +720,108 @@ def sc_step_kernels(device) -> List[str]:
     return lines + _sc_attempts(device)
 
 
+# The reference's largest register on one card: C, a, L, M of the flagship
+# family at L + M = 32 (a 32 GiB complex64 state), its draw, and the limits
+# of the benchmark's full-register cells.
+SHOR32 = (8191, 3, 19, 13)
+SHOR32_DRAW = 0.6180339887
+SHOR32_LIMITS = {"state_gap": 1e-4, "index_gap": 2.5e-6}
+
+
+def shor_orbit(C: int, a: int, L: int, M: int) -> tuple:
+    """(r, x0, K) of the Shor state: the order r of a mod C, and for each of
+    the 2^M work values w the exponent x0[w] with a^x0 = w mod C (-1 off the
+    orbit of 1) and the count K[w] of counting values x < 2^L with
+    a^x = w (numpy int64)."""
+    x0 = np.full(1 << M, -1, np.int64)
+    w, r = 1, 0
+    while x0[w] < 0:
+        x0[w], w, r = r, w * a % C, r + 1
+    return r, x0, np.where(x0 >= 0, ((1 << L) - 1 - x0) // r + 1, 0)
+
+
+def shor_mhigh_gaps(planar: torch.Tensor, C: int, a: int, L: int, M: int, index: int, r: float) -> dict:
+    """The m_high state (physical order: work value w in the top M bits,
+    counting value z in the low L) and its measured logical index against
+    the closed form: after the circuit, psi(z, w) = 2^-L e^(2 pi i x0 y / N)
+    sum_{k<K} e^(i phi k), y = rev_L(z), phi = 2 pi r y / N.  `state_gap`
+    is ||psi - psi_ref||_2, worked out in blocks of 1024 counting values on
+    the state's device in float64; `index_gap` how far draw r lies outside
+    the physical-order CDF interval of the index."""
+    order, x0, K = shor_orbit(C, a, L, M)
+    N, W = 1 << L, 1 << M
+    z = np.arange(N, dtype=np.int64)
+    y = np.zeros_like(z)
+    for b in range(L):
+        y |= ((z >> b) & 1) << (L - 1 - b)
+
+    def power(k):  # |sum_{j<k} e^(i phi j)|^2 / N^2 over every y
+        half = np.pi * ((order * y) % N) / N
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ratio = np.where(half == 0, float(k * k), (np.sin(k * half) / np.where(half == 0, 1.0, np.sin(half))) ** 2)
+        return ratio / float(N) ** 2
+
+    k_hi = int(K.max())
+    cum = {k: np.cumsum(power(k)) for k in (k_hi, k_hi - 1) if k > 0}
+    column = np.array([cum[k][-1] if k > 0 else 0.0 for k in K])
+    zi, wi = index >> M, index & (W - 1)
+    hi = float(column[:wi].sum() + (cum[K[wi]][zi] if K[wi] > 0 else 0.0))
+    lo = hi - float(power(K[wi])[zi] if K[wi] > 0 else 0.0)
+
+    dev = planar.device
+    x0_t, K_t = torch.from_numpy(x0).to(dev)[None, :], torch.from_numpy(K).to(dev)[None, :]
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    for z0 in range(0, N, 1024):
+        yb = torch.from_numpy(y[z0 : z0 + 1024]).to(dev)[:, None]
+        half = math.pi * ((order * yb) % N).to(torch.float64) / N
+        s = torch.sin(half)
+        mag = torch.where(half == 0, K_t.to(torch.float64), torch.sin(K_t * half) / torch.where(half == 0, torch.ones_like(s), s))
+        mag = torch.where(x0_t >= 0, mag, torch.zeros_like(mag)) / N
+        ang = 2 * math.pi * ((x0_t.clamp(min=0) * yb) % N).to(torch.float64) / N + (K_t - 1).to(torch.float64) * half
+        re, im = (planar[p].view(W, N)[:, z0 : z0 + 1024].T.to(torch.float64) for p in (0, 1))
+        acc += ((re - mag * torch.cos(ang)) ** 2 + (im - mag * torch.sin(ang)) ** 2).sum()
+    return {"state_gap": math.sqrt(float(acc)), "index_gap": max(0.0, lo - r, r - hi)}
+
+
+def shor_n32_mhigh(device) -> List[str]:
+    """The n = 32 m_high attempt (C = 8191, a = 3, L = 19, M = 13) through
+    StateVectorEngine on one card, unsharded: at complex64 its state and
+    index within the benchmark's limits of the closed form
+    (shor_mhigh_gaps); at complex32, the control, outside one of them.
+    Each attempt is timed with the peak memory beside it."""
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    C, a, L, M = SHOR32
+    circuit = shor_circuit_mhigh(C, a, L, M)
+    lines = []
+    for dtype in (torch.complex64, "complex32"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        eng = StateVectorEngine(Register(L, M), dtype=dtype, device=device, layout="m_high")
+        eng.run(circuit)  # plans; the kernels have run once
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state = eng.run(circuit)
+        t1.record()
+        index = eng.logical_index(int(eng.sample(state, [SHOR32_DRAW])[0]))
+        torch.cuda.synchronize(device)
+        gaps = shor_mhigh_gaps(state, C, a, L, M, index, SHOR32_DRAW)
+        within = all(gaps[k] <= SHOR32_LIMITS[k] for k in gaps)
+        what = f"n=32 m_high {dtype}: state_gap {gaps['state_gap']:.3e}, index {index} gap {gaps['index_gap']:.3e}"
+        if dtype == torch.complex64:
+            _check(within, f"{what} outside {SHOR32_LIMITS}")
+        else:
+            _check(not within, f"{what}: the control reads inside {SHOR32_LIMITS}")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        lines.append(f"{what} ({'within' if within else 'outside'} the limits); run {t0.elapsed_time(t1):.2f} ms, "
+                     f"peak {peak:.3f} GiB")
+        del state, eng
+    torch.cuda.empty_cache()
+    return lines
+
+
 CHECKS: List[Callable[[torch.device], List[str]]] = [
     fused_random_circuit,
     fused_split_angle,
@@ -736,6 +838,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     batched_sampler,
     mcphase_planes,
     sc_step_kernels,
+    shor_n32_mhigh,
 ]
 
 

@@ -105,9 +105,15 @@ def test_draw_is_scaled_by_the_total():
 
 
 def test_block_geom_index_budget():
-    assert measure.block_geom(1 << 31) == pm._block_geom(1 << 31)
+    """Up to the JAX package's 2^31 budget both packages cut the same
+    blocks; past it (where the JAX package raises) the port keeps the rule:
+    1024 blocks of 2^22 amplitudes at n = 32, indices past int32."""
+    for n in range(16, 32):
+        assert measure.block_geom(1 << n) == pm._block_geom(1 << n)
     with pytest.raises(ValueError):
-        measure.block_geom(1 << 32)
+        pm._block_geom(1 << 32)
+    assert measure.block_geom(1 << 32) == (1 << 15, 1 << 22)
+    assert (1 << 32) // measure.block_geom(1 << 32)[1] == measure.MAX_BLOCKS
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():
@@ -117,3 +123,49 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     assert measure.LAUNCHES == before
     with pytest.raises(ValueError, match="no block-sum path"):
         measure.block_sums(torch.empty((2, 1 << 16), device="meta"))
+
+
+@pytest.mark.parametrize("n", [16, 17])
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_float64_scan_past_the_index_budget(n, dtype):
+    """The path a state past 2^31 amplitudes takes (block sums taken to
+    float64, the draw, the block pick and the in-block scan in float64),
+    driven at n = 16, 17 through float64_above: every clear draw gets the
+    plain float64 inverse CDF's index, alone and in a batch, at float32 and
+    bf16 planes."""
+    planes = _planes(n, 200 + n, decay=True)
+    state = interop.state_from_numpy(planes)
+    if dtype == "bf16":
+        state = state.to(torch.bfloat16)
+        planes = state.to(torch.float64).numpy()
+    clear = _clear_draws(planes, np.random.default_rng(n + 7).uniform(size=40))
+    assert len(clear) >= 20
+    draws, want = [r for r, _ in clear], [i for _, i in clear]
+    got = measure.sample_indices_planes(state, draws, float64_above=1 << 12)
+    assert got.dtype == torch.int64 and got.tolist() == want
+    assert [int(measure.sample_indices_planes(state, [r], float64_above=1 << 12)[0]) for r in draws] == want
+
+
+def test_float64_scan_only_past_the_budget():
+    """At the default bound a state of 2^n <= 2^31 amplitudes keeps the
+    float32 scan: a knife-edge draw of the float32 block scan keeps its
+    float32 index, which the float64 path moves."""
+    planes = _planes(16, 31, decay=True)
+    state = interop.state_from_numpy(planes)
+    sums = measure.block_sums_plain(state)
+    cum32 = torch.cumsum(sums, 0)
+    moved = 0
+    for b in range(cum32.shape[0] - 1):
+        r = float(cum32[b] / cum32[-1])
+        lo, hi = np.nextafter(np.float32(r), np.float32(0)), np.nextafter(np.float32(r), np.float32(1))
+        for x in (float(lo), r, float(hi)):
+            f32 = int(measure.sample_indices_planes(state, [x])[0])
+            assert int(measure.sample_index(state, x)) == f32
+            moved += f32 != int(measure.sample_indices_planes(state, [x], float64_above=1 << 12)[0])
+    assert moved > 0
+
+
+def test_sample_geometry():
+    assert measure.sample_geometry(torch.zeros((2, 1 << 16))) == (1 << 16 >> 13, 1 << 13)
+    assert measure.sample_geometry(torch.zeros((2, 1 << 12))) == (1, 1 << 12)
+    assert measure.sample_geometry(torch.zeros((2, 1 << 16), dtype=torch.float64)) == (1, 1 << 16)

@@ -106,8 +106,8 @@ def test_shor_attempt_span_tree():
     assert names(children(recs, attempt)) == ["engine.run", "measure.sample", "driver.period"]
     run = children(recs, attempt)[0]
     inner = children(recs, run)
-    assert inner[0].name == "engine.plan"
-    assert set(names(inner[1:])) == {"fused.segment", "oracle.gate"}
+    assert names(inner[:2]) == ["engine.reset", "engine.plan"]
+    assert set(names(inner[2:])) == {"fused.segment", "oracle.gate"}
     assert names(inner).count("oracle.gate") == L
     for gate in (r for r in inner if r.name == "oracle.gate"):
         assert names(children(recs, gate)) == ["oracle.table"]
@@ -233,3 +233,76 @@ def test_summary_counts_and_a_span_that_raises():
     assert summary["inner"]["device_ms"] is None
     with prof.span("after") as rec:  # the raising span left the stack
         assert rec.parent is None
+
+
+def test_reset_span_and_the_measurement_counts():
+    """engine.reset holds the reset inside engine.run; measure.sample
+    carries the sampler's geometry (measure.sample_geometry): one flat
+    block below 2^16 amplitudes, the hierarchical blocks at 2^16."""
+    from quantumcomputer_tpu_torch.ops import measure
+
+    for L_ in (L, 11):
+        eng = StateVectorEngine(Register(L_, M), dtype="complex32")
+        _, recs = recorded(lambda: shor.find_period(eng, C, A, 0.4))
+        (run,) = [r for r in recs if r.name == "engine.run"]
+        (reset,) = [r for r in recs if r.name == "engine.reset"]
+        assert reset.parent == run.id and reset.counts == {}
+        (sample,) = [r for r in recs if r.name == "measure.sample"]
+        dim = 1 << (L_ + M)
+        want = measure.sample_geometry(torch.zeros((2, dim), dtype=torch.bfloat16))
+        assert (sample.counts["blocks"], sample.counts["block"]) == want
+        assert want == ((1, dim) if dim < (1 << 16) else (8, 1 << 13))
+
+
+def _moved_bytes(n, C_, A_list, controls, itemsize):
+    """Bytes an in-place pass moves, by brute force: the elements whose
+    value a run of the plain gates changes on a state of distinct values,
+    read and written, in both planes."""
+    from quantumcomputer_tpu_torch.ops import gates as tops
+
+    planar = torch.arange(2 << n, dtype=torch.float64).view(2, -1)
+    out = tops.apply_camodc_ladder_high_planes_(planar.clone(), C_, list(A_list), list(controls), M)
+    return 2 * itemsize * int((out != planar).sum())
+
+
+@pytest.mark.parametrize("budget_states,dtype", [(None, torch.float32), (1.5, torch.float32), (None, torch.bfloat16)])
+def test_mhigh_oracle_spans_count_their_bytes(monkeypatch, budget_states, dtype):
+    """Every m_high oracle.gate span carries `inplace` and `bytes`
+    (oracle.pass_bytes): an out-of-place ladder every element of both
+    planes read and written, an in-place walk, pair or strip run the
+    elements it moves (held to a brute-force count); with two states
+    fitting the float32 plan has a ladder, at 1.5 states in-place pairs;
+    bf16 merges its walks into strip runs."""
+    from quantumcomputer_tpu_torch.sim import engine as eng_mod
+    from quantumcomputer_tpu_torch.sim import statevec as sv
+
+    L_ = 15
+    n = L_ + M
+    if budget_states is not None:
+        monkeypatch.setenv("QC_TPU_HBM_BYTES", str(int(budget_states * (8 << n))))
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    circuit = shor_circuit_mhigh(C, A, L_, M)
+    plan = eng_mod.plan_circuit(circuit, 0, n, dtype, "cpu")
+    state = sv.initial_planar(n, dtype, 1 << L_, "cpu")
+    _, recs = recorded(lambda: eng_mod.apply_circuit_fused_(state, circuit, 0, plan))
+    gates = [r for r in recs if r.name == "oracle.gate"]
+    entries = [e[1] for e in plan if e[0] != "fused" and e[1].name in ("camodc_high", "camodc_ladder_high")]
+    assert sum(r.counts["gates"] for r in gates) == L_
+    if dtype == torch.float32:
+        assert [r.counts["gates"] for r in gates] == [len(g.qubits) for g in entries]
+    kinds = set()
+    first = 0
+    for r in gates:
+        K = r.counts["gates"]
+        controls = tuple(range(first, first + K))
+        A_list = [pow(A, 1 << j, C) for j in controls]
+        if r.counts["inplace"]:
+            assert r.counts["bytes"] == _moved_bytes(n, C, A_list, controls, itemsize)
+        else:
+            assert K > 1 and r.counts["bytes"] == 2 * 2 * itemsize << n
+        kinds.add((K > 1, r.counts["inplace"]))
+        first += K
+    want = {None: {(False, 1), (True, 0)}, 1.5: {(False, 1), (True, 1)}}[budget_states]
+    if dtype == torch.bfloat16:
+        want = {(True, 1), (True, 0)}  # a strip run of the walks, then the ladder
+    assert kinds == want
