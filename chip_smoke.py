@@ -933,6 +933,8 @@ def reset_launches() -> None:
     fused.CAMODC_LAUNCHES = 0
     fused.PERMUTE_LAUNCHES = 0
     fused.MATMUL_LAUNCHES = 0
+    fused.GATHER_PERMUTE_LAUNCHES = 0
+    fused.GATHER_FALLBACKS = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
     for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES, sc_step.LAUNCHES):
@@ -946,6 +948,7 @@ def launches() -> dict:
     return {
         "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "permute": fused.PERMUTE_LAUNCHES,
         "matmul": fused.MATMUL_LAUNCHES,
+        "gather_permute": fused.GATHER_PERMUTE_LAUNCHES, "gather_fallback": fused.GATHER_FALLBACKS,
         "block_sums": measure.LAUNCHES,
         **oracle.LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
@@ -1451,6 +1454,7 @@ def phase_factor(report: dict, planes) -> None:
     dtype = engine_dtype(planes)
     fused.LAUNCHES = 0
     measure.LAUNCHES = 0
+    fused.GATHER_PERMUTE_LAUNCHES = fused.GATHER_FALLBACKS = 0
     t0 = time.perf_counter()
     result = shors_algorithm(
         C, L, M, forced_trial_int=a, seed=0, dtype=dtype,
@@ -1462,11 +1466,14 @@ def phase_factor(report: dict, planes) -> None:
     log(
         f"factor n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; "
-        f"launches fused_segment {fused.LAUNCHES}, block_sums {measure.LAUNCHES}"
+        f"launches fused_segment {fused.LAUNCHES}, block_sums {measure.LAUNCHES}, gather route "
+        f"{fused.GATHER_PERMUTE_LAUNCHES} (fallbacks {fused.GATHER_FALLBACKS})"
     )
     check(result.factors == (2729, 3), f"factors {result.factors} != (2729, 3)")
     check(fused.LAUNCHES > 0, "the main path launched no fused-segment kernel")
     check(measure.LAUNCHES > 0, "the main path launched no block-sums kernel")
+    check(fused.GATHER_PERMUTE_LAUNCHES > 0 and fused.GATHER_FALLBACKS == 0,
+          f"the main path's oracles: {fused.GATHER_PERMUTE_LAUNCHES} route launches, {fused.GATHER_FALLBACKS} fallbacks")
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1526,6 +1533,7 @@ def phase_factor(report: dict, planes) -> None:
         check(counts[k] > 0, f"the benes main path launched no {k} kernel")
     check(counts["permute"] == counts["camodc"], f"a camodc segment of the benes main path missed the permutation: {counts}")
     check(not gathers, f"the benes main path ran {len(gathers)} gather oracles")
+    check(counts["gather_permute"] == 0, f"the benes main path launched {counts['gather_permute']} lone oracle gates")
 
 
 def exact_err(got, want) -> float:

@@ -40,6 +40,15 @@ version is ``plain_permute``; a segment that mixes camodc ops with other
 ops gathers each work block through the inverse permutation inside the
 fused kernel.  All compute the same function.
 
+The gather oracle's route.  A lone standard-layout ``camodc`` gate (the
+default ``--oracle gather``, where the oracle is no fused op) is the
+one-op case of that permutation: ``apply_camodc_gate`` launches the same
+kernel once, in place, with one control, when ``gather_route`` takes the
+gate's shape, and otherwise keeps the torch gather
+(``gates.apply_c_amodc_planes_``).  Its case table is built on the card
+from A^-1 mod C and cached (``gather_table``), so no gate copies a table
+from the host.
+
 bfloat16 planes ("complex32") take the kernel's bf16 instance: every op
 computes in float32 and each amplitude is rounded to bf16 once per pass,
 at the store, as the JAX kernel does; its tables are those of a float32
@@ -87,6 +96,7 @@ from quantumcomputer_tpu_torch.ops import _build
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.ops.benes import benes_route
 from quantumcomputer_tpu_torch.sim import statevec as sv
+from quantumcomputer_tpu_torch.utils import profiling
 
 LOW_BITS = 7  # targets below this bit always lie inside a tile
 # Tile size per plane dtype: 2^bits amplitudes x 2 planes = 32 KB of shared
@@ -100,6 +110,8 @@ VEC_BITS = {torch.float32: 2, torch.float64: 1, torch.bfloat16: 2}
 #: Oracle ops in one segment, as in the JAX package (its bound on the VMEM of
 #: the Benes mask tables); it groups the Shor circuit's oracles two to a segment.
 MAX_CAMODC_PER_SEGMENT = 2
+#: Work-register bits the camodc permutation takes (its uint16 case tables).
+MAX_PERMUTE_M = 13
 
 #: Kernel launches made by apply_fused / apply_segment (CUDA tensors only),
 #: those of them whose segment holds a camodc op (either kernel), those of
@@ -109,6 +121,13 @@ LAUNCHES = 0
 CAMODC_LAUNCHES = 0
 PERMUTE_LAUNCHES = 0
 MATMUL_LAUNCHES = 0
+#: Lone camodc gates apply_camodc_gate launched as the camodc permutation,
+#: and those it left to the torch gather.  Neither is a fused segment, so
+#: neither counts in the counters above.
+GATHER_PERMUTE_LAUNCHES = 0
+GATHER_FALLBACKS = 0
+#: Case tables gather_table keeps on the card: 16 KB each at M = 13.
+GATHER_TABLES = 256
 
 #: Plane dtypes whose segments apply_fused groups into matrix products.
 #: The JAX kernel groups at float32 and bf16.  The port groups at bf16 only:
@@ -1113,6 +1132,18 @@ def _aligned(planar: torch.Tensor) -> bool:
     return planar[0].data_ptr() % 16 == 0 and planar[1].data_ptr() % 16 == 0
 
 
+def _launch_permute(planar: torch.Tensor, cases: torch.Tensor, positions: tuple, n: int, M: int) -> None:
+    """One launch of qc_camodc_permute on a CUDA planar state, in place:
+    `cases` the (2^k - 1, stride) int16 case tables on the card,
+    `positions` the k controls' bits above M (permute_descriptor)."""
+    fn = _build.entry("qc_camodc_permute", planar.dtype)
+    packed = sum(p << (8 * j) for j, p in enumerate(positions))
+    with torch.cuda.device(planar.device):
+        err = fn(planar[0].data_ptr(), planar[1].data_ptr(), cases.data_ptr(), cases.shape[0], n, M, len(positions),
+                 packed, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "camodc_permute")
+
+
 def _permute(planar: torch.Tensor, ops: tuple, n: int, M: int) -> torch.Tensor:
     """A segment that kernel_body sends to "permute", in place: one launch
     of qc_camodc_permute for a CUDA tensor, plain_permute for a CPU one."""
@@ -1120,15 +1151,58 @@ def _permute(planar: torch.Tensor, ops: tuple, n: int, M: int) -> torch.Tensor:
     if planar.device.type == "cpu":
         return planar.copy_(plain_permute(planar, ops, M))
     positions, cases = _permute_tables(ops, n, M, planar.device)
-    fn = _build.entry("qc_camodc_permute", planar.dtype)
-    packed = sum(p << (8 * j) for j, p in enumerate(positions))
-    with torch.cuda.device(planar.device):
-        err = fn(planar[0].data_ptr(), planar[1].data_ptr(), cases.data_ptr(), cases.shape[0], n, M, len(positions),
-                 packed, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "camodc_permute")
+    _launch_permute(planar, cases, positions, n, M)
     LAUNCHES += 1
     CAMODC_LAUNCHES += 1
     PERMUTE_LAUNCHES += 1
+    return planar
+
+
+def gather_route(g: Gate, M: int, n: int, dtype: torch.dtype, device, aligned: bool) -> bool:
+    """True when apply_camodc_gate launches the camodc permutation for gate
+    `g` on an n-qubit planar state of plane dtype `dtype` on `device`: a
+    standard-layout camodc gate (not the strict_reference scatter) with its
+    control in [M, n), on a CUDA device, float32 / float64 / bf16 planes,
+    M <= MAX_PERMUTE_M, and the one-op segment's shape one that kernel_body
+    sends to "permute" (both planes 16-byte aligned, `aligned`; a work
+    block of at least 16 bytes of a plane)."""
+    return (g.name == "camodc" and M <= g.qubits[0] < n and torch.device(device).type == "cuda"
+            and dtype in TILE_BITS and M <= MAX_PERMUTE_M
+            and kernel_body((("camodc", g.qubits[0]) + tuple(g.meta),), M, dtype, aligned) == "permute")
+
+
+def gather_table(C: int, A: int, M: int, device) -> torch.Tensor:
+    """The case table of a lone camodc gate, as permute_descriptor lays out
+    the one-op segment's: shape (1, 2^M rounded up to 8), int16, the inverse
+    permutation f -> A^-1 * f mod C (f < C), f otherwise, padded with 0.
+    Built on `device` and kept there, the last GATHER_TABLES of them per
+    (C, A mod C, M, device).  Raises as gates.modmul_inverse does."""
+    return _gather_table(int(C), int(A) % int(C), int(M), torch.device(device))
+
+
+@lru_cache(maxsize=GATHER_TABLES)
+def _gather_table(C: int, A: int, M: int, device: torch.device) -> torch.Tensor:
+    a_inv = tops.modmul_inverse(C, A, M)
+    stride = -(-(1 << M) // 8) * 8
+    # A cache miss: a few launches on the card's stream, no copy from the host.
+    with profiling.span("oracle.table", device, bytes=2 * stride):
+        f = torch.arange(stride, device=device)
+        table = tops.modmul_permute_onchip(a_inv, f, C).masked_fill_(f >= (1 << M), 0)
+        return table.to(torch.int16).view(1, stride)
+
+
+def apply_camodc_gate(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
+    """A lone camodc gate on a planar state, in place: where gather_route
+    takes it, one launch of the camodc permutation with its one case table
+    (gather_table); else the torch gather, gates.apply_c_amodc_planes_.
+    Both move the same elements."""
+    global GATHER_PERMUTE_LAUNCHES, GATHER_FALLBACKS
+    n, (C, atox), c_q = sv.num_qubits(planar), g.meta, g.qubits[0]
+    if not (planar.is_contiguous() and gather_route(g, M, n, planar.dtype, planar.device, _aligned(planar))):
+        GATHER_FALLBACKS += 1
+        return tops.apply_c_amodc_planes_(planar, C, atox, c_q, M)
+    _launch_permute(planar, gather_table(C, atox, M, planar.device), (c_q - M,), n, M)
+    GATHER_PERMUTE_LAUNCHES += 1
     return planar
 
 

@@ -5,8 +5,11 @@ reshape + contraction, an elementwise multiply or a gather on the amplitude
 tensor, O(2^n) and never a 2^n x 2^n matrix.  These ops are the ``torch``
 backend of the engine (the CPU path and the spec the kernels are tested
 against) and the glue the ``cuda`` backend keeps where the JAX package also
-left the work to XLA: the standard layout's controlled modular multiply is a
-gather over the M-register axis in both packages.  The m_high layout's
+left the work to XLA.  The standard layout's controlled modular multiply is
+a gather over the M-register axis in both packages; on the card it is one
+launch of the camodc permutation kernel (``ops/fused.apply_camodc_gate``),
+and ``apply_c_amodc_planes_`` is the gather where that kernel does not take
+the shape.  The m_high layout's
 oracle ops (``apply_camodc_high``, ``apply_camodc_ladder_high``) are the
 plain versions of the kernels in ``ops/oracle.py``.
 
@@ -146,17 +149,23 @@ def apply_iqft_stage(state: torch.Tensor, l: int, M: int) -> torch.Tensor:
     return torch.stack([hu, hv], dim=1).reshape(-1)
 
 
-def modmul_inverse_permutation(C: int, A: int, M: int) -> np.ndarray:
-    """Gather indices for the controlled modular multiply: output position j
-    takes its amplitude from g^{-1}(j), where g: f -> A*f mod C (f < C),
-    identity (f >= C).  Requires gcd(A, C) == 1 and 2^M >= C, or the gate
-    is not unitary."""
+def modmul_inverse(C: int, A: int, M: int) -> int:
+    """A^-1 mod C, the multiplier of the controlled modular multiply's
+    inverse map.  Requires gcd(A, C) == 1 and 2^M >= C, or the gate is not
+    unitary."""
     A = A % C
     if math.gcd(A, C) != 1:
         raise ValueError(f"A={A} not coprime to C={C}: gate is not a permutation")
     if (1 << M) < C:
         raise ValueError(f"2^M={1 << M} < C={C}: the modular-multiply gate is not unitary (increase M)")
-    a_inv = pow(A, -1, C)
+    return pow(A, -1, C)
+
+
+def modmul_inverse_permutation(C: int, A: int, M: int) -> np.ndarray:
+    """Gather indices for the controlled modular multiply: output position j
+    takes its amplitude from g^{-1}(j), where g: f -> A*f mod C (f < C),
+    identity (f >= C).  Raises as modmul_inverse does."""
+    a_inv = modmul_inverse(C, A, M)
     f = np.arange(1 << M, dtype=np.int64)
     return np.where(f < C, (np.int64(a_inv) * f) % C, f)
 

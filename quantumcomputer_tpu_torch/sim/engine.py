@@ -12,10 +12,13 @@ the plan per circuit instead.  Backends:
     segments (``ops/fused.plan_circuit``), each applied by the
     fused-segment kernel in one in-place pass.  The m_high oracles go
     through the row-permutation kernels (``ops/oracle.py``).  The standard
-    layout's oracle is a torch gather, as it is an XLA gather in the JAX
-    package, unless ``oracle="benes"``: then each oracle is a camodc op
-    inside a fused segment's pass, two to a segment (with ``fuse=False``
-    it stays the gather, as in the JAX package).  Measurement of f32
+    layout's oracle is a gather, as it is an XLA gather in the JAX
+    package: each gate one in-place launch of the camodc permutation
+    kernel on its own case table (``fused.apply_camodc_gate``; the torch
+    gather where the kernel does not take the shape), unless
+    ``oracle="benes"``: then each oracle is a camodc op inside a fused
+    segment's pass, two to a segment (with ``fuse=False`` it stays the
+    lone gate, as in the JAX package).  Measurement of f32
     states of >= 2^16 amplitudes goes through the block-sum kernel
     (``ops/measure.py``).  With
     ``fuse=False`` the circuit runs gate by gate (``apply_gate_planes_``),
@@ -32,13 +35,13 @@ non-finite amplitude, with the JAX package's labels.
 
 dtype="complex32" (bf16 planes, computed in float32 and rounded once a
 pass, ``sim/statevec.py``) needs the ``cuda`` backend, as the JAX package's
-needs pallas: every kernel of the cuda path has a bf16 instance, and the
-standard layout's gather oracle and the per-gate path of a gate with no op
-form move or widen bf16 in torch.  ``backend="auto"`` resolves to ``cuda``
-for it and places it as complex64 is placed: on the CUDA device when one is
-present, else on the CPU, where every kernel wrapper takes its plain version
-on the CPU planes (rounding once a pass, as the kernel does; the JAX
-package's interpret mode off the TPU).  An explicit ``backend="cuda"`` with
+needs pallas: every kernel of the cuda path has a bf16 instance (the
+gather oracle's permutation moves bf16 bits as they are), and the per-gate
+path of a gate with no op form widens bf16 in torch.  ``backend="auto"``
+resolves to ``cuda`` for it and places it as complex64 is placed: on the
+CUDA device when one is present, else on the CPU, where every kernel
+wrapper takes its plain version on the CPU planes (rounding once a pass, as
+the kernel does; the JAX package's interpret mode off the TPU).  An explicit ``backend="cuda"`` with
 no CUDA device raises.
 
 Layouts: ``standard`` (the reference's bit convention) and ``m_high`` (the
@@ -157,9 +160,10 @@ def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     runs as a one-op segment through fused.apply_fused (the kernel for a
     CUDA tensor, its plain version for a CPU tensor), as the JAX package's
     pallas_gates runs single gates; the oracles through their in-place
-    paths; mcphase through the planar in-place mcphase
-    (tops.apply_mcphase_planes_); any other gate through the complex plain
-    ops.  The m_high oracles dispatch as the JAX package's pallas_gates
+    paths (a standard-layout one through fused.apply_camodc_gate: the
+    camodc permutation on the card, else the torch gather); mcphase through
+    the planar in-place mcphase (tops.apply_mcphase_planes_); any other
+    gate through the complex plain ops.  The m_high oracles dispatch as the JAX package's pallas_gates
     does: a lone gate to the masked walk when perm_supported, else to the
     cycle walk; a K = 2 run to the in-place pair when
     pair_inplace_supported, any other run to the out-of-place ladder
@@ -171,8 +175,7 @@ def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     if g.name == "mcphase":
         return tops.apply_mcphase_planes_(planar, g.qubits, g.params[0])
     if g.name == "camodc":
-        C, atox = g.meta
-        return tops.apply_c_amodc_planes_(planar, C, atox, g.qubits[0], M)
+        return fused.apply_camodc_gate(planar, g, M)
     if g.name == "camodc_high":
         C, atox, m_reg = g.meta
         n, itemsize = sv.num_qubits(planar), planar.element_size()

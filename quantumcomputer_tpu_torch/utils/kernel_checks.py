@@ -570,6 +570,61 @@ def camodc_router_shapes(device) -> List[str]:
     return out
 
 
+GATHER_FLAGSHIP = (8191, 3, 15, 13)  # C, a, L, M: the benchmark's n = 28 cells
+
+
+def gather_route_flagship(device) -> List[str]:
+    """The gather oracle's route (fused.apply_camodc_gate) on the n = 28
+    flagship at complex64 and complex32: the engine's run, every lone
+    oracle gate one launch of the camodc permutation, equal bit for bit to
+    its plan run entry by entry with the torch gather
+    (gates.apply_c_amodc_planes_) for each oracle; one attempt
+    (shor.find_period) launches the route L times and falls back never; and
+    the run's peak holds the state and no half-plane temporary."""
+    from quantumcomputer_tpu_torch.algorithms import shor
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    C, a, L, M = GATHER_FLAGSHIP
+    circuit = shor_circuit(C, a, L, M)
+    lines = []
+    for dtype in (torch.complex64, "complex32"):
+        eng = StateVectorEngine(Register(L, M), dtype=dtype, backend="cuda", device=device)
+        plan = eng._plan(circuit)
+        eng.run(circuit)  # the kernels and tables once
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        counts = fused.GATHER_PERMUTE_LAUNCHES, fused.GATHER_FALLBACKS
+        got = eng.run(circuit)
+        torch.cuda.synchronize(device)
+        extra = torch.cuda.max_memory_allocated(device) - base - got.numel() * got.element_size()
+        run = fused.GATHER_PERMUTE_LAUNCHES - counts[0], fused.GATHER_FALLBACKS - counts[1]
+        want = eng.initial_state()
+        for entry in plan:
+            if entry[0] == "fused":
+                fused.apply_fused(want, entry[1], entry[2], M)
+            else:
+                g = entry[1]
+                _check(g.name == "camodc", f"unexpected single gate {g} in the gather plan")
+                tops.apply_c_amodc_planes_(want, g.meta[0], g.meta[1], g.qubits[0], M)
+        torch.cuda.synchronize(device)
+        what = f"gather route n={L + M} {dtype}"
+        _check(torch.equal(got, want), f"{what}: the run differs from the torch gather's")
+        del got, want
+        counts = fused.GATHER_PERMUTE_LAUNCHES, fused.GATHER_FALLBACKS
+        shor.find_period(eng, C, a, 0.5)
+        attempt = fused.GATHER_PERMUTE_LAUNCHES - counts[0], fused.GATHER_FALLBACKS - counts[1]
+        _check(run == attempt == (L, 0), f"{what}: (route, fallback) launches {run} a run, {attempt} an attempt != ({L}, 0)")
+        half_plane = (1 << (L + M - 1)) * torch.empty((), dtype=eng.real_dtype).element_size()
+        _check(extra < half_plane // 4, f"{what}: the run's peak is {extra} bytes over its state")
+        lines.append(f"{what}: {L} launches an attempt, 0 fallbacks, equal to the torch gather bit for bit; "
+                     f"peak {extra} bytes over the state (the gather's temporary: {half_plane})")
+        del eng
+        torch.cuda.empty_cache()
+    return lines
+
+
 def camodc_few_changed_blocks(device) -> List[str]:
     """The camodc permutation with fewer items (planes of changed work
     blocks) than the card has streaming multiprocessors, so the grid is cut
@@ -835,6 +890,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     probe_kernels,
     camodc_router_shapes,
     camodc_few_changed_blocks,
+    gather_route_flagship,
     batched_sampler,
     mcphase_planes,
     sc_step_kernels,
