@@ -76,8 +76,9 @@ Phases, each of which must pass:
      the work blocks it changes) and its library call; the first one also
      on float64 planes;
   5. the main paths: factor 8187 = 2729 x 3 end to end at n = 30 with
-     shors_algorithm(backend="cuda"), in the standard layout, in the m_high
-     layout and with oracle="benes" (no gather oracle may run, and every
+     shors_algorithm(backend="cuda"), in the standard layout (each lone
+     oracle gate one launch of the camodc permutation, L an attempt), in
+     the m_high layout and with oracle="benes" (no gather oracle may run, and every
      camodc segment launches the camodc permutation); every
      kernel's launch counter is reset just before each and read just after,
      and each kernel of that path must have launched (at complex32 the
@@ -198,8 +199,9 @@ Phases, each of which must pass:
      one card (build_mesh(devices=[cuda:0] * 4), d = 2): the n = 28
      flagship in both layouts at complex64 and complex32, each within
      ||d||_2 <= 1e-4 (complex32: C32_DIST_TOL) of the single-card state,
-     its fused-segment launches exactly 4 x the local plan's segments (the
-     matrix groups launched at complex32), timed (CUDA events, after a
+     its fused-segment launches exactly 4 x the local plan's segments and
+     shard-local oracle gates, each a one-op camodc segment (the matrix
+     groups launched at complex32), timed (CUDA events, after a
      warm-up) beside the single-card run and entry by entry (fused,
      exchanging and other entries, the transport's bytes); complex128 at
      n = 24 in both layouts within 1e-12 (max abs); 8187 factored at n = 30
@@ -225,7 +227,7 @@ Phases, each of which must pass:
      one-process 4-shard run, the same measured index and norm in every
      process, the counters' calls equal on every process and their bytes
      summed over the processes equal to phase 15's, fused launches = the
-     process's shards x the local plan's segments, block sums launched by
+     process's shards x the local plan's segments and local oracles, block sums launched by
      the measure (and matrix groups at complex32); each run's host-clock
      seconds, the bytes that crossed processes and each process's peak
      memory printed, beside a probe of one 256 MiB pinned copy each way
@@ -933,8 +935,6 @@ def reset_launches() -> None:
     fused.CAMODC_LAUNCHES = 0
     fused.PERMUTE_LAUNCHES = 0
     fused.MATMUL_LAUNCHES = 0
-    fused.GATHER_PERMUTE_LAUNCHES = 0
-    fused.GATHER_FALLBACKS = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
     for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES, sc_step.LAUNCHES):
@@ -948,7 +948,6 @@ def launches() -> dict:
     return {
         "fused_segment": fused.LAUNCHES, "camodc": fused.CAMODC_LAUNCHES, "permute": fused.PERMUTE_LAUNCHES,
         "matmul": fused.MATMUL_LAUNCHES,
-        "gather_permute": fused.GATHER_PERMUTE_LAUNCHES, "gather_fallback": fused.GATHER_FALLBACKS,
         "block_sums": measure.LAUNCHES,
         **oracle.LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
@@ -1453,8 +1452,8 @@ def phase_factor(report: dict, planes) -> None:
     C, a, L, M = FACTOR
     dtype = engine_dtype(planes)
     fused.LAUNCHES = 0
+    fused.PERMUTE_LAUNCHES = 0
     measure.LAUNCHES = 0
-    fused.GATHER_PERMUTE_LAUNCHES = fused.GATHER_FALLBACKS = 0
     t0 = time.perf_counter()
     result = shors_algorithm(
         C, L, M, forced_trial_int=a, seed=0, dtype=dtype,
@@ -1466,14 +1465,15 @@ def phase_factor(report: dict, planes) -> None:
     log(
         f"factor n={L + M} C={C} a={a} {dname(planes)} planes: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; "
-        f"launches fused_segment {fused.LAUNCHES}, block_sums {measure.LAUNCHES}, gather route "
-        f"{fused.GATHER_PERMUTE_LAUNCHES} (fallbacks {fused.GATHER_FALLBACKS})"
+        f"launches fused_segment {fused.LAUNCHES} (of them the oracles' camodc permutation "
+        f"{fused.PERMUTE_LAUNCHES}), block_sums {measure.LAUNCHES}"
     )
     check(result.factors == (2729, 3), f"factors {result.factors} != (2729, 3)")
     check(fused.LAUNCHES > 0, "the main path launched no fused-segment kernel")
     check(measure.LAUNCHES > 0, "the main path launched no block-sums kernel")
-    check(fused.GATHER_PERMUTE_LAUNCHES > 0 and fused.GATHER_FALLBACKS == 0,
-          f"the main path's oracles: {fused.GATHER_PERMUTE_LAUNCHES} route launches, {fused.GATHER_FALLBACKS} fallbacks")
+    check(fused.PERMUTE_LAUNCHES == L * len(result.attempts),
+          f"the main path's oracles: {fused.PERMUTE_LAUNCHES} camodc permutation launches for "
+          f"{len(result.attempts)} attempt(s) of {L} oracles")
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1533,7 +1533,6 @@ def phase_factor(report: dict, planes) -> None:
         check(counts[k] > 0, f"the benes main path launched no {k} kernel")
     check(counts["permute"] == counts["camodc"], f"a camodc segment of the benes main path missed the permutation: {counts}")
     check(not gathers, f"the benes main path ran {len(gathers)} gather oracles")
-    check(counts["gather_permute"] == 0, f"the benes main path launched {counts['gather_permute']} lone oracle gates")
 
 
 def exact_err(got, want) -> float:
@@ -1996,7 +1995,7 @@ def phase_validation() -> None:
     check(rc == 0, f"the experiments CLI returned {rc}")
 
     circuit = shor_circuit_reference(39, 7, 6, 6)
-    ops = sum(fused.gate_to_op(g) is not None for g in circuit)
+    ops = sum(fused.gate_to_op(g, 6, fuse_oracle=True) is not None for g in circuit)
     eng = StateVectorEngine(Register(L=6, M=6), torch.complex128, backend=KERNEL_BACKEND, device=DEVICE, fuse=False)
     reset_launches()
     tr = experiments.norm_deviation_trace(39, 7, 6, 6, engine=eng)
@@ -2040,7 +2039,7 @@ def phase_validation() -> None:
     C, a, L, M = UNFUSED
     for layout, make_circuit in (("standard", shor_circuit), ("m_high", shor_circuit_mhigh)):
         circuit = make_circuit(C, a, L, M)
-        ops = sum(fused.gate_to_op(g) is not None for g in circuit)
+        ops = sum(fused.gate_to_op(g, M, fuse_oracle=True) is not None for g in circuit)
         reg = Register(L=L, M=M)
         reset_launches()
         got = StateVectorEngine(reg, backend=KERNEL_BACKEND, device=DEVICE, layout=layout, fuse=False).run(circuit)
@@ -3090,6 +3089,12 @@ def shard_hashes(state, local) -> dict:
             for k in local}
 
 
+def local_oracles(eng, plan) -> int:
+    """The standard-layout oracle gates of a sharded plan whose control is
+    shard-local: each shard runs each as its one-op camodc segment."""
+    return sum(e[0] == "gate" and e[1].name == "camodc" and e[1].qubits[0] < eng.n_local for e in plan)
+
+
 def sharded_flagship(report: dict, mesh, layout: str, planes, refs: dict) -> None:
     """The n = 28 flagship on the mesh against the single-card state.  For
     the forms the process mesh runs (PROCESS_FORMS), the run's shard hashes,
@@ -3109,7 +3114,7 @@ def sharded_flagship(report: dict, mesh, layout: str, planes, refs: dict) -> Non
     want = single.run(circuit)
     eng = ShardedStateVectorEngine(reg, dtype, mesh=mesh, backend=KERNEL_BACKEND, layout=layout)
     plan = eng.plan(circuit)
-    segments = sum(e[0] == "fused" for e in plan)
+    segments, oracles = sum(e[0] == "fused" for e in plan), local_oracles(eng, plan)
     reset_launches()
     eng.comm.reset()
     state = eng.run(circuit)
@@ -3121,7 +3126,8 @@ def sharded_flagship(report: dict, mesh, layout: str, planes, refs: dict) -> Non
     norm = eng.norm(state)
     if (layout, dname(engine_dtype(planes))) in PROCESS_FORMS:
         refs[(layout, dname(engine_dtype(planes)))] = {
-            "hashes": shard_hashes(state, range(mesh.size)), "stats": stats, "segments": segments, "norm": norm,
+            "hashes": shard_hashes(state, range(mesh.size)), "stats": stats, "segments": segments,
+            "oracles": oracles, "norm": norm,
             "index": eng.measure(state, PROCESS_DRAW)[0],
         }
     del state, got, want
@@ -3139,13 +3145,15 @@ def sharded_flagship(report: dict, mesh, layout: str, planes, refs: dict) -> Non
         f"sharded flagship n={L + M} {layout} {dname(planes)} on {mesh.size} shards: {sharded_ms:.3f} ms "
         f"(single card {single_ms:.3f} ms); ||sharded - single||_2 = {dist:.3e} (tol {tol:.0e}), norm {norm:.9f}; "
         f"plan {segments} fused segments a shard + {len(gates)} gates {sorted(set(gates))}; launches {counts} "
-        f"(fused {counts['fused_segment']} = {mesh.size} x {segments}); exchanges {sent} bytes; entry by entry "
+        f"(fused {counts['fused_segment']} = {mesh.size} x ({segments} + {oracles} local oracles)); exchanges {sent} "
+        f"bytes; entry by entry "
         f"{json.dumps(parts)}"
     )
     check(dist <= tol, f"sharded flagship {layout} {dname(planes)}: distance {dist}")
     check(abs(norm - 1.0) <= (FLAGSHIP_TOL if planes == torch.float32 else C32_NORM_TOL), f"sharded norm {norm}")
-    check(counts["fused_segment"] == mesh.size * segments,
-          f"fused launches {counts['fused_segment']} != {mesh.size} x {segments} local segments")
+    check(counts["fused_segment"] == mesh.size * (segments + oracles) and counts["permute"] == mesh.size * oracles,
+          f"fused launches {counts['fused_segment']} (permute {counts['permute']}) != {mesh.size} x "
+          f"({segments} local segments + {oracles} local oracles, one-op segments)")
     check(sent > 0, "the sharded flagship exchanged nothing")
     if planes == torch.bfloat16 and layout == "m_high":  # the standard plan's ops all lie above bit 12
         check(counts["matmul"] > 0, "the complex32 m_high sharded flagship launched no matrix group")
@@ -3371,7 +3379,7 @@ def process_flagship(mesh, layout: str, dtype_name: str) -> dict:
     circuit = (shor_circuit_mhigh if layout == "m_high" else shor_circuit)(C, a, L, M)
     dtype = "complex32" if dtype_name == "complex32" else torch.complex64
     eng = ShardedStateVectorEngine(Register(L=L, M=M), dtype, mesh=mesh, backend=KERNEL_BACKEND, layout=layout)
-    segments = sum(e[0] == "fused" for e in eng.plan(circuit))
+    segments, oracles = sum(e[0] == "fused" for e in eng.plan(circuit)), local_oracles(eng, eng.plan(circuit))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -3391,7 +3399,8 @@ def process_flagship(mesh, layout: str, dtype_name: str) -> dict:
     del state
     peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
-    return {"layout": layout, "dtype": dtype_name, "segments": segments, "launches": counts, "stats": stats,
+    return {"layout": layout, "dtype": dtype_name, "segments": segments, "oracles": oracles, "launches": counts,
+            "stats": stats,
             "hashes": hashes, "norm": norm, "index": index, "measure_block_sums": measure_sums, "run_s": run_s,
             "peak_gib": peak}
 
@@ -3473,7 +3482,7 @@ def check_process_form(report: dict, results: list, ref: dict, group: str) -> No
     """Every rank's run of one form against the one-process 4-shard run of
     phase 15: hash-equal shards, the same index and norm, counters (calls
     on each rank, bytes summed) equal, fused launches = local shards x the
-    local plan's segments."""
+    local plan's segments and local oracle gates (their one-op segments)."""
     import torch
 
     layout, dtype = ref["form"]
@@ -3500,9 +3509,11 @@ def check_process_form(report: dict, results: list, ref: dict, group: str) -> No
     check(crossing > 0, f"process mesh {group} {layout} {dtype}: no byte crossed processes")
     for r, run in zip(results, runs):
         check(run["segments"] == ref["segments"], f"process mesh {group}: plan segments {run['segments']} != {ref['segments']}")
-        check(run["launches"]["fused_segment"] == len(r["local"]) * ref["segments"] > 0,
-              f"process mesh {group} rank {r['rank']}: fused launches {run['launches']['fused_segment']} != "
-              f"{len(r['local'])} x {ref['segments']}")
+        check(run["oracles"] == ref["oracles"], f"process mesh {group}: local oracles {run['oracles']} != {ref['oracles']}")
+        check(run["launches"]["fused_segment"] == len(r["local"]) * (ref["segments"] + ref["oracles"]) > 0
+              and run["launches"]["permute"] == len(r["local"]) * ref["oracles"],
+              f"process mesh {group} rank {r['rank']}: fused launches {run['launches']['fused_segment']} (permute "
+              f"{run['launches']['permute']}) != {len(r['local'])} x ({ref['segments']} + {ref['oracles']})")
         check(run["measure_block_sums"] >= len(r["local"]), f"process mesh {group}: the measure launched no block sums")
         if (layout, dtype) == ("m_high", "complex32"):
             check(run["launches"]["matmul"] > 0, f"process mesh {group}: no matrix group launched")

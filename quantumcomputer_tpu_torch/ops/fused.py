@@ -25,7 +25,8 @@ Op descriptors (hashable tuples, as in the JAX package):
   ("u2q",    q_hi, q_lo, (16 re, 16 im)), basis 2*bit(q_hi) + bit(q_lo)
   ("camodc", c, C, A)     where bit c is 1, the work register [0, M) is
                           permuted f -> A*f mod C (f < C): the oracle of
-                          ``--oracle benes`` (``fuse_oracle=True``)
+                          ``--oracle benes`` (``fuse_oracle=True``), and
+                          a lone oracle gate's one-op segment
 
 A camodc op permutes whole 2^M-element work blocks, so its segment's tile
 holds at least the low M bits: its tile budget is max(TILE_BITS, M) bits,
@@ -35,19 +36,17 @@ does, as the 2M - 1 masked exchange stages of a Benes network
 permutation of each work block, chosen by the block's control bits: the
 router (``kernel_body``) sends it to a kernel of its own
 (``csrc/camodc_permute.cu``), one gather a moved element through "case
-tables" composed once a segment (``permute_descriptor``), whose plain
-version is ``plain_permute``; a segment that mixes camodc ops with other
+tables" composed once a segment (``permute_descriptor``; plain version
+``plain_permute``); a segment that mixes camodc ops with other
 ops gathers each work block through the inverse permutation inside the
 fused kernel.  All compute the same function.
 
-The gather oracle's route.  A lone standard-layout ``camodc`` gate (the
-default ``--oracle gather``, where the oracle is no fused op) is the
-one-op case of that permutation: ``apply_camodc_gate`` launches the same
-kernel once, in place, with one control, when ``gather_route`` takes the
-gate's shape, and otherwise keeps the torch gather
-(``gates.apply_c_amodc_planes_``).  Its case table is built on the card
-from A^-1 mod C and cached (``gather_table``), so no gate copies a table
-from the host.
+The case tables are built with torch ops on the device that uses them, the
+CPU included (``_case_tables``, cached), and held element for element to
+``permute_descriptor``, the host specification.  A lone standard-layout
+``camodc`` gate (the default ``--oracle gather``, where the oracle is no
+fused op) runs as the one-op camodc segment (``gate_segment`` with the
+work register's M), through the same router.
 
 bfloat16 planes ("complex32") take the kernel's bf16 instance: every op
 computes in float32 and each amplitude is rounded to bf16 once per pass,
@@ -110,8 +109,6 @@ VEC_BITS = {torch.float32: 2, torch.float64: 1, torch.bfloat16: 2}
 #: Oracle ops in one segment, as in the JAX package (its bound on the VMEM of
 #: the Benes mask tables); it groups the Shor circuit's oracles two to a segment.
 MAX_CAMODC_PER_SEGMENT = 2
-#: Work-register bits the camodc permutation takes (its uint16 case tables).
-MAX_PERMUTE_M = 13
 
 #: Kernel launches made by apply_fused / apply_segment (CUDA tensors only),
 #: those of them whose segment holds a camodc op (either kernel), those of
@@ -121,13 +118,6 @@ LAUNCHES = 0
 CAMODC_LAUNCHES = 0
 PERMUTE_LAUNCHES = 0
 MATMUL_LAUNCHES = 0
-#: Lone camodc gates apply_camodc_gate launched as the camodc permutation,
-#: and those it left to the torch gather.  Neither is a fused segment, so
-#: neither counts in the counters above.
-GATHER_PERMUTE_LAUNCHES = 0
-GATHER_FALLBACKS = 0
-#: Case tables gather_table keeps on the card: 16 KB each at M = 13.
-GATHER_TABLES = 256
 
 #: Plane dtypes whose segments apply_fused groups into matrix products.
 #: The JAX kernel groups at float32 and bf16.  The port groups at bf16 only:
@@ -605,12 +595,19 @@ def plan_circuit(
     return segments
 
 
-def gate_segment(g: Gate, n: int, tile_bits: int) -> Optional[Tuple[tuple, tuple]]:
+def gate_segment(g: Gate, n: int, tile_bits: int, M: int = 0) -> Optional[Tuple[tuple, tuple]]:
     """(ops, axes) of one gate as a one-op segment, or None when the gate
     has no op form: the single-gate entry points of the JAX package's
-    ``pallas_gates``, which run each gate as a one-op fused segment."""
-    if gate_to_op(g) is None:
+    ``pallas_gates``, which run each gate as a one-op fused segment.  A
+    standard-layout camodc gate on an M-bit work register is the one-op
+    camodc segment where gate_to_op gives it one (1 <= M <= 13); a camodc
+    op exposes no axis, so it takes no planning (a new gate of every
+    attempt costs no plan_circuit)."""
+    op = gate_to_op(g, M, fuse_oracle=True)
+    if op is None:
         return None
+    if op[0] == "camodc":
+        return (op,), ()
     ((_, ops, axes),) = plan_circuit((g,), n, 0, tile_bits)
     return ops, axes
 
@@ -735,20 +732,26 @@ def plain_segment(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
 
 
 def plain_permute(planar: torch.Tensor, ops: tuple, M: int) -> torch.Tensor:
-    """The plain version of the camodc permutation kernel: each plane's
-    2^M-element work blocks gathered through the segment's case tables
-    (permute_descriptor), a block's case from its control bits (blocks
-    whose controls are all 0 are copied as they are); a new planar tensor
-    of the state's dtype.  Equal to plain_segment on the same segment."""
+    """The plain version of the camodc permutation kernel: _gather_cases
+    through the segment's case tables as permute_descriptor builds them on
+    the host; a new planar tensor of the state's dtype.  Equal to
+    plain_segment on the same segment."""
     positions, _, _, tables = permute_descriptor(tuple(ops), sv.num_qubits(planar), M)
+    return _gather_cases(planar, positions, torch.from_numpy(tables.astype(np.int64)).to(planar.device), M)
+
+
+def _gather_cases(planar: torch.Tensor, positions: tuple, tables: torch.Tensor, M: int) -> torch.Tensor:
+    """Each plane's 2^M-element work blocks gathered through the case
+    tables (rows of at least 2^M indices on the state's device), a block's
+    case from its control bits at `positions` (blocks whose controls are
+    all 0 are copied as they are); a new planar tensor."""
     blocks = planar.reshape(2, -1, 1 << M)
     b = torch.arange(blocks.shape[1], device=planar.device)
     case = sum(((b >> p) & 1) << j for j, p in enumerate(positions))
-    tabs = torch.from_numpy(tables[:, : 1 << M].astype(np.int64)).to(planar.device)
     out = blocks.clone()
     for m in range(1, len(tables) + 1):
         sel = torch.nonzero(case == m).squeeze(1)
-        out[:, sel] = torch.index_select(torch.index_select(blocks, 1, sel), 2, tabs[m - 1])
+        out[:, sel] = torch.index_select(torch.index_select(blocks, 1, sel), 2, tables[m - 1, : 1 << M].long())
     return out.view_as(planar)
 
 
@@ -952,11 +955,7 @@ def permute_descriptor(ops: tuple, n: int, M: int) -> Tuple[tuple, int, int, np.
     uint16, row m - 1 the composition, in op order, of the inverse tables
     (gates.modmul_inverse_permutation) of the ops whose control is bit j of
     m set: out[f] = in[g1[g2[f]]] for ops 1 then 2; the padding is 0."""
-    controls = sorted({op[1] for op in ops})
-    if not controls or any(op[0] != "camodc" for op in ops):
-        raise ValueError(f"the camodc permutation takes camodc ops only, got {ops}")
-    if not all(M <= c < n for c in controls):
-        raise ValueError(f"camodc controls {controls} must be bits of the L register [{M}, {n})")
+    controls = _permute_controls(ops, n, M)
     k = len(controls)
     inverse = [tops.modmul_inverse_permutation(op[2], op[3], M) for op in ops]
     tables = np.zeros(((1 << k) - 1, -(-(1 << M) // 8) * 8), np.uint16)
@@ -968,6 +967,17 @@ def permute_descriptor(ops: tuple, n: int, M: int) -> Tuple[tuple, int, int, np.
         tables[m - 1, : 1 << M] = h
     log_q = n - M - k
     return tuple(c - M for c in controls), log_q, 2 * (((1 << k) - 1) << log_q), tables
+
+
+def _permute_controls(ops: tuple, n: int, M: int) -> list:
+    """The distinct controls of a segment of camodc ops alone, ascending;
+    raises for any other segment or a control outside [M, n)."""
+    controls = sorted({op[1] for op in ops})
+    if {op[0] for op in ops} != {"camodc"}:
+        raise ValueError(f"the camodc permutation takes camodc ops only, got {ops}")
+    if not M <= controls[0] <= controls[-1] < n:
+        raise ValueError(f"camodc controls {controls} must be bits of the L register [{M}, {n})")
+    return controls
 
 
 # The matrix groups' tables as the kernel consumes them (csrc/fused_matmul.cu,
@@ -1104,12 +1114,37 @@ def _descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype, dev
     return gops, _device_descriptor(gops, axes, n, M, dtype, device, tables)
 
 
-@lru_cache(maxsize=256)
 def _permute_tables(ops: tuple, n: int, M: int, device: torch.device):
-    """(positions, case tables on the device) of a camodc-only segment,
-    cached per segment."""
-    positions, _, _, tables = permute_descriptor(ops, n, M)
-    return positions, torch.from_numpy(tables.view(np.int16)).to(device)
+    """permute_descriptor's positions and tables of a segment of camodc ops
+    alone, the tables int16 on `device` and cached by what they depend on:
+    each op's control rank, C and A (_case_tables)."""
+    controls = _permute_controls(ops, n, M)
+    key = tuple((controls.index(op[1]), op[2], op[3] % op[2]) for op in ops)
+    return tuple(c - M for c in controls), _case_tables(key, M, device)
+
+
+@lru_cache(maxsize=256)  # 16 KB a table row at M = 13
+def _case_tables(key: tuple, M: int, device: torch.device) -> torch.Tensor:
+    """The case tables of the segment `key` ((control rank, C, A) an op),
+    built on `device` with torch ops: row m - 1 composes, in op order, the
+    inverse maps modmul_permute_onchip(A^-1, f, C) of the ops whose control
+    rank is a bit of m, zero-padded; only the int16 result stays.  A miss
+    records an oracle.table span of its bytes.  Raises as
+    gates.modmul_inverse does."""
+    a_inv = [tops.modmul_inverse(C, A, M) for _, C, A in key]
+    k = 1 + max(j for j, _, _ in key)
+    stride = -(-(1 << M) // 8) * 8
+    with profiling.span("oracle.table", device, bytes=2 * ((1 << k) - 1) * stride):
+        f = torch.arange(1 << M, device=device)
+        maps = [tops.modmul_permute_onchip(a, f, C) for a, (_, C, _) in zip(a_inv, key)]
+        tables = torch.zeros(((1 << k) - 1, stride), dtype=torch.int16, device=device)
+        for m in range(1, 1 << k):
+            h = None
+            for (j, _, _), g in zip(key, maps):
+                if (m >> j) & 1:
+                    h = g if h is None else h[g]
+            tables[m - 1, : 1 << M] = h
+        return tables
 
 
 def kernel_body(ops, M: int, dtype: torch.dtype, aligned: bool) -> str:
@@ -1121,7 +1156,7 @@ def kernel_body(ops, M: int, dtype: torch.dtype, aligned: bool) -> str:
     (csrc/camodc_permute.cu); else "segment" (csrc/fused_segment.cu)."""
     if any(op[0] in MATRIX_KINDS for op in ops):
         return "matmul"
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     if (ops and all(op[0] == "camodc" for op in ops) and len({op[1] for op in ops}) <= MAX_CAMODC_PER_SEGMENT
             and aligned and (itemsize << M) >= 16):
         return "permute"
@@ -1132,77 +1167,24 @@ def _aligned(planar: torch.Tensor) -> bool:
     return planar[0].data_ptr() % 16 == 0 and planar[1].data_ptr() % 16 == 0
 
 
-def _launch_permute(planar: torch.Tensor, cases: torch.Tensor, positions: tuple, n: int, M: int) -> None:
-    """One launch of qc_camodc_permute on a CUDA planar state, in place:
-    `cases` the (2^k - 1, stride) int16 case tables on the card,
-    `positions` the k controls' bits above M (permute_descriptor)."""
+def _permute(planar: torch.Tensor, ops: tuple, n: int, M: int) -> torch.Tensor:
+    """A segment that kernel_body sends to "permute", in place, through its
+    case tables (_permute_tables): one launch of qc_camodc_permute for a
+    CUDA tensor (the k controls' bits above M packed a byte each), the same
+    gather by _gather_cases for a CPU one."""
+    global LAUNCHES, CAMODC_LAUNCHES, PERMUTE_LAUNCHES
+    positions, cases = _permute_tables(ops, n, M, planar.device)
+    if planar.device.type == "cpu":
+        return planar.copy_(_gather_cases(planar, positions, cases, M))
     fn = _build.entry("qc_camodc_permute", planar.dtype)
     packed = sum(p << (8 * j) for j, p in enumerate(positions))
     with torch.cuda.device(planar.device):
         err = fn(planar[0].data_ptr(), planar[1].data_ptr(), cases.data_ptr(), cases.shape[0], n, M, len(positions),
                  packed, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "camodc_permute")
-
-
-def _permute(planar: torch.Tensor, ops: tuple, n: int, M: int) -> torch.Tensor:
-    """A segment that kernel_body sends to "permute", in place: one launch
-    of qc_camodc_permute for a CUDA tensor, plain_permute for a CPU one."""
-    global LAUNCHES, CAMODC_LAUNCHES, PERMUTE_LAUNCHES
-    if planar.device.type == "cpu":
-        return planar.copy_(plain_permute(planar, ops, M))
-    positions, cases = _permute_tables(ops, n, M, planar.device)
-    _launch_permute(planar, cases, positions, n, M)
     LAUNCHES += 1
     CAMODC_LAUNCHES += 1
     PERMUTE_LAUNCHES += 1
-    return planar
-
-
-def gather_route(g: Gate, M: int, n: int, dtype: torch.dtype, device, aligned: bool) -> bool:
-    """True when apply_camodc_gate launches the camodc permutation for gate
-    `g` on an n-qubit planar state of plane dtype `dtype` on `device`: a
-    standard-layout camodc gate (not the strict_reference scatter) with its
-    control in [M, n), on a CUDA device, float32 / float64 / bf16 planes,
-    M <= MAX_PERMUTE_M, and the one-op segment's shape one that kernel_body
-    sends to "permute" (both planes 16-byte aligned, `aligned`; a work
-    block of at least 16 bytes of a plane)."""
-    return (g.name == "camodc" and M <= g.qubits[0] < n and torch.device(device).type == "cuda"
-            and dtype in TILE_BITS and M <= MAX_PERMUTE_M
-            and kernel_body((("camodc", g.qubits[0]) + tuple(g.meta),), M, dtype, aligned) == "permute")
-
-
-def gather_table(C: int, A: int, M: int, device) -> torch.Tensor:
-    """The case table of a lone camodc gate, as permute_descriptor lays out
-    the one-op segment's: shape (1, 2^M rounded up to 8), int16, the inverse
-    permutation f -> A^-1 * f mod C (f < C), f otherwise, padded with 0.
-    Built on `device` and kept there, the last GATHER_TABLES of them per
-    (C, A mod C, M, device).  Raises as gates.modmul_inverse does."""
-    return _gather_table(int(C), int(A) % int(C), int(M), torch.device(device))
-
-
-@lru_cache(maxsize=GATHER_TABLES)
-def _gather_table(C: int, A: int, M: int, device: torch.device) -> torch.Tensor:
-    a_inv = tops.modmul_inverse(C, A, M)
-    stride = -(-(1 << M) // 8) * 8
-    # A cache miss: a few launches on the card's stream, no copy from the host.
-    with profiling.span("oracle.table", device, bytes=2 * stride):
-        f = torch.arange(stride, device=device)
-        table = tops.modmul_permute_onchip(a_inv, f, C).masked_fill_(f >= (1 << M), 0)
-        return table.to(torch.int16).view(1, stride)
-
-
-def apply_camodc_gate(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
-    """A lone camodc gate on a planar state, in place: where gather_route
-    takes it, one launch of the camodc permutation with its one case table
-    (gather_table); else the torch gather, gates.apply_c_amodc_planes_.
-    Both move the same elements."""
-    global GATHER_PERMUTE_LAUNCHES, GATHER_FALLBACKS
-    n, (C, atox), c_q = sv.num_qubits(planar), g.meta, g.qubits[0]
-    if not (planar.is_contiguous() and gather_route(g, M, n, planar.dtype, planar.device, _aligned(planar))):
-        GATHER_FALLBACKS += 1
-        return tops.apply_c_amodc_planes_(planar, C, atox, c_q, M)
-    _launch_permute(planar, gather_table(C, atox, M, planar.device), (c_q - M,), n, M)
-    GATHER_PERMUTE_LAUNCHES += 1
     return planar
 
 
@@ -1250,9 +1232,9 @@ def _device_kind(planar: torch.Tensor) -> str:
 def apply_segment(planar: torch.Tensor, ops: tuple, axes: tuple, M: int, tables=()) -> torch.Tensor:
     """An explicit op list, grouped (its matrix ops index `tables`) or not,
     as one fused pass IN PLACE: the kernel that kernel_body picks for a
-    CUDA tensor, its plain version (plain_permute, else plain_ops) for a CPU
-    tensor.  A segment passed here ungrouped runs in its butterfly form (no
-    matrix group)."""
+    CUDA tensor, its plain version (the "permute" segment's case-table
+    gather, else plain_ops) for a CPU tensor.  A segment passed here
+    ungrouped runs in its butterfly form (no matrix group)."""
     n = _check_planar(planar)
     ops, axes = tuple(ops), tuple(axes)
     if _device_kind(planar) == "cuda" and not ops:
@@ -1275,8 +1257,8 @@ def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.
     (``groups``), as the JAX apply_fused groups (pallas_fused.py:1103).
 
     A CUDA tensor goes through the kernel that kernel_body picks; a CPU
-    tensor through that kernel's plain version (plain_permute, else
-    plain_segment).  Any other device raises."""
+    tensor through that kernel's plain version (the "permute" segment's
+    case-table gather, else plain_segment).  Any other device raises."""
     n = _check_planar(planar)
     ops = tuple(ops)
     if _device_kind(planar) == "cuda" and not ops:

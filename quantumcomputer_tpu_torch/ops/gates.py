@@ -6,10 +6,11 @@ tensor, O(2^n) and never a 2^n x 2^n matrix.  These ops are the ``torch``
 backend of the engine (the CPU path and the spec the kernels are tested
 against) and the glue the ``cuda`` backend keeps where the JAX package also
 left the work to XLA.  The standard layout's controlled modular multiply is
-a gather over the M-register axis in both packages; on the card it is one
-launch of the camodc permutation kernel (``ops/fused.apply_camodc_gate``),
-and ``apply_c_amodc_planes_`` is the gather where that kernel does not take
-the shape.  The m_high layout's
+a gather over the M-register axis in both packages; the cuda backend runs a
+lone one as the one-op camodc segment (``ops/fused.py``), and
+``apply_c_amodc_planes_`` is the gather where the gate has no op form (M
+outside 1..13), through the index table that ``inverse_index_table`` builds
+and keeps on the state's device.  The m_high layout's
 oracle ops (``apply_camodc_high``, ``apply_camodc_ladder_high``) are the
 plain versions of the kernels in ``ops/oracle.py``.
 
@@ -21,6 +22,7 @@ Functions return new tensors unless their name ends in ``_``.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -186,6 +188,22 @@ def modmul_permute_onchip(a: int, j: torch.Tensor, C: int) -> torch.Tensor:
     return torch.where(j < C, modmul_onchip(a, j, C), j)
 
 
+def inverse_index_table(C: int, A: int, M: int, device) -> torch.Tensor:
+    """modmul_inverse_permutation's table as a (2^M,) int32 tensor built on
+    `device` (modmul_permute_onchip of A^-1 mod C), the index that
+    index_select and the row-gather kernel both take.  The last 256 are
+    kept per (C, A mod C, M, device); a miss records an oracle.table span of
+    the table's bytes.  Raises as modmul_inverse does."""
+    return _index_table(int(C), int(A) % int(C), int(M), torch.device(device))
+
+
+@lru_cache(maxsize=256)  # 32 KB a table at M = 13
+def _index_table(C: int, A: int, M: int, device: torch.device) -> torch.Tensor:
+    a_inv = modmul_inverse(C, A, M)
+    with profiling.span("oracle.table", device, bytes=4 << M):
+        return modmul_permute_onchip(a_inv, torch.arange(1 << M, device=device), C).to(torch.int32)
+
+
 def _camodc_view(x: torch.Tensor, c_q: int, M: int) -> torch.Tensor:
     if c_q < M:
         raise ValueError("control qubit must be outside the M register")
@@ -231,15 +249,11 @@ def apply_c_amodc_strict(state: torch.Tensor, C: int, atox: int, c_q: int, M: in
     return torch.zeros_like(state).index_add_(0, j[keep], state[keep])
 
 
-def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: int, ginv=None) -> torch.Tensor:
+def apply_c_amodc_planes_(planar: torch.Tensor, C: int, atox: int, c_q: int, M: int) -> torch.Tensor:
     """apply_c_amodc on a (2, 2^n) planar state, IN PLACE: each plane's
-    control==1 half is gathered (one half-plane temporary) and written back.
-    `ginv`: the gate's modmul_inverse_permutation table already on the
-    state's device (else it is built and copied there)."""
-    if ginv is None:
-        # The table is int64, 8 bytes an entry of the work register.
-        with profiling.span("oracle.table", planar.device, bytes=8 << M):
-            ginv = torch.from_numpy(modmul_inverse_permutation(C, atox, M)).to(planar.device)
+    control==1 half is gathered (one half-plane temporary) through
+    inverse_index_table and written back."""
+    ginv = inverse_index_table(C, atox, M, planar.device)
     for p in range(2):
         x = _camodc_view(planar[p], c_q, M)
         x[:, 1] = torch.index_select(x[:, 1], -1, ginv)

@@ -346,12 +346,6 @@ def _strip_table(C: int, A_list: tuple, controls: tuple, device: torch.device) -
 
 
 @lru_cache(maxsize=256)
-def _ginv(C: int, atox: int, M: int, device: torch.device) -> torch.Tensor:
-    """int32 (2^M,) inverse permutation of one gate."""
-    return torch.from_numpy(tops.modmul_inverse_permutation(C, atox, M).astype(np.int32)).to(device)
-
-
-@lru_cache(maxsize=256)
 def _combo(C: int, A_list: tuple, device: torch.device) -> torch.Tensor:
     """int32 (2^K,) composed inverse multipliers."""
     return torch.from_numpy(tops.modexp_combo_multipliers(C, list(A_list)).astype(np.int32)).to(device)
@@ -414,7 +408,7 @@ def apply_camodc_high_planar(planar: torch.Tensor, out: torch.Tensor, C: int, at
     if any(p.data_ptr() % 16 for p in planes):
         raise ValueError("the row-gather kernel needs 16-byte aligned planes")
     fn = _build.entry("qc_oracle_gather", planar.dtype)
-    ginv = _ginv(C, int(atox) % C, M, planar.device)
+    ginv = tops.inverse_index_table(C, atox, M, planar.device)
     with torch.cuda.device(planar.device):
         err = fn(*(p.data_ptr() for p in planes), ginv.data_ptr(), log_rows, log_rest, c_phys, _stream(planar))
     _build.check(err, "oracle gather")

@@ -235,12 +235,6 @@ def _permute_work_(x: torch.Tensor, ginv: torch.Tensor, M: int) -> None:
             blk.copy_(blk.index_select(1, ginv))
 
 
-@lru_cache(maxsize=256)
-def _work_permutation(C: int, atox: int, M: int, device: torch.device) -> torch.Tensor:
-    """The oracle's inverse permutation of the work register, on `device`."""
-    return torch.from_numpy(tops.modmul_inverse_permutation(C, atox, M)).to(device)
-
-
 def _apply_iqft_global_(shards: list, l: int, M: int, n_local: int, comm: Transport) -> None:
     """One inverse-QFT stage on global qubit l: H on it (an exchange), then
     on the shards whose bit l is 1 the stage's ladder diagonal
@@ -424,14 +418,9 @@ def _apply_ladder_high_(shards: list, g: Gate, d: int, comm: Transport) -> None:
 def _local_gate_(x: torch.Tensor, g: Gate, M: int, backend: str) -> None:
     """A gate on shard-local qubits, in place: the plain ops on the torch
     backend, apply_gate_planes_ (the kernels, their plain versions on CPU
-    shards) on the cuda backend, the standard oracle's gather with its
-    table kept on the device (a table copied from the host at every call
-    waits for the stream: each shard's queue would drain)."""
+    shards) on the cuda backend, as the single device applies a lone gate."""
     if backend == "torch":
         seng.apply_circuit_plain_(x, (g,), M)
-    elif g.name == "camodc":
-        C, atox = g.meta
-        tops.apply_c_amodc_planes_(x, C, atox, g.qubits[0], M, ginv=_work_permutation(C, atox, M, x.device))
     else:
         seng.apply_gate_planes_(x, g, M)
 
@@ -494,7 +483,7 @@ def apply_gate_sharded_(
         p = g.qubits[0] - n_local
         for me, x in mine:
             if _device_bit(me, p):
-                _permute_work_(x, _work_permutation(C, atox, M, x.device), M)
+                _permute_work_(x, tops.inverse_index_table(C, atox, M, x.device), M)
     elif name == "iqft_stage":
         _apply_iqft_global_(shards, g.qubits[0], M, n_local, comm)
     elif name in ("cnot", "swap", "u2q"):

@@ -13,12 +13,12 @@ the plan per circuit instead.  Backends:
     fused-segment kernel in one in-place pass.  The m_high oracles go
     through the row-permutation kernels (``ops/oracle.py``).  The standard
     layout's oracle is a gather, as it is an XLA gather in the JAX
-    package: each gate one in-place launch of the camodc permutation
-    kernel on its own case table (``fused.apply_camodc_gate``; the torch
-    gather where the kernel does not take the shape), unless
-    ``oracle="benes"``: then each oracle is a camodc op inside a fused
-    segment's pass, two to a segment (with ``fuse=False`` it stays the
-    lone gate, as in the JAX package).  Measurement of f32
+    package: each gate the one-op camodc segment (``fused.gate_segment``),
+    which the router sends to one in-place launch of the camodc
+    permutation kernel (the fused kernel's camodc op where the permutation
+    does not take the shape), unless ``oracle="benes"``: then each oracle
+    is a camodc op inside a fused segment's pass, two to a segment (with
+    ``fuse=False`` it stays the lone gate, as in the JAX package).  Measurement of f32
     states of >= 2^16 amplitudes goes through the block-sum kernel
     (``ops/measure.py``).  With
     ``fuse=False`` the circuit runs gate by gate (``apply_gate_planes_``),
@@ -159,9 +159,9 @@ def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     """One gate on a planar state, in place.  A gate with a fused-op form
     runs as a one-op segment through fused.apply_fused (the kernel for a
     CUDA tensor, its plain version for a CPU tensor), as the JAX package's
-    pallas_gates runs single gates; the oracles through their in-place
-    paths (a standard-layout one through fused.apply_camodc_gate: the
-    camodc permutation on the card, else the torch gather); mcphase through
+    pallas_gates runs single gates, a standard-layout oracle as the one-op
+    camodc segment (fused.gate_segment with M; the torch gather
+    tops.apply_c_amodc_planes_ where M is outside 1..13); mcphase through
     the planar in-place mcphase (tops.apply_mcphase_planes_); any other
     gate through the complex plain ops.  The m_high oracles dispatch as the JAX package's pallas_gates
     does: a lone gate to the masked walk when perm_supported, else to the
@@ -169,13 +169,14 @@ def apply_gate_planes_(planar: torch.Tensor, g: Gate, M: int) -> torch.Tensor:
     pair_inplace_supported, any other run to the out-of-place ladder
     through a temporary and a copy back (apply_circuit_fused_ avoids that
     copy)."""
-    seg = fused.gate_segment(g, sv.num_qubits(planar), fused.TILE_BITS[planar.dtype])
+    seg = fused.gate_segment(g, sv.num_qubits(planar), fused.TILE_BITS[planar.dtype], M)
     if seg is not None:
         return fused.apply_fused(planar, seg[0], seg[1], M)
     if g.name == "mcphase":
         return tops.apply_mcphase_planes_(planar, g.qubits, g.params[0])
     if g.name == "camodc":
-        return fused.apply_camodc_gate(planar, g, M)
+        C, atox = g.meta
+        return tops.apply_c_amodc_planes_(planar, C, atox, g.qubits[0], M)
     if g.name == "camodc_high":
         C, atox, m_reg = g.meta
         n, itemsize = sv.num_qubits(planar), planar.element_size()

@@ -573,17 +573,23 @@ def camodc_router_shapes(device) -> List[str]:
 GATHER_FLAGSHIP = (8191, 3, 15, 13)  # C, a, L, M: the benchmark's n = 28 cells
 
 
-def gather_route_flagship(device) -> List[str]:
-    """The gather oracle's route (fused.apply_camodc_gate) on the n = 28
-    flagship at complex64 and complex32: the engine's run, every lone
-    oracle gate one launch of the camodc permutation, equal bit for bit to
-    its plan run entry by entry with the torch gather
-    (gates.apply_c_amodc_planes_) for each oracle; one attempt
-    (shor.find_period) launches the route L times and falls back never; and
-    the run's peak holds the state and no half-plane temporary."""
+def gather_oracle_flagship(device) -> List[str]:
+    """The gather oracle on the n = 28 flagship at complex64 and complex32:
+    the engine's run, every lone oracle gate its one-op camodc segment and
+    so one launch of the camodc permutation, equal bit for bit to its plan
+    run entry by entry with the torch gather (gates.apply_c_amodc_planes_)
+    for each oracle; a run and one attempt (shor.find_period) launch the
+    permutation L times (PERMUTE_LAUNCHES) beside the plan's fused segments
+    (LAUNCHES - PERMUTE_LAUNCHES); the run's peak holds the state and no
+    half-plane temporary.  Then every camodc-only segment of the benes
+    n = 28 plan: its case tables built on the card equal
+    permute_descriptor's."""
     from quantumcomputer_tpu_torch.algorithms import shor
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit
     from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    def counts():  # segment launches (LAUNCHES - PERMUTE_LAUNCHES), permutation launches
+        return fused.LAUNCHES - fused.PERMUTE_LAUNCHES, fused.PERMUTE_LAUNCHES
 
     C, a, L, M = GATHER_FLAGSHIP
     circuit = shor_circuit(C, a, L, M)
@@ -591,15 +597,16 @@ def gather_route_flagship(device) -> List[str]:
     for dtype in (torch.complex64, "complex32"):
         eng = StateVectorEngine(Register(L, M), dtype=dtype, backend="cuda", device=device)
         plan = eng._plan(circuit)
+        segments = sum(entry[0] == "fused" for entry in plan)
         eng.run(circuit)  # the kernels and tables once
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        counts = fused.GATHER_PERMUTE_LAUNCHES, fused.GATHER_FALLBACKS
+        before = counts()
         got = eng.run(circuit)
         torch.cuda.synchronize(device)
         extra = torch.cuda.max_memory_allocated(device) - base - got.numel() * got.element_size()
-        run = fused.GATHER_PERMUTE_LAUNCHES - counts[0], fused.GATHER_FALLBACKS - counts[1]
+        run = tuple(x - y for x, y in zip(counts(), before))
         want = eng.initial_state()
         for entry in plan:
             if entry[0] == "fused":
@@ -609,19 +616,30 @@ def gather_route_flagship(device) -> List[str]:
                 _check(g.name == "camodc", f"unexpected single gate {g} in the gather plan")
                 tops.apply_c_amodc_planes_(want, g.meta[0], g.meta[1], g.qubits[0], M)
         torch.cuda.synchronize(device)
-        what = f"gather route n={L + M} {dtype}"
+        what = f"gather oracle n={L + M} {dtype}"
         _check(torch.equal(got, want), f"{what}: the run differs from the torch gather's")
         del got, want
-        counts = fused.GATHER_PERMUTE_LAUNCHES, fused.GATHER_FALLBACKS
+        before = counts()
         shor.find_period(eng, C, a, 0.5)
-        attempt = fused.GATHER_PERMUTE_LAUNCHES - counts[0], fused.GATHER_FALLBACKS - counts[1]
-        _check(run == attempt == (L, 0), f"{what}: (route, fallback) launches {run} a run, {attempt} an attempt != ({L}, 0)")
+        attempt = tuple(x - y for x, y in zip(counts(), before))
+        _check(run == attempt == (segments, L),
+               f"{what}: (segment, permute) launches {run} a run, {attempt} an attempt != ({segments}, {L})")
         half_plane = (1 << (L + M - 1)) * torch.empty((), dtype=eng.real_dtype).element_size()
         _check(extra < half_plane // 4, f"{what}: the run's peak is {extra} bytes over its state")
-        lines.append(f"{what}: {L} launches an attempt, 0 fallbacks, equal to the torch gather bit for bit; "
-                     f"peak {extra} bytes over the state (the gather's temporary: {half_plane})")
+        lines.append(f"{what}: {L} permute launches an attempt beside {segments} segments, equal to the torch "
+                     f"gather bit for bit; peak {extra} bytes over the state (the gather's temporary: {half_plane})")
         del eng
         torch.cuda.empty_cache()
+    plan = fused.plan_circuit(circuit, L + M, M, fused.TILE_BITS[torch.float32], fuse_oracle=True)
+    pure = [entry[1] for entry in plan if entry[0] == "fused" and all(op[0] == "camodc" for op in entry[1])]
+    for ops in pure:
+        positions, tables = fused._permute_tables(ops, L + M, M, device)
+        want_positions, _, _, rows = fused.permute_descriptor(ops, L + M, M)
+        _check(tables.device.type == "cuda" and positions == want_positions
+               and torch.equal(tables.cpu(), torch.from_numpy(rows.view(np.int16))),
+               f"benes n={L + M} segment {ops}: the case tables built on the card differ from permute_descriptor's")
+    lines.append(f"benes n={L + M}: the case tables of its {len(pure)} camodc-only segments built on the card, "
+                 f"equal to permute_descriptor's")
     return lines
 
 
@@ -890,7 +908,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     probe_kernels,
     camodc_router_shapes,
     camodc_few_changed_blocks,
-    gather_route_flagship,
+    gather_oracle_flagship,
     batched_sampler,
     mcphase_planes,
     sc_step_kernels,

@@ -166,9 +166,9 @@ def test_zero_state_probabilities_and_to_numpy_match_jax():
 
 def test_no_gate_with_an_op_form_reaches_the_plain_ops(monkeypatch):
     """The cuda backend's routes send every gate with a fused-op form
-    through fused.apply_fused (a one-op segment when run alone), never
-    through the complex plain ops, and mcphase in place on the planes:
-    counted by patching both."""
+    through fused.apply_fused (a one-op segment when run alone, the
+    standard-layout oracle's included), never through the complex plain
+    ops, and mcphase in place on the planes: counted by patching both."""
     from quantumcomputer_tpu_torch.models import circuit as cir
     from quantumcomputer_tpu_torch.models.circuit import Gate
 
@@ -179,8 +179,8 @@ def test_no_gate_with_an_op_form_reaches_the_plain_ops(monkeypatch):
         cir.CNOT(10, 2), cir.SWAP(4, 12), cir.U2Q(13, 6, u), cir.IQFT_STAGE(13), cir.IQFT_STAGE(M),
         cir.MCPHASE((1, 7, 12), 0.25), cir.CAMODC(21, 2, 7), Gate("camodc_high", (3,), meta=(21, 4, M)),
     )
-    with_op = [g for g in gates if fused.gate_to_op(g) is not None]
-    assert len(with_op) == 11
+    with_op = [g for g in gates if fused.gate_to_op(g, M, fuse_oracle=True) is not None]
+    assert len(with_op) == 12
     plain_calls, kernel_calls = [], []
     real_plain, real_fused = tengine.apply_gate, fused.apply_fused
 

@@ -134,8 +134,9 @@ def test_mhigh_ladders_fuse_only_runs_of_at_least_D():
 @pytest.mark.parametrize("d", [1, 2, 3])
 def test_fused_path_at_14_local_qubits(d, layout, monkeypatch):
     """n - d = 14: shard-local runs go through the fused planner, every
-    shard applying each segment (the kernels' plain versions on CPU
-    shards); against the JAX single-chip engine and the port's, complex64."""
+    shard applying each segment and each shard-local standard oracle gate,
+    its one-op segment (the kernels' plain versions on CPU shards); against
+    the JAX single-chip engine and the port's, complex64."""
     C, a, M = 33, 7, 6
     L = 14 + d - M
     jc = _shor(C, a, L, M, layout)
@@ -146,8 +147,10 @@ def test_fused_path_at_14_local_qubits(d, layout, monkeypatch):
     eng = ShardedStateVectorEngine(Register(L, M), dtype=torch.complex64, mesh=build_mesh(1 << d), layout=layout,
                                    backend="cuda")
     segments = sum(e[0] == "fused" for e in eng.plan(c))
+    oracles = sum(e[0] == "gate" and e[1].name == "camodc" and e[1].qubits[0] < 14 for e in eng.plan(c))
+    assert (oracles > 0) == (layout == "standard")
     out = eng.to_numpy(eng.run(c))
-    assert segments > 0 and len(calls) == (1 << d) * segments and set(calls) == {(2, 1 << 14)}
+    assert segments > 0 and len(calls) == (1 << d) * (segments + oracles) and set(calls) == {(2, 1 << 14)}
     want = JEngine(JRegister(L=L, M=M), dtype=jnp.complex64, backend="xla", layout=layout)
     np.testing.assert_allclose(out, want.to_numpy(want.run(jc)), atol=C64_TOL)
     single = StateVectorEngine(Register(L, M), dtype=torch.complex64, backend="torch", layout=layout)

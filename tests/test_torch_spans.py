@@ -19,6 +19,7 @@ import torch
 from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
 from quantumcomputer_tpu_torch.algorithms import shor
 from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh
+from quantumcomputer_tpu_torch.ops import fused
 from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
 from quantumcomputer_tpu_torch.utils import profiling as prof
 
@@ -98,8 +99,17 @@ def test_semiclassical_bit_identical_with_recording():
     assert on.bits == off.bits and on.branch_probs == off.branch_probs and on.oracles == off.oracles
 
 
+def oracle_multipliers(eng):
+    """(C, A mod C) of each lone oracle gate of the attempt's plan, in order."""
+    plan = eng._plan(shor_circuit(C, A, L, M))
+    return [(s[1].meta[0], s[1].meta[1] % s[1].meta[0]) for s in plan if s[0] == "single"]
+
+
 def test_shor_attempt_span_tree():
+    """An oracle.gate holds an oracle.table only where its case table is
+    built: on a miss of the cache, the first gate of each multiplier."""
     eng = engine()
+    fused._case_tables.cache_clear()
     rec, recs = recorded(lambda: shor.find_period(eng, C, A, 0.3))
     (attempt,) = [r for r in recs if r.parent is None]
     assert attempt.name == "driver.attempt" and all(r.root == attempt.id for r in recs)
@@ -109,8 +119,12 @@ def test_shor_attempt_span_tree():
     assert names(inner[:2]) == ["engine.reset", "engine.plan"]
     assert set(names(inner[2:])) == {"fused.segment", "oracle.gate"}
     assert names(inner).count("oracle.gate") == L
-    for gate in (r for r in inner if r.name == "oracle.gate"):
-        assert names(children(recs, gate)) == ["oracle.table"]
+    multipliers = oracle_multipliers(eng)
+    assert len(multipliers) == L > len(set(multipliers))
+    gates = [r for r in inner if r.name == "oracle.gate"]
+    for i, (gate, key) in enumerate(zip(gates, multipliers)):
+        built = key not in multipliers[:i]
+        assert names(children(recs, gate)) == (["oracle.table"] if built else [])
     # Children close inside their parent, on the host clock.
     for r in recs:
         if r.parent is not None:
@@ -120,19 +134,28 @@ def test_shor_attempt_span_tree():
 
 
 def test_gather_attempt_counts_its_oracle_gates_and_tables():
+    """One oracle.table a case table built (a miss), with its int16 bytes,
+    on the CPU as on the card; the next attempt builds none."""
     eng = engine()
+    fused._case_tables.cache_clear()
     _, recs = recorded(lambda: shor.find_period(eng, C, A, 0.7))
     gates = [r for r in recs if r.name == "oracle.gate"]
     tables = [r for r in recs if r.name == "oracle.table"]
     assert len(gates) == L and sum(r.counts["gates"] for r in gates) == L
-    assert len(tables) == L and all(r.counts == {"bytes": 8 << M} for r in tables)
+    misses = fused._case_tables.cache_info().misses
+    assert len(tables) == misses == len(set(oracle_multipliers(eng))) < L
+    assert all(r.counts == {"bytes": 2 << M} for r in tables)
+    _, again = recorded(lambda: shor.find_period(eng, C, A, 0.7))
+    assert "oracle.table" not in names(again) and names(again).count("oracle.gate") == L
 
 
 def test_benes_attempt_spans_its_permutation_segments_as_oracle_gates():
     """A segment of camodc ops alone is an oracle.gate (the permutation
     kernel's segment on the card); a segment mixing them with other ops
-    stays a fused.segment."""
+    stays a fused.segment.  Its case tables record an oracle.table inside
+    the oracle.gate on a miss only."""
     eng = engine(oracle="benes")
+    fused._case_tables.cache_clear()
     _, recs = recorded(lambda: shor.find_period(eng, C, A, 0.7))
     plan = eng._plan(shor_circuit(C, A, L, M))
     pure = [ops for _, ops, _ in plan if all(op[0] == "camodc" for op in ops)]
@@ -140,7 +163,12 @@ def test_benes_attempt_spans_its_permutation_segments_as_oracle_gates():
     gates = [r for r in recs if r.name == "oracle.gate"]
     assert len(gates) == len(pure) and [r.counts["gates"] for r in gates] == [len(ops) for ops in pure]
     assert names(recs).count("fused.segment") == len(plan) - len(pure)
-    assert "oracle.table" not in names(recs)
+    tables = [r for r in recs if r.name == "oracle.table"]
+    assert 0 < len(tables) == fused._case_tables.cache_info().misses <= len(pure)
+    assert all(names([p for p in gates if p.id == r.parent]) == ["oracle.gate"] for r in tables)
+    assert all(r.counts["bytes"] in (2 << M, 6 << M) for r in tables)
+    _, again = recorded(lambda: shor.find_period(eng, C, A, 0.7))
+    assert "oracle.table" not in names(again)
 
 
 def test_engine_plan_only_on_a_plan_cache_miss():
@@ -176,6 +204,7 @@ def test_semiclassical_attempt_span_tree(structured):
 
 def test_profiler_trace_holds_the_nested_qc_ranges(tmp_path):
     eng = engine()
+    fused._case_tables.cache_clear()
     path = tmp_path / "trace.json"
     with prof.trace(str(path)):  # spans record while the profiler does, with no switch
         shor.find_period(eng, C, A, 0.3)
@@ -186,7 +215,8 @@ def test_profiler_trace_holds_the_nested_qc_ranges(tmp_path):
     for e in events:
         if e.get("cat") == "user_annotation" and e.get("name", "").startswith("qc."):
             qc.setdefault(e["name"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    assert len(qc["qc.oracle.gate"]) == len(qc["qc.oracle.table"]) == L
+    assert len(qc["qc.oracle.gate"]) == L
+    assert len(qc["qc.oracle.table"]) == len(set(oracle_multipliers(eng))) == fused._case_tables.cache_info().misses
     assert len(qc["qc.engine.run"]) == len(qc["qc.measure.sample"]) == 1
 
     def inside(inner, outer):
