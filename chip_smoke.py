@@ -84,21 +84,27 @@ Phases, each of which must pass:
      and each kernel of that path must have launched (at complex32 the
      m_high path's adjacent walks run as one strip pass, which must launch,
      in place of the cycle walk);
-  6. the semiclassical engine's kernels, transpose and chunk_gather (its four
-     forms), held against their plain versions in float32 and float64,
-     exactly, on aligned, ragged and extra-row transposes and on in-range,
-     out-of-range and past-the-rows offsets; apply_stride_permute held
-     against the element map for planned multipliers at M = 20 and M = 28;
-     at M = 28 (C = 2^28 - 3, a = 7) each kernel call of one plan timed
-     beside its plain version, one permutation of a 1 GiB plane, and one
-     semiclassical step on the structured and on the gather path; then the
+  6. the semiclassical engine's kernels: the offset transpose (one launch a
+     leg of the structured permutation, both legs, both signs, one and two
+     planes, an identity tail), and the old legs' transpose and
+     chunk_gather (its four forms), off the main path, held against their
+     plain versions in float32, float64 and bf16, exactly, on aligned,
+     ragged and extra-row transposes and on in-range, out-of-range and
+     past-the-rows offsets; apply_stride_permute held against the element
+     map for planned multipliers at M = 20 and M = 28; at M = 28 (C = 2^28 -
+     3, a = 7) each offset-transpose launch of one plan timed beside its
+     plain version and its bound, the whole permutation of a 1 GiB plane
+     beside one index_select by it, and one semiclassical step on the
+     structured and on the gather path; then the
      CLI at M = 28 (-C 268435453 -L 8 -M 28 -a 7 --semiclassical --seed 3);
   7. the semiclassical main path: factor 1,060,314,373 = 32749 x 32377 at
      M = 30 (complex64, an 8 GiB work state) with
      shors_algorithm(semiclassical=True, backend="cuda"), its bits equal to
      scripts/predict_semiclassical.py's exact prediction on the same draws,
-     the launch counters reset just before and read just after (at complex64
-     one launch of each sc_step kernel a structured step);
+     the launch counters reset just before and read just after (one
+     offset-transpose launch a leg of each plane of a structured step, none
+     of the old legs' kernels; at complex64 one launch of each sc_step
+     kernel a structured step);
   8. the m_high row-gather oracle (apply_camodc_high_planar) at n = 28 in the
      flagship geometry (C = 8191, A = 3, M = 13): controls 14 (the JAX
      kernel's pure blocks), 3 (mixed) and 0 (below the vector width), in
@@ -937,6 +943,7 @@ def reset_launches() -> None:
     fused.MATMUL_LAUNCHES = 0
     measure.LAUNCHES = 0
     transpose.LAUNCHES = 0
+    transpose.OFFSET_LAUNCHES = 0
     for counts in (oracle.LAUNCHES, chunkgather.LAUNCHES, probes.LAUNCHES, sc_step.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -950,6 +957,7 @@ def launches() -> dict:
         "matmul": fused.MATMUL_LAUNCHES,
         "block_sums": measure.LAUNCHES,
         **oracle.LAUNCHES,
+        "offset_transpose": transpose.OFFSET_LAUNCHES,
         "transpose": transpose.LAUNCHES, "chunk_gather": sum(chunkgather.LAUNCHES.values()),
         **{f"probe_{k}": v for k, v in probes.LAUNCHES.items()},
         **{f"sc_{k}": v for k, v in sc_step.LAUNCHES.items()},
@@ -1572,6 +1580,12 @@ def element_map_err(x, C: int, a_inv: int, M: int) -> float:
     return err
 
 
+# (M, C, R, B) of the offset transpose's shape cases: R = 1 (the reversal),
+# R = C - 1, an identity tail past C, a column run's wrap inside a tile, and
+# two planes.
+OFFSET_SHAPES = ((12, 4093, 1, 2), (12, 4093, 4092, 1), (14, 9001, 97, 2), (20, 700001, 1009, 1), (22, (1 << 22) - 3, 2039, 2))
+
+
 def phase_modperm_kernels(report: dict) -> None:
     import torch
 
@@ -1584,6 +1598,16 @@ def phase_modperm_kernels(report: dict) -> None:
         def rand(*shape):
             wide = torch.float32 if dtype == torch.bfloat16 else dtype
             return torch.randn(shape, generator=g, dtype=wide).to(device=DEVICE, dtype=dtype)
+
+        for M, C, R, B in OFFSET_SHAPES:
+            x = rand(B, 1 << M)
+            for leg in (tr.COLLECT, tr.DEAL):
+                for sign in (1, -1):
+                    got = tr.offset_transpose(x, C, R, pow(R, -1, C), sign, leg)
+                    err = exact_err(got, tr.offset_transpose_plain(x, C, R, pow(R, -1, C), sign, leg))
+                    torch.cuda.synchronize()
+                    check(err == 0.0, f"offset transpose {dname(dtype)} M={M} C={C} R={R} leg {leg} sign {sign}: {err} != 0")
+            log(f"kernel offset_transpose {dname(dtype)} M={M} C={C} R={R} B={B}, both legs and signs: exact")
 
         for shape, extra in (((2, 512, 384), 0), ((1, 300, 523), 0), ((2, 256, 1000), 1), ((1, 4133, 2176), 1)):
             x = rand(*shape)
@@ -1642,54 +1666,15 @@ def phase_modperm_kernels(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def library_call(name: str, plain, args, kwargs):
-    """One PyTorch call that computes what a structured-permutation kernel
-    call computes, its index built here, beforehand: the yardstick
-    library_ms (the port never calls it)."""
-    import inspect
-
-    import torch
-
-    from quantumcomputer_tpu_torch.ops import chunkgather as cg
-
-    a = inspect.signature(plain).bind(*args, **kwargs).arguments
-    x = a["x"]
-    if name == "tiled_transpose_padded":
-        return lambda: x.transpose(-1, -2).contiguous()
-    P = x.shape[1]
-
-    def windows(length, starts, W):
-        lane = torch.arange(W, device=x.device)
-        return starts.to(torch.int64).clamp(0, length - W)[:, None] + lane[None, :]
-
-    def blend(s0, s1, istar, W):
-        lane = torch.arange(W, device=x.device)
-        return torch.where(lane[None, :] < istar.to(torch.int64)[:, None], windows(P, s0, W), windows(P, s1, W))
-
-    if name == "chunk_gather":
-        idx = windows(P, a["starts"], a["W"])
-    elif name == "chunk_gather_src2":
-        x2 = a["x2"]
-        alt = (a["flags"] != 0)[:, None]
-        idx = torch.where(alt, P + windows(x2.shape[1], a["starts"], a["W"]), windows(P, a["starts"], a["W"]))
-        x = torch.cat([x, x2], dim=1)
-    elif name == "chunk_gather_blend":
-        idx = blend(a["s0"], a["s1"], a["istar"], a["W"])
-    else:
-        s0, s1, istar = cg.rowlaw_offsets(a["NC"], a["v"], a["vpad"], a["Wt"], P, x.device)
-        idx = blend(s0, s1, istar, a["Wt"])
-    return lambda: x[:, idx]
-
-
 def phase_semiclassical_timing(report: dict, planes) -> None:
     """At M = 28 (C = 2^28 - 3, a = 7), on planes of `planes` (float32 or
-    bfloat16): each kernel call of the first planned
-    step's permutation timed beside its plain version, one permutation of a
-    plane against the element gather, and one step per oracle path."""
+    bfloat16): each offset-transpose launch of the first planned step's
+    permutation timed beside its plain version and its bound; the whole
+    permutation of a plane beside one index_select by the same permutation
+    (the library yardstick); and one step per oracle path."""
     import torch
 
     from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
-    from quantumcomputer_tpu_torch.ops import chunkgather as cg
     from quantumcomputer_tpu_torch.ops import modperm
     from quantumcomputer_tpu_torch.ops import transpose as tr
 
@@ -1700,75 +1685,42 @@ def phase_semiclassical_timing(report: dict, planes) -> None:
     plan = plans[step]
     x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(31)).to(device=DEVICE, dtype=planes)
 
-    # Record each kernel call of one permutation (its inputs stay alive).
-    sites = {
-        "tiled_transpose_padded": ("transpose", tr.transpose_plain),
-        "chunk_gather": ("chunk_gather", cg.chunk_gather_plain),
-        "chunk_gather_src2": ("chunk_gather", cg.chunk_gather_src2_plain),
-        "chunk_gather_blend": ("chunk_gather", cg.chunk_gather_blend_plain),
-        "chunk_gather_blend_rowlaw": ("chunk_gather", cg.chunk_gather_blend_rowlaw_plain),
-    }
-    orig = {name: getattr(modperm, name) for name in sites}
-    calls = []
-
-    def recorder(name):
-        def wrapped(*args, **kwargs):
-            calls.append((name, args, kwargs))
-            return orig[name](*args, **kwargs)
-
-        return wrapped
-
-    try:
-        for name in sites:
-            setattr(modperm, name, recorder(name))
-        modperm.apply_stride_permute(x, plan)
-    finally:
-        for name, fn in orig.items():
-            setattr(modperm, name, fn)
-    for kernel in ("transpose", "chunk_gather"):
-        report[key(kernel, planes)].update(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bound_by="bytes")
-    report[key("transpose", planes)]["library"] = "x.transpose(-1, -2).contiguous() per call"
-    report[key("chunk_gather", planes)]["library"] = "one advanced-indexing call x[:, idx] per call (src2: into cat(x, x2))"
-    for name, args, kwargs in calls:
-        kernel, plain = sites[name]
-        if name == "chunk_gather_blend_rowlaw":
-            args[0][:, -args[3]:].zero_()  # the slack row: defined input for the comparison
-        got, want = orig[name](*args, **kwargs), plain(*args, **kwargs)
-        if name == "tiled_transpose_padded" and kwargs.get("extra_rows"):
-            got, want = got[:, : -kwargs["extra_rows"]], want[:, : -kwargs["extra_rows"]]
+    # Each leg of one plane's permutation, as apply_stride_permute launches it.
+    entry = report[key("offset_transpose", planes)]
+    entry.update(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by="bytes")
+    y = x
+    for R, m, leg, sign in modperm.legs(plan):
+        args = (y, C, R, m, sign, leg)
+        got, want = tr.offset_transpose(*args), tr.offset_transpose_plain(*args)
         err = exact_err(got, want)
-        # Bytes: the input read once and the output written once (a chunk
-        # gather reads one source element per output element).
-        out_bytes = got.numel() * got.element_size()
-        nbytes = out_bytes + (args[0].numel() * args[0].element_size() if kernel == "transpose" else out_bytes)
-        library = library_call(name, plain, args, kwargs)
-        lib_err = exact_err(library(), want) if kernel == "chunk_gather" else 0.0
-        del got, want
-        check(err == 0.0, f"{name} at M={M}: {err} != 0")
-        check(lib_err == 0.0, f"the library call of {name} at M={M} differs: {lib_err}")
-        k_ms = time_ms(lambda: orig[name](*args, **kwargs), reps=10)
-        p_ms = time_ms(lambda: plain(*args, **kwargs), reps=3)
-        l_ms = time_ms(library, reps=3)
-        b_ms = bound(nbytes)[0]
-        entry = report[key(kernel, planes)]
+        del want
+        check(err == 0.0, f"offset transpose leg {leg} at M={M}: {err} != 0")
+        k_ms = time_ms(lambda: tr.offset_transpose(*args), reps=10)
+        p_ms = time_ms(lambda: tr.offset_transpose_plain(*args), reps=3)
+        b_ms = bound(2 * y.numel() * y.element_size())[0]  # the plane read once and written once
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        for field, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms), ("bound_ms", b_ms)):
+        for field, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
             entry[field] += v
-        shape = tuple(args[0].shape)
         log(
-            f"kernel {name} {dname(planes)} M={M} step {step} ({shape}): max abs {err:.3e}; kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms, {b_ms / k_ms:.1%} of bound"
+            f"kernel offset_transpose {dname(planes)} M={M} step {step} {'collect' if leg == tr.COLLECT else 'deal'} "
+            f"R={R} sign {sign}: exact; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, "
+            f"{b_ms / k_ms:.1%} of bound"
         )
-    del calls
+        y = got
+    del y, got, args
     torch.cuda.empty_cache()
 
-    perm_ms = time_ms(lambda: modperm.apply_stride_permute(x, plan), reps=5)
+    # The whole permutation beside the library yardstick: one index_select
+    # of the plane by the same permutation.
     j = torch.arange(1 << M, device=DEVICE)
     src = torch.where(j < C, (j * a_invs[step]) % C, j)
     del j
-    gather_ms = time_ms(lambda: x[:, src], reps=5)
-    log(f"apply_stride_permute {dname(planes)} M={M} plan {plan}: {perm_ms:.4f} ms per plane; element gather x[:, src] "
-        f"{gather_ms:.4f} ms")
+    err = exact_err(modperm.apply_stride_permute(x, plan), x.index_select(1, src))
+    check(err == 0.0, f"apply_stride_permute at M={M} differs from index_select: {err}")
+    perm_ms = time_ms(lambda: modperm.apply_stride_permute(x, plan), reps=5)
+    entry["library_ms"] = time_ms(lambda: x.index_select(1, src), reps=5)
+    log(f"apply_stride_permute {dname(planes)} M={M} plan {plan}: {perm_ms:.4f} ms per plane "
+        f"({len(modperm.legs(plan))} launches); index_select by the whole permutation {entry['library_ms']:.4f} ms")
     del src, x
     torch.cuda.empty_cache()
 
@@ -1807,7 +1759,8 @@ def phase_semiclassical_cli() -> None:
     check(rc in (0, 3), f"semiclassical CLI returned {rc}")
     check(" --- Factors of 268435453 found: " in out or "could not be factorised" in out,
           "the semiclassical CLI printed neither a factor line nor the could-not line")
-    check(counts["transpose"] > 0 and counts["chunk_gather"] > 0, f"the M=28 CLI run launched {counts}")
+    check(counts["offset_transpose"] > 0 and counts["transpose"] == counts["chunk_gather"] == 0,
+          f"the M=28 CLI run launched {counts}")
     log(f"cli --semiclassical M=28: exit {rc}, {wall:.3f} s, launches {counts}")
 
 
@@ -1822,8 +1775,9 @@ def phase_semiclassical_factor(report: dict, planes, reference=None):
 
     import torch
 
+    from quantumcomputer_tpu_torch.algorithms import semiclassical as sc
     from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
-    from quantumcomputer_tpu_torch.ops import chunkgather
+    from quantumcomputer_tpu_torch.ops import modperm
 
     C, a, L, M = SC_FACTOR
     spec = importlib.util.spec_from_file_location(
@@ -1846,27 +1800,28 @@ def phase_semiclassical_factor(report: dict, planes, reference=None):
     )
     wall = time.perf_counter() - t0
     counts = launches()
-    report[key("transpose", planes)]["launches"] = counts["transpose"]
-    report[key("chunk_gather", planes)]["launches"] = counts["chunk_gather"]
+    for kernel in ("offset_transpose", "transpose", "chunk_gather"):
+        report[key(kernel, planes)]["launches"] = counts[kernel]
     attempt = result.attempts[0]
     rec = attempt.semiclassical
     n_struct, n_gather = rec.oracles.count("structured"), rec.oracles.count("gather")
     log(
         f"semiclassical factor {dname(planes)} M={M} C={C} a={a} L={L}: {result.outcome.value}, factors {result.factors}, "
         f"period {result.period}; attempt {attempt.elapsed_s:.3f} s ({attempt.elapsed_s / L * 1e3:.3f} ms per step), "
-        f"total {wall:.3f} s; steps structured {n_struct}, gather {n_gather}; launches {counts}, "
-        f"chunk_gather forms {dict(chunkgather.LAUNCHES)}"
+        f"total {wall:.3f} s; steps structured {n_struct}, gather {n_gather}; launches {counts}"
     )
     check(rec.bits == want_bits, f"bits {rec.bits} != predicted {want_bits}")
     check(result.factors == SC_FACTORS, f"factors {result.factors} != {SC_FACTORS}")
     check(n_struct > 0, "no step took the structured oracle")
-    check(counts["transpose"] > 0, "the semiclassical main path launched no transpose kernel")
+    # One offset-transpose launch a leg of each plane of a structured step; the old legs never.
+    a_invs = [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)]
+    legs = sum(2 * len(modperm.legs(p)) for p in sc._structured_plans(C, a_invs, M) if p is not None)
+    check(counts["offset_transpose"] == legs, f"{counts['offset_transpose']} offset-transpose launches, {legs} legs")
+    check(counts["transpose"] == counts["chunk_gather"] == 0, f"the old legs launched on the main path: {counts}")
     # float32 planes: the step's two kernels once a structured step; bf16 keeps the PyTorch composition.
     fused_steps = n_struct if planes == torch.float32 else 0
     check(counts["sc_branch_sums"] == counts["sc_collapse"] == fused_steps,
           f"sc_step launches {counts['sc_branch_sums']} / {counts['sc_collapse']}, expected {fused_steps} each")
-    for form, n in chunkgather.LAUNCHES.items():
-        check(n > 0, f"the semiclassical main path launched no chunk_gather {form}")
     if reference is not None:
         dev = max(abs(p - q) for p, q in zip(rec.branch_probs, reference.branch_probs))
         log(f"semiclassical {dname(planes)} M={M}: largest branch-probability deviation from the complex64 attempt {dev:.3e}, "
@@ -2432,7 +2387,8 @@ def phase_checkpoint() -> None:
                                     checkpoint_dir=os.path.join(tmp, "sc"), checkpoint_every=4)
         t_full = time.perf_counter() - t0
         counts = launches()
-        check(counts["transpose"] > 0 and counts["chunk_gather"] > 0, f"the checkpointed attempt: {counts}")
+        check(counts["offset_transpose"] > 0 and counts["transpose"] == counts["chunk_gather"] == 0,
+              f"the checkpointed attempt: {counts}")
         timed = ckpt.save_state
 
         def save_and_kill(path, state, meta):
@@ -3573,6 +3529,14 @@ def phase_process_mesh(report: dict, refs: dict) -> None:
     log(f"phase process mesh: {time.perf_counter() - t_phase:.3f} s")
 
 
+OFFSET_REPLACES = ("none: one pass a leg, fusing the passes of quantumcomputer_tpu/ops/pallas_transpose.py:36 and "
+                   "pallas_chunkgather.py:79 that the JAX package's legs make")
+# The old legs' kernels: no path launches them (the main path's counts, 0,
+# are their entries' launches); phase 6 holds them against their plain
+# versions.
+OFF_PATH = "null: off every path since the offset transpose"
+
+
 def new_report() -> dict:
     """One JSON entry per kernel instance: the float32 / float64 kernels,
     then the bf16 ("complex32") instances, whose `replaces` names the TPU
@@ -3588,8 +3552,9 @@ def new_report() -> dict:
         ("ladder", "oracle_ladder.cu", "pallas_oracle.py:101", None),
         ("cycle", "oracle_cycle.cu", "pallas_oracle.py:274", None),
         ("cycle_masked", "oracle_cycle.cu", "pallas_oracle.py:531", None),
-        ("transpose", "transpose.cu", "pallas_transpose.py:36", None),
-        ("chunk_gather", "chunk_gather.cu", "pallas_chunkgather.py:79", None),
+        ("offset_transpose", "transpose.cu", OFFSET_REPLACES, "x.index_select(1, idx) of the plane by the whole permutation"),
+        ("transpose", "transpose.cu", "pallas_transpose.py:36", OFF_PATH),
+        ("chunk_gather", "chunk_gather.cu", "pallas_chunkgather.py:79", OFF_PATH),
         ("oracle_gather", "oracle_gather.cu", "pallas_oracle.py:47", None),
         ("probe_copy", "probes.cu", "scripts/prof_chunkgather.py:86", None),
         ("probe_roll2", "probes.cu", "scripts/prof_chunkgather.py:99", None),
@@ -3603,8 +3568,9 @@ def new_report() -> dict:
         ("ladder_bf16", "oracle_ladder.cu", "pallas_oracle.py:147-163", None),
         ("cycle_bf16", "oracle_cycle.cu", "pallas_oracle.py:389-392", None),
         ("cycle_masked_bf16", "oracle_cycle.cu", "pallas_oracle.py:431-449", None),
-        ("transpose_bf16", "transpose.cu", "pallas_transpose.py:36", None),
-        ("chunk_gather_bf16", "chunk_gather.cu", "pallas_chunkgather.py:211-239", None),
+        ("offset_transpose_bf16", "transpose.cu", OFFSET_REPLACES, "x.index_select(1, idx) of the plane by the whole permutation"),
+        ("transpose_bf16", "transpose.cu", "pallas_transpose.py:36", OFF_PATH),
+        ("chunk_gather_bf16", "chunk_gather.cu", "pallas_chunkgather.py:211-239", OFF_PATH),
         # The matrix groups (both instances) and the row gather at bf16.
         ("fused_matmul", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
         ("fused_matmul_bf16", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
@@ -3615,7 +3581,7 @@ def new_report() -> dict:
     return {
         name: {
             "name": name, "route": "cuda", "source": f"quantumcomputer_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces if replaces.startswith("scripts/") else f"quantumcomputer_tpu/ops/{replaces}",
+            "replaces": replaces if replaces.startswith(("scripts/", "none")) else f"quantumcomputer_tpu/ops/{replaces}",
             "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
             "bound_ms": None, "bound_by": None, "library_ms": None, "library": library,
         }
@@ -3673,6 +3639,9 @@ def main() -> int:
     phase_process_mesh(report, refs)
 
     for entry in report.values():
+        if entry["library"] == OFF_PATH:
+            check(entry["launches"] == 0, f"kernel {entry['name']}: off the path, yet launched {entry}")
+            continue
         check(entry["launches"] > 0 and entry["ms"] is not None and entry["plain_ms"] is not None,
               f"kernel {entry['name']}: incomplete report {entry}")
         check(entry["bound_ms"] is not None and entry["bound_by"] in ("bytes", "operations"),

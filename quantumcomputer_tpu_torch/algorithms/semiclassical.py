@@ -19,8 +19,9 @@ U runs one of two ways, per step, as in the JAX package:
   * the gather oracle (``_oracle_pass``): 2^22-row index blocks made on the
     device, the branch sums folded into the same sweep;
   * the structured stride permutation (``_oracle_pass_structured``,
-    ``ops/modperm.py``: the transpose and chunk-gather kernels on the
-    card), one plane at a time, where the step's multiplier plans.  On the
+    ``ops/modperm.py``: one offset-transpose launch a leg on the card, two
+    legs at most), one plane at a time, where the step's multiplier plans;
+    the ``sc.permute`` span counts the step's ``legs`` (launches).  On the
     card at float32 / float64 the rest of such a step (the scale, the
     rotation, the branch sums and the collapse) is two passes of
     ``ops/sc_step.py``'s kernels, which never store a1
@@ -142,13 +143,21 @@ def _oracle_pass(w, M: int, rdtype, cdt, C: int, a_inv: int, ct, st) -> tuple:
     return a1, p0, p1
 
 
+def _count_legs(span, plan) -> None:
+    """A recording ``sc.permute`` span counts its step's offset-transpose
+    launches: one a leg of each plane."""
+    if span is not None:
+        span.counts["legs"] = 2 * len(modperm.legs(plan))
+
+
 def _oracle_pass_structured(w, M: int, rdtype, cdt, plan, ct, st) -> tuple:
     """_oracle_pass with U as the structured stride permutation, one plane
     at a time (each plane's leg transients are freed before the next)."""
     s2 = _s2(rdtype, w.device)
-    with profiling.span("sc.permute", w.device):
+    with profiling.span("sc.permute", w.device) as span:
         gr = modperm.apply_stride_permute(w[0:1], plan)[0].mul_(s2)
         gi = modperm.apply_stride_permute(w[1:2], plan)[0].mul_(s2)
+        _count_legs(span, plan)
     with profiling.span("sc.rotate", w.device):
         a1 = torch.empty_like(w)
         if a1.dtype == cdt:
@@ -198,9 +207,10 @@ def _structured_step_cuda(w, plan, ct, st, r, force: int) -> tuple:
     storing a1.  Rounds as _oracle_pass_structured and collapse_from_a1 do;
     only the sums' order differs.  w' is written over w.  Returns (bit,
     p_cond)."""
-    with profiling.span("sc.permute", w.device):
+    with profiling.span("sc.permute", w.device) as span:
         gr = modperm.apply_stride_permute(w[0:1], plan)[0]
         gi = modperm.apply_stride_permute(w[1:2], plan)[0]
+        _count_legs(span, plan)
     with profiling.span("sc.branch_sums", w.device):
         partials = sc_step.branch_sums(w, gr, gi, ct, st)
     with profiling.span("sc.collapse", w.device):

@@ -142,6 +142,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("qc_oracle_strip", ("f32", "bf16"), [p, p, p, i64, i64, i64, i64, i64, p]),
         # x, out, B, R, Cc, extra_rows, stream
         ("qc_transpose", ("f32", "f64", "bf16"), [p, p, i64, i64, i64, i64, p]),
+        # x, out, B, dim, C, R, m, sign, leg, stream
+        ("qc_offset_transpose", ("f32", "f64", "bf16"), [p, p, i64, i64, i64, i64, i64, i64, i64, p]),
         # x, x2, out, a0, a1, a2, mode, B, P, P2, NC, W, v, vpad, stream
         ("qc_chunk_gather", ("f32", "f64", "bf16"), [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, p]),
         # wr, wi, gr, gi, ct, st, s2, partials, grid, n, stream

@@ -1,35 +1,44 @@
 """Structured modular-stride permutation: out[j] = x[(m*j) mod C] (j < C,
-identity above) by transposes and wide contiguous slices instead of an
-element gather.
+identity above) by transposes instead of an element gather.
 
 The counterpart of the JAX package's ``ops/modperm.py``, which holds the
-design; this module ports the structure that package runs on its
-accelerator (its kernel path) and nothing else:
+design.  The plan is that package's, field for field:
 
   1. ``rational_split`` writes a_inv = eps * u * v^-1 (mod C) with u, v near
      sqrt(C).  Multiplier permutations F_m(x)[j] = x[(m*j) mod C] compose
      multiplicatively, so F_a_inv = F_eps . F_u . F_v^-1.
-  2. The deal leg (F_u): in the transposed (u, Qp) row view every W-wide
-     output chunk is two contiguous slices split at the single mod-C wrap,
-     one ``chunk_gather_blend``.
-  3. The collect leg (F_v^-1): out[q*v + t] = x[(v^-1 t + q) mod C], one
-     contiguous row per t (``chunk_gather_src2``, the wrap read from a small
-     cyclic join), one transpose, then the row compaction back to flat
-     order (``chunk_gather_blend_rowlaw``).
-  4. F_-1 is an index reversal (``torch.flip``).
+  2. The collect leg (F_v^-1): with j = q*v + t, out[q*v + t] =
+     x[(v^-1 t + q) mod C], one contiguous run of x per t.
+  3. The deal leg (F_u): with the source s = q*u + t, out[(u^-1 t + q) mod
+     C] = x[q*u + t], each column of the (q, t) row view landing as one
+     contiguous run.
+  4. F_-1, an index reversal, folds into the last leg's run indices.
 
-Planning uses the JAX package's accelerator floor on every device: each
-non-unit factor is at least 256 (``MIN_FACTOR``), so every leg that runs
-has u >= 128 and v >= 128, the conditions of its kernel path.  The kernels
-index in 64 bits, so that package's < 2^31 guards do not apply.  Its XLA
-slice branches and the TPU's MXU flip are not ported.  A multiplier the
-planner refuses returns None, and the caller takes the gather oracle.
+``apply_stride_permute`` runs each leg as ONE pass of
+``transpose.offset_transpose`` (``legs``: the collect leg where v > 1, then
+the deal leg where u > 1, eps in whichever runs last, the reversal alone
+where neither does): on a CUDA tensor the offset-transpose kernel, on a CPU
+tensor its plain version.  Two passes are this factorization's floor.
+
+The JAX package's own leg structure is kept beside it, off the main path,
+as the CPU tests' second reference: ``_collect_leg`` (rows gathered with
+``chunk_gather_src2``, one transpose, the row compaction), ``_deal_leg``
+(the transposed row view and ``chunk_gather_blend``) and ``_negate_mod``
+(``torch.flip``).  Planning uses that package's accelerator floor on every
+device: each non-unit factor is at least 256 (``MIN_FACTOR``), the
+condition of its kernel path, and the deal chunk and collect rows are
+sized as there (``W``, ``collect_chunking``), which only the old legs read.
+The kernels' plane offsets are 64-bit (the offset transpose indexes inside
+a plane in 32 bits, under the planner's C < 2^30), so that package's < 2^31
+guards do not apply.  A multiplier the planner refuses returns None, and the
+caller takes the gather oracle.
 
 The permutation is the same as the JAX package's, element for element.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -43,7 +52,7 @@ from quantumcomputer_tpu_torch.ops.chunkgather import (
     chunk_gather_src2,
 )
 from quantumcomputer_tpu_torch.ops.gates import modmul_onchip
-from quantumcomputer_tpu_torch.ops.transpose import tiled_transpose_padded
+from quantumcomputer_tpu_torch.ops.transpose import COLLECT, DEAL, offset_transpose, tiled_transpose_padded
 
 # The JAX package's plan constants (ops/modperm.py).
 _MAX_CHUNK = 16384  # deal-leg chunk width cap
@@ -250,19 +259,36 @@ def _collect_leg(x: torch.Tensor, C: int, v: int, vinv: int, M: int) -> torch.Te
     return flat.reshape(lead + (dim,))
 
 
+@functools.lru_cache(maxsize=256)
+def legs(plan: StridePlan) -> Tuple[Tuple[int, int, int, int], ...]:
+    """The offset-transpose launches of one plane's permutation, in order,
+    as (R, m, leg, sign) with m * R = 1 (mod C): the collect leg (v, v^-1)
+    where v > 1, then the deal leg (u, u^-1) where u > 1, with eps as the
+    last one's sign; the reversal (1, 1) alone where neither runs."""
+    C = plan.C
+    out = []
+    if plan.v > 1:
+        out.append((plan.v, plan.vinv, COLLECT))
+    if plan.u > 1:
+        out.append((plan.u, pow(plan.u, -1, C), DEAL))
+    if not out:
+        out.append((1, 1, COLLECT))
+    return tuple((R, m, leg, plan.eps if i == len(out) - 1 else 1) for i, (R, m, leg) in enumerate(out))
+
+
 def apply_stride_permute(x: torch.Tensor, plan: StridePlan) -> torch.Tensor:
     """out[..., j] = x[..., (a_inv*j) mod C] for j < C, x[..., j] above: the
-    ``modmul_inverse_permutation`` gather as structured movement."""
-    if x.shape[-1] != 1 << plan.M:
+    ``modmul_inverse_permutation`` gather as one offset transpose a leg
+    (``legs``), each into a fresh tensor; a leg's input is freed as the next
+    one runs."""
+    dim = 1 << plan.M
+    if x.shape[-1] != dim:
         raise ValueError(f"x has {x.shape[-1]} elements per row, the plan 2^{plan.M}")
-    out = x
-    if plan.v > 1:
-        out = _collect_leg(out, plan.C, plan.v, plan.vinv, plan.M)
-    if plan.u > 1:
-        out = _deal_leg(out, plan.C, plan.u, plan.M, plan.W)
-    if plan.eps < 0:
-        out = _negate_mod(out, plan.C)
-    return out
+    lead = x.shape[:-1]
+    out = x.reshape(-1, dim).contiguous()
+    for R, m, leg, sign in legs(plan):
+        out = offset_transpose(out, plan.C, R, m, sign, leg)
+    return out.reshape(lead + (dim,))
 
 
 def modmul_stride_permute(x: torch.Tensor, C: int, a_inv: int, M: int) -> torch.Tensor:

@@ -32,7 +32,7 @@ import torch
 
 from quantumcomputer_tpu_torch.models import circuit as cir
 from quantumcomputer_tpu_torch.algorithms import semiclassical
-from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes, sc_step
+from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes, sc_step, transpose
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.scripts import exact_err
 from quantumcomputer_tpu_torch.sim import statevec as sv
@@ -476,9 +476,8 @@ def chunk_gather_narrow(device) -> List[str]:
     return out
 
 
-def stride_permute_m22(device) -> List[str]:
-    """apply_stride_permute at M = 22 (C = 2^22 - 3) for three planned
-    multipliers, against the element map."""
+def _stride_multipliers_m22() -> List[int]:
+    """The first three planned multipliers of C = 2^22 - 3 in a seeded draw."""
     M = 22
     C = (1 << M) - 3
     rng = np.random.default_rng(22)
@@ -489,12 +488,129 @@ def stride_permute_m22(device) -> List[str]:
             mults.append(a)
             if len(mults) == 3:
                 break
+    return mults
+
+
+def stride_permute_m22(device) -> List[str]:
+    """apply_stride_permute at M = 22 (C = 2^22 - 3) for three planned
+    multipliers, against the element map."""
+    M = 22
+    C = (1 << M) - 3
+    mults = _stride_multipliers_m22()
     x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(3))
     j = torch.arange(1 << M)
     for a_inv in mults:
         got = modperm.modmul_stride_permute(x.to(device), C, a_inv, M).cpu()
         _check(torch.equal(got, x[:, torch.where(j < C, (a_inv * j) % C, j)]), f"stride permute M=22 a_inv={a_inv} differs")
     return [f"apply_stride_permute M={M} a_inv {mults}: exact"]
+
+
+# The semiclassical cell (C, a, L, M) and two of its planned steps: step 0
+# (eps +1, u = 9179, v = 26974) and step 2 (eps -1, u = 2732, v = 6451).
+SC_CELL = (1060314373, 2, 45, 30)
+SC_CELL_STEPS = (0, 2)
+
+
+def _old_leg_launches() -> int:
+    return transpose.LAUNCHES + sum(chunkgather.LAUNCHES.values())
+
+
+def _permute_exact(x: torch.Tensor, plan, a_inv: int, what: str) -> None:
+    """apply_stride_permute on the card: one offset-transpose launch a leg
+    of a plane and none of the old legs' kernels, equal bit for bit to the
+    plain legs and to the gather."""
+    C, M = plan.C, plan.M
+    before, old = transpose.OFFSET_LAUNCHES, _old_leg_launches()
+    got = modperm.apply_stride_permute(x, plan)
+    torch.cuda.synchronize()
+    launched = transpose.OFFSET_LAUNCHES - before
+    _check(launched == len(modperm.legs(plan)) and _old_leg_launches() == old,
+           f"{what}: {launched} offset-transpose launches for {len(modperm.legs(plan))} legs, "
+           f"old legs {_old_leg_launches() - old}")
+    want = x
+    for R, m, leg, sign in modperm.legs(plan):
+        want = transpose.offset_transpose_plain(want, C, R, m, sign, leg)
+    _check(torch.equal(got, want), f"{what}: differs from the plain legs")
+    del want
+    gather = tops.modmul_permute_onchip(a_inv, torch.arange(1 << M, device=x.device), C)
+    _check(torch.equal(got, x[:, gather]), f"{what}: differs from the gather")
+
+
+def offset_transpose_legs(device) -> List[str]:
+    """The offset transpose (ops/transpose.offset_transpose), one launch a
+    leg of apply_stride_permute, against its plain version and the gather,
+    bit for bit: at M = 22 (C = 2^22 - 3, the multipliers of
+    ``stride_permute_m22``, one and two planes) and at M = 30 on the
+    semiclassical cell's steps 0 and 2 (eps +1 and -1), float32 and bf16,
+    counting one launch a leg and none of the old legs' kernels.  Each M = 30
+    leg is timed alone beside its bound (one read and one write of the
+    plane) and its plain version, and the plane's ``index_select`` by the
+    same permutation beside it; the reversal alone (a_inv = -1, one launch
+    with R = 1) likewise, beside the flip and concatenation it replaces.  Then whole M = 24 attempts at complex64 and
+    complex32: len(legs) launches a plane of each structured step, none of
+    the old legs'."""
+    lines = []
+    M = 22
+    C = (1 << M) - 3
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 2):
+            x = torch.randn((B, 1 << M), generator=torch.Generator().manual_seed(B)).to(device=device, dtype=dtype)
+            for a_inv in _stride_multipliers_m22():
+                _permute_exact(x, modperm.plan_stride_permute(C, a_inv, M), a_inv, f"offset legs M=22 B={B} {_name(dtype)} a_inv={a_inv}")
+        lines.append(f"offset transpose M=22 {_name(dtype)} B=1, 2 a_inv {_stride_multipliers_m22()}: exact, one launch a leg")
+    C, a, L, M = SC_CELL
+    ladder = [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((1, 1 << M), generator=torch.Generator().manual_seed(30)).to(device=device, dtype=dtype)
+        nbytes = 2 * x.numel() * x.element_size()
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        for step in SC_CELL_STEPS:
+            plan = modperm.plan_stride_permute(C, ladder[step], M)
+            what = f"offset legs M=30 {_name(dtype)} step {step} (eps {plan.eps}, u {plan.u}, v {plan.v})"
+            _permute_exact(x, plan, ladder[step], what)
+            torch.cuda.empty_cache()
+            times = []
+            for R, m, leg, sign in modperm.legs(plan):
+                k_ms = profiling.cuda_ms(lambda: transpose.offset_transpose(x, C, R, m, sign, leg), reps=10)
+                p_ms = profiling.cuda_ms(lambda: transpose.offset_transpose_plain(x, C, R, m, sign, leg), reps=2)
+                times.append(f"{'collect' if leg == transpose.COLLECT else 'deal'} R={R} sign {sign} {k_ms:.4f} ms "
+                             f"(bound {bound_ms:.4f}, {bound_ms / k_ms:.1%}; plain {p_ms:.3f})")
+            idx = tops.modmul_permute_onchip(ladder[step], torch.arange(1 << M, device=device), C)
+            lib_ms = profiling.cuda_ms(lambda: x.index_select(1, idx), reps=3)
+            del idx
+            torch.cuda.empty_cache()
+            lines.append(f"{what}: exact against the plain legs and the gather; {'; '.join(times)}; "
+                         f"index_select {lib_ms:.4f} ms")
+        # The reversal alone (a_inv = -1: R = 1, a straight copy read
+        # backwards), beside the flip and concatenation it replaces.
+        plan = modperm.plan_stride_permute(C, C - 1, M)
+        _permute_exact(x, plan, C - 1, f"reversal alone M=30 {_name(dtype)}")
+        _check(torch.equal(modperm.apply_stride_permute(x, plan), modperm._negate_mod(x, C)),
+               f"reversal alone M=30 {_name(dtype)}: differs from the flip and concatenation")
+        torch.cuda.empty_cache()
+        R, m, leg, sign = modperm.legs(plan)[0]
+        k_ms = profiling.cuda_ms(lambda: transpose.offset_transpose(x, C, R, m, sign, leg), reps=10)
+        f_ms = profiling.cuda_ms(lambda: modperm._negate_mod(x, C), reps=5)
+        lines.append(f"reversal alone M=30 {_name(dtype)} (R={R} sign {sign}): exact against the plain leg, the gather "
+                     f"and the flip and concatenation; {k_ms:.4f} ms (bound {bound_ms:.4f}, {bound_ms / k_ms:.1%}); "
+                     f"flip and concatenation {f_ms:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+    C, a, L, M = (1 << 24) - 3, 7, 8, 24
+    rs = np.random.default_rng(24).random(L)
+    for dtype in (torch.complex64, "complex32"):
+        before, old = transpose.OFFSET_LAUNCHES, _old_leg_launches()
+        rec = semiclassical.run_semiclassical(C, a, L, M, rs, dtype=dtype, structured=True, device=device)
+        plans = semiclassical._structured_plans(C, [pow(pow(a, 1 << (L - 1 - s), C), -1, C) for s in range(L)], M)
+        want = sum(2 * len(modperm.legs(p)) for p in plans if p is not None)
+        launched = transpose.OFFSET_LAUNCHES - before
+        _check(rec.oracles.count("structured") > 0, f"no step of the M={M} attempt planned")
+        _check(launched == want and _old_leg_launches() == old,
+               f"sc attempt {dtype} M={M}: {launched} offset-transpose launches, {want} legs, "
+               f"old legs {_old_leg_launches() - old}")
+        lines.append(f"sc attempt {dtype} M={M} L={L}: {launched} offset-transpose launches for "
+                     f"{rec.oracles.count('structured')} structured steps (len(legs) a plane), old legs 0")
+    return lines
 
 
 def probe_kernels(device) -> List[str]:
@@ -905,6 +1021,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     gather_oracle_controls,
     chunk_gather_narrow,
     stride_permute_m22,
+    offset_transpose_legs,
     probe_kernels,
     camodc_router_shapes,
     camodc_few_changed_blocks,

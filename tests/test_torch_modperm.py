@@ -298,3 +298,114 @@ def test_negation_and_single_leg_plans():
     assert modperm.plan_stride_permute(C, 3, M) is None  # 3 = 3 * 1^-1: below the floor
     with pytest.raises(ValueError, match="unsupported"):
         modperm.modmul_stride_permute(torch.from_numpy(x), C, 3, M)
+
+
+# ---------------------------------------------------------------------------
+# The two-pass route: one offset transpose a leg (ops/transpose.py), ε folded
+# into the last leg; the plain versions here, the kernel on the card
+# (utils/kernel_checks.offset_transpose_legs).
+
+# (C, a_inv, B) at M = 17, chosen for the shape of their plan: (eps, u, v).
+TWO_PASS_M = 17
+TWO_PASS_CASES = {
+    "both legs, eps -1": (131069, 69643, 2, (-1, 280, 303)),
+    "both legs, eps +1": (131069, 40664, 1, (1, 341, 332)),
+    "u = 1, eps -1 in the collect leg": (131069, 3713, 2, (-1, 1, 353)),
+    "u = 1, C = 2^M - 301": (130771, 40256, 1, (1, 1, 536)),
+    "v = 1, the deal leg alone": (131069, 360, 2, (1, 360, 1)),
+    "both legs, eps -1, C = 2^M - 301": (130771, 106689, 1, (-1, 269, 429)),
+    "both legs, eps -1, identity tail": (78643, 39470, 2, (-1, 266, 263)),
+    "v = 1, identity tail": (78643, 422, 1, (1, 422, 1)),
+    "the reversal alone": (78643, 78642, 2, (-1, 1, 1)),
+}
+
+
+def _wraps_inside_a_tile(C, R, m, sign, tile=64):
+    """Whether some column t's run wraps past C at a q that is not a
+    multiple of 64, the kernel's narrowest tile along q (so the wrap falls
+    inside a tile at every tile width)."""
+    Q = (C - 1) // R + 1
+    for t in range(R):
+        s = (m * t) % C
+        q_wrap = C - s if sign > 0 else s + 1  # the first q whose index wraps
+        if 0 < q_wrap < Q and q_wrap % tile:
+            return True
+    return False
+
+
+def _planes(rng, B, M, dtype):
+    x = rng.standard_normal((B, 1 << M))
+    return torch.from_numpy(x).to(dtype) if dtype == torch.float64 else torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("case", list(TWO_PASS_CASES))
+def test_two_pass_route_matches_three_references(case, dtype):
+    """apply_stride_permute (the offset transpose's plain version, one call
+    a leg) against the on-device modular multiply's gather, the old
+    composition (_collect_leg, _deal_leg, _negate_mod) and the JAX
+    package's apply_stride_permute: equal element for element, at every
+    dtype (bf16 moves are exact)."""
+    C, a_inv, B, shape = TWO_PASS_CASES[case]
+    M = TWO_PASS_M
+    plan = modperm.plan_stride_permute(C, a_inv, M)
+    jplan = jmodperm.plan_stride_permute(C, a_inv, M, min_factor=256)
+    assert (plan.eps, plan.u, plan.v) == shape and interop.plan_from_reference(jplan) == plan
+    steps = modperm.legs(plan)
+    assert len(steps) == max(1, (plan.u > 1) + (plan.v > 1))
+    assert [s[3] for s in steps] == [1] * (len(steps) - 1) + [plan.eps]
+    if plan.u > 1 or plan.v > 1:
+        assert any(_wraps_inside_a_tile(C, R, m, sign) for R, m, _, sign in steps)
+    x = _planes(np.random.default_rng(a_inv), B, M, dtype)
+    before = transpose.OFFSET_LAUNCHES
+    got = modperm.apply_stride_permute(x, plan)
+    assert transpose.OFFSET_LAUNCHES == before  # the CPU runs the plain version
+    assert got.dtype == dtype and got.shape == x.shape
+
+    idx = tops.modmul_permute_onchip(a_inv, torch.arange(1 << M), C)
+    assert torch.equal(got, x[:, idx])
+    old = x
+    if plan.v > 1:
+        old = modperm._collect_leg(old, C, plan.v, plan.vinv, M)
+    if plan.u > 1:
+        old = modperm._deal_leg(old, C, plan.u, M, plan.W)
+    if plan.eps < 0:
+        old = modperm._negate_mod(old, C)
+    assert torch.equal(got, old)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else x.numpy().dtype
+    want = jmodperm.apply_stride_permute(jnp.asarray(x.float().numpy() if dtype == torch.bfloat16 else x.numpy(), jdtype), jplan)
+    np.testing.assert_array_equal(got.float().numpy() if dtype == torch.bfloat16 else got.numpy(), np.asarray(want, np.float32 if dtype == torch.bfloat16 else want.dtype))
+
+
+@pytest.mark.parametrize("leg", [transpose.COLLECT, transpose.DEAL])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_offset_leg_is_its_multiplier_permutation(leg, sign):
+    """One leg alone: collect with (m, R) is F_{sign m}, deal with (m, R) is
+    F_{sign R} (F_k(x)[j] = x[(k j) mod C]), identity above C; R = 1 and
+    R near C too."""
+    M, C = 14, 12289
+    x = _planes(np.random.default_rng(7), 2, M, torch.float32)
+    for R in (1, 2, 300, 4093, C - 1):
+        m = pow(R, -1, C)
+        k = (sign * (m if leg == transpose.COLLECT else R)) % C
+        got = transpose.offset_transpose(x, C, R, m, sign, leg)
+        assert torch.equal(got, x[:, tops.modmul_permute_onchip(k, torch.arange(1 << M), C)]), R
+
+
+@pytest.mark.parametrize(
+    "what,x,args,error",
+    [
+        ("float16", torch.zeros((1, 64), dtype=torch.float16), (61, 2, 31, 1, 0), TypeError),
+        ("int32", torch.zeros((1, 64), dtype=torch.int32), (61, 2, 31, 1, 0), TypeError),
+        ("meta device", torch.empty((1, 64), device="meta"), (61, 2, 31, 1, 0), ValueError),
+        ("1-D", torch.zeros(64), (61, 2, 31, 1, 0), ValueError),
+        ("not contiguous", torch.zeros((64, 2)).t(), (61, 2, 31, 1, 0), ValueError),
+        ("C past the plane", torch.zeros((1, 64)), (65, 2, 33, 1, 0), ValueError),
+        ("m R != 1 mod C", torch.zeros((1, 64)), (61, 2, 30, 1, 0), ValueError),
+        ("sign 0", torch.zeros((1, 64)), (61, 2, 31, 0, 0), ValueError),
+        ("leg 2", torch.zeros((1, 64)), (61, 2, 31, 1, 2), ValueError),
+    ],
+)
+def test_offset_transpose_rejects(what, x, args, error):
+    with pytest.raises(error):
+        transpose.offset_transpose(x, *args)

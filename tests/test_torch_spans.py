@@ -202,6 +202,23 @@ def test_semiclassical_attempt_span_tree(structured):
         assert plans == [] and out.oracles == ["gather"] * SC_L
 
 
+def test_sc_permute_span_counts_its_legs():
+    """Each structured step's sc.permute span counts its offset-transpose
+    launches: one a leg (collect where v > 1, deal where u > 1, the reversal
+    alone where neither) of each of the two planes."""
+    from quantumcomputer_tpu_torch.ops import modperm
+
+    a = sc_base()
+    rs = np.full(SC_L, 0.5, np.float32)
+    out, recs = recorded(lambda: sc.run_semiclassical(SC_C, a, SC_L, SC_M, rs, structured=True))
+    a_invs = [pow(pow(a, 1 << (SC_L - 1 - s), SC_C), -1, SC_C) for s in range(SC_L)]
+    plans = [p for p in sc._structured_plans(SC_C, a_invs, SC_M) if p is not None]
+    permutes = [r for r in recs if r.name == "sc.permute"]
+    assert len(permutes) == len(plans) == out.oracles.count("structured") >= 2
+    assert [r.counts["legs"] for r in permutes] == [2 * len(modperm.legs(p)) for p in plans]
+    assert all(r.counts["legs"] in (2, 4) for r in permutes)
+
+
 def test_profiler_trace_holds_the_nested_qc_ranges(tmp_path):
     eng = engine()
     fused._case_tables.cache_clear()
