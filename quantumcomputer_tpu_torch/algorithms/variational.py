@@ -6,7 +6,11 @@ state evolution is plain torch (the JAX package leaves it to XLA), and
 gradients come from autograd straight through the evolution: exact, one
 backward pass a step whatever the parameter count.
 ``expectation_on_engine`` measures an observable through an engine's gate
-path instead (``engine.run``, the fused kernel on the card).
+path instead (``engine.run``, the fused kernel on the card).  QAOA on a
+CUDA device runs through the engine too (``qaoa_step``): the mixers as
+fused segments, the cost layer and the adjoint gradient's reductions as the
+kernels of ``ops/qaoa.py``, with two states live whatever p; the CPU keeps
+the tape evolution (``algorithms/qaoa_plain.py``).
 
 Layout conventions match the engine (``sim/statevec.py``): qubit b is bit b
 of the basis index, LSB-first; states are planar (2, 2^n) real tensors, and
@@ -400,6 +404,22 @@ def vqe(
 # ---------------------------------------------------------------------------
 
 
+def random_regular_graph(n: int, degree: int = 3, seed: int = 0) -> List[Tuple[int, int]]:
+    """The edges (a < b, sorted) of a random `degree`-regular graph on n
+    vertices by the pairing model: n * degree stubs shuffled by a numpy
+    Generator seeded with `seed` and paired in order, the draw repeated
+    until it has no loop and no double edge."""
+    if (n * degree) % 2 or degree >= n:
+        raise ValueError(f"no {degree}-regular graph on {n} vertices")
+    rng = np.random.default_rng(int(seed))
+    while True:
+        stubs = np.repeat(np.arange(n), degree)
+        rng.shuffle(stubs)
+        pairs = [tuple(sorted((int(a), int(b)))) for a, b in stubs.reshape(-1, 2)]
+        if all(a != b for a, b in pairs) and len(set(pairs)) == len(pairs):
+            return sorted(pairs)
+
+
 def maxcut_cost_vector(n: int, edges: Sequence[Tuple[int, int]] | Sequence[Tuple[int, int, float]]) -> np.ndarray:
     """Cut size of every basis assignment, built on the host: the QAOA cost
     Hamiltonian is diagonal, so it lives as one f32 vector and both the
@@ -427,6 +447,113 @@ class QAOAResult:
     expectations: np.ndarray  # per-step trace
 
 
+def qaoa_initial_parameters(p: int, seed: int = 0) -> torch.Tensor:
+    """(2, p) float32: gammas 0.1 + 0.05 N(0, 1) then betas 0.4 + 0.05 N(0, 1),
+    drawn from a CPU torch.Generator seeded with `seed`."""
+    gen = torch.Generator().manual_seed(int(seed))
+    gammas = 0.1 + 0.05 * torch.randn(p, generator=gen, dtype=torch.float32)
+    betas = 0.4 + 0.05 * torch.randn(p, generator=gen, dtype=torch.float32)
+    return torch.stack([gammas, betas])
+
+
+def qaoa_engine(n: int, dtype=torch.complex64, device=None):
+    """The engine a QAOA step runs on: an n-qubit register with no work
+    register (Register(n, 0)); the cuda backend (fused segments) on a CUDA
+    device, the torch backend (plain ops) on the CPU.  `dtype` complex64,
+    complex128 or "complex32" (bf16 planes, on the card)."""
+    from quantumcomputer_tpu_torch.sim.engine import Register, StateVectorEngine
+
+    device = _device(device)
+    backend = "cuda" if device.type == "cuda" else "auto"
+    return StateVectorEngine(Register(n, 0), dtype=dtype, backend=backend, device=device)
+
+
+def _qaoa_forward(engine, table, phases, mixers) -> torch.Tensor:
+    """|psi(gamma, beta)> from |+>^n on the engine's device: each layer k the
+    cost phase (one pass, ops/qaoa.apply_phase, with phases[k]) then the
+    mixer (ops/qaoa.apply_mixer, with mixers[k]: the fused segments on the
+    card)."""
+    from quantumcomputer_tpu_torch.ops import qaoa as qops
+    from quantumcomputer_tpu_torch.utils import profiling
+
+    dev = engine.device
+    psi = qops.plus_state(engine.register.n, engine.real_dtype, dev)
+    for k in range(len(mixers)):
+        with profiling.span("qaoa.cost", dev, bytes=2 * qops.state_bytes(psi) + table.levels.numel()):
+            qops.apply_phase(psi, table, phases[k])
+        qops.apply_mixer(psi, mixers[k])
+    return psi
+
+
+def qaoa_step(engine, table, params) -> Tuple[float, np.ndarray]:
+    """One evaluation of the QAOA MaxCut objective and its exact gradient by
+    the adjoint method, through the engine: returns (the expected cut,
+    the (2, p) float64 gradient in gammas; betas) after one host read.
+
+    The forward runs |+>^n through p layers (the cost phase, ops/qaoa.py,
+    and the mixer's RX(2 beta) gates as the engine's fused segments, planned
+    once and given the step's angles at launch) and reads E = sum |psi|^2 c
+    while it writes lambda = C psi.  The backward walks the layers down:
+    dE/dbeta_k = 2 Im <lambda|sum_q X_q|psi> (ops/qaoa.mixer_grad, a pass a
+    tile group), the mixer undone on psi and on lambda (its segments with
+    RX(-2 beta)), dE/dgamma_k = 2 Im <lambda|C|psi> in the pass that undoes
+    the cost layer on both (ops/qaoa.cost_grad; the last layer's writes are
+    skipped).  Two states live at once, whatever p; the step's angles go to
+    the device in two copies at its start, and no plan or descriptor is
+    made after the first step.  `table` is an ops/qaoa.CostTable on the
+    engine's device; `params` a (2, p) array of gammas and betas (host
+    numbers)."""
+    from quantumcomputer_tpu_torch.ops import qaoa as qops
+    from quantumcomputer_tpu_torch.utils import profiling
+
+    prm = np.asarray(params, dtype=np.float64)
+    gammas, betas = prm[0], prm[1]
+    p, n, dev, dtype = prm.shape[1], engine.register.n, engine.device, engine.real_dtype
+    with profiling.span("qaoa.step", dev), torch.no_grad():
+        phases = qops.phase_tables(table.K, np.concatenate([gammas, gammas]), 1.0, dtype, dev)
+        phases[:p, :, 1].neg_()  # exp(-i gamma k) forward, exp(+i gamma k) to undo
+        mixers = qops.mixer_values(n, np.concatenate([betas, -betas]), dtype, dev)
+        with profiling.span("qaoa.forward", dev):
+            psi = _qaoa_forward(engine, table, phases, mixers[:p])
+        with profiling.span("qaoa.expect", dev):
+            lam = torch.empty_like(psi)
+            energy = qops.expect(psi, table, lam)
+        grad = torch.empty((2, p), dtype=torch.float64, device=dev)
+        groups = qops.mixer_groups(n, dtype)
+        sb = qops.state_bytes(psi)
+        with profiling.span("qaoa.backward", dev):
+            for k in reversed(range(p)):
+                with profiling.span("qaoa.grad", dev, bytes=2 * sb * len(groups), passes=len(groups)):
+                    grad[1, k] = 2.0 * sum(qops.mixer_grad(psi, lam, g) for g in groups)
+                qops.apply_mixer(psi, mixers[p + k])
+                qops.apply_mixer(lam, mixers[p + k])
+                write = k > 0
+                with profiling.span("qaoa.grad", dev, bytes=(4 if write else 2) * sb + table.levels.numel(), passes=1):
+                    grad[0, k] = 2.0 * qops.cost_grad(psi, lam, table, phases[p + k], write)
+        out = torch.cat([energy.view(1), grad.view(-1)]).cpu().numpy()
+    return float(out[0]), out[1:].reshape(2, p)
+
+
+class QAOAOptimizer:
+    """Adam over qaoa_step's gradients: the card route of qaoa_maxcut.
+    `step()` evaluates the objective and its gradient at the current
+    parameters and takes one Adam step (torch.optim.Adam on the float32
+    parameters on the host, betas (0.9, 0.999), eps 1e-8, maximize=True);
+    it returns (the expected cut, the gradient) at the parameters it
+    started from."""
+
+    def __init__(self, engine, table, params0, learning_rate: float = 0.05):
+        self.engine, self.table = engine, table
+        self.params = torch.tensor(np.asarray(params0), dtype=torch.float32).requires_grad_()
+        self.opt = torch.optim.Adam([self.params], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, maximize=True)
+
+    def step(self) -> Tuple[float, np.ndarray]:
+        energy, grad = qaoa_step(self.engine, self.table, self.params.detach().numpy())
+        self.params.grad = torch.from_numpy(grad).to(torch.float32)
+        self.opt.step()
+        return energy, grad
+
+
 def qaoa_maxcut(
     n: int,
     edges: Sequence[Tuple[int, int]] | Sequence[Tuple[int, int, float]],
@@ -438,57 +565,56 @@ def qaoa_maxcut(
     device=None,
 ) -> QAOAResult:
     """QAOA for MaxCut: |+>^n at complex64, p alternating (phase-separator,
-    RX-mixer) layers with tensor (gamma, beta), Adam-maximized expected cut.
+    RX-mixer) layers with angles (gamma, beta), Adam-maximized expected cut.
 
-    The separator is exp(-i gamma c) with c the host-built cost diagonal
-    (one elementwise pass a layer); the mixer is n RX(2 beta) rotations; the
-    expectation is sum(|psi|^2 * c).  `initial_parameters` is a (2, p)
-    array (gammas; betas); without it the gammas are 0.1 + 0.05 N(0, 1) and
-    the betas 0.4 + 0.05 N(0, 1), drawn from a CPU torch.Generator seeded
-    with `seed`."""
+    The route follows the device.  On a CUDA device each step is qaoa_step:
+    the engine's fused segments for the mixers, the cost table and its
+    kernels built on the card, the adjoint gradient, then Adam on the host
+    (QAOAOptimizer); memory stays at two states whatever p.  Its cost table
+    takes whole weights >= 0 summing under 256 and raises ValueError for
+    any other edges (ops/qaoa.CostTable).  Elsewhere the evolution is plain torch with tape
+    autograd (algorithms/qaoa_plain.py) on a host-built cost vector: the
+    JAX package's computation.  Either way the expectation is
+    sum(|psi|^2 * c) and Adam takes betas (0.9, 0.999), eps 1e-8.
+    `initial_parameters` is a (2, p) array (gammas; betas); without it
+    qaoa_initial_parameters(p, seed)."""
+    from quantumcomputer_tpu_torch.algorithms import qaoa_plain
+    from quantumcomputer_tpu_torch.ops import qaoa as qops
+
     device = _device(device)
-    cost_np = maxcut_cost_vector(n, edges)
-    optimal = float(cost_np.max())
-    cost = torch.from_numpy(cost_np).to(device)
-    phase_cost = cost.to(torch.complex64)
-    dim = 1 << n
-
     if initial_parameters is None:
-        gen = torch.Generator().manual_seed(int(seed))
-        gammas = 0.1 + 0.05 * torch.randn(p, generator=gen, dtype=torch.float32)
-        betas = 0.4 + 0.05 * torch.randn(p, generator=gen, dtype=torch.float32)
-        params0 = torch.stack([gammas, betas])
+        params0 = qaoa_initial_parameters(p, seed)
     else:
         params0 = torch.tensor(np.asarray(initial_parameters), dtype=torch.float32)
-    params = params0.to(device).requires_grad_()
 
-    def expected_cut(prm):
-        gammas, betas = prm[0], prm[1]
-        z = torch.full((dim,), 1.0 / np.sqrt(dim), dtype=torch.complex64, device=device)
-        for k in range(p):
-            z = z * torch.exp(-1j * gammas[k] * phase_cost)
-            for q in range(n):
-                z = _rot_x(z, q, n, 2.0 * betas[k])
-        probs = z.real ** 2 + z.imag ** 2
-        return torch.sum(probs * cost), probs
-
-    # maximize: Adam ascends the expected cut (optax.adam on the negated gradient)
-    opt = torch.optim.Adam([params], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, maximize=True)
-    trace = np.zeros(steps, dtype=np.float64)
-    for i in range(steps):
-        opt.zero_grad(set_to_none=True)
-        e, _ = expected_cut(params)
-        e.backward()
-        opt.step()
-        trace[i] = float(e.detach())
-
-    with torch.no_grad():
-        e_final, probs = expected_cut(params)
-        best = int(torch.argmax(probs))
-    e_final = float(e_final)
+    if device.type == "cuda":
+        engine = qaoa_engine(n, device=device)
+        table = qops.CostTable(n, edges, device)
+        run = QAOAOptimizer(engine, table, params0, learning_rate)
+        trace = np.array([run.step()[0] for _ in range(steps)], dtype=np.float64)
+        params = run.params.detach()
+        prm = params.numpy().astype(np.float64)
+        with torch.no_grad():
+            phases = qops.phase_tables(table.K, prm[0], -1.0, engine.real_dtype, device)
+            mixers = qops.mixer_values(n, prm[1], engine.real_dtype, device)
+            psi = _qaoa_forward(engine, table, phases, mixers)
+            e_final = float(qops.expect(psi, table))
+            best = int(torch.argmax(psi[0].float() ** 2 + psi[1].float() ** 2))
+            best_cut = float(table.levels[best])
+            optimal = float(table.optimal())
+    else:
+        cost_np = maxcut_cost_vector(n, edges)
+        optimal = float(cost_np.max())
+        cost = torch.from_numpy(cost_np).to(device)
+        params, trace = qaoa_plain.optimize(cost, n, params0, steps, learning_rate)
+        with torch.no_grad():
+            e_final, probs = qaoa_plain.expected_cut(cost, n, params)
+            best = int(torch.argmax(probs))
+        e_final = float(e_final)
+        best_cut = float(cost_np[best])
     return QAOAResult(
         best_bitstring=best,
-        best_cut=float(cost_np[best]),
+        best_cut=best_cut,
         expected_cut=e_final,
         optimal_cut=optimal,
         approximation_ratio=e_final / optimal if optimal > 0 else 1.0,

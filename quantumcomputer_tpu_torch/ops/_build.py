@@ -150,6 +150,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         ("qc_sc_branch_sums", ("f32", "f64"), [p, p, p, p, p, p, f64, p, i64, i64, p]),
         # wr, wi, gr, gi, ct, st, s2, partials, nparts, r, force, bit, pcond, grid, n, stream
         ("qc_sc_collapse", ("f32", "f64"), [p, p, p, p, p, p, f64, p, i64, p, i64, p, p, i64, i64, p]),
+        # re, im, cost, ph, levels, grid, n, stream
+        ("qc_qaoa_phase", ("f32", "f64", "bf16"), [p, p, p, p, i64, i64, i64, p]),
+        # re, im, cost, vals, lre, lim, partials, levels, grid, n, stream
+        ("qc_qaoa_expect", ("f32", "f64", "bf16"), [p, p, p, p, p, p, p, i64, i64, i64, p]),
+        # re, im, lre, lim, cost, vals, ph, partials, levels, write, grid, n, stream
+        ("qc_qaoa_cost_grad", ("f32", "f64", "bf16"), [p, p, p, p, p, p, p, p, i64, i64, i64, i64, p]),
+        # re, im, lre, lim, partials, nq, t, naxes, axes_packed, qmask, grid, stream
+        ("qc_qaoa_mixer_grad", ("f32", "f64", "bf16"), [p, p, p, p, p, i64, i64, i64, i64, i64, i64, p]),
     )
     for kernel, suffixes, argtypes in kernels:
         for suffix in suffixes:

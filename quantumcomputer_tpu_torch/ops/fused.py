@@ -142,7 +142,9 @@ _KIND = {"u1q": 0, "diag1": 1, "diag2": 2, "iqft": 3, "u2q": 4, "camodc": 5, "la
 # mtab, their byte offset, 1 when the table is real, and 1 on a rowmat and
 # the xtable right after it, which the rowmat applies before its store.
 _OPI_STRIDE = 8
-_OPF_STRIDE = 32
+OPF_STRIDE = 32
+#: Op kinds whose float record is their gate_to_op values (apply_segment_values).
+VALUED_KINDS = ("u1q", "diag1", "diag2", "u2q")
 _GRP_STRIDE = 8  # op_begin, op_end, then the group's extra slot positions
 
 
@@ -876,7 +878,7 @@ def host_descriptor(ops: tuple, axes: tuple, n: int, M: int, dtype: torch.dtype,
 
     groups = _group_ops(ops, local, t, tb, vb, ne)
     ops_i = np.full((len(ops), _OPI_STRIDE), -1, np.int32)
-    ops_f = np.zeros((len(ops), _OPF_STRIDE), np.float64)
+    ops_f = np.zeros((len(ops), OPF_STRIDE), np.float64)
     grp = np.zeros((len(groups), _GRP_STRIDE), np.int32)
     ftabs: list = []
     size = 0
@@ -1248,6 +1250,31 @@ def apply_segment(planar: torch.Tensor, ops: tuple, axes: tuple, M: int, tables=
     else:
         desc = _descriptor(ops, axes, n, M, planar.dtype, planar.device, False)[1]
     return _launch(planar, ops, n, M, desc)
+
+
+def apply_segment_values(planar: torch.Tensor, ops: tuple, axes: tuple, M: int, values: torch.Tensor) -> torch.Tensor:
+    """apply_segment of an ungrouped segment of VALUED_KINDS ops whose values
+    come from `values` at launch, IN PLACE: row k of the (len(ops),
+    OPF_STRIDE) tensor `values` (the compute dtype, on the state's device)
+    replaces op k's own values in its descriptor record, laid out as
+    gate_to_op gives them.  So a segment planned once for its structure
+    runs with new angles, with no new plan or descriptor (a variational
+    loop's layers).  The plain version rebuilds the ops with those values."""
+    n = _check_planar(planar)
+    ops, axes = tuple(ops), tuple(axes)
+    if not all(op[0] in VALUED_KINDS for op in ops):
+        raise ValueError(f"values at launch take {VALUED_KINDS} ops, got {sorted({op[0] for op in ops})}")
+    want = (len(ops), OPF_STRIDE)
+    if tuple(values.shape) != want or values.dtype != sv.compute_dtype(planar.dtype) or values.device != planar.device:
+        raise ValueError(f"values must be a {want} {sv.compute_dtype(planar.dtype)} tensor on {planar.device}")
+    if _device_kind(planar) == "cpu":
+        rows = values.double().numpy()
+        ops = tuple(op[:-1] + (tuple(float(v) for v in rows[k, : len(op[-1])]),) for k, op in enumerate(ops))
+        return planar.copy_(plain_ops(planar, ops, M))
+    if not ops:
+        return planar
+    t, high, vb, ne, ops_i, _, *rest = _descriptor(ops, axes, n, M, planar.dtype, planar.device, False)[1]
+    return _launch(planar, ops, n, M, (t, high, vb, ne, ops_i, values.contiguous(), *rest))
 
 
 def apply_fused(planar: torch.Tensor, ops: tuple, axes: tuple, M: int) -> torch.Tensor:

@@ -74,6 +74,7 @@ path.  ``run_with_norms``, ``measure`` and ``sample`` take no gradient.
 from __future__ import annotations
 
 import contextlib
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -243,6 +244,9 @@ def apply_circuit_per_gate_(
 
 
 MAX_LADDER_RUN = oracle.MAX_LADDER_K
+
+#: Plans an engine keeps, the circuits used last.
+PLAN_CACHE = 64
 
 
 def fuse_oracle_ladders(
@@ -496,7 +500,9 @@ class _AdjointRun(torch.autograd.Function):
     def backward(ctx, ct: torch.Tensor):
         engine = ctx.engine
         adjoint = dagger_circuit(engine._prep(ctx.circuit), engine.m_eff)
-        return engine._run(adjoint, ct.clone(memory_format=torch.contiguous_format), None), None, None
+        with profiling.span("engine.adjoint", engine.device, gates=len(adjoint)):
+            grad = engine._run(adjoint, ct.clone(memory_format=torch.contiguous_format), None)
+        return grad, None, None
 
 
 class StateVectorEngine:
@@ -576,7 +582,7 @@ class StateVectorEngine:
                 f"a 2^{register.n} state of {self.dtype} does not fit the "
                 f"{device_memory_budget(self.device)} usable bytes of {self.device}"
             )
-        self._plans: dict = {}
+        self._plans: "OrderedDict[Circuit, list]" = OrderedDict()
 
     # -- state lifecycle ----------------------------------------------------
 
@@ -598,6 +604,8 @@ class StateVectorEngine:
     # -- execution ----------------------------------------------------------
 
     def _plan(self, circuit: Circuit):
+        """The circuit's plan, from a cache of the PLAN_CACHE circuits used
+        last (a variational loop plans new angles every step)."""
         plan = self._plans.get(circuit)
         if plan is None:
             with profiling.span("engine.plan", self.device):
@@ -605,6 +613,10 @@ class StateVectorEngine:
                     circuit, self.m_eff, self.register.n, self.real_dtype, self.device, self.oracle == "benes"
                 )
             self._plans[circuit] = plan
+            if len(self._plans) > PLAN_CACHE:
+                self._plans.popitem(last=False)
+        else:
+            self._plans.move_to_end(circuit)
         return plan
 
     def _prep(self, circuit: Circuit) -> Circuit:

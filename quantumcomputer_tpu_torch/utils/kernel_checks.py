@@ -32,7 +32,7 @@ import torch
 
 from quantumcomputer_tpu_torch.models import circuit as cir
 from quantumcomputer_tpu_torch.algorithms import semiclassical
-from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes, sc_step, transpose
+from quantumcomputer_tpu_torch.ops import _build, chunkgather, fused, measure, modperm, oracle, probes, qaoa, sc_step, transpose
 from quantumcomputer_tpu_torch.ops import gates as tops
 from quantumcomputer_tpu_torch.scripts import exact_err
 from quantumcomputer_tpu_torch.sim import statevec as sv
@@ -909,6 +909,162 @@ def sc_step_kernels(device) -> List[str]:
     return lines + _sc_attempts(device)
 
 
+# QAOA's passes (ops/qaoa.py) against their plain versions: the elementwise
+# sums are float64 of the same float64 products in another order
+# (QAOA_SUM_TOL); the mixer's reduction sums each tile's products in the
+# compute dtype first, whose rounding (unit roundoff 6e-8 at float32) acts on
+# terms whose magnitudes add up to at most 2 a qubit on unit states
+# (QAOA_MIXER_TOL; a qubit's own term on a random state at n = 30 is about
+# 2^-15).  The written planes may differ by the compute dtype's rounding (a
+# contracted multiply-add), so they are held within QAOA_PLANE_TOL of the
+# largest amplitude (bf16: one ulp there, for a straddled rounding).  The
+# adjoint step at complex64 against the float64 tape (n = QAOA_TAPE_N) and
+# against the complex128 step (n = 30): QAOA_STEP_TOL of the cut and of the
+# largest gradient component (float32 rounding over about 8 n passes is some
+# 1e-6).
+QAOA_PLANE_TOL = {torch.float32: 1e-6, torch.float64: 1e-14, torch.bfloat16: 2.0 ** -7}
+QAOA_SUM_TOL = 1e-12
+QAOA_MIXER_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-6, torch.float64: 1e-12}
+QAOA_STEP_TOL = 1e-4
+QAOA_TAPE_N = 20
+QAOA_P = 4
+QAOA_SEED = 2021
+QAOA_ANGLES = np.array([[0.21, 0.43, 0.57, 0.66], [0.58, 0.45, 0.33, 0.17]])
+
+
+def _qaoa_random(n: int, dtype, device, seed: int) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    psi = torch.randn((2, 1 << n), generator=gen, device=device, dtype=torch.float32)
+    return (psi / torch.linalg.vector_norm(psi)).to(dtype)
+
+
+def _planes_close(got: torch.Tensor, want: torch.Tensor, what: str) -> str:
+    err = scale = 0.0
+    for lo in range(0, got.shape[1], 1 << 24):
+        g, w = got[:, lo : lo + (1 << 24)].double(), want[:, lo : lo + (1 << 24)].double()
+        err, scale = max(err, float((g - w).abs().max())), max(scale, float(w.abs().max()))
+    rel = err / scale
+    _check(rel <= QAOA_PLANE_TOL[got.dtype], f"{what}: rel {rel} > {QAOA_PLANE_TOL[got.dtype]}")
+    return f"rel {rel:.1e}"
+
+
+def _sums_close(got: torch.Tensor, want: torch.Tensor, what: str, tol: float = QAOA_SUM_TOL) -> float:
+    err = abs(float(got) - float(want))
+    _check(err <= tol, f"{what}: {float(got)!r} against {float(want)!r}")
+    return err
+
+
+def qaoa_kernels(device) -> List[str]:
+    """The four QAOA kernels (csrc/qaoa.cu) against their plain versions on
+    seeded unit states and the cost table of a seeded 3-regular graph, at
+    n = 30 (float32, bf16), n = 28 (float64) and n = 6 (a tile under a
+    block): the cost phase, the expectation and lambda, the gradient of
+    gamma with the layer undone (and not written: the last layer), the
+    mixer's reduction over each tile group; each timed beside its bound over
+    3.35 TB/s.  Besides, the mixer as its segments planned once with the
+    angle's values at launch (qaoa.apply_mixer), bit for bit against the
+    same segments with the angle in their own descriptors."""
+    from quantumcomputer_tpu_torch.algorithms import variational
+
+    lines = []
+    for dtype, n in ((torch.float32, 30), (torch.bfloat16, 30), (torch.float64, 28), (torch.float32, 6)):
+        what = f"qaoa {_name(dtype)} n={n}"
+        table = qaoa.CostTable(n, variational.random_regular_graph(n, 3, QAOA_SEED), device)
+        psi, lam = _qaoa_random(n, dtype, device, 1), _qaoa_random(n, dtype, device, 2)
+        fwd, back = (qaoa.phase_tables(table.K, [0.37], s, dtype, device)[0] for s in (-1.0, 1.0))
+        sb = qaoa.state_bytes(psi)
+        parts = []
+        a, b = psi.clone(), psi.clone()
+        qaoa.apply_phase(a, table, fwd)
+        qaoa.apply_phase_plain(b, table, fwd)
+        parts.append(f"phase {_planes_close(a, b, what + ' phase')}")
+        del a, b
+        la, lb = torch.empty_like(psi), torch.empty_like(psi)
+        err = _sums_close(qaoa.expect(psi, table, la), qaoa.expect_plain(psi, table, lb), what + " expect")
+        parts.append(f"expect {err:.1e}, lambda {_planes_close(la, lb, what + ' lambda')}")
+        del la, lb
+        for write in (True, False):
+            pa, pb, ya, yb = psi.clone(), psi.clone(), lam.clone(), lam.clone()
+            err = _sums_close(qaoa.cost_grad(pa, ya, table, back, write), qaoa.cost_grad_plain(pb, yb, table, back, write),
+                              f"{what} cost_grad write={write}")
+            _check(write or (torch.equal(pa, psi) and torch.equal(ya, lam)), f"{what} cost_grad wrote with write=False")
+            parts.append(f"cost_grad(write={int(write)}) {err:.1e}, psi {_planes_close(pa, pb, what)}, "
+                         f"lambda {_planes_close(ya, yb, what)}")
+            del pa, pb, ya, yb
+        a, b = qaoa.apply_mixer(psi.clone(), qaoa.mixer_values(n, [0.29], dtype, device)[0]), psi.clone()
+        for ops, axes in qaoa.mixer_segments(n, dtype):
+            fused.apply_segment(b, tuple(fused.gate_to_op(cir.RX(op[1], 0.58)) for op in ops), axes, 0)
+        _check(torch.equal(a, b), f"{what} mixer: the values at launch differ from the descriptor's own")
+        parts.append("mixer bit for bit")
+        del a, b
+        groups = qaoa.mixer_groups(n, dtype)
+        err = max(_sums_close(qaoa.mixer_grad(psi, lam, g), qaoa.mixer_grad_plain(psi, lam, g[2]), f"{what} mixer {g}",
+                              QAOA_MIXER_TOL[dtype]) for g in groups)
+        parts.append(f"mixer_grad {len(groups)} groups, largest error {err:.1e}")
+        a, b = psi.clone(), lam.clone()
+        t_phase = profiling.cuda_ms(lambda: qaoa.apply_phase(a, table, fwd), reps=5)
+        t_expect = profiling.cuda_ms(lambda: qaoa.expect(psi, table, a), reps=5)
+        t_grad = profiling.cuda_ms(lambda: qaoa.cost_grad(a, b, table, fwd, True), reps=5)
+        t_mix = [profiling.cuda_ms(lambda: qaoa.mixer_grad(psi, lam, g), reps=5) for g in groups]
+        bound = lambda nbytes: 1e3 * nbytes / HBM_BYTES_PER_S  # noqa: E731
+        tb = table.levels.numel()
+        lines.append(
+            f"{what}: " + "; ".join(parts) + f"; phase {t_phase:.3f} ms (bound {bound(2 * sb + tb):.3f}), "
+            f"expect {t_expect:.3f} (bound {bound(2 * sb + tb):.3f}), cost_grad {t_grad:.3f} (bound {bound(4 * sb + tb):.3f}), "
+            f"mixer_grad " + "/".join(f"{t:.3f}" for t in t_mix) + f" (bound a pass {bound(2 * sb):.3f})"
+        )
+        del psi, lam, a, b, table
+        torch.cuda.empty_cache()
+    return lines
+
+
+def qaoa_adjoint(device) -> List[str]:
+    """The adjoint QAOA step (variational.qaoa_step, p = 4, complex64)
+    against the float64 tape (qaoa_plain) at n = QAOA_TAPE_N, and against
+    the complex128 step at n = 30; the peak of the n = 30 complex64 step at
+    p = 2 and p = 4 (each from a reset of the peak) within one state."""
+    from quantumcomputer_tpu_torch.algorithms import qaoa_plain, variational
+
+    lines = []
+
+    def setup(n, dtype):
+        eng = variational.qaoa_engine(n, dtype=dtype, device=device)
+        return eng, qaoa.CostTable(n, variational.random_regular_graph(n, 3, QAOA_SEED), device)
+
+    def step(eng, table, angles):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        out = variational.qaoa_step(eng, table, angles)
+        return out, torch.cuda.max_memory_allocated(device) - base
+
+    def gaps(got, want):
+        return abs(got[0] - want[0]) / abs(want[0]), float(np.abs(got[1] - want[1]).max() / np.abs(want[1]).max())
+
+    n = QAOA_TAPE_N
+    got, _ = step(*setup(n, torch.complex64), QAOA_ANGLES)
+    cost = torch.from_numpy(variational.maxcut_cost_vector(n, variational.random_regular_graph(n, 3, QAOA_SEED)))
+    want = qaoa_plain.cut_and_gradient(cost.to(device=device, dtype=torch.float64), n, QAOA_ANGLES)
+    cg, gg = gaps(got, want)
+    _check(cg <= QAOA_STEP_TOL and gg <= QAOA_STEP_TOL, f"qaoa step n={n}: cut {cg}, grad {gg} against the float64 tape")
+    lines.append(f"qaoa step n={n} p={QAOA_P} complex64 against the float64 tape: cut {cg:.2e}, grad {gg:.2e}")
+    torch.cuda.empty_cache()
+    want, _ = step(*setup(30, torch.complex128), QAOA_ANGLES)
+    torch.cuda.empty_cache()
+    eng, table = setup(30, torch.complex64)
+    got, peak4 = step(eng, table, QAOA_ANGLES)
+    cg, gg = gaps(got, want)
+    _check(cg <= QAOA_STEP_TOL and gg <= QAOA_STEP_TOL, f"qaoa step n=30: cut {cg}, grad {gg} against complex128")
+    _, peak2 = step(eng, table, QAOA_ANGLES[:, :2])
+    state = 2 * 4 << 30
+    _check(abs(peak4 - peak2) <= state, f"qaoa step n=30: peak {peak4} at p=4, {peak2} at p=2")
+    ms = profiling.cuda_ms(lambda: variational.qaoa_step(eng, table, QAOA_ANGLES), reps=3)
+    lines.append(f"qaoa step n=30 p={QAOA_P} complex64 against complex128: cut {cg:.2e}, grad {gg:.2e}; "
+                 f"peak above the table {peak4 / 2**30:.3f} GiB (p=2: {peak2 / 2**30:.3f}); {ms:.1f} ms a step")
+    torch.cuda.empty_cache()
+    return lines
+
+
 # The reference's largest register on one card: C, a, L, M of the flagship
 # family at L + M = 32 (a 32 GiB complex64 state), its draw, and the limits
 # of the benchmark's full-register cells.
@@ -1030,6 +1186,8 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     mcphase_planes,
     sc_step_kernels,
     shor_n32_mhigh,
+    qaoa_kernels,
+    qaoa_adjoint,
 ]
 
 

@@ -12,8 +12,10 @@ within 1e-12 at float64 and 1e-6 at float32; the energy gradient within
 1e-10 of jax.grad at float64 and 1e-5 of central differences (the JAX
 suite's); VQE / QAOA traces fed the JAX initial parameters within 1e-4 of
 the JAX traces at every step, and the final energy and parameters within
-1e-4 (float32 Adam over 250 steps; the measured spread is 4e-6); then the
-JAX suite's own assertions on the port's seeded runs."""
+1e-4 (float32 Adam over 250 steps; the measured spread is 4e-6), the QAOA
+card route's loop (the adjoint step at complex128) likewise, and its
+expected cut and gradient within 1e-10 of jax.value_and_grad at
+complex128; then the JAX suite's own assertions on the port's seeded runs."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,7 @@ from quantumcomputer_tpu.algorithms import variational as jvar
 from quantumcomputer_tpu.sim import statevec as jsv
 import quantumcomputer_tpu_torch as port
 from quantumcomputer_tpu_torch.algorithms import variational as var
+from quantumcomputer_tpu_torch.ops import qaoa as qops
 from quantumcomputer_tpu_torch.sim import statevec as sv
 from tests.conftest import random_state
 
@@ -318,6 +321,45 @@ def test_qaoa_follows_the_jax_trace(seed):
     assert got.expected_cut == pytest.approx(want.expected_cut, abs=TRACE_TOL)
     assert (got.best_bitstring, got.best_cut, got.optimal_cut) == (want.best_bitstring, want.best_cut, want.optimal_cut)
     assert got.approximation_ratio == pytest.approx(want.approximation_ratio, abs=TRACE_TOL)
+
+
+@pytest.mark.parametrize("seed,n,p", [(2, 4, 2), (7, 4, 2), (3, 6, 3)])
+def test_qaoa_adjoint_route_follows_the_jax_trace(seed, n, p):
+    """The card route's loop (QAOAOptimizer over qaoa_step, here on the
+    engine's torch backend at complex128) from the JAX draw of the initial
+    angles: every step's expected cut and the final angles against
+    jvar.qaoa_maxcut's, on whole-weight graphs."""
+    edges = [(0, 1), (1, 2), (2, 3), (3, 0), (0, 2, 2)] if n == 4 else var.random_regular_graph(n, 3, seed)
+    steps = 150
+    want = jvar.qaoa_maxcut(n, edges, p=p, steps=steps, learning_rate=0.08, key=jax.random.PRNGKey(seed))
+    run = var.QAOAOptimizer(var.qaoa_engine(n, dtype=torch.complex128, device="cpu"), qops.CostTable(n, edges, "cpu"),
+                            _jax_qaoa_init(seed, p), learning_rate=0.08)
+    trace = np.array([run.step()[0] for _ in range(steps)])
+    assert np.abs(trace - want.expectations).max() < TRACE_TOL
+    np.testing.assert_allclose(run.params.detach().numpy(), want.parameters, atol=TRACE_TOL)
+
+
+@pytest.mark.parametrize("n,p,seed", [(6, 1, 1), (6, 3, 2), (8, 4, 4)])
+def test_qaoa_step_gradient_is_jax_grad(n, p, seed):
+    """qaoa_step's expected cut and adjoint gradient at complex128 against
+    jax.value_and_grad of the JAX package's expected cut (its cost vector
+    and traced RX butterflies, at complex128), within 1e-10."""
+    edges = var.random_regular_graph(n, 3, seed)
+    cost = jnp.asarray(jvar.maxcut_cost_vector(n, edges), dtype=jnp.float64)
+
+    def expected_cut(prm):
+        z = jnp.full((1 << n,), 1.0 / np.sqrt(1 << n), dtype=jnp.complex128)
+        for k in range(p):
+            z = z * jnp.exp(-1j * prm[0, k] * cost)
+            for q in range(n):
+                z = jvar._rot_x(z, q, n, 2.0 * prm[1, k])
+        return jnp.sum((jnp.real(z) ** 2 + jnp.imag(z) ** 2) * cost)
+
+    prm = np.random.default_rng(seed).uniform(0.05, 0.9, (2, p))
+    e_want, g_want = jax.value_and_grad(expected_cut)(jnp.asarray(prm))
+    e, g = var.qaoa_step(var.qaoa_engine(n, dtype=torch.complex128, device="cpu"), qops.CostTable(n, edges, "cpu"), prm)
+    assert abs(e - float(e_want)) <= 1e-10 * abs(e)
+    assert np.abs(g - np.asarray(g_want)).max() <= 1e-10 * np.abs(g).max()
 
 
 def test_initial_parameters_are_not_modified():
