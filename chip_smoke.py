@@ -34,7 +34,9 @@ Phases, each of which must pass:
      (quantumcomputer_tpu_torch/utils/kernel_checks.py), the strip pass
      (oracle_strip.cu) among them: bf16 and float32 exactly against its
      plain version at n = 20 (M = 6, 9, 13), n = 10 (rows of one sector)
-     and with strips left alone, and its refusals; and the semiclassical
+     and with strips left alone, and its refusals; the n = 28 m_high
+     oracle stage merged into one strip pass at float32 and bf16, equal bit
+     for bit to the plan run entry by entry; and the semiclassical
      step's two passes (sc_step.cu) against their plain versions at M = 24
      and 30, timed, and whole M = 24 attempts against the CPU's; last, the
      n = 32 m_high attempt (C = 8191, a = 3, L = 19, M = 13, a 32 GiB
@@ -42,7 +44,7 @@ Phases, each of which must pass:
      its index within 2.5e-6 of the closed form, the complex32 run outside
      one of them;
   3. factor 15 through the CLI (-C 15 -L 3 -M 4 -a 7), through the fused
-     kernel, then again with --layout m_high, through the cycle kernel, then
+     kernel, then again with --layout m_high, through the strip pass, then
      8187 = 3 x 2729 at L + M = 32 (-L 19 -M 13 --layout m_high, unsharded),
      and -L 20 refused (exit 2); then 15 with
      --oracle benes (a segment with a camodc op must launch), with
@@ -56,7 +58,9 @@ Phases, each of which must pass:
      beside it.  Then the same circuit in the m_high layout
      (shor_circuit_mhigh): norm, the torch backend's m_high state and the
      standard-layout state mapped physical -> logical, each within
-     ||d||_2 <= 1e-4; its segments grouped and in the butterfly form in
+     ||d||_2 <= 1e-4; its oracle stage (11 walks and the ladder) one strip
+     pass, with no walk or ladder launched, equal bit for bit to the plan
+     applied entry by entry; its segments grouped and in the butterfly form in
      turns (grouped, butterfly, butterfly, grouped), the two states within
      ||d||_2 <= 1e-4; once more with the memory budget forced below two
      states, where it must pair oracles in place (cycle_masked) and launch
@@ -68,7 +72,7 @@ Phases, each of which must pass:
      product; the ladder, the cycle walk at every
      control the m_high plan walks (0-10) and the pair (13, 14) held exactly
      against their plain versions and timed beside them, their bounds and
-     their library calls; the flagship with oracle="benes": no single
+     their library calls, and the strip pass on the whole oracle stage; the flagship with oracle="benes": no single
      oracle gate in its plan, every oracle segment launched as the camodc
      permutation, norm, within ||d||_2 <= 1e-4 of the gather engine's
      state, both runs timed in turns, and every oracle segment held exactly
@@ -139,10 +143,9 @@ Phases, each of which must pass:
      exactly; the m_high flagship and its run below two states each
      launching the strip pass and equal bit for bit to the same plan applied
      entry by entry through the walks (run_with_norms); the strip pass on
-     the plan's walks (controls 0-11) timed beside the sum of the twelve
-     walks, its plain version, its bound and one advanced-indexing call, and
-     the same run at M = 12 in 32-byte strips (its float32 instance on the
-     complex64 plan's walks, in phase 4, off the engine's path); every bf16 segment and oracle
+     the plan's oracle stage (walks 0-11 and the ladder 12-14) timed beside
+     the sum of its entries, its plain version, its bound and one
+     advanced-indexing call, and the walks at M = 12 in 32-byte strips; every bf16 segment and oracle
      kernel of those plans timed beside its bound, each bf16 segment
      without matrix groups also beside the float32 instance's time for the
      same ops and axes, and the benes plan's six H and iQFT segments held
@@ -264,10 +267,12 @@ take their numbers from the m_high iQFT segment (rowmat + xtable +
 lanemat), their bound the larger of the bytes and the tensor-core products
 (3xTF32 at 495 TFLOP/s, two bf16 products at 989 TFLOP/s), "segments" every
 grouped segment with its butterfly form's time, "flagship_ms" /
-"flagship_butterfly_ms" the m_high flagship in both forms.  oracle_strip_bf16
-takes its numbers from the complex32 m_high plan's walks (controls 0-11),
-"walks_sum_ms" / "walk_ms" the same gates one by one through the cycle
-walk, "m12" the same run at M = 12 in 32-byte strips.  Each kernel the
+"flagship_butterfly_ms" the m_high flagship in both forms.  oracle_strip /
+oracle_strip_bf16 take their numbers from the m_high plan's oracle stage
+merged (complex64: walks 0-10 and the ladder 11-14; complex32: walks 0-11
+and the ladder 12-14), "entries_sum_ms" / "entry_ms" the same plan entries
+one by one (each walk through the cycle walk, the ladder out of place),
+oracle_strip_bf16's "m12" the walks at M = 12 in 32-byte strips.  Each kernel the
 gradient's backward launched on the n = 28 flagship has "backward_launches"
 (by form), and fused_segment / fused_segment_bf16 "gradient_ms" (the run,
 forward and backward times of each form); fused_segment, fused_matmul and block_sums
@@ -860,7 +865,10 @@ def check_forced_segments(report: dict, dtype) -> None:
 
 
 def phase_cli() -> None:
+    import torch
+
     from quantumcomputer_tpu_torch import cli
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
     from quantumcomputer_tpu_torch.ops import fused
 
     fused.LAUNCHES = 0
@@ -884,7 +892,11 @@ def phase_cli() -> None:
         log(f"  | {line}")
     check(rc == 0, f"cli.main --layout m_high returned {rc}")
     check(" --- Factors of 15 found: (5, 3)." in buf.getvalue(), "the m_high CLI did not factor 15 into (5, 3)")
-    check(oracle.LAUNCHES["cycle"] > 0, "the m_high CLI run launched no cycle kernel")
+    if stage_merges(shor_circuit_mhigh(15, 7, 3, 4), 7, torch.float32):
+        check(oracle.LAUNCHES["strip"] > 0 and oracle.LAUNCHES["cycle"] == 0,
+              f"the m_high CLI run did not merge its walks into a strip pass: {launches()}")
+    else:
+        check(oracle.LAUNCHES["cycle"] > 0, "the m_high CLI run launched no cycle kernel")
     log(f"cli --layout m_high: factored 15 = 5 x 3, launches {launches()}")
 
     # The reference's largest register (L + M = 32) unsharded on the card,
@@ -1317,7 +1329,14 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
     counts = launches()
     log(f"flagship m_high n={n} backend={KERNEL_BACKEND}: {cuda_ms:.3f} ms, norm {norm:.9f}, launches {counts}")
     check(abs(norm - 1.0) <= FLAGSHIP_TOL, f"m_high flagship norm {norm}")
-    check(counts["ladder"] > 0 and counts["cycle"] > 0, "the m_high flagship launched no ladder or no cycle kernel")
+    check(stage_merges(circuit, n, torch.float32), "the m_high flagship plan's oracle stage does not merge")
+    check(counts["strip"] == 1 and counts["ladder"] == counts["cycle"] == 0,
+          f"the m_high flagship's oracle stage did not run as one strip pass: {counts}")
+    walked, _ = eng.run_with_norms(circuit)  # with norms every plan entry runs alone: walks and the ladder
+    same = torch.equal(walked, state)
+    del walked
+    log(f"flagship m_high complex64: equal bit for bit to its plan applied entry by entry: {same}")
+    check(same, "the m_high flagship state differs from its plan applied entry by entry")
     forms = time_flagship_forms(reg, circuit, torch.complex64)
     dist = float(torch.linalg.vector_norm(forms["states"]["grouped"] - forms["states"]["butterfly"]))
     del forms["states"]
@@ -1376,9 +1395,12 @@ def phase_flagship_mhigh(report: dict, standard_state) -> list:
         grouped = [s for s in plan if s[0] == "fused" and segment_products(s[1], 0, torch.float32, n)]
         fill_matmul_entry(report, torch.float32, time_segments(report, planar, grouped, 0, "m_high grouped"))
     time_mhigh_oracles(report, planar, C, a, M, tuple(range(11, 15)), WALK_CONTROLS)
-    # The strip pass's float32 instance on the complex64 plan's walks: timed
-    # here only (the engine merges bf16 walks alone).
-    time_strip_run(planar, C, a, M, WALK_CONTROLS)
+    # The strip pass's float32 instance on the complex64 plan's oracle stage.
+    r = time_strip_run(planar, C, a, M, (*WALK_CONTROLS, tuple(range(11, 15))))
+    report["oracle_strip"].update(
+        ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
+        library=r["library"], strip_bytes=r["strip_bytes"], entries_sum_ms=r["entries_sum_ms"], entry_ms=r["entry_ms"],
+    )
     return timed
 
 
@@ -1428,22 +1450,40 @@ def time_mhigh_oracles(report: dict, planar, C: int, a: int, M: int, ladder, wal
     torch.cuda.empty_cache()
 
 
-def time_strip_run(planar, C: int, a: int, M: int, controls) -> dict:
+def time_strip_run(planar, C: int, a: int, M: int, entries) -> dict:
     """The strip pass (oracle_strip.cu) on a run of an m_high plan's
-    adjacent walks at `controls`, on `planar` (scripts/prof_strip.strip_case:
-    held exactly against the plain version and timed beside the same walks
-    one by one, the plain version, the library call and the bound).
-    Returns strip_case's numbers."""
+    adjacent entries (a control is a walk, a tuple a ladder), on `planar`
+    (scripts/prof_strip.strip_case: held exactly against the plain version
+    and timed beside the same entries one by one, the plain version, the
+    library call where the run's controls are contiguous, and the bound).  Returns
+    strip_case's numbers."""
     from quantumcomputer_tpu_torch.scripts import prof_strip
 
-    r = prof_strip.strip_case(planar, C, a, M, controls)
+    r = prof_strip.strip_case(planar, C, a, M, entries)
+    library = f"; library {r['library_ms']:.4f} ms" if "library_ms" in r else ""
     log(
-        f"kernel oracle_strip {dname(planar.dtype)} run at controls {tuple(controls)} n={planar.shape[1].bit_length() - 1} "
-        f"C={C} M={M}: exact; {r['strip_bytes']}-byte strips {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms (bytes), "
-        f"{r['share']:.1%} of bound; plain {r['plain_ms']:.4f} ms; library {r['library_ms']:.4f} ms; the "
-        f"{len(controls)} walks one by one {r['walks_sum_ms']:.4f} ms ({', '.join(f'{w:.4f}' for w in r['walk_ms'])})"
+        f"kernel oracle_strip {dname(planar.dtype)} run of entries {r['entries']} n={r['n']} C={C} M={M}: exact; "
+        f"{r['strip_bytes']}-byte strips {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms (bytes), {r['share']:.1%} of "
+        f"bound; plain {r['plain_ms']:.4f} ms{library}; the {len(r['entries'])} entries one by one "
+        f"{r['entries_sum_ms']:.4f} ms ({', '.join(f'{w:.4f}' for w in r['entry_ms'])})"
     )
     return r
+
+
+def stage_merges(circuit, n: int, real_dtype) -> bool:
+    """True when the engine's m_high plan of `circuit` on this card runs
+    its first oracle run as one strip pass (engine.strip_run and
+    oracle.strip_pays on a probe of the state's shape)."""
+    import torch
+
+    from quantumcomputer_tpu_torch.ops import oracle
+    from quantumcomputer_tpu_torch.sim.engine import plan_circuit, strip_run
+
+    plan = plan_circuit(circuit, 0, n, real_dtype, DEVICE)
+    probe = torch.empty((2, 1 << n), dtype=real_dtype, device="meta")
+    run = strip_run(probe, plan, next(i for i, e in enumerate(plan) if e[0] == "single"))
+    return bool(run) and oracle.strip_pays([g.qubits for g in run], run[0].meta[0], probe.element_size(),
+                                           oracle.strip_room(torch.device(DEVICE)), n)
 
 
 def phase_factor(report: dict, planes) -> None:
@@ -1455,6 +1495,7 @@ def phase_factor(report: dict, planes) -> None:
     import torch
 
     from quantumcomputer_tpu_torch.algorithms.shor import shors_algorithm
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
     from quantumcomputer_tpu_torch.ops import fused, measure
 
     C, a, L, M = FACTOR
@@ -1491,11 +1532,12 @@ def phase_factor(report: dict, planes) -> None:
     )
     wall = time.perf_counter() - t0
     counts = launches()
-    # complex32 merges the plan's adjacent walks into one strip pass; the
-    # walk's bf16 launches come from the per-entry run (phase_validation_c32).
-    walk = "strip" if planes == torch.bfloat16 else "cycle"
-    report[key("ladder", planes)]["launches"] = counts["ladder"]
-    report["oracle_strip_bf16" if walk == "strip" else key("cycle", planes)]["launches"] = counts[walk]
+    # Where the plan's oracle stage merges into one strip pass, the walks' and
+    # the ladder's launches come from the per-entry runs (run_with_norms).
+    merged = stage_merges(shor_circuit_mhigh(C, a, L, M), L + M, planes)
+    oracles = ("strip",) if merged else ("ladder", "cycle")
+    for k in oracles:
+        report[key("oracle_strip" if k == "strip" else k, planes)]["launches"] = counts[k]
     if planes in fused.GROUP_DTYPES:
         report[key("fused_matmul", planes)]["launches"] = counts["matmul"]
         check(counts["matmul"] > 0, f"the m_high main path at {dname(planes)} launched no matrix group")
@@ -1504,8 +1546,10 @@ def phase_factor(report: dict, planes) -> None:
         f"period {result.period}, {len(result.attempts)} attempt(s), {wall:.3f} s; launches {counts}"
     )
     check(result.factors == (2729, 3), f"m_high factors {result.factors} != (2729, 3)")
-    for k in ("fused_segment", "block_sums", "ladder", walk):
+    for k in ("fused_segment", "block_sums", *oracles):
         check(counts[k] > 0, f"the m_high main path launched no {k} kernel")
+    if merged:
+        check(counts["ladder"] == counts["cycle"] == 0, f"the m_high main path's merged stage walked: {counts}")
 
     # The standard layout with oracle="benes": every oracle inside a fused
     # segment; the torch gather oracle is counted and must not run.
@@ -1921,9 +1965,12 @@ def phase_probes(report: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_validation() -> None:
+def phase_validation(report: dict) -> None:
     """TABLE I, FIG. 2 and FIG. 3, the n = 28 norm traces, the m_high
-    flagship's spans and the fuse=False route, on the cuda backend."""
+    flagship's spans and the fuse=False route, on the cuda backend.  The
+    m_high norm trace runs every plan entry alone, so the walks' and the
+    ladder's complex64 launches come from it (the main path merges them
+    into one strip pass); its spans show that strip pass."""
     import torch
 
     from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit, shor_circuit_mhigh, shor_circuit_reference
@@ -1979,6 +2026,10 @@ def phase_validation() -> None:
         check(dev <= FLAGSHIP_TOL, f"{layout} flagship norm trace deviates by {dev}")
         del state
         if layout == "m_high":
+            counts = launches()
+            check(counts["cycle"] > 0 and counts["ladder"] > 0 and counts["strip"] == 0,
+                  f"the m_high run with norms did not run its walks and ladder one by one: {counts}")
+            report["cycle"]["launches"], report["ladder"]["launches"] = counts["cycle"], counts["ladder"]
             eng.run(circuit)  # warm
             profiling.span_records(clear=True)
             profiling.record_spans(True)
@@ -1986,9 +2037,15 @@ def phase_validation() -> None:
                 eng.run(circuit)
             finally:
                 profiling.record_spans(False)
-            for name, tot in profiling.span_summary(profiling.span_records(clear=True)).items():
+            recs = profiling.span_records(clear=True)
+            for name, tot in profiling.span_summary(recs).items():
                 log(f"spans m_high n={L + M}: {name:13s} {tot['count']:2d} x, host {tot['host_ms']:.3f} ms, "
                     f"device {tot['device_ms']:.3f} ms")
+            gates = [r.counts for r in recs if r.name == "oracle.gate"]
+            entries = sum(e[0] == "single" and e[1].name.startswith("camodc") for e in eng._plan(circuit))
+            log(f"spans m_high n={L + M}: oracle.gate counts {gates}")
+            check(len(gates) == 1 and gates[0]["gates"] == L and gates[0]["entries"] == entries,
+                  f"the m_high flagship's oracle stage is not one strip span of {L} gates and {entries} entries: {gates}")
         torch.cuda.empty_cache()
 
     C, a, L, M = UNFUSED
@@ -2160,16 +2217,16 @@ def phase_flagship_c32(report: dict) -> None:
     walks = tuple(g.qubits[0] for g in singles if g.name == "camodc_high")
     log(f"m_high complex32 plan at n={n}: ladder at controls {ladder}, walks at controls {walks}")
     time_mhigh_oracles(report, planar, C, a, M, ladder, walks)
-    r = time_strip_run(planar, C, a, M, walks)
+    r = time_strip_run(planar, C, a, M, (*walks, ladder))
     report["oracle_strip_bf16"].update(
         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by="bytes", library_ms=r["library_ms"],
-        library=r["library"], strip_bytes=r["strip_bytes"], walks_sum_ms=r["walks_sum_ms"], walk_ms=r["walk_ms"],
+        library=r["library"], strip_bytes=r["strip_bytes"], entries_sum_ms=r["entries_sum_ms"], entry_ms=r["entry_ms"],
     )
     # The 32-byte strips, which a run takes where C of their rows fit shared
     # memory: the same run at M = 12 (C = 4093, a prime below 2^12).
     wide = time_strip_run(planar, 4093, 2, 12, walks)
     check(wide["strip_bytes"] == 32, f"the run at M = 12 took {wide['strip_bytes']}-byte strips")
-    report["oracle_strip_bf16"]["m12"] = {k: wide[k] for k in ("strip_bytes", "ms", "bound_ms", "walks_sum_ms")}
+    report["oracle_strip_bf16"]["m12"] = {k: wide[k] for k in ("strip_bytes", "ms", "bound_ms", "entries_sum_ms")}
     del planar
     torch.cuda.empty_cache()
 
@@ -2178,8 +2235,13 @@ def phase_cli_c32() -> None:
     """The CLI at complex32: 15 (-C 15 -L 3 -M 4 -a 7), then the n = 31
     demo (C32_CLI, an 8 GiB bf16 state), seeds in turn until it factors;
     the launch counters reset before each run and read after it."""
-    from quantumcomputer_tpu_torch import cli
+    import torch
 
+    from quantumcomputer_tpu_torch import cli
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
+
+    C, a, L, M = (int(C32_CLI[C32_CLI.index(f) + 1]) for f in ("-C", "-a", "-L", "-M"))
+    merged = stage_merges(shor_circuit_mhigh(C, a, L, M), L + M, torch.bfloat16)
     for argv, want in ((["-C", "15", "-L", "3", "-M", "4", "-a", "7", "--dtype", "complex32", "-v", "--seed", "0"],
                         " --- Factors of 15 found: (5, 3)."),):
         reset_launches()
@@ -2204,8 +2266,10 @@ def phase_cli_c32() -> None:
             log(f"  | {line}")
         log(f"cli n=31 complex32 m_high --seed {seed}: exit {rc}, {wall:.3f} s, launches {counts}")
         check(rc in (0, 3), f"the n=31 CLI returned {rc}")
-        for k in ("fused_segment", "matmul", "block_sums", "ladder", "strip"):
+        for k in ("fused_segment", "matmul", "block_sums", "strip", *(() if merged else ("ladder",))):
             check(counts[k] > 0, f"the n=31 complex32 CLI run launched no {k} kernel")
+        if merged:
+            check(counts["ladder"] == counts["cycle"] == 0, f"the n=31 complex32 CLI's merged stage walked: {counts}")
         if rc == 0:
             check(" --- Factors of 8189 found: (431, 19)." in buf.getvalue(), "the n=31 CLI did not factor 8189")
             return
@@ -2251,9 +2315,9 @@ def phase_validation_c32(report: dict) -> None:
             f"{counts}), max |norm - 1| {dev:.3e} (tol {C32_NORM_TOL:.0e}): {[round(float(v), 6) for v in norms]}"
         )
         if layout == "m_high":
-            check(counts["cycle"] > 0 and counts["strip"] == 0,
-                  f"the complex32 m_high run with norms did not walk its single oracles one by one: {counts}")
-            report["cycle_bf16"]["launches"] = counts["cycle"]
+            check(counts["cycle"] > 0 and counts["ladder"] > 0 and counts["strip"] == 0,
+                  f"the complex32 m_high run with norms did not run its walks and ladder one by one: {counts}")
+            report["cycle_bf16"]["launches"], report["ladder_bf16"]["launches"] = counts["cycle"], counts["ladder"]
         check(state.dtype == torch.bfloat16 and norms.dtype == torch.float32, f"{layout}: {state.dtype}, {norms.dtype}")
         check(len(norms) == len(eng._plan(circuit)), f"{layout}: {len(norms)} norms for {len(eng._plan(circuit))} entries")
         check(dev <= C32_NORM_TOL, f"complex32 {layout} flagship norm trace deviates by {dev}")
@@ -3575,7 +3639,8 @@ def new_report() -> dict:
         ("fused_matmul", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
         ("fused_matmul_bf16", "fused_matmul.cu", "pallas_fused.py:911-966", matmul_library),
         ("oracle_gather_bf16", "oracle_gather.cu", "pallas_oracle.py:47", None),
-        # The complex32 m_high plan's adjacent walks, merged into one pass.
+        # The m_high plan's oracle stage (its walks and ladder), merged into one pass.
+        ("oracle_strip", "oracle_strip.cu", "pallas_oracle.py:274", None),
         ("oracle_strip_bf16", "oracle_strip.cu", "pallas_oracle.py:389-392", None),
     )
     return {
@@ -3624,7 +3689,7 @@ def main() -> int:
     sc64 = phase_semiclassical_factor(report, torch.float32)
     phase_gather_oracle(report)
     phase_probes(report)
-    phase_validation()
+    phase_validation(report)
     # complex32 (bf16 planes): every path again, through the bf16 instances.
     phase_flagship_c32(report)
     phase_factor(report, torch.bfloat16)

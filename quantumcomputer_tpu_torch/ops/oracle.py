@@ -22,7 +22,8 @@ x[j, col] <- x[ginv[j], col].  Five CUDA kernels carry it:
   * ``strip`` (``csrc/oracle_strip.cu``): a run of K gates in place, in one
     pass through column strips staged in shared memory
     (``apply_camodc_run_inplace_planar``; the engine sends it runs of
-    adjacent bf16 walks, ``strip_run_supported``).
+    adjacent cycle walks and out-of-place ladders on bf16 or float32
+    planes, ``strip_run_supported``, where ``strip_pays``).
 
 Each wrapper takes the plain version (``ops/gates.py``) for a CPU tensor,
 launches its kernel for a CUDA tensor at every size, and raises for any
@@ -40,7 +41,6 @@ H100 is later work.
 from __future__ import annotations
 
 import ctypes
-import math
 from functools import lru_cache
 
 import numpy as np
@@ -256,26 +256,57 @@ def strip_run_supported(M: int, n: int, itemsize: int, aligned: bool, room: int)
     )
 
 
-# Shares of the memory rate at n = 28, bf16, on an H100 (PERF.md §6,
-# scripts/prof_strip.py): a cycle walk's by the bytes of its runs of moved
-# columns (itemsize << control, at least 16), the strip pass's by its width.
-WALK_SHARE = {16: 0.39, 32: 0.47, 64: 0.59, 128: 0.63, 256: 0.70}
-STRIP_SHARE = {16: 0.39, 32: 0.50}
+# Shares of the memory rate on an H100 (PERF.md §6, scripts/prof_strip.py),
+# by plane item size and by the register size n they were read at: a cycle
+# walk's by the bytes of its runs of moved columns (itemsize << control, 16
+# to 256), the strip pass's by its width, the out-of-place ladder's.  At
+# n = 32 (rows 2 MiB apart) the float32 pass reads 0.31 of the rate, against
+# 0.415 at n = 28.
+WALK_SHARE = {
+    (2, 28): {16: 0.39, 32: 0.47, 64: 0.59, 128: 0.62, 256: 0.69},
+    (2, 32): {16: 0.40, 32: 0.50, 64: 0.64, 128: 0.67, 256: 0.75},
+    (4, 28): {16: 0.39, 32: 0.49, 64: 0.61, 128: 0.76, 256: 0.81},
+    (4, 32): {16: 0.40, 32: 0.50, 64: 0.64, 128: 0.78, 256: 0.84},
+}
+STRIP_SHARE = {
+    (2, 28): {16: 0.40, 32: 0.51},
+    (2, 32): {16: 0.41, 32: 0.40},
+    (4, 28): {16: 0.415, 32: 0.58},
+    (4, 32): {16: 0.306, 32: 0.31},
+}
+LADDER_SHARE = {(2, 28): 0.75, (2, 32): 0.52, (4, 28): 0.88, (4, 32): 0.89}
 
 
-def strip_pays(controls, C: int, itemsize: int, room: int) -> bool:
-    """True when one strip pass over a run of walks at `controls` should
-    beat the walks one by one: its time, the 32-byte sectors it moves (all
-    of them when a control lies below a sector's column bits, else those
-    with a control bit set) at STRIP_SHARE of the memory rate, against the
-    walks', half the state each at WALK_SHARE; a tie goes to the walks.  A
-    lone gate keeps its walk (on an H100 the pass read 1.62-1.63 ms against
-    the walk's 0.82-0.87 at controls 0 and 3)."""
+def _shares(table: dict, itemsize: int, n: int):
+    """The entry of `table` read at `itemsize` and at the largest register
+    size not above n (the smallest one read, for a smaller n)."""
+    sizes = sorted(k for i, k in table if i == itemsize)
+    return table[itemsize, max((k for k in sizes if k <= n), default=sizes[0])]
+
+
+def strip_pays(entries, C: int, itemsize: int, room: int, n: int) -> bool:
+    """True when one strip pass over a run of plan entries should beat the
+    entries one by one.  Each entry is a tuple of controls: one for a cycle
+    walk, more for an out-of-place ladder.  The pass's time: the sectors it
+    rewrites at STRIP_SHARE of the memory rate, counted as the mean of the
+    32-byte sectors and of the 64-byte sector pairs that hold a moved column
+    (all of them when a control lies below their column bits, else those
+    with a control bit set): with its lowest control at a sector's first
+    column bit, moved and unmoved sectors alternate and the pass reads at
+    about half the rate in the unmoved ones' place.  The entries' time: half
+    the state each walk at WALK_SHARE, the whole state each ladder at
+    LADDER_SHARE.  The shares are those of this item size and register size
+    (_shares): the rule adapts to both.  A tie goes to the entries, and a
+    lone entry keeps its kernel (on an H100 the pass read 1.56-1.58 ms
+    against a lone bf16 walk's 0.83-0.85 at controls 0 and 3)."""
+    entries = [tuple(int(c) for c in e) for e in entries]
+    controls = [c for e in entries for c in e]
+    walk, strip, ladder = (_shares(t, itemsize, n) for t in (WALK_SHARE, STRIP_SHARE, LADDER_SHARE))
     sector_bits = (WALK_SECTOR_BYTES // itemsize).bit_length() - 1
-    moved = 1.0 if min(controls) < sector_bits else 1.0 - 2.0 ** -len(controls)
-    strip = moved / STRIP_SHARE[strip_bytes(C, room)]
-    walks = sum(0.5 / WALK_SHARE[min(max(itemsize << c, 16), 256)] for c in controls)
-    return len(controls) >= 2 and strip < walks
+    moved = sum(1.0 if min(controls) < bits else 1.0 - 2.0 ** -len(controls) for bits in (sector_bits, sector_bits + 1))
+    one_pass = moved / 2 / strip[strip_bytes(C, room)]
+    apart = sum(0.5 / walk[min(max(itemsize << e[0], 16), 256)] if len(e) == 1 else 1.0 / ladder for e in entries)
+    return len(entries) >= 2 and one_pass < apart
 
 
 def planes_aligned(planar: torch.Tensor) -> bool:
@@ -291,18 +322,20 @@ def pass_bytes(C: int, A_list: tuple, n: int, M: int, itemsize: int, in_place: b
     (a walk, a pair, a strip run) each element it moves, once each way: the
     rest >> K columns of every nonzero control mask m, times the rows
     j < C that the mask's composed multiplier mu moves (C - gcd(mu - 1, C)
-    of them; rows >= C and the fixed points stay)."""
+    of them; rows >= C and the fixed points stay).  The masks are counted
+    by their product mod C, gate by gate, so a long run costs K x C steps
+    and not 2^K."""
     if not in_place:
         return 2 * 2 * itemsize << n
-    K = len(A_list)
-    moved = 0
-    for m in range(1, 1 << K):
-        mu = 1
-        for k, A in enumerate(A_list):
-            if m >> k & 1:
-                mu = mu * int(A) % C
-        moved += C - math.gcd(mu - 1, C)
-    return 2 * 2 * itemsize * moved << (n - M - K)
+    residues = np.arange(C)
+    count = np.zeros(C, np.int64)  # count[mu]: the masks so far whose product is mu
+    count[1] = 1
+    for A in A_list:
+        grown = count.copy()
+        np.add.at(grown, residues * (int(A) % C) % C, count)
+        count = grown
+    moved = int(np.sum(count * (C - np.gcd(residues - 1, C))))
+    return 2 * 2 * itemsize * moved << (n - M - len(A_list))
 
 
 def mask_multipliers(C: int, A_list, M: int) -> np.ndarray:

@@ -50,12 +50,15 @@ shor_circuit_mhigh`` builds its circuit, ``logical_index`` maps measured
 indices back).
 
 Buffers.  Every kernel updates the state in place except the out-of-place
-ladder, which needs a second state-sized buffer.  A cuda run allocates that
-scratch buffer at its first ladder and then ping-pongs between the two, so
-a ladder costs no copy.  The run returns whichever buffer holds the result
-when the engine made the state (``run_and_measure_index``, the main path);
-when the caller passed the state in, the result is copied back into it
-once, at the end, and only if it ended in the scratch buffer.  The planner
+ladder, which needs a second state-sized buffer.  A ladder that joins a
+strip run (strip_run: the m_high oracle stage of the flagship plans, walks
+and ladder, merged into one in-place pass) needs none.  A cuda run
+allocates that scratch buffer at its first ladder run alone and then
+ping-pongs between the two, so a ladder costs no copy.  The run returns
+whichever buffer holds the result when the engine made the state
+(``run_and_measure_index``, the main path); when the caller passed the
+state in, the result is copied back into it once, at the end, and only if
+it ended in the scratch buffer.  The planner
 fuses ladders only when two states fit the device
 (``utils/memory.two_state_programs_fit``); otherwise it fuses in-place
 pairs, as the JAX package does at its memory ceiling.
@@ -360,12 +363,13 @@ def apply_circuit_fused_(
     out-of-place ladder between `planar` and one scratch buffer, every other
     single gate in place through apply_gate_planes_.  Returns the buffer
     that holds the result: `planar`, or the scratch buffer after an odd
-    number of ladders.  A run of adjacent bf16 cycle walks (strip_run) goes
-    through one in-place strip pass where that beats the walks
-    (oracle.strip_pays).  With a `norms` list,
-    the norm after each entry of the plan (segment or single gate) is
-    appended to it, and with nan_checks check_finite runs after each entry:
-    then every entry runs on its own, walks included."""
+    number of ladders.  A run of adjacent cycle walks and out-of-place
+    ladders (strip_run) goes through one in-place strip pass where that
+    beats the entries one by one (oracle.strip_pays); a ladder merged so
+    needs no scratch buffer.  With a `norms` list, the norm after each entry
+    of the plan (segment or single gate) is appended to it, and with
+    nan_checks check_finite runs after each entry: then every entry runs on
+    its own, walks and ladders included."""
     if plan is None:
         plan = plan_circuit(circuit, M, sv.num_qubits(planar), planar.dtype, planar.device)
     cur, spare = planar, None
@@ -373,12 +377,13 @@ def apply_circuit_fused_(
     while i < len(plan):
         seg = plan[i]
         run = [] if norms is not None or nan_checks else strip_run(cur, plan, i)
-        if run and oracle.strip_pays([g.qubits[0] for g in run], run[0].meta[0], cur.element_size(),
-                                     oracle.strip_room(cur.device)):
-            C, m_reg = run[0].meta[0], run[0].meta[2]
-            A_list = [g.meta[1] for g in run]
-            with profiling.span("oracle.gate", cur.device, gates=len(run)) as rec:
-                oracle.apply_camodc_run_inplace_planar(cur, C, A_list, [g.qubits[0] for g in run], m_reg)
+        if run and oracle.strip_pays([g.qubits for g in run], run[0].meta[0], cur.element_size(),
+                                     oracle.strip_room(cur.device), sv.num_qubits(cur)):
+            C, m_reg, _ = _oracle_terms(run[0])
+            A_list = [A for g in run for A in _oracle_terms(g)[2]]
+            controls = [c for g in run for c in g.qubits]
+            with profiling.span("oracle.gate", cur.device, gates=len(controls), entries=len(run)) as rec:
+                oracle.apply_camodc_run_inplace_planar(cur, C, A_list, controls, m_reg)
                 _count_pass(rec, cur, C, A_list, m_reg, True)
             i += len(run)
             continue
@@ -386,20 +391,18 @@ def apply_circuit_fused_(
             if seg[0] == "fused":
                 fused.apply_fused(cur, seg[1], seg[2], M)
             elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
-                g = seg[1]
                 if spare is None:
                     spare = torch.empty_like(cur)
-                C, m_reg = g.meta[0], g.meta[1]
-                oracle.apply_camodc_ladder_high_planar(cur, spare, C, g.meta[2:], g.qubits, m_reg)
-                _count_pass(rec, cur, C, g.meta[2:], m_reg, False)
+                C, m_reg, A_list = _oracle_terms(seg[1])
+                oracle.apply_camodc_ladder_high_planar(cur, spare, C, A_list, seg[1].qubits, m_reg)
+                _count_pass(rec, cur, C, A_list, m_reg, False)
                 cur, spare = spare, cur
             else:
                 g = seg[1]
                 apply_gate_planes_(cur, g, M)
-                if g.name == "camodc_high":
-                    _count_pass(rec, cur, g.meta[0], g.meta[1:2], g.meta[2], True)
-                elif g.name == "camodc_ladder_high":  # an in-place pair
-                    _count_pass(rec, cur, g.meta[0], g.meta[2:], g.meta[1], True)
+                if g.name in ("camodc_high", "camodc_ladder_high"):  # a walk or an in-place pair
+                    C, m_reg, A_list = _oracle_terms(g)
+                    _count_pass(rec, cur, C, A_list, m_reg, True)
         if norms is not None:
             norms.append(sv.norm(cur))
         if nan_checks:
@@ -407,6 +410,14 @@ def apply_circuit_fused_(
             check_finite(cur, f"fused segment {i} ({len(g)} ops)" if seg[0] == "fused" else f"gate {g.name}{g.qubits}")
         i += 1
     return cur
+
+
+def _oracle_terms(g: Gate) -> tuple:
+    """(C, work register, multipliers) of an m_high oracle entry: a single
+    camodc_high gate (meta C, A, M) or a ladder (meta C, M, A1..AK)."""
+    if g.name == "camodc_high":
+        return g.meta[0], g.meta[2], g.meta[1:2]
+    return g.meta[0], g.meta[1], g.meta[2:]
 
 
 _ORACLE_GATES = ("camodc", "camodc_high", "camodc_ladder_high")
@@ -438,34 +449,41 @@ def _entry_span(seg, device):
     return contextlib.nullcontext()
 
 
-def _strip_walk(planar: torch.Tensor, entry) -> bool:
-    """True when a plan entry is a single camodc_high gate that
-    apply_gate_planes_ would send to the cycle walk, on bf16 planes the
-    strip kernel takes."""
-    if entry[0] == "fused" or entry[1].name != "camodc_high" or planar.dtype != torch.bfloat16:
+def _strip_entry(planar: torch.Tensor, entry) -> bool:
+    """True when a plan entry is one the strip pass may take, on planes
+    the strip kernel takes (oracle._STRIP_DTYPES, strip_run_supported): a
+    single camodc_high gate that apply_gate_planes_ would send to the cycle
+    walk, or a ladder that runs out of place."""
+    if entry[0] == "fused" or planar.dtype not in oracle._STRIP_DTYPES:
         return False
     g = entry[1]
-    m_reg, n, itemsize = g.meta[2], sv.num_qubits(planar), planar.element_size()
-    return not oracle.perm_supported(g.qubits[0], m_reg, n, itemsize) and oracle.strip_run_supported(
-        m_reg, n, itemsize, oracle.planes_aligned(planar), oracle.strip_room(planar.device)
-    )
+    n, itemsize = sv.num_qubits(planar), planar.element_size()
+    if g.name == "camodc_high":
+        if oracle.perm_supported(g.qubits[0], g.meta[2], n, itemsize):
+            return False
+    elif g.name != "camodc_ladder_high" or _pair_in_place(planar, g):
+        return False
+    m_reg = _oracle_terms(g)[1]
+    return oracle.strip_run_supported(m_reg, n, itemsize, oracle.planes_aligned(planar), oracle.strip_room(planar.device))
 
 
 def strip_run(planar: torch.Tensor, plan, i: int) -> list:
     """The gates of the maximal run of adjacent plan entries from plan[i]
     that one strip pass applies (oracle.apply_camodc_run_inplace_planar):
-    single bf16 cycle walks (_strip_walk) on one C and work register, with
-    distinct controls.  The plan stays the JAX package's; runs merge at
-    launch."""
+    cycle walks and out-of-place ladders (_strip_entry) on one C and work
+    register, with distinct controls; at n = 28 the complex64 m_high plan's
+    eleven walks and its ladder.  The plan stays the JAX package's; runs
+    merge at launch."""
     run: list = []
+    controls: set = set()
     for entry in plan[i:]:
-        if not _strip_walk(planar, entry):
+        if not _strip_entry(planar, entry):
             break
         g = entry[1]
-        if run and (g.meta[0] != run[0].meta[0] or g.meta[2] != run[0].meta[2]
-                    or g.qubits[0] in {h.qubits[0] for h in run}):
+        if run and (_oracle_terms(g)[:2] != _oracle_terms(run[0])[:2] or controls & set(g.qubits)):
             break
         run.append(g)
+        controls |= set(g.qubits)
     return run
 
 

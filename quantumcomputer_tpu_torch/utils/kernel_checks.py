@@ -413,6 +413,43 @@ def strip_runs(device) -> List[str]:
     return out
 
 
+def strip_merged_stage(device) -> List[str]:
+    """The m_high oracle stage of the n = 28 flagship (GATHER_FLAGSHIP) run
+    merged, at float32 and bf16: the plan applied by apply_circuit_fused_
+    launches exactly one strip pass (the walks and the ladder, oracle.
+    strip_pays) and no cycle walk or ladder, returns the input planes, and
+    equals bit for bit the same plan applied entry by entry (norms=[]: the
+    walks one by one, the ladder out of place)."""
+    from quantumcomputer_tpu_torch.models.shor_circuit import shor_circuit_mhigh
+    from quantumcomputer_tpu_torch.sim import engine
+
+    C, a, L, M = GATHER_FLAGSHIP
+    n = L + M
+    circuit = shor_circuit_mhigh(C, a, L, M)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = engine.plan_circuit(circuit, 0, n, dtype, device)
+        before = dict(oracle.LAUNCHES)
+        state = sv.initial_planar(n, dtype, 1 << L, device)
+        merged = engine.apply_circuit_fused_(state, circuit, 0, plan)
+        torch.cuda.synchronize()
+        launched = {k: oracle.LAUNCHES[k] - before[k] for k in before}
+        _check(merged is state, f"the merged {_name(dtype)} stage returned another buffer than its input")
+        _check(launched["strip"] == 1 and launched["cycle"] == launched["ladder"] == 0,
+               f"the {_name(dtype)} oracle stage at n={n} did not run as one strip pass: {launched}")
+        per_entry = engine.apply_circuit_fused_(sv.initial_planar(n, dtype, 1 << L, device), circuit, 0, plan, norms=[])
+        torch.cuda.synchronize()
+        _check(torch.equal(merged, per_entry),
+               f"the merged {_name(dtype)} stage at n={n} differs from its plan applied entry by entry")
+        singles = [e[1] for e in plan if e[0] == "single"]
+        out.append(f"strip_merged_stage n={n} {_name(dtype)}: {len(singles)} plan entries "
+                   f"({sum(len(g.qubits) for g in singles)} gates) in one strip pass, launches {launched}; equal bit "
+                   f"for bit to the plan applied entry by entry")
+        del state, merged, per_entry
+        torch.cuda.empty_cache()
+    return out
+
+
 def ladder_unsorted_controls(device) -> List[str]:
     """The ladder at controls (0, 5, 3): low, unsorted column bits."""
     C, a, M, n, controls = 33, 7, 6, 21, (0, 5, 3)
@@ -1173,6 +1210,7 @@ CHECKS: List[Callable[[torch.device], List[str]]] = [
     block_sums_f64,
     walk_flagship_multipliers,
     strip_runs,
+    strip_merged_stage,
     ladder_unsorted_controls,
     gather_oracle_controls,
     chunk_gather_narrow,

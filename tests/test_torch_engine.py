@@ -296,6 +296,6 @@ def test_nan_checks_label_each_route(capsys):
 def test_kernel_checks_need_a_card():
     from quantumcomputer_tpu_torch.utils import kernel_checks
 
-    assert len(kernel_checks.CHECKS) == 20
+    assert len(kernel_checks.CHECKS) == 21
     with pytest.raises(ValueError, match="CUDA device"):
         kernel_checks.run_all("cpu")

@@ -317,9 +317,14 @@ def test_mhigh_oracle_spans_count_their_bytes(monkeypatch, budget_states, dtype)
     """Every m_high oracle.gate span carries `inplace` and `bytes`
     (oracle.pass_bytes): an out-of-place ladder every element of both
     planes read and written, an in-place walk, pair or strip run the
-    elements it moves (held to a brute-force count); with two states
-    fitting the float32 plan has a ladder, at 1.5 states in-place pairs;
-    bf16 merges its walks into strip runs."""
+    elements it moves (held to a brute-force count).  Run merged, the
+    adjacent walks and the ladder after them are one strip run, whose span
+    counts the plan `entries` it took besides its `gates`: with two states
+    fitting the float32 plan's 11 walks and its ladder of 4, bf16's 12
+    walks and its ladder of 3; at 1.5 states the float32 walks (0-12) and
+    then the in-place pair.  Run entry by entry (with norms), each entry is
+    its own pass: with two states fitting a ladder out of place beside the
+    walks, at 1.5 states in-place pairs."""
     from quantumcomputer_tpu_torch.sim import engine as eng_mod
     from quantumcomputer_tpu_torch.sim import statevec as sv
 
@@ -330,26 +335,30 @@ def test_mhigh_oracle_spans_count_their_bytes(monkeypatch, budget_states, dtype)
     itemsize = torch.empty((), dtype=dtype).element_size()
     circuit = shor_circuit_mhigh(C, A, L_, M)
     plan = eng_mod.plan_circuit(circuit, 0, n, dtype, "cpu")
-    state = sv.initial_planar(n, dtype, 1 << L_, "cpu")
-    _, recs = recorded(lambda: eng_mod.apply_circuit_fused_(state, circuit, 0, plan))
-    gates = [r for r in recs if r.name == "oracle.gate"]
     entries = [e[1] for e in plan if e[0] != "fused" and e[1].name in ("camodc_high", "camodc_ladder_high")]
-    assert sum(r.counts["gates"] for r in gates) == L_
-    if dtype == torch.float32:
-        assert [r.counts["gates"] for r in gates] == [len(g.qubits) for g in entries]
-    kinds = set()
-    first = 0
-    for r in gates:
-        K = r.counts["gates"]
-        controls = tuple(range(first, first + K))
-        A_list = [pow(A, 1 << j, C) for j in controls]
-        if r.counts["inplace"]:
-            assert r.counts["bytes"] == _moved_bytes(n, C, A_list, controls, itemsize)
-        else:
-            assert K > 1 and r.counts["bytes"] == 2 * 2 * itemsize << n
-        kinds.add((K > 1, r.counts["inplace"]))
-        first += K
-    want = {None: {(False, 1), (True, 0)}, 1.5: {(False, 1), (True, 1)}}[budget_states]
-    if dtype == torch.bfloat16:
-        want = {(True, 1), (True, 0)}  # a strip run of the walks, then the ladder
-    assert kinds == want
+    strips = {(None, torch.float32): [(15, 12)], (1.5, torch.float32): [(13, 13)],
+              (None, torch.bfloat16): [(15, 13)]}[budget_states, dtype]
+    for norms in (None, []):
+        state = sv.initial_planar(n, dtype, 1 << L_, "cpu")
+        _, recs = recorded(lambda: eng_mod.apply_circuit_fused_(state, circuit, 0, plan, norms=norms))
+        gates = [r for r in recs if r.name == "oracle.gate"]
+        assert sum(r.counts["gates"] for r in gates) == L_
+        assert sum(r.counts.get("entries", 1) for r in gates) == len(entries)
+        if norms is not None:
+            assert [r.counts["gates"] for r in gates] == [len(g.qubits) for g in entries]
+        merged = [(r.counts["gates"], r.counts["entries"]) for r in gates if "entries" in r.counts]
+        assert merged == ([] if norms is not None else strips)
+        kinds = set()
+        first = 0
+        for r in gates:
+            K = r.counts["gates"]
+            controls = tuple(range(first, first + K))
+            A_list = [pow(A, 1 << j, C) for j in controls]
+            if r.counts["inplace"]:
+                assert r.counts["bytes"] == _moved_bytes(n, C, A_list, controls, itemsize)
+            else:
+                assert K > 1 and r.counts["bytes"] == 2 * 2 * itemsize << n
+            kinds.add((K > 1, r.counts["inplace"]))
+            first += K
+        want = {None: {(False, 1), (True, 0)}, 1.5: {(False, 1), (True, 1)}}[budget_states]
+        assert kinds == ({(True, 1)} if norms is None else want)
