@@ -500,6 +500,14 @@ def groups(dtype: torch.dtype, n: int) -> bool:
     return dtype in GROUP_DTYPES and n >= ROW_TILE_BITS
 
 
+def matrix_groups(ops: tuple, M: int, dtype: torch.dtype, n: int) -> int:
+    """The matrix-group ops (MATRIX_KINDS) of a segment as apply_fused
+    applied it: the grouping segment_ops gives, read from group_ops' cache,
+    which the segment's launch (_descriptor) or its plain version filled;
+    0 for a segment in its butterfly form."""
+    return sum(op[0] in MATRIX_KINDS for op in segment_ops(tuple(ops), M, dtype, n)[0])
+
+
 def _has_rows(ops) -> bool:
     return any(op[0] in ("rowmat", "xtable") for op in ops)
 

@@ -390,6 +390,8 @@ def apply_circuit_fused_(
         with _entry_span(seg, cur.device) as rec:
             if seg[0] == "fused":
                 fused.apply_fused(cur, seg[1], seg[2], M)
+                if rec is not None and rec.name == "fused.segment":
+                    rec.counts["groups"] = fused.matrix_groups(seg[1], M, cur.dtype, sv.num_qubits(cur))
             elif seg[1].name == "camodc_ladder_high" and not _pair_in_place(cur, seg[1]):
                 if spare is None:
                     spare = torch.empty_like(cur)
@@ -437,8 +439,9 @@ def _count_pass(rec, planar: torch.Tensor, C: int, A_list, m_reg: int, in_place:
 def _entry_span(seg, device):
     """The span of one plan entry: ``oracle.gate`` (counting the oracle
     gates it applies) for an oracle gate or a segment of camodc ops alone
-    (the Beneš permutation), ``fused.segment`` for any other segment, none
-    for any other single gate."""
+    (the Beneš permutation), ``fused.segment`` for any other segment (its
+    caller counts the matrix-group ops it ran, ``groups``), none for any
+    other single gate."""
     if seg[0] == "fused":
         ops = seg[1]
         if ops and all(op[0] == "camodc" for op in ops):

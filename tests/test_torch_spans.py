@@ -362,3 +362,45 @@ def test_mhigh_oracle_spans_count_their_bytes(monkeypatch, budget_states, dtype)
             first += K
         want = {None: {(False, 1), (True, 0)}, 1.5: {(False, 1), (True, 1)}}[budget_states]
         assert kinds == ({(True, 1)} if norms is None else want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_segment_spans_count_their_matrix_groups(dtype):
+    """A recording fused.segment span carries `groups`, the matrix-group
+    ops (lanemat, rowmat, xtable) of the segment as apply_fused ran it: at
+    n = 13 the bf16 plan's H and iQFT segments run on the tensor cores
+    (groups > 0), while float32 keeps every segment in its butterfly form
+    (0).  The count equals the grouping itself, segment by segment."""
+    from quantumcomputer_tpu_torch.sim import engine as eng_mod
+    from quantumcomputer_tpu_torch.sim import statevec as sv
+
+    L_, M_ = 8, 5
+    n = L_ + M_
+    circuit = shor_circuit_mhigh(C, A, L_, M_)
+    plan = eng_mod.plan_circuit(circuit, 0, n, dtype, "cpu")
+    want = [sum(op[0] in fused.MATRIX_KINDS for op in fused.segment_ops(e[1], 0, dtype, n)[0])
+            for e in plan if e[0] == "fused"]
+    state = sv.initial_planar(n, dtype, 1 << L_, "cpu")
+    _, recs = recorded(lambda: eng_mod.apply_circuit_fused_(state, circuit, 0, plan))
+    got = [r.counts["groups"] for r in recs if r.name == "fused.segment"]
+    assert got == want
+    if dtype == torch.bfloat16:
+        assert sum(g > 0 for g in got) == 2 and all(g in (0, 1, 2, 3) for g in got)
+    else:
+        assert got and not any(got)
+
+
+def test_group_count_made_only_while_spans_record(monkeypatch):
+    """With spans off the fused path makes no group count; recording, one
+    a fused.segment span, and none for any other span."""
+    calls = []
+    real = fused.matrix_groups
+    monkeypatch.setattr(fused, "matrix_groups", lambda *args: calls.append(args) or real(*args))
+    eng = StateVectorEngine(Register(8, 5), dtype="complex32", layout="m_high")
+    circuit = shor_circuit_mhigh(C, A, 8, 5)
+    eng.run(circuit)
+    assert calls == []
+    _, recs = recorded(lambda: eng.run(circuit))
+    segments = [r for r in recs if r.name == "fused.segment"]
+    assert len(calls) == len(segments) > 0
+    assert all("groups" not in r.counts for r in recs if r.name != "fused.segment")
